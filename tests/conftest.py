@@ -11,6 +11,10 @@ def pytest_configure(config):
         "pallas_interpret: Pallas kernel parity tests that run in "
         "interpret mode (skipped with a reason where even interpreted "
         "pallas_call cannot execute on this jaxlib)")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU and nvcc (the repro_torch CUDA "
+        "kernels); skips with a reason where there is none")
 
 
 @functools.lru_cache(maxsize=1)
