@@ -1,9 +1,11 @@
 """Capacity planner for heterogeneous ranks (port of ``repro/core/capacity.py``).
 
-Only what the serving router reads: :class:`CapacityPlan` and
-:func:`plan_capacities`, the largest-remainder allocation of rows to
-ranks in proportion to their capacity scores. Host-side numpy, copied
-so that the port does not import the JAX package.
+:class:`CapacityPlan`, :func:`plan_capacities` (the largest-remainder
+allocation of rows to ranks in proportion to their capacity scores;
+remaining buffer rows become weight-0 dummies), :func:`homogeneous_plan`
+and the plan record of checkpoints. Host-side numpy, copied so that the
+port does not import the JAX package. ``replan_from_step_times`` comes
+with the straggler monitor.
 """
 from __future__ import annotations
 
@@ -25,6 +27,39 @@ class CapacityPlan:
     @property
     def num_ranks(self) -> int:
         return len(self.rows_per_rank)
+
+    @property
+    def padded_rows(self) -> int:
+        return self.num_ranks * self.buffer_rows
+
+    def row_weights(self) -> np.ndarray:
+        """(R, buffer_rows) 1.0 for real rows, 0.0 for dummy rows."""
+        w = np.zeros((self.num_ranks, self.buffer_rows), np.float32)
+        for r, n in enumerate(self.rows_per_rank):
+            w[r, :n] = 1.0
+        return w
+
+    def efficiency(self) -> float:
+        """Fraction of buffer slots holding real rows (1.0 = homogeneous)."""
+        return float(self.global_rows) / float(self.padded_rows)
+
+
+def plan_record(plan: CapacityPlan) -> dict:
+    """JSON-able form of a plan; :func:`plan_from_record` inverts it."""
+    return {
+        "capacities": [float(c) for c in plan.capacities],
+        "rows_per_rank": [int(r) for r in plan.rows_per_rank],
+        "buffer_rows": int(plan.buffer_rows),
+        "global_rows": int(plan.global_rows),
+    }
+
+
+def plan_from_record(record: dict) -> CapacityPlan:
+    return CapacityPlan(
+        capacities=np.asarray(record["capacities"], np.float32),
+        rows_per_rank=np.asarray(record["rows_per_rank"], np.int64),
+        buffer_rows=int(record["buffer_rows"]),
+        global_rows=int(record["global_rows"]))
 
 
 def plan_capacities(
@@ -96,3 +131,9 @@ def plan_capacities(
                         rows_per_rank=base.astype(np.int64),
                         buffer_rows=int(buffer_rows),
                         global_rows=int(base.sum()))
+
+
+def homogeneous_plan(global_rows: int, num_ranks: int,
+                     headroom: float = 1.0) -> CapacityPlan:
+    return plan_capacities(global_rows, np.ones(num_ranks),
+                           headroom=headroom)

@@ -97,10 +97,26 @@ def load() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build()))
             vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             lib.flash_attention_fwd.argtypes = [
-                vp, vp, vp, vp,                 # q, k, v, o
+                vp, vp, vp, vp, vp,             # q, k, v, o, lse (or 0)
                 ci, ci, ci, ci, ci, ci,         # B, Sq, Skv, H, Hkv, D
                 ci, ci, cf, ci, vp]             # causal, q_offset, scale,
             lib.flash_attention_fwd.restype = ci  # dtype, stream
+            lib.flash_attention_bwd.argtypes = [
+                vp, vp, vp, vp, vp, vp,         # q, k, v, out, dout, lse
+                vp, vp, vp, vp,                 # Dv scratch, dq, dk, dv
+                ci, ci, ci, ci, ci, ci,         # B, Sq, Skv, H, Hkv, D
+                ci, ci, cf, ci, vp]             # causal, q_offset, scale,
+            lib.flash_attention_bwd.restype = ci  # dtype, stream
+            lib.ce_fwd.argtypes = [
+                vp, vp, vp, vp, vp,             # h, w, labels, nll, lse
+                ci, ci, ci, ci,                 # T, D, V, w_rows
+                cf, cf, ci, vp]                 # eps, softcap, dtype, stream
+            lib.ce_fwd.restype = ci
+            lib.ce_dlogits.argtypes = [
+                vp, vp, vp, vp, vp, vp,         # logits, lse, labels,
+                                                # weights, dloss, out
+                ci, ci, cf, ci, vp]             # R, V, eps, dtype, stream
+            lib.ce_dlogits.restype = ci
             lib.paged_decode_fwd.argtypes = [
                 vp, vp, vp, vp, vp, vp,         # q, k_pool, v_pool,
                                                 # tables, kv_lens, o

@@ -6,6 +6,12 @@
   * "dense"     — full score matrix (``ref.mha_dense``)
   * "kernel"    — the hand-written CUDA kernel (``flash_attention.py``)
                   for CUDA tensors, its plain version for CPU tensors.
+                  Where a gradient is wanted it goes through
+                  ``FlashAttentionFn``: the forward kernel with its lse,
+                  then the backward kernel (``flash_bwd_ref`` on CPU).
+
+"reference" and "dense" are differentiable by autograd through their
+plain PyTorch operations.
 """
 from __future__ import annotations
 
@@ -15,7 +21,7 @@ import torch
 
 from repro_torch.kernels.flash_attention import ref
 from repro_torch.kernels.flash_attention.flash_attention import (
-    flash_attention_cuda, flash_decode_paged_cuda)
+    FlashAttentionFn, flash_attention_cuda, flash_decode_paged_cuda)
 
 
 def flash_attention(
@@ -41,6 +47,10 @@ def flash_attention(
         if kv_len is not None:
             raise ValueError("impl='kernel' takes no kv_len: the prefill "
                              "kernel masks only positions >= Skv")
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            return FlashAttentionFn.apply(q, k, v, causal, q_offset,
+                                          softmax_scale)
         return flash_attention_cuda(q, k, v, causal=causal,
                                     q_offset=q_offset,
                                     softmax_scale=softmax_scale)

@@ -1,11 +1,14 @@
 """Plain PyTorch attention (port of ``repro/kernels/flash_attention/ref.py``).
 
-Forward only; the recompute backward comes with the training slice.
-
   * ``mha_dense`` — materializes the full score matrix; the oracle the
-    kernels are held against.
+    kernels are held against (with ``want_lse``, also the row
+    log-sum-exp the backward needs).
   * ``mha_chunked`` — online-softmax loop over KV chunks, numerically
-    the dense oracle with O(S * chunk) memory.
+    the dense oracle with O(S * chunk) memory; ``want_lse`` returns the
+    lse as ``_mha_chunked_fwd_only(want_lse=True)`` does.
+  * ``flash_bwd_ref`` — the recompute backward, a line-for-line port of
+    ``_flash_bwd``: rebuilds each (Sq, chunk) probability tile from the
+    saved lse. The plain version of the backward kernel.
   * ``paged_decode_ref`` — materialize-then-attend paged decode
     (``repro/kernels/flash_attention/ops.py:74-81``): gather each
     sequence's blocks into a dense window, NULL entries as zeros, then
@@ -40,8 +43,10 @@ def mha_dense(
     q_offset: int = 0,
     softmax_scale: Optional[float] = None,
     kv_len: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """Dense-softmax oracle. kv_len (B,) masks positions >= kv_len."""
+    want_lse: bool = False,
+):
+    """Dense-softmax oracle. kv_len (B,) masks positions >= kv_len. With
+    ``want_lse`` returns ``(out, lse)``, lse (B, Sq, H) fp32."""
     b, sq, h, d = q.shape
     _, skv, hkv, _ = k.shape
     scale = softmax_scale if softmax_scale is not None else d ** -0.5
@@ -58,8 +63,10 @@ def mha_dense(
         mask = mask[:, None]
     scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
     probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhqk,bkhd->bqhd", probs, v.float())
-    return out.to(q.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, v.float()).to(q.dtype)
+    if want_lse:
+        return out, torch.logsumexp(scores, dim=-1).transpose(1, 2)
+    return out
 
 
 def mha_chunked(
@@ -72,12 +79,14 @@ def mha_chunked(
     softmax_scale: Optional[float] = None,
     chunk_size: int = 512,
     kv_len: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
+    want_lse: bool = False,
+):
     """Online-softmax (flash-style) loop over KV chunks, fp32 state.
 
     Like the JAX scan, the score product takes q and k in their own
     dtype with fp32 accumulation, and the probabilities are cast to
-    q's dtype before the value product.
+    q's dtype before the value product. With ``want_lse`` returns
+    ``(out, lse)``, lse = m + log(max(l, 1e-30)) (B, Sq, H) fp32.
     """
     b, sq, h, d = q.shape
     _, skv, hkv, _ = k.shape
@@ -121,7 +130,75 @@ def mha_chunked(
         acc = acc * corr[..., None] + torch.einsum(
             "bqhk,bkhd->bqhd", p.to(q.dtype).float(), vb.float())
         m = m_new
-    return (acc / torch.clamp(l[..., None], min=1e-30)).to(q.dtype)
+    out = (acc / torch.clamp(l[..., None], min=1e-30)).to(q.dtype)
+    if want_lse:
+        return out, m + torch.log(torch.clamp(l, min=1e-30))
+    return out
+
+
+def flash_bwd_ref(
+    q: torch.Tensor,                     # (B, Sq, H, D)
+    k: torch.Tensor,                     # (B, Skv, Hkv, D)
+    v: torch.Tensor,
+    out: torch.Tensor,                   # (B, Sq, H, D) forward output
+    lse: torch.Tensor,                   # (B, Sq, H) fp32
+    dout: torch.Tensor,                  # (B, Sq, H, D)
+    *,
+    causal: bool = True,
+    q_offset: int = 0,
+    softmax_scale: Optional[float] = None,
+    chunk_size: int = 512,
+    kv_len: Optional[torch.Tensor] = None,
+):
+    """Recompute backward of causal GQA attention: returns (dq, dk, dv)
+    in the dtypes of q, k, v. Port of ``ref.py::_flash_bwd``: products
+    take their operands in the input dtype with fp32 accumulation, p is
+    cast to q's dtype before the dv product and ds before the dq and dk
+    products; GQA folds the repeated heads' dk/dv back by summing."""
+    b, sq, h, d = q.shape
+    _, skv, hkv, _ = k.shape
+    q_per_kv = h // hkv
+    scale = softmax_scale if softmax_scale is not None else d ** -0.5
+    if kv_len is None:
+        kv_len = torch.full((b,), skv, dtype=torch.int32, device=q.device)
+    chunk = min(chunk_size, skv)
+    n_chunks = -(-skv // chunk)
+    Dv = torch.sum(dout.float() * out.float(), dim=-1)        # (B, Sq, H)
+    qpos = torch.arange(sq, device=q.device) + q_offset
+    qf, dof = q.float(), dout.float()
+    dq = torch.zeros((b, sq, h, d), dtype=torch.float32, device=q.device)
+    dks, dvs = [], []
+    for c in range(n_chunks):
+        lo = c * chunk
+        kb = k[:, lo:lo + chunk]
+        vb = v[:, lo:lo + chunk]
+        if kb.shape[1] < chunk:           # pad the ragged last chunk
+            pad = chunk - kb.shape[1]
+            kb = torch.nn.functional.pad(kb, (0, 0, 0, 0, 0, pad))
+            vb = torch.nn.functional.pad(vb, (0, 0, 0, 0, 0, pad))
+        kbf = _repeat_kv(kb, q_per_kv).float()
+        vbf = _repeat_kv(vb, q_per_kv).float()
+        s = torch.einsum("bqhd,bkhd->bqhk", qf, kbf) * scale
+        kpos = lo + torch.arange(chunk, device=q.device)
+        mask = torch.ones((sq, chunk), dtype=torch.bool, device=q.device)
+        if causal:
+            mask = qpos[:, None] >= kpos[None, :]
+        bmask = mask[None, :, :] & (kpos[None, None, :] <
+                                    kv_len[:, None, None])
+        p = torch.where(bmask[:, :, None, :], torch.exp(s - lse[..., None]),
+                        torch.zeros((), device=q.device))
+        pl = p.to(q.dtype).float()
+        dvs.append(torch.einsum("bqhk,bqhd->bkhd", pl, dof))
+        dp = torch.einsum("bqhd,bkhd->bqhk", dof, vbf)
+        ds = (p * (dp - Dv[..., None]) * scale).to(q.dtype).float()
+        dq = dq + torch.einsum("bqhk,bkhd->bqhd", ds, kbf)
+        dks.append(torch.einsum("bqhk,bqhd->bkhd", ds, qf))
+    dk = torch.cat(dks, dim=1)[:, :skv]
+    dv = torch.cat(dvs, dim=1)[:, :skv]
+    if q_per_kv > 1:                      # GQA: fold repeated heads back
+        dk = dk.reshape(b, skv, hkv, q_per_kv, d).sum(dim=3)
+        dv = dv.reshape(b, skv, hkv, q_per_kv, d).sum(dim=3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def paged_decode_ref(

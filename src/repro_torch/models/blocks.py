@@ -50,8 +50,18 @@ def embed_init(gen: torch.Generator, shape: Sequence[int],
 
 
 def init_norm(cfg: ModelConfig, gen: torch.Generator) -> Dict[str, torch.Tensor]:
-    return {"scale": torch.ones((cfg.d_model,), dtype=dtype_of(cfg.param_dtype),
-                                device=gen.device)}
+    dt = dtype_of(cfg.param_dtype)
+    if cfg.norm == "rmsnorm":
+        return {"scale": torch.ones((cfg.d_model,), dtype=dt,
+                                    device=gen.device)}
+    if cfg.norm == "layernorm":
+        return {"scale": torch.ones((cfg.d_model,), dtype=dt,
+                                    device=gen.device),
+                "bias": torch.zeros((cfg.d_model,), dtype=dt,
+                                    device=gen.device)}
+    if cfg.norm == "nonparam_ln":        # OLMo: no affine params
+        return {}
+    raise ValueError(cfg.norm)
 
 
 def init_attention(cfg: ModelConfig, gen: torch.Generator
@@ -82,12 +92,23 @@ def init_mlp(cfg: ModelConfig, gen: torch.Generator
 
 def apply_norm(params: Dict[str, torch.Tensor], x: torch.Tensor,
                cfg: ModelConfig, eps: float = 1e-5) -> torch.Tensor:
-    """RMSNorm in fp32, cast back to x's dtype."""
-    if cfg.norm != "rmsnorm":
-        raise ValueError(f"norm '{cfg.norm}' is not ported yet (rmsnorm only)")
+    """RMSNorm, LayerNorm or OLMo's non-parametric LayerNorm, in fp32
+    (biased variance), cast back to x's dtype."""
     xf = x.float()
-    xf = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
-    xf = xf * params["scale"].float()
+    if cfg.norm == "rmsnorm":
+        xf = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True)
+                              + eps)
+        xf = xf * params["scale"].float()
+    elif cfg.norm in ("layernorm", "nonparam_ln"):
+        mu = torch.mean(xf, dim=-1, keepdim=True)
+        var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+        xf = (xf - mu) * torch.rsqrt(var + eps)
+        if params:
+            xf = xf * params["scale"].float()
+            if "bias" in params:
+                xf = xf + params["bias"].float()
+    else:
+        raise ValueError(f"norm '{cfg.norm}' is not ported yet")
     return xf.to(x.dtype)
 
 
@@ -137,8 +158,10 @@ def attention_qkv(params, x: torch.Tensor, cfg: ModelConfig,
 def attention_block(params, x: torch.Tensor, cfg: ModelConfig,
                     positions: torch.Tensor, q_offset: int = 0,
                     return_kv: bool = False):
-    """Full-sequence causal attention (prefill). A single position takes
-    the dense path, as in the JAX package."""
+    """Full-sequence causal attention (prefill and training). A single
+    position takes the dense path, as in the JAX package. With
+    ``attention_impl="kernel"`` and a gradient wanted, the op is the
+    differentiable ``FlashAttentionFn`` (forward and backward kernels)."""
     b, s, _ = x.shape
     q, k, v = attention_qkv(params, x, cfg, positions)
     out = attn_ops.flash_attention(

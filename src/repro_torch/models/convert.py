@@ -6,7 +6,10 @@ and is applied as ``x @ W`` (``wq`` (d, H*Dh), ``wo`` (H*Dh, d),
 conversion copies each array as it is, with no transpose. The only
 change of structure is the layer stack: the JAX package stacks every
 ``layers`` leaf along a leading (L, ...) axis for ``lax.scan``; the
-port keeps a list of per-layer dicts.
+port keeps a list of per-layer dicts. A tied model has no ``lm_head``
+and a non-parametric norm is an empty dict on both sides.
+:func:`params_to_numpy` is the inverse, for comparing a port tree with
+a JAX tree leaf by leaf.
 """
 from __future__ import annotations
 
@@ -34,16 +37,19 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
     """Map the JAX ``init_params`` tree (leaves as numpy arrays, e.g.
     ``jax.tree.map(np.asarray, params)``) to the port's parameters."""
     check_supported(cfg)
-    expected = {"embed", "final_norm", "lm_head", "layers"}
+    expected = {"embed", "final_norm", "layers"}
+    if not cfg.tie_embeddings:
+        expected.add("lm_head")
     if set(tree) != expected:
         raise ValueError(f"JAX params have keys {sorted(tree)}, expected "
                          f"{sorted(expected)}")
     out: Dict[str, Any] = {
         "embed": _tensor(tree["embed"], device),
-        "lm_head": _tensor(tree["lm_head"], device),
         "final_norm": _tree(tree["final_norm"],
                             lambda a: _tensor(a, device)),
     }
+    if "lm_head" in tree:
+        out["lm_head"] = _tensor(tree["lm_head"], device)
     def layer(a, i):
         a = np.asarray(a)
         if a.shape[0] != cfg.num_layers:
@@ -53,4 +59,28 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
 
     out["layers"] = [_tree(tree["layers"], lambda a, i=i: layer(a, i))
                      for i in range(cfg.num_layers)]
+    return out
+
+
+def params_to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:
+    """The port's tree in the JAX layout, leaves as numpy arrays: the
+    per-layer list stacked back along a leading (L, ...) axis (an empty
+    norm dict stays empty)."""
+    def host(t):
+        return t.detach().float().cpu().numpy() if t.dtype == torch.bfloat16 \
+            else t.detach().cpu().numpy()
+
+    out = {k: _tree(v, host) for k, v in params.items() if k != "layers"}
+    layers = [_tree(lp, host) for lp in params["layers"]]
+
+    def stack(*leaves):
+        return np.stack(leaves)
+
+    def zip_tree(trees):
+        first = trees[0]
+        if isinstance(first, dict):
+            return {k: zip_tree([t[k] for t in trees]) for k in first}
+        return stack(*trees)
+
+    out["layers"] = zip_tree(layers)
     return out

@@ -1,19 +1,25 @@
-"""Model facade for the paged serving path (port of ``repro/models/model.py``).
+"""Model facade (port of ``repro/models/model.py``).
 
 ``build_model(cfg, device)`` returns a :class:`Model` whose methods are
-the serving entry points: ``init_params``, ``init_paged_cache``,
-``prefill_paged`` and ``decode_paged``. The device defaults to
-``"cuda"`` and a CUDA device that is not there raises: the CPU runs only
-when the caller asks for it. The training loss comes with the training
-slice.
+the entry points: ``init_params``, the training loss ``loss_fn``, and
+the serving functions ``init_paged_cache``, ``prefill_paged`` and
+``decode_paged``. The device defaults to ``"cuda"`` and a CUDA device
+that is not there raises: the CPU runs only when the caller asks for it.
+
+The training loss follows the HetSeq aggregation contract (paper M1/M3):
+every token carries a weight (0 for dummy/padding tokens); ``loss_fn``
+returns the *weighted loss sum* and the *weight sum*, never a local
+mean, so any split of the batch across heterogeneous workers aggregates
+to exactly the single-process loss.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.cross_entropy import ops as ce_ops
 from repro_torch.models import kvcache as kvc
 from repro_torch.models import transformer as tr
 
@@ -32,7 +38,8 @@ def resolve_device(device) -> torch.device:
 
 
 class Model:
-    """The serving functions of one config on one device."""
+    """The training loss and serving functions of one config on one
+    device."""
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
         tr.check_supported(cfg)
@@ -41,6 +48,35 @@ class Model:
 
     def init_params(self, seed: int) -> Dict[str, Any]:
         return tr.init_params(self.cfg, seed, self.device)
+
+    def loss_fn(self, params, batch: Dict[str, torch.Tensor],
+                ce_impl: str = "kernel",
+                label_smoothing: Optional[float] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, Any]]:
+        """batch: inputs (B, S) int, labels (B, S) int, weights (B, S)
+        float (0 => dummy token, paper M3).
+
+        ``label_smoothing``: CE smoothing factor; None falls back to a
+        float ``batch["label_smoothing"]`` entry if present, else 0.0.
+        Returns (objective_sum, weight_sum, metrics); objective_sum is
+        differentiable, divide by the (summed) weight_sum once. The MoE
+        aux term of the JAX package is 0 on the dense plan."""
+        cfg = self.cfg
+        if label_smoothing is None:
+            from_batch = batch.get("label_smoothing", 0.0)
+            label_smoothing = (from_batch
+                               if isinstance(from_batch, float) else 0.0)
+        x = tr.embed_tokens(params, batch["inputs"], cfg)
+        hidden, aux = tr.hidden_states(params, x, cfg)
+        b, s, d = hidden.shape
+        loss_sum, w_sum = ce_ops.weighted_cross_entropy(
+            hidden.reshape(b * s, d), tr.lm_head_matrix(params, cfg),
+            batch["labels"].reshape(-1),
+            batch["weights"].reshape(-1).float(),
+            label_smoothing=label_smoothing,
+            logit_softcap=cfg.logit_softcap, impl=ce_impl)
+        objective_sum = loss_sum + aux * w_sum.detach()
+        return objective_sum, w_sum, {"ce_sum": loss_sum, "aux": aux}
 
     def init_paged_cache(self, layout: kvc.PagedLayout
                          ) -> Dict[str, torch.Tensor]:

@@ -9,6 +9,7 @@ a different order (online vs dense, or another tile size), as the JAX
 package's own Pallas-vs-dense test allows; exact equality where the port
 runs the very same function on both paths.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,6 +21,7 @@ from repro.kernels.flash_attention.flash_attention import (
     flash_attention_pallas)
 from repro_torch.kernels.flash_attention import flash_attention as tfa
 from repro_torch.kernels.flash_attention import ops as tops
+from repro_torch.kernels.flash_attention import ref as tref
 
 TOL = 2e-5
 
@@ -161,3 +163,76 @@ def test_kernel_wrappers_refuse_other_devices_and_kv_len():
                              kv_len=torch.tensor([4], dtype=torch.int32))
     with pytest.raises(ValueError, match="unknown attention impl"):
         tops.flash_attention(cq, ck, cv, impl="pallas")
+
+
+# (b, sq, skv, h, hkv, d, q_offset): head dims 64 and 128, GQA groups 1, 2
+# and 4, q_offset > 0 and ragged lengths (not multiples of the chunk)
+TRAIN_CASES = [
+    (2, 24, 24, 4, 4, 64, 0),             # group 1, D=64
+    (1, 40, 40, 4, 2, 128, 0),            # group 2, D=128
+    (2, 13, 37, 8, 2, 64, 24),            # group 4, q_offset, ragged Skv
+    (1, 33, 33, 8, 2, 128, 0),            # group 4 at D=128, ragged S
+]
+# gradients are sums over up to Skv products: 1e-4 absolute in fp32
+GRAD_TOL = 1e-4
+
+
+@pytest.mark.parametrize("b,sq,skv,h,hkv,d,off", TRAIN_CASES)
+def test_lse_forward_matches_jax_chunked(b, sq, skv, h, hkv, d, off):
+    """The kernel wrapper's plain version (dense) and the port's chunked
+    forward return the lse that JAX ``_mha_chunked_fwd_only(want_lse=True)``
+    returns, and the same output."""
+    q, k, v = _qkv(b, sq, skv, h, hkv, d, seed=sq + d)
+    want, want_lse = jref._mha_chunked_fwd_only(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
+        q_offset=off, chunk_size=16, want_lse=True)
+    tq, tk, tv = _t(q, k, v)
+    got = [tfa.flash_attention_cuda(tq, tk, tv, q_offset=off,
+                                    return_lse=True),
+           tref.mha_chunked(tq, tk, tv, q_offset=off, chunk_size=16,
+                            want_lse=True)]
+    for out, lse in got:
+        assert lse.shape == (b, sq, h) and lse.dtype == torch.float32
+        np.testing.assert_allclose(out.numpy(), np.asarray(want), atol=TOL,
+                                   rtol=0)
+        np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse),
+                                   atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("impl", ["kernel", "reference"])
+@pytest.mark.parametrize("b,sq,skv,h,hkv,d,off", TRAIN_CASES)
+def test_attention_grads_match_jax_vjp(impl, b, sq, skv, h, hkv, d, off):
+    """``impl="kernel"`` differentiates through ``FlashAttentionFn`` (on
+    CPU tensors: the plain forward, then ``flash_bwd_ref``), "reference"
+    by autograd through the chunked loop; both give the dq, dk, dv that
+    ``jax.vjp`` of JAX ``ref.mha_chunked`` (its custom_vjp ``_flash_bwd``)
+    gives."""
+    q, k, v = _qkv(b, sq, skv, h, hkv, d, seed=3 * sq + d)
+    dout = np.random.default_rng(7).standard_normal(q.shape).astype(
+        np.float32)
+    _, vjp = jax.vjp(lambda a, b_, c: jref.mha_chunked(
+        a, b_, c, causal=True, q_offset=off, chunk_size=16),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(dout))
+    tq, tk, tv = (x.requires_grad_(True) for x in _t(q, k, v))
+    n0 = tfa.flash_attention_bwd_cuda.launches
+    out = tops.flash_attention(tq, tk, tv, causal=True, q_offset=off,
+                               impl=impl, chunk_size=16)
+    got = torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(dout))
+    assert tfa.flash_attention_bwd_cuda.launches == n0   # CPU: no launch
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=GRAD_TOL,
+                                   rtol=0)
+
+
+def test_backward_plain_version_is_flash_bwd_ref():
+    """The backward wrapper on CPU tensors is ``ref.flash_bwd_ref``, bit
+    for bit, and refuses nothing it is given there."""
+    q, k, v = _t(*_qkv(1, 20, 20, 4, 2, 64, seed=9))
+    out, lse = tfa.flash_attention_cuda(q, k, v, return_lse=True)
+    dout = torch.ones_like(out)
+    got = tfa.flash_attention_bwd_cuda(q, k, v, out, lse, dout)
+    want = tref.flash_bwd_ref(q, k, v, out, lse, dout)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)

@@ -1,5 +1,6 @@
 """repro_torch dense blocks against the JAX package, at fp32 on the
-tinyllama smoke widths: RMSNorm, RoPE with 1-D (prefill) and 2-D
+tinyllama smoke widths: RMSNorm, LayerNorm, OLMo's non-parametric
+LayerNorm, RoPE with 1-D (prefill) and 2-D
 (per-sequence decode) positions, the GQA q/k/v projection and the
 SwiGLU MLP. Inputs and weights are numpy arrays from a seed, handed to
 both packages. Tolerance 1e-5 absolute: the same arithmetic, summed in
@@ -40,6 +41,27 @@ def test_apply_norm_matches_jax():
     _close(tblocks.apply_norm({"scale": torch.from_numpy(scale)},
                               torch.from_numpy(x), tc),
            jblocks.apply_norm({"scale": jnp.asarray(scale)},
+                              jnp.asarray(x), jc))
+
+
+@pytest.mark.parametrize("norm", ["layernorm", "nonparam_ln"])
+def test_layernorm_and_nonparam_ln_match_jax(norm):
+    """LayerNorm with scale and bias, and OLMo's non-parametric LayerNorm
+    (no params: an empty dict on both sides), fp32 with eps 1e-5 and the
+    biased variance."""
+    jc, tc = (dataclasses.replace(c, norm=norm) for c in _cfgs())
+    rng = np.random.default_rng(4)
+    x = (3.0 * rng.standard_normal((2, 7, jc.d_model)) + 1.5).astype(
+        np.float32)
+    p = {}
+    if norm == "layernorm":
+        p = {"scale": rng.uniform(0.5, 1.5, jc.d_model).astype(np.float32),
+             "bias": rng.standard_normal(jc.d_model).astype(np.float32)}
+    tp = tblocks.init_norm(tc, torch.Generator().manual_seed(0))
+    assert set(tp) == set(p)
+    _close(tblocks.apply_norm({k: torch.from_numpy(v) for k, v in p.items()},
+                              torch.from_numpy(x), tc),
+           jblocks.apply_norm({k: jnp.asarray(v) for k, v in p.items()},
                               jnp.asarray(x), jc))
 
 
@@ -100,7 +122,7 @@ def test_swiglu_mlp_matches_jax():
 def test_unported_block_options_raise():
     _, tc = _cfgs()
     x = torch.zeros((1, 2, tc.d_model))
-    with pytest.raises(ValueError, match="rmsnorm only"):
-        tblocks.apply_norm({}, x, dataclasses.replace(tc, norm="layernorm"))
+    with pytest.raises(ValueError, match="not ported yet"):
+        tblocks.apply_norm({}, x, dataclasses.replace(tc, norm="groupnorm"))
     with pytest.raises(ValueError, match="swiglu only"):
         tblocks.mlp_block({}, x, dataclasses.replace(tc, activation="gelu"))

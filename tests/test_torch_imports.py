@@ -47,7 +47,10 @@ def test_no_jax_or_repro_imports_in_the_port():
 
 def test_importing_every_port_module_leaves_jax_unloaded():
     mods = _all_port_modules()
-    assert "repro_torch.launch.serve" in mods
+    assert {"repro_torch.launch.serve", "repro_torch.launch.train",
+            "repro_torch.launch.steps", "repro_torch.optim.adam",
+            "repro_torch.kernels.cross_entropy.cross_entropy",
+            "repro_torch.data.loader"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
