@@ -61,9 +61,43 @@ Phases (any failure exits non-zero; no phase swallows an error):
    HetSeq invariant on the card (the first batch's real rows packed for
    capacities 2,1,1,0 give the single-batch gradient, fp32); a repeated
    step from one state and batch gives bit-identical parameters.
-6. Prints one ``{"kernels": [...]}`` line, then, last,
+6. Exchange kernel phase: the int8 quantize and dequant-accumulate
+   kernels (``csrc/quantize.cu``) against their plain versions, which
+   must be bitwise equal (codes, scales, sums): 1, 7, 1001 and 4099
+   rows (a partial last block of eight rows), all-zero blocks,
+   stochastic rounding with noise from a seeded generator, 1 to 8
+   ranks, and the whole olmo-1b gradient stack at bucket_mb 25 over 2
+   ranks (4.6 M rows; 2 x 2.3 M for the accumulate). Timed (CUDA-event
+   medians) at the multi-rank path's per-launch shapes, one exchange
+   chunk of 40 buckets: the send-side quantize of 1,024,000 rows, the
+   re-quantize and the accumulate of a shard of 512,000 rows. Bound by
+   bytes at 3.35 TB/s. No single PyTorch call computes either function
+   (library: none); ``q.float()`` + ``einsum`` is timed for
+   information.
+7. Multi-rank train path phase: ``repro_torch.launch.train --devices
+   2,1,1 --grad-reduction hierarchical --compression int8 --bucket-mb
+   25 --capacities 2,1`` trains full-width olmo-1b (bf16 compute) on two
+   ranks that share the card (gloo), 4 steps of 8 rows x 1024 tokens,
+   accum 2. The ranks start from fresh counters and report them back.
+   Checks: every loss finite; both ranks end with bitwise-identical
+   parameters (a checksum gathered over the group); per rank, launches
+   of every kernel as expected (quantize twice and dequant-accumulate
+   once per exchange chunk per step); the wire bytes per step per rank
+   equal ``modeled_link_bytes``. Then the HetSeq invariant across two
+   ranks at full width, depth cut to 2 layers, fp32: the two-rank
+   reduced gradient (fp32 and int8 exchange) against one process's on
+   the union of the real rows. Prints ms per step, real tokens/s, the
+   peak memory of each rank, the backend and the transport.
+8. Prints one ``{"kernels": [...]}`` line, then, last,
    ``{"ok": true, "device": {...}}``. Details go to
    ``chiprun_out/chip_smoke.json``.
+
+``python3 chip_smoke.py --cards 4`` (a machine with four cards) runs
+only the multi-rank path with one card per rank over NCCL: the phase-7
+command on ``--devices 2,1,1`` and on ``--devices 2,2,1`` with
+capacities 2,1,1,0 (a dead rank), each with phase 7's checks, then the
+invariant and exchange probe on two cards. Details go to
+``chiprun_out/chip_smoke_cards.json``; the last line is the same.
 """
 from __future__ import annotations
 
@@ -718,8 +752,8 @@ def train_phase(fa, ce, dev, argv=None):
             "grad_rel_l2": _tree_rel_l2(got, want), "tol": INVARIANT_RTOL}
         del got, want
 
-    def build_checked(model, tcfg):
-        step = orig_build(model, tcfg)
+    def build_checked(model, tcfg, mesh=None):
+        step = orig_build(model, tcfg, mesh)
 
         def run(state, batch):
             if seen["first"] is None:
@@ -848,6 +882,378 @@ def train_phase(fa, ce, dev, argv=None):
     return train
 
 
+# --------------------------------------------------------------------------
+# exchange kernel phase
+# --------------------------------------------------------------------------
+
+# the multi-rank phase's layout: olmo-1b's gradient stream in buckets of
+# 25 MiB over 2 ranks (multiple of 2 x 256)
+EXCHANGE_BUCKET_MB = 25.0
+EXCHANGE_RANKS = 2
+
+
+def exchange_layout(cfg):
+    """The bucket grid of ``cfg``'s gradient stream at the multi-rank
+    phase's settings (it depends only on the element count)."""
+    import torch
+    from repro_torch.core import buckets as bkt
+    return bkt.build_layout(
+        {"stream": torch.empty(cfg.param_count(), device="meta")},
+        bucket_mb=EXCHANGE_BUCKET_MB, multiple_of=EXCHANGE_RANKS * 256)
+
+
+def exchange_shapes(cfg):
+    """Rows (blocks of 256) of each kernel launch on the multi-rank path:
+    the first chunk's send-side quantize, its dequant-accumulate (R, rows
+    of one shard) and the re-quantize of its shard sum; and the whole
+    stack's, as one unchunked exchange would give them."""
+    from repro_torch.core import buckets as bkt
+    lo = exchange_layout(cfg)
+    rows = bkt.chunk_buckets(lo) * lo.bucket_elems // 256
+    total_rows = -(-lo.total // 256)
+    return {"chunk_send": rows, "chunk_shard": rows // EXCHANGE_RANKS,
+                "stack_send": total_rows,
+                "stack_shard": lo.num_buckets * lo.bucket_elems // 256
+                // EXCHANGE_RANKS}
+
+
+def quantize_case(qz, q_ref, rows, gen, dev, *, noise, timed):
+    import torch
+    x = torch.randn((rows, 256), generator=gen, device=dev)
+    x *= torch.rand((rows, 1), generator=gen, device=dev) * 10
+    x[:2] = 0.0                                  # all-zero blocks
+    nz = (torch.rand((rows, 256), generator=gen, device=dev)
+          if noise else None)
+    q, s = qz.quantize_int8_cuda(x, nz)
+    qr, sr = q_ref.quantize_blocks(x, nz)
+    torch.cuda.synchronize()
+    same = torch.equal(q, qr) and torch.equal(s.view(torch.int32),
+                                              sr.view(torch.int32))
+    err = max((q.int() - qr.int()).abs().max().item(),
+              (s - sr).abs().max().item())
+    rec = {"kernel": "quantize_int8_cuda", "dtype": "float32", "rows": rows,
+           "noise": noise, "bitwise_equal": same, "max_abs_err": err,
+           "rel_l2": 0.0 if same else float("inf")}
+    if timed:
+        nbytes = rows * 256 * (4 + 1 + (4 if noise else 0)) + rows * 4
+        rec.update(
+            ms=cuda_ms(lambda: qz.quantize_int8_cuda(x, nz)),
+            plain_ms=cuda_ms(lambda: q_ref.quantize_blocks(x, nz)),
+            library_ms=None,
+            bound_ms=nbytes / H100_BYTES_PER_S * 1e3, bound_by="bytes")
+    del x, nz, q, s, qr, sr
+    return rec
+
+
+def dequant_case(qz, q_ref, ranks, rows, gen, dev, *, timed):
+    import torch
+    q = torch.randint(-127, 128, (ranks, rows, 256), generator=gen,
+                      device=dev, dtype=torch.int8)
+    s = torch.rand((ranks, rows), generator=gen, device=dev) * 0.1
+    got = qz.dequant_accum_cuda(q, s)
+    want = q_ref.dequant_accum(q, s)
+    torch.cuda.synchronize()
+    same = torch.equal(got, want)
+    rec = {"kernel": "dequant_accum_cuda", "dtype": "float32", "R": ranks,
+           "rows": rows, "bitwise_equal": same,
+           "max_abs_err": (got - want).abs().max().item(),
+           "rel_l2": 0.0 if same else float("inf")}
+    if timed:
+        nbytes = ranks * rows * (256 + 4) + rows * 256 * 4
+        rec.update(
+            ms=cuda_ms(lambda: qz.dequant_accum_cuda(q, s)),
+            plain_ms=cuda_ms(lambda: q_ref.dequant_accum(q, s)),
+            library_ms=None,
+            two_call_ms=cuda_ms(lambda: torch.einsum(
+                "rbk,rb->bk", q.float(), s)),
+            bound_ms=nbytes / H100_BYTES_PER_S * 1e3, bound_by="bytes")
+    del q, s, got, want
+    return rec
+
+
+def exchange_kernel_phase(dev):
+    """Both kernels bitwise against their plain versions: odd row counts
+    (a partial last block of eight rows), all-zero blocks, stochastic
+    rounding with noise from a seeded generator, the multi-rank path's
+    per-launch shapes (timed) and the whole olmo-1b stack's."""
+    import torch
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.kernels.quantize import quantize as qz
+    from repro_torch.kernels.quantize import ref as q_ref
+    gen = torch.Generator(device=dev).manual_seed(6)
+    shapes = exchange_shapes(cfgbase.resolve("olmo-1b"))
+    recs = []
+    for rows, noise in ((1, False), (7, False), (1001, False),
+                        (4099, True), (shapes["stack_send"], False)):
+        recs.append(quantize_case(qz, q_ref, rows, gen, dev, noise=noise,
+                                  timed=False))
+    for ranks, rows in ((1, 9), (3, 1001), (8, 4099),
+                        (EXCHANGE_RANKS, shapes["stack_shard"])):
+        recs.append(dequant_case(qz, q_ref, ranks, rows, gen, dev,
+                                 timed=False))
+    # the path's launches: the send side, the re-quantize, the receive
+    recs.append(quantize_case(qz, q_ref, shapes["chunk_shard"], gen, dev,
+                              noise=False, timed=True))
+    recs.append(quantize_case(qz, q_ref, shapes["chunk_send"], gen, dev,
+                              noise=False, timed=True))
+    recs.append(dequant_case(qz, q_ref, EXCHANGE_RANKS,
+                             shapes["chunk_shard"], gen, dev, timed=True))
+    for r in recs:
+        shape = {k: r[k] for k in ("R", "rows", "noise") if k in r}
+        print(f"[exchange-kernels] {r['kernel']} {shape}: bitwise equal "
+              f"{r['bitwise_equal']}, max abs err {r['max_abs_err']:.3e}"
+              + (f", {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+                 f"{r['bound_ms']:.6f} ms ({r['bound_by']})"
+                 + (f", q.float() + einsum {r['two_call_ms']:.4f} ms"
+                    if "two_call_ms" in r else "")
+                 if "ms" in r else ""), flush=True)
+    bad = [f"{r['kernel']} rows {r['rows']}" for r in recs
+           if not r["bitwise_equal"]]
+    check(not bad, "exchange kernels differ from their plain versions: "
+          + "; ".join(bad))
+    return recs
+
+
+# --------------------------------------------------------------------------
+# multi-rank train path phase
+# --------------------------------------------------------------------------
+
+MULTI_ARGV = ["--arch", "olmo-1b", "--device", "cuda", "--seed", "0",
+              "--devices", "2,1,1", "--grad-reduction", "hierarchical",
+              "--compression", "int8", "--bucket-mb", "25",
+              "--capacities", "2,1", "--global-batch", "8", "--seq-len",
+              "1024", "--accum", "2", "--steps", "4", "--lr", "3e-4",
+              "--warmup", "2", "--schedule", "constant", "--log-every", "1"]
+# the HetSeq invariant across two ranks at full width, depth cut to 2
+# layers, fp32 (TF32 off): the reduced gradient against one process on
+# the union of the real rows, by relative L2 of the whole gradient. fp32
+# exchange: the limit of the single-process invariant (4.9e-6 on an
+# H100). int8: each element off by up to half a quantization step of its
+# block, twice (9.7e-3 on an H100); the limit is about 10x that reading.
+MULTI_INVARIANT_RTOL = {"none": 5e-5, "int8": 0.1}
+MULTI_INVARIANT_LAYERS = 2
+
+
+def probe_rank(rank, world, init_method, seq_len):
+    """One rank of the multi-rank probe. (1) The invariant: the reduced
+    gradient of a 2-layer full-width olmo-1b at fp32 over ``world`` ranks
+    of capacities 2,1, with the fp32 and with the int8 exchange; rank 0
+    also computes one process's gradient over the union of the real
+    rows and returns both relative L2 errors. (2) The exchange alone: a
+    random stack of full olmo-1b size exchanged three times each way
+    (int8, fp32), host clock around a synchronized call; rank 0 returns
+    the medians."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.core import capacity as cap
+    from repro_torch.core import dummy
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.models.model import build_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = mesh_mod.init((world, 1, 1), ("pod", "data", "model"), rank,
+                         init_method, "cuda")
+    try:
+        cfg = dataclasses.replace(
+            cfgbase.resolve("olmo-1b"), num_layers=MULTI_INVARIANT_LAYERS,
+            compute_dtype="float32", attention_impl="kernel")
+        model = build_model(cfg, mesh.device)
+        plan = cap.plan_capacities(8, (2.0, 1.0), headroom=1.25)
+        rng = np.random.default_rng(3)
+        samples = {k: rng.integers(0, cfg.vocab_size, (8, seq_len)).astype(
+            np.int32) for k in ("inputs", "labels")}
+        packed = dummy.pack_global_batch(samples, plan)
+        b = plan.buffer_rows
+        mine = {k: torch.from_numpy(v[rank * b:(rank + 1) * b]).to(
+            mesh.device) for k, v in packed.items()}
+        out = {}
+        for comp in ("none", "int8"):
+            tcfg = cfgbase.TrainConfig(
+                model=cfg, het=cfgbase.HetConfig(
+                    grad_reduction="hierarchical", compression=comp,
+                    bucket_mb=EXCHANGE_BUCKET_MB, quantize_impl="pallas"))
+            state = tsteps.init_train_state(model, tcfg, mesh=mesh)
+            layout = tsteps.bucket_layout(tcfg, mesh, state.params)
+            loss_r, w, g, _ = tsteps.reduce_grads(model, tcfg, mesh,
+                                                  layout, state, mine)
+            if rank == 0:
+                real = packed["weights"].sum(axis=1) > 0
+                union = {k: torch.from_numpy(v[real]).to(mesh.device)
+                         for k, v in packed.items()}
+                loss, w1, want = tsteps.loss_and_grads(
+                    model, tcfg, state.params, union)
+                out[comp] = {"grad_rel_l2": _tree_rel_l2(g, want),
+                             "loss": float(loss_r), "loss_single":
+                             float(loss), "weight": float(w),
+                             "weight_single": float(w1)}
+                del want
+            del g, state
+        del model
+        from repro_torch.core import buckets as bkt
+        lo = exchange_layout(cfgbase.resolve("olmo-1b"))
+        gen = torch.Generator(device=mesh.device).manual_seed(rank)
+        stack = torch.randn((lo.num_buckets, lo.bucket_elems),
+                            generator=gen, device=mesh.device)
+        err = torch.zeros_like(stack)
+        out["exchange_ms"] = {}
+        for comp in ("int8", "none"):
+            times = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.monotonic()
+                bkt.exchange_buckets(stack, err, comm=mesh.pod,
+                                     compress=comp == "int8",
+                                     total=lo.total, impl="kernel")
+                torch.cuda.synchronize()
+                times.append(time.monotonic() - t0)
+            out["exchange_ms"][comp] = statistics.median(times) * 1e3
+    finally:
+        mesh_mod.destroy(mesh)
+    return out
+
+
+def multi_rank_train(dev, argv, smi):
+    """The driver's multi-rank run with its checks: finite losses, equal
+    parameters on every rank, each rank's launches and wire bytes."""
+    import gc
+    import torch
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.core import buckets as bkt
+    from repro_torch.kernels.cross_entropy.cross_entropy import BWD_CHUNK
+    from repro_torch.launch import train as ttrain
+    gc.collect()
+    torch.cuda.empty_cache()
+    args = ttrain.parser().parse_args(argv)
+    cfg = cfgbase.resolve(args.arch)
+    print(f"[multi] parent holds {torch.cuda.memory_reserved(dev) / 2**30:.2f}"
+          f" GiB on the card before the ranks start", flush=True)
+    result = ttrain.main(argv)
+    ranks = result["ranks"]
+    n = result["steps"]
+    losses = result["losses"]
+    check(n == args.steps and all(map(_finite, losses)),
+          f"multi-rank: losses {losses}")
+    sums = result["end_checksums"]
+    check(len(sums) == len(ranks) > 1 and len(set(sums)) == 1,
+          f"multi-rank: parameters differ across ranks: {sums}")
+    lo = exchange_layout(cfg)
+    chunks = bkt.exchange_chunks(lo)
+    plan = result["plan"]
+    rows_mb = plan["buffer_rows"] // args.accum
+    ce_chunks = -(-rows_mb * args.seq_len // BWD_CHUNK)
+    L = cfg.num_layers
+    fwd_per_layer = 2 if cfg.remat == "full" else 1
+    expect = {"flash_attention_cuda": fwd_per_layer * L * args.accum * n,
+              "flash_attention_bwd_cuda": L * args.accum * n,
+              "cross_entropy_cuda": args.accum * n,
+              "ce_dlogits_cuda": ce_chunks * args.accum * n,
+              "quantize_int8_cuda": 2 * chunks * n,
+              "dequant_accum_cuda": chunks * n}
+    modeled = bkt.modeled_link_bytes(lo, 2, compress=True)
+    for r in ranks:
+        check(r["launches"] == expect,
+              f"multi-rank: rank {r['rank']} launches {r['launches']} != "
+              f"{expect}")
+        check(r["link_bytes"] == [modeled] * n,
+              f"multi-rank: rank {r['rank']} wire bytes {r['link_bytes']} "
+              f"!= modeled {modeled} a step")
+    ms = statistics.median(result["step_s"][1:]) * 1e3
+    tokens = args.global_batch * args.seq_len
+    peaks = [r["peak_memory_bytes"] / 2**30 for r in ranks]
+    print(f"[multi] {cfg.name}, {len(ranks)} ranks (--devices "
+          f"{args.devices}, capacities {args.capacities}) on "
+          f"{torch.cuda.device_count()} card(s), backend "
+          f"{result['backend']}, transport {result['transport']}: "
+          f"{ms:.1f} ms/step (median of steps 2..{n}), "
+          f"{tokens / (ms / 1e3):.0f} real tokens/s, peak memory per rank "
+          f"{', '.join(f'{p:.2f}' for p in peaks)} GiB, {chunks} exchange "
+          f"chunks, {modeled} wire bytes a step per rank (modeled "
+          f"{modeled}), launches per rank {ranks[0]['launches']} [{smi}]",
+          flush=True)
+    return {"devices": args.devices, "losses": losses,
+            "metrics": result["metrics"], "plan": plan,
+            "launches": ranks[0]["launches"], "expected_launches": expect,
+            "launches_by_rank": [r["launches"] for r in ranks],
+            "exchange_chunks": chunks, "link_bytes_per_step": modeled,
+            "ms_per_step_median_2_to_n": ms,
+            "tokens_per_s": tokens / (ms / 1e3),
+            "peak_memory_gib_by_rank": peaks,
+            "backend": result["backend"], "transport": result["transport"],
+            "end_checksums": sums, "wall_s": result["wall_s"]}
+
+
+def multi_rank_probe(seq_len, smi):
+    """:func:`probe_rank` on two ranks, with its checks."""
+    from repro_torch.core import buckets as bkt
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.launch import mesh as mesh_mod
+    chunks = bkt.exchange_chunks(exchange_layout(cfgbase.resolve("olmo-1b")))
+    t0 = time.monotonic()
+    inv = mesh_mod.spawn(probe_rank, 2, (seq_len,), timeout_s=600)[0]
+    inv_s = time.monotonic() - t0
+    exchange_ms = inv.pop("exchange_ms")
+    print(f"[multi] one exchange of the full olmo-1b stack between the 2 "
+          f"ranks ({chunks} chunks): int8 {exchange_ms['int8']:.1f} ms, "
+          f"fp32 {exchange_ms['none']:.1f} ms (median of 3) [{smi}]",
+          flush=True)
+    for comp, rec in inv.items():
+        rec["tol"] = MULTI_INVARIANT_RTOL[comp]
+        print(f"[multi] HetSeq invariant across 2 ranks ({comp} exchange, "
+              f"{MULTI_INVARIANT_LAYERS} layers, fp32): loss "
+              f"{rec['loss']:.6f} vs {rec['loss_single']:.6f}, gradient "
+              f"relative L2 {rec['grad_rel_l2']:.3e} (tol {rec['tol']:g})",
+              flush=True)
+        check(rec["weight"] == rec["weight_single"],
+              f"multi-rank invariant ({comp}): weights differ")
+        check(rec["grad_rel_l2"] <= rec["tol"],
+              f"multi-rank invariant ({comp}): reduced gradient differs "
+              f"from the single process's")
+    return {"invariant": inv, "exchange_ms": exchange_ms,
+            "seconds": inv_s}
+
+
+def multi_rank_phase(dev, smi):
+    train = multi_rank_train(dev, MULTI_ARGV, smi)
+    return {**train, "probe": multi_rank_probe(1024, smi)}
+
+
+# the multi-card run (``--cards 4``): the same path with one card per
+# rank (NCCL), on two ranks and on four with a dead rank
+CARDS_DEVICES = (("2,1,1", "2,1"), ("2,2,1", "2,1,1,0"))
+
+
+def cards_main(dev, smi, cards):
+    import torch
+    from repro_torch.kernels import _build
+    check(torch.cuda.device_count() >= cards,
+          f"--cards {cards}: {torch.cuda.device_count()} card(s) here")
+    t0 = time.monotonic()
+    _build.build()
+    phases = {"build": time.monotonic() - t0}
+    runs = {}
+    for devices, caps in CARDS_DEVICES:
+        argv = [a for a in MULTI_ARGV]
+        argv[argv.index("--devices") + 1] = devices
+        argv[argv.index("--capacities") + 1] = caps
+        t0 = time.monotonic()
+        runs[devices] = multi_rank_train(dev, argv, smi)
+        check(runs[devices]["backend"] == "nccl",
+              f"{devices}: backend {runs[devices]['backend']}, not nccl")
+        phases[devices] = time.monotonic() - t0
+    t0 = time.monotonic()
+    probe = multi_rank_probe(1024, smi)
+    phases["probe"] = time.monotonic() - t0
+    print("[phases] seconds: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in phases.items()), flush=True)
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "chip_smoke_cards.json").write_text(json.dumps(
+        {"nvidia_smi": smi, "phase_seconds": phases, "runs": runs,
+         "probe": probe}, indent=1, default=str))
+
+
+
 def _finite(x):
     return x == x and abs(x) != float("inf")
 
@@ -855,7 +1261,14 @@ def _finite(x):
 # --------------------------------------------------------------------------
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description="chip smoke test of "
+                                 "repro_torch (no arguments: one card)")
+    ap.add_argument("--cards", type=int, default=1,
+                    help="above 1: only the multi-rank path with one card "
+                         "per rank (NCCL), on 2 and 4 ranks")
+    opts = ap.parse_args(argv)
     if not (SRC / "repro_torch" / "csrc").is_dir():
         print("chip_smoke: src/repro_torch not found next to this script; "
               "run it from the root of a checkout", file=sys.stderr)
@@ -876,6 +1289,12 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    if opts.cards > 1:
+        cards_main(dev, smi, opts.cards)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     from repro_torch.kernels import _build
     from repro_torch.kernels.cross_entropy import cross_entropy as ce
@@ -903,6 +1322,12 @@ def main() -> int:
     t0 = time.monotonic()
     train = train_phase(fa, ce, dev)
     phases["train_path"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    recs += exchange_kernel_phase(dev)
+    phases["exchange_kernels"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    multi = multi_rank_phase(dev, smi)
+    phases["multi_rank_path"] = time.monotonic() - t0
     print("[phases] seconds: " + ", ".join(
         f"{k} {v:.1f}" for k, v in phases.items()), flush=True)
 
@@ -921,16 +1346,28 @@ def main() -> int:
                root + "cross_entropy/cross_entropy.py:90"),
            "ce_dlogits_cuda": (
                "src/repro_torch/csrc/cross_entropy.cu",
-               root + "cross_entropy/ref.py:90")}
-    # launches: the path each kernel serves (decode: serve; the rest:
-    # train, this slice's path); both paths' counts go to the json
+               root + "cross_entropy/ref.py:90"),
+           "quantize_int8_cuda": (
+               "src/repro_torch/csrc/quantize.cu",
+               root + "quantize/quantize.py:50"),
+           "dequant_accum_cuda": (
+               "src/repro_torch/csrc/quantize.cu",
+               root + "quantize/quantize.py:107")}
+    # launches: the path each kernel serves (decode: serve; the exchange
+    # kernels: the multi-rank train path, this slice's, rank 0's counts;
+    # the rest: the one-rank train path); every path's counts go to the
+    # json
     by_path = {n: {"serve": path["launches"].get(n, 0),
-                   "train": train["launches"][n]} for n in src}
+                   "train": train["launches"].get(n, 0),
+                   "multi_rank": multi["launches"].get(n, 0)} for n in src}
+    path_of = {"flash_decode_paged_cuda": "serve",
+               "quantize_int8_cuda": "multi_rank",
+               "dequant_accum_cuda": "multi_rank"}
     kernels = []
     for name, (source, replaces) in src.items():
         mine = [r for r in recs if r["kernel"] == name]
         main_rec = [r for r in mine if "ms" in r][-1]
-        path_name = "serve" if name == "flash_decode_paged_cuda" else "train"
+        path_name = path_of.get(name, "train")
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": by_path[name][path_name],
@@ -940,16 +1377,18 @@ def main() -> int:
             "bound_by": main_rec["bound_by"],
             "library_ms": main_rec["library_ms"],
             "launches_by_path": by_path[name],
+            "two_call_ms": main_rec.get("two_call_ms"),
             "at": {k: main_rec[k] for k in main_rec
                    if k in ("dtype", "B", "Sq", "S", "H", "Hkv", "D", "T",
-                            "V", "R", "kv_lens", "bs")}})
+                            "V", "R", "kv_lens", "bs", "rows")}})
         check(kernels[-1]["launches"] > 0, f"{name} never launched on its "
               f"path")
 
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"nvidia_smi": smi, "phase_seconds": phases, "kernel_cases": recs,
-         "path": path, "train": train, "kernels": kernels}, indent=1,
+         "path": path, "train": train, "multi_rank": multi,
+         "kernels": kernels}, indent=1,
         default=str))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,58 @@
-"""Row extents (port of ``repro/core/buckets.py::host_shard_extents``).
+"""Bucketed flat-buffer gradient reduction
+(port of ``repro/core/buckets.py``).
 
-The serving block pools split the paged KV pool across pods with this
-balanced-extent math. The rest of the JAX module is the training-side
-bucketed reduction and comes with the training slice.
+  * :func:`build_layout` assigns every leaf a contiguous range of one
+    fp32 stream, padded so it divides into ``num_buckets`` buckets of
+    ``bucket_elems`` elements. Leaves are taken in the JAX package's
+    pytree flatten order (:func:`stream_leaves`: sorted dict keys; the
+    port's per-layer list is one stacked (L, ...) leaf per name, layer 0
+    first), so the grid, and which leaves share a quantization block,
+    are the JAX package's.
+  * :func:`pack_buckets` / :func:`unpack_buckets` move a parameter-shaped
+    tree into and out of the (num_buckets, bucket_elems) fp32 stack.
+  * :func:`exchange_buckets` is the reduction schedule over one
+    :class:`~repro_torch.core.comm.Comm` group:
+
+      fp32: a reduce-scatter (``all_to_all`` plus a sum in rank order)
+            -> ``all_gather``
+      int8: quantize (CUDA kernel) -> ``all_to_all`` of the fused int8
+            payload (values + bit-cast scales) -> dequant-accumulate
+            (CUDA kernel) -> re-quantize the shard sum (CUDA kernel) ->
+            a ragged all-gather of the shard payloads
+
+    two collectives for each chunk of whole buckets. Unlike the JAX
+    function it works in place, to keep a full-width rank's memory
+    bounded: the corrected gradient and then the result are written
+    into ``buckets``, the new error state into ``err``. Chunking does
+    not change a value: quantization is per block of 256 and the
+    exchange elementwise per bucket (the JAX package's per-bucket
+    pipeline agrees bitwise with its monolithic exchange).
+
+The int8 exchange never puts the all-padding tail of the stream on the
+wire (``total``): each message holds only data blocks, so messages are
+ragged and the broadcast leg is an ``all_to_all`` whose input repeats
+this rank's shard payload once per peer (``all_gather_into_tensor``
+takes equal sizes only).
+
+The checkpoint layout record, the decay mask, the segment ids and the
+overlapped pipelines come with later slices.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import dataclasses
+import math
+from typing import Any, List, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.core import compression
+from repro_torch.core.comm import Comm
+from repro_torch.kernels.quantize import ops as q_ops
+
+# fp32 bytes of the bucket stack one exchange chunk covers (whole
+# buckets, at least one): bounds a rank's temporaries to a few times
+# this, whatever the model's size. Read at each call.
+EXCHANGE_CHUNK_BYTES = 1 << 30
 
 
 def host_shard_extents(n: int, hosts: int) -> Tuple[Tuple[int, int], ...]:
@@ -23,3 +69,332 @@ def host_shard_extents(n: int, hosts: int) -> Tuple[Tuple[int, int], ...]:
         out.append((lo, hi))
         lo = hi
     return tuple(out)
+
+
+# --------------------------------------------------------------------------
+# the layout
+# --------------------------------------------------------------------------
+
+
+def stream_leaves(tree: Any) -> List[Tuple[Tuple[int, ...],
+                                           List[torch.Tensor]]]:
+    """The tree's leaves in JAX flatten order, as (shape, pieces): a dict
+    is walked in sorted key order; a list (the layer stack) is one
+    stacked leaf per name, shape (L, ...), whose pieces are the L layer
+    tensors in order. Empty dicts contribute nothing."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in stream_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        per = [stream_leaves(t) for t in tree]
+        if any(len(p) != len(per[0]) for p in per):
+            raise ValueError("a stacked list needs one structure per item")
+        return [((len(tree), *per[0][i][0]),
+                 [t for p in per for t in p[i][1]])
+                for i in range(len(per[0]))]
+    return [(tuple(tree.shape), [tree])]
+
+
+@dataclasses.dataclass(frozen=True)
+class BucketLayout:
+    """Static assignment of the stream's leaves to fixed-size fp32
+    buckets (the JAX package's fields, without the treedef: the port
+    packs and unpacks against a tree of the same structure)."""
+
+    shapes: Tuple[Tuple[int, ...], ...]
+    dtypes: Tuple[torch.dtype, ...]
+    offsets: Tuple[int, ...]        # leaf start in the flat stream
+    sizes: Tuple[int, ...]          # leaf element counts
+    total: int                      # sum(sizes)
+    bucket_elems: int
+    num_buckets: int
+
+    @property
+    def padded_total(self) -> int:
+        return self.num_buckets * self.bucket_elems
+
+    @property
+    def bucket_bytes(self) -> int:
+        return self.bucket_elems * 4
+
+    @property
+    def total_bytes(self) -> int:
+        return self.total * 4
+
+    def error_shape(self, ranks: int) -> Tuple[int, int, int]:
+        return (ranks, self.num_buckets, self.bucket_elems)
+
+
+def build_layout(tree: Any, *, bucket_mb: float = 4.0,
+                 multiple_of: int = 1) -> BucketLayout:
+    """The bucket grid for a tree of tensors (the JAX package's rule):
+    ``bucket_elems`` is ``bucket_mb`` MiB of fp32 rounded up to
+    ``multiple_of`` (ranks * block size for compressed exchanges), and
+    never more than the padded total."""
+    leaves = stream_leaves(tree)
+    shapes = tuple(shape for shape, _ in leaves)
+    dtypes = tuple(pieces[0].dtype for _, pieces in leaves)
+    sizes = tuple(int(math.prod(s)) for s in shapes)
+    offsets = []
+    off = 0
+    for n in sizes:
+        offsets.append(off)
+        off += n
+    total = off
+    if total == 0:
+        raise ValueError("cannot bucket an empty tree")
+    target = max(1, int(bucket_mb * (1 << 20) / 4))
+    bucket_elems = -(-target // multiple_of) * multiple_of
+    bucket_elems = min(bucket_elems, -(-total // multiple_of) * multiple_of)
+    num_buckets = -(-total // bucket_elems)
+    return BucketLayout(shapes=shapes, dtypes=dtypes, offsets=tuple(offsets),
+                        sizes=sizes, total=total, bucket_elems=bucket_elems,
+                        num_buckets=num_buckets)
+
+
+def _pieces(tree: Any, layout: BucketLayout):
+    """(stream offset, tensor) of every piece of every leaf."""
+    leaves = stream_leaves(tree)
+    if len(leaves) != len(layout.sizes):
+        raise ValueError(f"tree has {len(leaves)} leaves, layout expects "
+                         f"{len(layout.sizes)}")
+    out = []
+    for (shape, pieces), off, n in zip(leaves, layout.offsets, layout.sizes):
+        if int(math.prod(shape)) != n:
+            raise ValueError(f"leaf of shape {shape}, layout expects {n} "
+                             f"elements")
+        for t in pieces:
+            out.append((off, t))
+            off += t.numel()
+    return out
+
+
+def pack_buckets(tree: Any, layout: BucketLayout) -> torch.Tensor:
+    """Tree -> (num_buckets, bucket_elems) fp32 stack (a new tensor on the
+    tree's device; the padding tail is zero)."""
+    pieces = _pieces(tree, layout)
+    flat = torch.zeros(layout.padded_total, dtype=torch.float32,
+                       device=pieces[0][1].device)
+    for off, t in pieces:
+        flat[off:off + t.numel()].copy_(t.reshape(-1))
+    return flat.view(layout.num_buckets, layout.bucket_elems)
+
+
+def unpack_buckets(buckets: torch.Tensor, layout: BucketLayout,
+                   like: Any) -> Any:
+    """(num_buckets, bucket_elems) -> a tree shaped like ``like``, each
+    leaf in its ``like`` leaf's dtype: a view into ``buckets`` where that
+    dtype is fp32 (no copy), a cast copy otherwise."""
+    flat = buckets.reshape(-1)
+    views = {}
+    for off, t in _pieces(like, layout):
+        v = flat[off:off + t.numel()].view(t.shape)
+        views[id(t)] = v if t.dtype == torch.float32 else v.to(t.dtype)
+
+    def rebuild(node):
+        if isinstance(node, dict):
+            return {k: rebuild(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(rebuild(v) for v in node)
+        return views[id(node)]
+
+    return rebuild(like)
+
+
+def init_error_buckets(layout: BucketLayout,
+                       device: torch.device | str = "cpu") -> torch.Tensor:
+    """This rank's flat error-feedback state."""
+    return torch.zeros((layout.num_buckets, layout.bucket_elems),
+                       dtype=torch.float32, device=device)
+
+
+# --------------------------------------------------------------------------
+# the exchange schedule
+# --------------------------------------------------------------------------
+
+
+def _chunk(num_buckets: int, bucket_elems: int) -> int:
+    return max(1, min(num_buckets,
+                      EXCHANGE_CHUNK_BYTES // (bucket_elems * 4)))
+
+
+def chunk_buckets(layout: BucketLayout) -> int:
+    """Whole buckets per exchange chunk."""
+    return _chunk(layout.num_buckets, layout.bucket_elems)
+
+
+def exchange_chunks(layout: BucketLayout) -> int:
+    """How many chunks (of two collectives each) one exchange runs."""
+    return -(-layout.num_buckets // chunk_buckets(layout))
+
+
+def _message_rows(nbc: int, p: int, ns: int, d_rows: int) -> List[int]:
+    """Data rows (blocks) of the message to each rank: message j holds
+    the rows (k, j, b) of every bucket k of the chunk, and the data rows
+    (stream row < d_rows) are a prefix of it."""
+    return [sum(min(ns, max(0, d_rows - (k * p + j) * ns))
+                for k in range(nbc)) for j in range(p)]
+
+
+def _write_slot(slot: torch.Tensor, rows: torch.Tensor) -> None:
+    """Write ``rows`` (n, B), the prefix of one rank's slot, into
+    ``slot`` (nbc, ns, B), a strided view of the chunk; rows past n
+    become zero."""
+    nbc, ns, b = slot.shape
+    full = rows.new_zeros((nbc * ns, b))
+    full[:rows.shape[0]] = rows
+    slot.copy_(full.view(nbc, ns, b))
+
+
+def _exchange_fp32(x: torch.Tensor, comm: Comm) -> None:
+    nbc, p, shard = x.shape
+    wire = x.transpose(0, 1).reshape(p * nbc, shard)
+    rx = comm.all_to_all(wire, [nbc] * p, [nbc] * p).view(p, nbc, shard)
+    del wire
+    sh = rx[0].clone()
+    for r in range(1, p):                       # fixed rank order
+        sh += rx[r]
+    del rx
+    full = comm.all_gather(sh)                  # (p, nbc, shard)
+    x.copy_(full.transpose(0, 1))
+
+
+def _exchange_int8(x: torch.Tensor, e: Optional[torch.Tensor], comm: Comm,
+                   d_rows: int, block_size: int, impl: str) -> None:
+    nbc, p, shard = x.shape
+    bs = block_size
+    ns = shard // bs
+    me = comm.index
+    if e is not None:
+        x.add_(e)                               # corrected, in place
+    rows = x.view(nbc * p * ns, bs)
+    q, s = q_ops.quantize_int8(rows[:d_rows], block_size=bs, impl=impl)
+    if e is not None:                           # stage-1 residual
+        er = e.view(nbc * p * ns, bs)
+        torch.sub(rows[:d_rows], q.to(torch.float32) * s[:, None],
+                  out=er[:d_rows])
+        er[d_rows:].zero_()
+    lens = _message_rows(nbc, p, ns, d_rows)
+    payload = torch.zeros((nbc * p * ns, bs + 4), dtype=torch.int8,
+                          device=x.device)
+    payload[:d_rows] = compression.fuse_payload(q, s)
+    del q, s
+    msgs = payload.view(nbc, p * ns, bs + 4)
+    wire = torch.cat([msgs[:, j * ns:(j + 1) * ns].reshape(-1, bs + 4)
+                      [:lens[j]] for j in range(p)])
+    del payload, msgs
+    rx = comm.all_to_all(wire, lens, [lens[me]] * p)
+    del wire
+    q_x, s_x = compression.split_payload(rx.view(p, lens[me], bs + 4), bs)
+    shard_sum = q_ops.dequant_accum(q_x, s_x, impl=impl)   # (lens[me], bs)
+    del rx, q_x, s_x
+    q2, s2 = q_ops.quantize_int8(shard_sum, block_size=bs, impl=impl)
+    xs = x.view(nbc, p, ns, bs)
+    if e is not None:                           # stage-2 residual: mine
+        es = e.view(nbc, p, ns, bs)[:, me]
+        resid = shard_sum - q2.to(torch.float32) * s2[:, None]
+        full = resid.new_zeros((nbc * ns, bs))
+        full[:resid.shape[0]] = resid
+        es.add_(full.view(nbc, ns, bs))
+        del resid, full
+    del shard_sum
+    mine = compression.fuse_payload(q2, s2)
+    del q2, s2
+    gathered = comm.all_to_all(mine.repeat(p, 1), [lens[me]] * p, lens)
+    off = 0
+    for j in range(p):
+        qg, sg = compression.split_payload(gathered[off:off + lens[j]], bs)
+        _write_slot(xs[:, j], qg.to(torch.float32) * sg[:, None])
+        off += lens[j]
+
+
+def exchange_buckets(
+    buckets: torch.Tensor,
+    err: Optional[torch.Tensor] = None,
+    *,
+    comm: Comm,
+    compress: bool = False,
+    block_size: int = 256,
+    impl: str = "reference",
+    total: Optional[int] = None,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """All-reduce this rank's (num_buckets, bucket_elems) stack over
+    ``comm``, in place: returns ``(buckets, err)`` holding the global
+    sum and (compressed mode with ``err``) the new error state.
+
+    ``total``: the stream's real element count (``layout.total``);
+    compressed mode then quantizes and sends only the blocks that hold
+    data, and pins the error state of the all-padding tail to zero, as
+    the JAX package's ``exchange_buckets`` does."""
+    nb, be = buckets.shape
+    p = comm.size
+    if be % p:
+        raise ValueError(f"bucket_elems {be} not divisible by {p} ranks; "
+                         f"build the layout with multiple_of={p}")
+    shard = be // p
+    if compress and shard % block_size:
+        raise ValueError(
+            f"shard {shard} not divisible by block_size {block_size}; "
+            f"build the layout with multiple_of={p * block_size}")
+    if not buckets.is_contiguous() or buckets.dtype != torch.float32:
+        raise ValueError("exchange_buckets: a contiguous fp32 stack")
+    want_err = compress and err is not None
+    if want_err and (err.shape != buckets.shape or not err.is_contiguous()):
+        raise ValueError(f"err {tuple(err.shape)} must be a contiguous "
+                         f"{tuple(buckets.shape)} stack")
+    step = _chunk(nb, be)
+    rows_per_bucket = be // block_size if compress else 0
+    n_rows = nb * rows_per_bucket
+    d_rows = (n_rows if total is None
+              else max(1, min(n_rows, -(-total // block_size))))
+    for k0 in range(0, nb, step):
+        k1 = min(nb, k0 + step)
+        x = buckets[k0:k1].view(k1 - k0, p, shard)
+        if not compress:
+            _exchange_fp32(x, comm)
+            continue
+        e = err[k0:k1].view(k1 - k0, p, shard) if want_err else None
+        d_c = min((k1 - k0) * rows_per_bucket,
+                  max(0, d_rows - k0 * rows_per_bucket))
+        _exchange_int8(x, e, comm, d_c, block_size, impl)
+    return buckets, (err if want_err else None)
+
+
+# --------------------------------------------------------------------------
+# analytic link-byte model
+# --------------------------------------------------------------------------
+
+
+def modeled_link_bytes(layout: BucketLayout, ranks: int, *,
+                       compress: bool = False,
+                       block_size: int = 256) -> int:
+    """Per-rank bytes on the reduction link for one bucketed exchange
+    (the JAX package's model): uncompressed, reduce-scatter and
+    all-gather each move (p-1)/p of the padded stack; compressed, both
+    legs move (p-1)/p of the fused payload of the data blocks."""
+    p = ranks
+    n = layout.padded_total
+    if not compress:
+        return int(2 * (p - 1) / p * n * 4)
+    blocks = -(-layout.total // block_size)
+    payload = blocks * (block_size + 4)
+    a2a = (p - 1) / p * payload
+    ag = (p - 1) / p * payload
+    return int(a2a + ag)
+
+
+def modeled_per_leaf_bytes(shapes: Sequence[Sequence[int]], ranks: int, *,
+                           compress: bool = False,
+                           block_size: int = 256) -> int:
+    """Per-rank link bytes of the legacy per-leaf schedule, for leaves of
+    the given shapes: a ring all-reduce per leaf uncompressed, an
+    all-gather of every rank's full quantized payload compressed."""
+    p = ranks
+    total = 0
+    for shape in shapes:
+        n = int(math.prod(shape)) if len(shape) else 1
+        if not compress:
+            total += int(2 * (p - 1) / p * n * 4)
+        else:
+            blocks = -(-n // block_size)
+            total += int((p - 1) * (blocks * block_size + blocks * 4))
+    return total

@@ -1,0 +1,90 @@
+"""One process group's collectives, as the gradient exchange uses them.
+
+:class:`Comm` wraps a ``torch.distributed`` group (or a single rank,
+where every collective is the identity) with the three collectives the
+reduction needs, always on tensors whose rows are the unit of a split:
+
+  * :meth:`Comm.all_to_all` — ``all_to_all_single`` with row splits
+    (ragged messages: the int8 exchange never sends the all-padding
+    tail of the bucket stack);
+  * :meth:`Comm.all_gather` — ``all_gather`` into the rows of one
+    tensor, equal sizes;
+  * :meth:`Comm.all_reduce` — a sum, in place.
+
+``sent_bytes`` counts the bytes this rank hands to the first two for
+other ranks (its own row of a message and its own piece of a gather
+stay local), the number ``core/buckets.py::modeled_link_bytes`` models.
+
+Transports (``TRANSPORTS``), chosen once by ``launch/mesh.py`` and
+printed by the driver:
+
+  * ``local``  — one rank, no process group;
+  * ``direct`` — the backend takes the tensors where they lie: NCCL with
+    a card per rank, gloo on the CPU, and gloo with CUDA tensors where
+    several ranks share one card (PyTorch 2.11's gloo takes CUDA tensors
+    for all three collectives).
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+
+TRANSPORTS = ("local", "direct")
+
+
+class Comm:
+    def __init__(self, ranks: Sequence[int], rank: int, transport: str,
+                 group: Optional[object] = None):
+        if transport not in TRANSPORTS:
+            raise ValueError(f"unknown transport '{transport}'")
+        self.ranks: Tuple[int, ...] = tuple(ranks)
+        if rank not in self.ranks:
+            raise ValueError(f"rank {rank} not in group {self.ranks}")
+        if len(self.ranks) > 1 and (group is None or transport == "local"):
+            raise ValueError("a group of several ranks needs a process "
+                             "group and a non-local transport")
+        self.size = len(self.ranks)
+        self.index = self.ranks.index(rank)      # my position in the group
+        self.transport = transport
+        self.group = group
+        self.sent_bytes = 0
+
+    def all_to_all(self, x: torch.Tensor, send_rows: Sequence[int],
+                   recv_rows: Sequence[int]) -> torch.Tensor:
+        """``x``: the messages to each rank of the group in order,
+        ``send_rows[j]`` rows for rank j. Returns the messages from each
+        rank in order, ``recv_rows[j]`` rows from rank j."""
+        send_rows, recv_rows = list(send_rows), list(recv_rows)
+        if x.shape[0] != sum(send_rows) or len(send_rows) != self.size \
+                or len(recv_rows) != self.size:
+            raise ValueError(f"all_to_all: {x.shape[0]} rows, splits "
+                             f"{send_rows} / {recv_rows} for {self.size} "
+                             f"ranks")
+        row = x[0].numel() * x.element_size() if x.shape[0] else 0
+        self.sent_bytes += (sum(send_rows) - send_rows[self.index]) * row
+        if self.size == 1:
+            return x
+        out = x.new_empty((sum(recv_rows), *x.shape[1:]))
+        dist.all_to_all_single(out, x.contiguous(),
+                               output_split_sizes=recv_rows,
+                               input_split_sizes=send_rows,
+                               group=self.group)
+        return out
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """(…) -> (size, …), rank j's tensor at row j."""
+        self.sent_bytes += (self.size - 1) * x.numel() * x.element_size()
+        if self.size == 1:
+            return x[None]
+        out = x.new_empty((self.size, *x.shape))
+        dist.all_gather(list(out.unbind(0)), x.contiguous(),
+                        group=self.group)
+        return out
+
+    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum over the group, written into ``x``; returns ``x``."""
+        if self.size > 1:
+            dist.all_reduce(x, group=self.group)
+        return x

@@ -1,13 +1,14 @@
 """Weighted loss/gradient aggregation, the HetSeq invariant
-(port of ``repro/core/weighting.py``, single process).
+(port of ``repro/core/weighting.py``).
 
 The paper's master process computes ``sum_i(loss_i * w_i) / sum_i(w_i)``
 over workers; gradients are averaged the same way. The invariant: for
 ANY split of a global batch across R workers with arbitrary per-worker
 counts (including zero => dummy rows, weight 0), the aggregate equals
 the gradient of the single-process loss over the union of real rows.
-The cross-rank ``psum_*`` helpers and the canonical executor come with
-the multi-rank slice.
+:func:`psum_weighted` and :func:`weighted_grad_psum` aggregate across
+the ranks of a process group (``core/comm.py``). The canonical executor
+is not ported yet.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from typing import Any, Dict, Sequence, Tuple
 import torch
 
 from repro_torch.core import accumulate
+from repro_torch.core.comm import Comm
 from repro_torch.models.transformer import tree_map
 
 
@@ -48,3 +50,24 @@ def simulate_workers(loss_fn, params, worker_batches: Sequence[Dict]
         grads_sum = g if grads_sum is None else tree_map(
             torch.add, grads_sum, g)
     return finalize(total_obj, total_w), scale_grads(grads_sum, total_w)
+
+
+def psum_weighted(value: torch.Tensor, weight: torch.Tensor, comm: Comm
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Explicit HetSeq aggregation over ``comm``'s ranks: (weighted mean,
+    total weight). ``value`` is this rank's *sum* (loss sum or
+    grad-of-sum), ``weight`` its weight sum; a rank of dummy rows only
+    adds weight 0 and still takes part. One all-reduce carries both."""
+    both = torch.stack([value.float(), weight.float()])
+    comm.all_reduce(both)
+    return finalize(both[0], both[1]), both[1]
+
+
+def weighted_grad_psum(grads: Any, weight: torch.Tensor, comm: Comm) -> Any:
+    """The tree version for gradients: each leaf summed over the ranks
+    and divided by the total weight, in place (the leaves are the
+    caller's gradient-of-sums, written over)."""
+    total_w = comm.all_reduce(weight.float().clone())
+    inv = 1.0 / torch.clamp(total_w, min=1e-9)
+    return tree_map(lambda g: comm.all_reduce(g).mul_(inv.to(g.dtype)),
+                    grads)

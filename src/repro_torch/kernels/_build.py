@@ -123,5 +123,12 @@ def load() -> ctypes.CDLL:
                 ci, ci, ci, ci, ci, ci, ci,     # B, H, Hkv, D, N, bs, MB
                 cf, ci, vp]                     # scale, dtype, stream
             lib.paged_decode_fwd.restype = ci
+            cll = ctypes.c_longlong
+            lib.quantize_int8_fwd.argtypes = [
+                vp, vp, vp, vp, cll, vp]        # x, noise (or 0), q, s,
+            lib.quantize_int8_fwd.restype = ci  # rows, stream
+            lib.dequant_accum_fwd.argtypes = [
+                vp, vp, vp, ci, cll, vp]        # q, s, out, ranks, rows,
+            lib.dequant_accum_fwd.restype = ci  # stream
             _lib = lib
         return _lib

@@ -1,33 +1,48 @@
-"""Single-device heterogeneous training driver
+"""Heterogeneous data-parallel training driver
 (port of ``repro/launch/train.py``).
 
 Wires: synthetic corpus -> sharded dataset -> capacity plan -> het
 sampler + prefetch loader -> train step (weighted objective sum and
-weight sum, divided once; clip; AdamW) -> log. The plan's headroom
-leaves weight-0 dummy rows in every batch, and they run forward and
-backward on the device like real rows (the paper's dummy-batch path).
+weight sum, reduced over the ranks, divided once; clip; AdamW) -> log.
+The plan's headroom leaves weight-0 dummy rows in every batch, and they
+run forward and backward on the device like real rows (the paper's
+dummy-batch path); a rank of capacity 0 runs only dummy rows.
 
-Runs on one device: ``--device`` defaults to ``cuda`` and the CPU runs
-only when asked for; ``--devices`` takes only a one-device mesh.
-Attention and cross entropy go through the kernels (``attention_impl=
-"kernel"``, ``ce_impl="kernel"``): the CUDA kernels on the card, their
-plain versions on the CPU.
-Checkpointing (``--ckpt-every``, ``--resume``, ``--ckpt-dir``), fault
-injection (``--chaos``, ``--kill-pod``), ``--dry-run``, bucketed
-reduction (``--bucket-mb``), the straggler replans
-(``--replan-interval``) and ``--no-scan-layers`` are not ported yet:
-each raises when set away from its default. The driver writes no
-checkpoint. The synthetic
-corpus goes to ``--data-dir``, or to a temporary directory (under
-``$TMPDIR``) that is removed at the end.
+``--devices`` is read as the JAX driver reads it: ``data,model`` or
+``pod,data,model``. With more than one data-parallel rank the driver
+builds the kernels, writes the corpus, then spawns one process per rank
+(``launch/mesh.py``): rank ``r = pod * data + d`` takes rows ``[r*b,
+(r+1)*b)`` of each packed global batch, the order of the JAX package's
+``P(("pod", "data"))`` batch sharding. Rank 0 logs. The backend and the
+transport are printed. A ``model`` axis above 1 raises (tensor
+parallelism is not ported yet).
 
-Example (H100):
+``--device`` defaults to ``cuda`` and the CPU runs only when asked for.
+Attention, cross entropy and the int8 exchange go through the kernels
+(``attention_impl="kernel"``, ``ce_impl="kernel"``,
+``quantize_impl="pallas"``): the CUDA kernels on the card, their plain
+versions on the CPU. Checkpointing (``--ckpt-every``, ``--resume``,
+``--ckpt-dir``), fault injection (``--chaos``, ``--kill-pod``),
+``--dry-run``, the straggler replans (``--replan-interval``) and
+``--no-scan-layers`` are not ported yet: each raises when set away from
+its default. The driver writes no checkpoint. The synthetic corpus goes
+to ``--data-dir``, or to a temporary directory (under ``$TMPDIR``) that
+is removed at the end.
+
+Example (H100, one rank):
   PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b \
       --steps 6 --global-batch 8 --seq-len 1024 --accum 2 --lr 3e-4 \
       --warmup 2 --schedule constant
-Example (CPU, smoke config):
+Example (H100, two ranks sharing the card, int8 cross-pod exchange):
   PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b \
-      --smoke --device cpu --steps 10 --global-batch 8 --seq-len 32
+      --devices 2,1,1 --grad-reduction hierarchical --compression int8 \
+      --bucket-mb 25 --capacities 2,1 --global-batch 8 --seq-len 1024 \
+      --accum 2 --steps 4 --lr 3e-4 --warmup 2 --schedule constant
+Example (CPU, smoke config, two ranks over gloo):
+  PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b \
+      --smoke --device cpu --devices 2,1,1 --grad-reduction hierarchical \
+      --compression int8 --bucket-mb 0.05 --steps 10 --global-batch 8 \
+      --seq-len 32
 """
 from __future__ import annotations
 
@@ -36,7 +51,7 @@ import contextlib
 import dataclasses
 import tempfile
 import time
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -49,16 +64,13 @@ from repro_torch.data.dataset import ShardedDataset
 from repro_torch.data.loader import PrefetchLoader
 from repro_torch.data.sampler import HetSampler
 from repro_torch.data.synthetic import build_synthetic_corpus
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.launch import steps as steps_mod
-from repro_torch.models.model import Model, build_model
+from repro_torch.models.model import build_model
 
 
-def build_everything(args) -> Tuple[ModelConfig, Model, TrainConfig]:
-    dshape = tuple(int(x) for x in args.devices.split(","))
-    if int(np.prod(dshape)) != 1:
-        raise SystemExit(f"--devices {args.devices}: repro_torch trains on "
-                         f"one device so far (mesh of size 1)")
-    # flags this port would accept and then ignore raise instead
+def _check_flags(args) -> None:
+    """Flags this port would accept and then ignore raise instead."""
     defaults = parser().parse_args([])
     unported = [flag for flag, on in (
         ("--ckpt-every", args.ckpt_every > 0), ("--resume", args.resume),
@@ -66,19 +78,19 @@ def build_everything(args) -> Tuple[ModelConfig, Model, TrainConfig]:
         ("--chaos", bool(args.chaos)), ("--kill-pod", bool(args.kill_pod)),
         ("--dry-run", args.dry_run),
         ("--no-scan-layers", args.no_scan_layers),
-        ("--bucket-mb", args.bucket_mb != defaults.bucket_mb),
         ("--replan-interval",
          args.replan_interval != defaults.replan_interval)) if on]
     if unported:
         raise NotImplementedError(
             f"{', '.join(unported)}: not ported yet (checkpoints, fault "
-            f"injection, elastic restart, bucketed reduction and straggler "
-            f"replans come with later slices; the layer stack is always a "
-            f"Python loop)")
+            f"injection, elastic restart and straggler replans come with "
+            f"later slices; the layer stack is always a Python loop)")
+
+
+def build_config(args) -> Tuple[ModelConfig, TrainConfig]:
     cfg = (cfgbase.smoke_config(args.arch) if args.smoke
            else cfgbase.resolve(args.arch))
     cfg = dataclasses.replace(cfg, attention_impl="kernel")
-    model = build_model(cfg, args.device)
     shape = ShapeConfig("cli", args.seq_len, args.global_batch, "train")
     tcfg = TrainConfig(
         model=cfg, shape=shape,
@@ -89,6 +101,7 @@ def build_everything(args) -> Tuple[ModelConfig, Model, TrainConfig]:
             grad_reduction=args.grad_reduction,
             compression=args.compression,
             bucket_mb=args.bucket_mb,
+            quantize_impl="pallas",             # the kernels (ops.impl_of)
             overlap=args.overlap,
             accum_steps=args.accum,
             replan_interval=args.replan_interval,
@@ -99,7 +112,7 @@ def build_everything(args) -> Tuple[ModelConfig, Model, TrainConfig]:
                                   total_steps=args.steps,
                                   schedule=args.schedule),
         seed=args.seed, ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every)
-    return cfg, model, tcfg
+    return cfg, tcfg
 
 
 def make_plan(tcfg: TrainConfig, n_dp: int = 1) -> cap.CapacityPlan:
@@ -114,66 +127,170 @@ def make_plan(tcfg: TrainConfig, n_dp: int = 1) -> cap.CapacityPlan:
                                round_buffer_to=max(tcfg.het.accum_steps, 1))
 
 
-def _to_device(raw: Dict[str, np.ndarray], seq_len: int,
-               device: torch.device) -> Dict[str, torch.Tensor]:
-    # the sampler pads the *labels*: inputs are the shifted view
-    return {k: torch.from_numpy(np.ascontiguousarray(raw[k][:, :seq_len]))
-            .to(device) for k in ("inputs", "labels", "weights")}
+def _rank_rows(raw: Dict[str, np.ndarray], seq_len: int, rank: int,
+               rows: int, device: torch.device) -> Dict[str, torch.Tensor]:
+    """This rank's rows of the packed global batch, on its device (the
+    sampler pads the *labels*: inputs are the shifted view)."""
+    return {k: torch.from_numpy(np.ascontiguousarray(
+        raw[k][rank * rows:(rank + 1) * rows, :seq_len])).to(device)
+        for k in ("inputs", "labels", "weights")}
+
+
+def _launch_counts() -> Dict[str, int]:
+    from repro_torch.kernels.cross_entropy import cross_entropy as ce
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.quantize import quantize as qz
+    return {f.__name__: f.launches for f in (
+        fa.flash_attention_cuda, fa.flash_attention_bwd_cuda,
+        ce.cross_entropy_cuda, ce.ce_dlogits_cuda,
+        qz.quantize_int8_cuda, qz.dequant_accum_cuda)}
+
+
+def _sent(mesh: mesh_mod.ProcessMesh) -> int:
+    return sum(c.sent_bytes for c in {id(c): c for c in (
+        mesh.world, mesh.pod, mesh.data)}.values())
+
+
+def _checksums(mesh: mesh_mod.ProcessMesh, params) -> List[int]:
+    """Every rank's parameter checksum, gathered over the world."""
+    mine = torch.tensor([steps_mod.params_checksum(params)],
+                        dtype=torch.int64, device=mesh.device)
+    return [int(x) for x in mesh.world.all_gather(mine).reshape(-1)]
+
+
+def run_rank(args, mesh: mesh_mod.ProcessMesh, data_dir: str,
+             plan: cap.CapacityPlan) -> Dict[str, Any]:
+    """One rank's training loop; the whole run on one rank."""
+    cfg, tcfg = build_config(args)
+    model = build_model(cfg, mesh.device)
+    lead = mesh.rank == 0
+    step_fn = steps_mod.build_train_step(model, tcfg, mesh)
+    corpus = build_synthetic_corpus(
+        data_dir, num_seqs=max(4 * plan.global_rows, 256),
+        seq_len=args.seq_len + 1, vocab=cfg.vocab_size, rows_per_shard=64,
+        seed=tcfg.seed)
+    sampler = HetSampler(ShardedDataset(corpus), plan, seed=tcfg.seed)
+    loader = PrefetchLoader(sampler, depth=args.prefetch)
+    state = steps_mod.init_train_state(model, tcfg, mesh=mesh)
+    start_sums = _checksums(mesh, state.params)
+    if len(set(start_sums)) != 1:
+        raise RuntimeError(f"ranks start from different parameters: "
+                           f"checksums {start_sums}")
+    if model.device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(model.device)
+    launches0 = _launch_counts()
+    step, epoch = 0, 0
+    losses, step_s, records, link = [], [], [], []
+    t_start = time.time()
+    while step < args.steps:
+        for raw in loader.iter_epoch(epoch):
+            if step >= args.steps:
+                break
+            batch = _rank_rows(raw, args.seq_len, mesh.rank,
+                               plan.buffer_rows, model.device)
+            t0 = time.time()
+            sent0 = _sent(mesh)
+            state, metrics = step_fn(state, batch)
+            rec = {k: float(v) for k, v in metrics.items()}
+            dt = time.time() - t0          # float() synchronized
+            step += 1
+            losses.append(rec["loss"])
+            step_s.append(dt)
+            records.append(rec)
+            link.append(_sent(mesh) - sent0)
+            if lead and (step % args.log_every == 0 or step == args.steps):
+                print(f"[train] step {step:5d} loss {rec['loss']:.4f} "
+                      f"grad_norm {rec['grad_norm']:.4f} weight "
+                      f"{rec['weight']:.0f} lr {rec['lr']:.3g} "
+                      f"({dt * 1e3:.0f} ms)", flush=True)
+        epoch += 1
+    wall = time.time() - t_start
+    launches = {k: v - launches0[k] for k, v in _launch_counts().items()}
+    end_sums = _checksums(mesh, state.params)
+    peak = (torch.cuda.max_memory_allocated(model.device)
+            if model.device.type == "cuda" else None)
+    return {"rank": mesh.rank, "steps": step, "wall_s": wall,
+            "first_loss": losses[0], "last_loss": losses[-1],
+            "losses": losses, "step_s": step_s, "metrics": records,
+            "link_bytes": link, "launches": launches,
+            "start_checksums": start_sums, "end_checksums": end_sums,
+            "peak_memory_bytes": peak, "backend": mesh.backend,
+            "transport": mesh.transport, "device": str(model.device),
+            "state": state}
+
+
+def _rank_main(rank: int, world: int, init_method: str, args,
+               data_dir: str, plan: cap.CapacityPlan) -> Dict[str, Any]:
+    mesh_mod.share_cpu(world)
+    shape, axes = mesh_mod.parse_devices(args.devices)
+    mesh = mesh_mod.init(shape, axes, rank, init_method,
+                         torch.device(args.device).type)
+    try:
+        if rank == 0:
+            print(f"[train] rank 0 of {world}: {mesh.describe()}",
+                  flush=True)
+        out = run_rank(args, mesh, data_dir, plan)
+    finally:
+        mesh_mod.destroy(mesh)
+    del out["state"]                    # stays in the rank's process
+    return out
 
 
 def train(args) -> Dict[str, object]:
-    cfg, model, tcfg = build_everything(args)
-    plan = make_plan(tcfg)
+    _check_flags(args)
+    shape, axes = mesh_mod.parse_devices(args.devices)
+    sizes = dict(zip(axes, shape))
+    n_dp = sizes.get("pod", 1) * sizes.get("data", 1)
+    cfg, tcfg = build_config(args)
+    plan = make_plan(tcfg, n_dp)
+    dev = torch.device(args.device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {args.device!r} requested but CUDA is "
+                           f"not available; pass --device cpu to run on "
+                           f"the CPU")
     print(f"[train] {cfg.name}: {cfg.param_count():,} params on "
-          f"{model.device}, plan rows {plan.rows_per_rank.tolist()} buffer "
-          f"{plan.buffer_rows} (efficiency {plan.efficiency():.2f}); "
-          f"attention and cross entropy through the kernels")
-    print("[train] no checkpoints are written (not ported yet); one "
-          "device, so no straggler replans")
-    step_fn = steps_mod.build_train_step(model, tcfg)
-
+          f"{args.device}, {n_dp} rank(s) (mesh {sizes}), plan rows "
+          f"{plan.rows_per_rank.tolist()} buffer {plan.buffer_rows} "
+          f"(efficiency {plan.efficiency():.2f}), reduction "
+          f"{args.grad_reduction} compression {args.compression} "
+          f"bucket_mb {args.bucket_mb}; attention, cross entropy and the "
+          f"int8 exchange through the kernels")
+    print("[train] no checkpoints are written (not ported yet); no "
+          "straggler replans")
     with contextlib.ExitStack() as stack:
         data_dir = args.data_dir or stack.enter_context(
             tempfile.TemporaryDirectory(prefix="hetseq_data_"))
-        corpus = build_synthetic_corpus(
-            data_dir, num_seqs=max(4 * plan.global_rows, 256),
-            seq_len=args.seq_len + 1, vocab=cfg.vocab_size,
-            rows_per_shard=64, seed=tcfg.seed)
-        sampler = HetSampler(ShardedDataset(corpus), plan, seed=tcfg.seed)
-        loader = PrefetchLoader(sampler, depth=args.prefetch)
-        state = steps_mod.init_train_state(model, tcfg)
-        if model.device.type == "cuda":
-            torch.cuda.reset_peak_memory_stats(model.device)
-
-        step, epoch = 0, 0
-        losses, step_s, records = [], [], []
-        t_start = time.time()
-        while step < args.steps:
-            for raw in loader.iter_epoch(epoch):
-                if step >= args.steps:
-                    break
-                batch = _to_device(raw, args.seq_len, model.device)
-                t0 = time.time()
-                state, metrics = step_fn(state, batch)
-                rec = {k: float(v) for k, v in metrics.items()}
-                dt = time.time() - t0          # float() synchronized
-                step += 1
-                losses.append(rec["loss"])
-                step_s.append(dt)
-                records.append(rec)
-                if step % args.log_every == 0 or step == args.steps:
-                    print(f"[train] step {step:5d} loss {rec['loss']:.4f} "
-                          f"grad_norm {rec['grad_norm']:.4f} weight "
-                          f"{rec['weight']:.0f} lr {rec['lr']:.3g} "
-                          f"({dt * 1e3:.0f} ms)", flush=True)
-            epoch += 1
-    wall = time.time() - t_start
-    print(f"[train] done: {step} steps in {wall:.1f}s, "
-          f"loss {losses[0]:.4f} -> {losses[-1]:.4f}")
-    return {"steps": step, "wall_s": wall, "first_loss": losses[0],
-            "last_loss": losses[-1], "losses": losses, "step_s": step_s,
-            "metrics": records, "plan": cap.plan_record(plan),
-            "state": state}
+        if n_dp == 1:
+            mesh = mesh_mod.local(shape, axes, dev)
+            print(f"[train] {mesh.describe()}")
+            ranks = [run_rank(args, mesh, data_dir, plan)]
+        else:
+            if dev.type == "cuda":
+                # every rank loads the library; build it once, here
+                from repro_torch.kernels import _build
+                _build.build()
+            # the ranks read one corpus: write it before they start
+            build_synthetic_corpus(
+                data_dir, num_seqs=max(4 * plan.global_rows, 256),
+                seq_len=args.seq_len + 1, vocab=cfg.vocab_size,
+                rows_per_shard=64, seed=tcfg.seed)
+            ranks = mesh_mod.spawn(_rank_main, n_dp,
+                                   (args, data_dir, plan))
+    out = dict(ranks[0])
+    if len(set(out["end_checksums"])) != 1:
+        raise RuntimeError(f"ranks end with different parameters: "
+                           f"checksums {out['end_checksums']}")
+    print(f"[train] done: {out['steps']} steps in {out['wall_s']:.1f}s, "
+          f"loss {out['first_loss']:.4f} -> {out['last_loss']:.4f}; "
+          f"{n_dp} rank(s), backend {out['backend']}, transport "
+          f"{out['transport']}; parameters identical on every rank")
+    if dev.type == "cuda":
+        print("[train] peak memory per rank (GiB): " + ", ".join(
+            f"{r['peak_memory_bytes'] / 2**30:.2f}" for r in ranks))
+    out["plan"] = cap.plan_record(plan)
+    out["ranks"] = [{k: v for k, v in r.items() if k != "state"}
+                    for r in ranks]
+    return out
 
 
 def parser() -> argparse.ArgumentParser:
@@ -187,9 +304,10 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--global-batch", type=int, default=16)
     ap.add_argument("--seq-len", type=int, default=64)
     ap.add_argument("--devices", default="1,1",
-                    help="mesh shape; only a one-device mesh so far")
+                    help="mesh shape data,model or pod,data,model (model "
+                         "must be 1): one process per data-parallel rank")
     ap.add_argument("--capacities", default="",
-                    help="per-DP-rank relative capacities (one rank here)")
+                    help="per-DP-rank relative capacities")
     ap.add_argument("--weighting", default="tokens",
                     choices=list(cfgbase.WEIGHTING_MODES))
     ap.add_argument("--grad-reduction", default="allreduce",

@@ -12,7 +12,8 @@ different points). The training kernels' outputs (lse, gradients,
 losses, dlogits) are not O(1): each is held by its relative L2 error to
 ``repro_torch.kernels.parity.RTOL`` for its kernel and dtype, and the
 autograd Functions against the "reference" impls' autograd to
-``AUTOGRAD_RTOL``.
+``AUTOGRAD_RTOL``. The int8 exchange kernels must equal their plain
+versions bit for bit.
 """
 import numpy as np
 import pytest
@@ -22,6 +23,8 @@ from repro_torch.kernels.cross_entropy import cross_entropy as ce
 from repro_torch.kernels.cross_entropy import ref as ce_ref
 from repro_torch.kernels.flash_attention import flash_attention as fa
 from repro_torch.kernels.parity import RTOL, rel_l2
+from repro_torch.kernels.quantize import quantize as qz
+from repro_torch.kernels.quantize import ref as q_ref
 
 pytestmark = pytest.mark.cuda
 DTYPES = [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)]
@@ -256,3 +259,71 @@ def test_autograd_functions_launch_kernels_and_match_reference(dev, dtype):
                           grads["reference"]):
         assert _close(f"autograd {name}", g, r, tol)
     assert not grads["kernel"][1][weights == 0].any()
+
+
+# --------------------------------------------------------------------------
+# the int8 exchange kernels: bitwise equal to their plain versions
+# --------------------------------------------------------------------------
+
+
+def _stack(rng, rows, dev, zero_rows=(0,)):
+    x = rng.standard_normal((rows, 256)).astype(np.float32)
+    x *= rng.uniform(1e-3, 10.0, (rows, 1)).astype(np.float32)
+    x[list(zero_rows)] = 0.0                    # all-zero blocks
+    return torch.from_numpy(x).to(dev)
+
+
+@pytest.mark.parametrize("rows,stochastic", [
+    (1, False), (7, False), (9, False), (1001, False), (4099, True),
+    (20001, True)])
+def test_quantize_kernel_bitwise_equal_plain(dev, rows, stochastic):
+    """Odd row counts (a partial last block of 8 warps), zero blocks, and
+    stochastic rounding with noise from a seeded generator."""
+    x = _stack(np.random.default_rng(rows), rows, dev,
+               zero_rows=(0, rows - 1))
+    noise = None
+    if stochastic:
+        gen = torch.Generator(device=dev).manual_seed(rows)
+        noise = torch.rand((rows, 256), generator=gen, device=dev)
+    n0 = qz.quantize_int8_cuda.launches
+    q, s = qz.quantize_int8_cuda(x, noise)
+    assert qz.quantize_int8_cuda.launches == n0 + 1
+    qr, sr = q_ref.quantize_blocks(x, noise)
+    torch.cuda.synchronize()
+    assert q.dtype == torch.int8 and s.dtype == torch.float32
+    assert torch.equal(q, qr)
+    assert torch.equal(s.view(torch.int32), sr.view(torch.int32))
+    assert float(s[0]) == np.float32(1e-12) and not q[0].any()
+    if rows > 2:
+        assert int(q.abs().max()) == 127
+
+
+@pytest.mark.parametrize("ranks,rows", [(1, 5), (2, 1001), (3, 7),
+                                        (8, 4099), (64, 33)])
+def test_dequant_accum_kernel_bitwise_equal_plain(dev, ranks, rows):
+    rng = np.random.default_rng(ranks * rows)
+    q = torch.from_numpy(rng.integers(-127, 128, (ranks, rows, 256)).astype(
+        np.int8)).to(dev)
+    s = torch.from_numpy((rng.random((ranks, rows)) * 0.1).astype(
+        np.float32)).to(dev)
+    n0 = qz.dequant_accum_cuda.launches
+    got = qz.dequant_accum_cuda(q, s)
+    assert qz.dequant_accum_cuda.launches == n0 + 1
+    want = q_ref.dequant_accum(q, s)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_quantize_kernels_refuse_what_they_do_not_take(dev):
+    x = torch.zeros((4, 256), device=dev)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        qz.quantize_int8_cuda(x.cpu())
+    with pytest.raises(ValueError, match=r"\(rows, 256\)"):
+        qz.quantize_int8_cuda(torch.zeros((4, 128), device=dev))
+    with pytest.raises(TypeError):
+        qz.quantize_int8_cuda(x.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        qz.quantize_int8_cuda(torch.zeros((256, 4), device=dev).t())
+    q = torch.zeros((65, 2, 256), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="ranks"):
+        qz.dequant_accum_cuda(q, torch.zeros((65, 2), device=dev))

@@ -50,7 +50,12 @@ def test_importing_every_port_module_leaves_jax_unloaded():
     assert {"repro_torch.launch.serve", "repro_torch.launch.train",
             "repro_torch.launch.steps", "repro_torch.optim.adam",
             "repro_torch.kernels.cross_entropy.cross_entropy",
-            "repro_torch.data.loader"} <= set(mods)
+            "repro_torch.data.loader", "repro_torch.launch.mesh",
+            "repro_torch.core.comm", "repro_torch.core.buckets",
+            "repro_torch.core.compression",
+            "repro_torch.kernels.quantize.ops",
+            "repro_torch.kernels.quantize.quantize",
+            "repro_torch.kernels.quantize.ref"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

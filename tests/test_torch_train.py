@@ -344,9 +344,8 @@ def test_three_train_steps_match_jax(arch, accum):
 def test_unported_train_modes_raise():
     _, tc = _cfgs("olmo-1b")
     model = tbuild(tc, "cpu")
-    for het, opt in ((dict(grad_reduction="hierarchical"), {}),
-                     (dict(grad_reduction="bucketed_allreduce",
-                           bucket_mb=1.0), {}),
+    for het, opt in ((dict(overlap="buckets", bucket_mb=1.0,
+                           grad_reduction="bucketed_allreduce"), {}),
                      (dict(weighting="canonical"), {}),
                      (dict(accum_steps=2, pipeline_stages=2), {}),
                      ({}, dict(name="lamb"))):
@@ -487,11 +486,13 @@ def test_train_without_cpu_device_raises_when_cuda_is_absent():
         pytest.skip("a CUDA device is present; this checks its absence")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ttrain.main(["--smoke", "--steps", "1"])
-    with pytest.raises(SystemExit, match="one device"):
-        ttrain.main(["--smoke", "--device", "cpu", "--devices", "2,1"])
+    with pytest.raises(NotImplementedError, match="model axis"):
+        ttrain.main(["--smoke", "--device", "cpu", "--devices", "2,2"])
     for flag in (["--ckpt-every", "5"], ["--resume"], ["--dry-run"],
                  ["--chaos", "flaky"], ["--kill-pod", "0@3"],
                  ["--ckpt-dir", "ck"], ["--no-scan-layers"],
-                 ["--bucket-mb", "1"], ["--replan-interval", "5"]):
+                 ["--overlap", "buckets", "--grad-reduction",
+                  "bucketed_allreduce", "--bucket-mb", "1"],
+                 ["--replan-interval", "5"]):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             ttrain.main(["--smoke", "--device", "cpu", *flag])
