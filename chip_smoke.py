@@ -88,8 +88,42 @@ Phases (any failure exits non-zero; no phase swallows an error):
    reduced gradient (fp32 and int8 exchange) against one process's on
    the union of the real rows. Prints ms per step, real tokens/s, the
    peak memory of each rank, the backend and the transport.
-8. Prints one ``{"kernels": [...]}`` line, then, last,
-   ``{"ok": true, "device": {...}}``. Details go to
+8. MLA kernel phase: the absorbed-MLA decode kernels
+   (``csrc/mla_decode.cu``) against their plain versions
+   (``ref.mla_decode_online_plain`` and its paged twin, which follow the
+   Pallas kernels step by step, p cast to the cache dtype) at
+   deepseek-v2 widths (H=128, r=512, Dr=64), fp32 (tolerance 1e-4, TF32
+   off) and bf16 (2e-2): the paged kernel with phase 2's tables (B=8,
+   bs=16, ragged kv_lens up to 512, NULL holes, an all-NULL inactive
+   slot whose output must be 0, one sequence at exactly MB*bs); the
+   contiguous kernel at B=8, S in {200, 512, 2048}; the prefill forward
+   at head dim 192 (B=2, S in {16, 512, 200}, H=Hkv=128, v zero-padded
+   from 128). Timed in bf16 at the MLA serve path's shapes (the paged
+   decode at B=8, the prefill at the 512 bucket; the contiguous kernel,
+   on no path, at S=512). Yardsticks: SDPA as MQA over the gathered
+   dense window (q = [q_abs | q_r], k = [ckv | kr], v = ckv, a boolean
+   length mask) and SDPA causal at head dim 192.
+9. MLA serve path phase: ``launch.serve.serve_config`` serves
+   deepseek-v2-236b at full width (d 5120, 128 heads, 160 routed top-6
+   experts and 2 shared, vocab 102400), depth cut to 8 of 60 layers
+   (65.6 GB of bf16 weights), random weights from seed 0, bf16 compute,
+   attention_impl="kernel", with phase 4's settings. The counters are
+   zeroed just before and read just after; every request must finish,
+   every step's logits be finite, the D=192 prefill launch once per
+   layer per prefill group and the paged MLA kernel once per layer per
+   decode step (the GQA kernels never). On the first prefill group and
+   the first decode step the reference path runs on the same inputs and
+   a copy of the cache; in bf16 the logit difference and the number of
+   tokens whose top-6 experts differ are printed for the record (the
+   routing flips on near-ties). Three decode steps run under
+   torch.profiler (device time by kernel). Then the gate: the same serve
+   at fp32 (TF32 off) on 2 layers, where the kernel path's logits must
+   be within 1e-3 of the reference path's (relative to the largest
+   reference logit). Each model is freed before the next is built.
+10. Prints one ``{"kernels": [...]}`` line (nine kernels; the prefill
+   kernel's D=192 case rides in its entry as ``at_d192``; the
+   contiguous MLA kernel lies on no path and reports 0 launches), then,
+   last, ``{"ok": true, "device": {...}}``. Details go to
    ``chiprun_out/chip_smoke.json``.
 
 ``python3 chip_smoke.py --cards 4`` (a machine with four cards) runs
@@ -217,16 +251,12 @@ def prefill_case(fa, b, s, dtype, gen, dev):
     return rec
 
 
-def paged_inputs(gen, dev, dtype):
-    """B=8 sequences over a 16-token-block pool: ragged kv_lens up to
-    MB*bs=512 (one exactly 512), NULL holes inside live windows and one
-    all-NULL inactive slot with kv_len 1."""
+def paged_tables(dev, b=8, bs=16, mb=32):
+    """Block tables of B=8 sequences over a pool of B*MB blocks of 16
+    tokens: ragged kv_lens up to MB*bs=512 (one exactly 512), NULL holes
+    inside live windows and one all-NULL inactive slot with kv_len 1."""
     import torch
-    b, bs, mb, hkv, h, d = 8, 16, 32, 4, 32, 64
     n = b * mb
-    q = torch.randn((b, 1, h, d), generator=gen, device=dev).to(dtype)
-    kp = torch.randn((n, bs, hkv, d), generator=gen, device=dev).to(dtype)
-    vp = torch.randn((n, bs, hkv, d), generator=gen, device=dev).to(dtype)
     lens = [512, 1, 37, 200, 16, 301, 455, 129]     # slot 1: inactive
     tables = torch.full((b, mb), n, dtype=torch.int32)
     perm = torch.randperm(n, generator=torch.Generator().manual_seed(0))
@@ -240,7 +270,18 @@ def paged_inputs(gen, dev, dtype):
         if nb > 2 and i % 2 == 0:
             tables[i, nb // 2] = n                # NULL hole
     kv_lens = torch.tensor(lens, dtype=torch.int32)
-    return q, kp, vp, tables.to(dev), kv_lens.to(dev)
+    return tables.to(dev), kv_lens.to(dev)
+
+
+def paged_inputs(gen, dev, dtype):
+    """GQA decode inputs at tinyllama widths over :func:`paged_tables`."""
+    import torch
+    b, bs, mb, hkv, h, d = 8, 16, 32, 4, 32, 64
+    n = b * mb
+    q = torch.randn((b, 1, h, d), generator=gen, device=dev).to(dtype)
+    kp = torch.randn((n, bs, hkv, d), generator=gen, device=dev).to(dtype)
+    vp = torch.randn((n, bs, hkv, d), generator=gen, device=dev).to(dtype)
+    return (q, kp, vp) + paged_tables(dev, b, bs, mb)
 
 
 def decode_case(fa, gen, dev, dtype):
@@ -313,11 +354,67 @@ def kernel_phase(fa, dev):
 # path phase
 # --------------------------------------------------------------------------
 
-def path_phase(fa, dev):
+def reference_checked_build(orig_build, compare, check_s, router_log=None,
+                            all_finite=False):
+    """A ``build_engine`` that, on the first prefill group and the first
+    decode step, first runs the model's "reference" path on the same
+    inputs and a copy of the cache, then the engine's own step, and hands
+    both logits to ``compare(what, got, want)``; the reference's time
+    goes to ``check_s[0]``. ``router_log["target"]`` names the path that
+    is running (for a caller recording MoE routing); ``all_finite``
+    checks the logits of every step."""
+    import torch
+    from repro_torch.models.model import build_model
+
+    def build_checked(model, params, layout, *a, **k):
+        eng = orig_build(model, params, layout, *a, **k)
+        ref = build_model(dataclasses.replace(model.cfg,
+                                              attention_impl="reference"),
+                          model.device)
+        first = {"prefill": True, "decode": True}
+        labels = {"prefill": "first prefill group",
+                  "decode": "first decode step"}
+
+        def checked(kind, fn, ref_fn, cache_at):
+            def run(*args):
+                if not first[kind]:
+                    got, cache = fn(*args)
+                else:
+                    first[kind] = False
+                    t0 = time.monotonic()
+                    ref_args = list(args)
+                    ref_args[cache_at] = {n: c.clone() for n, c in
+                                          args[cache_at].items()}
+                    if router_log is not None:
+                        router_log["target"] = "reference"
+                    want, _ = ref_fn(params, *ref_args)
+                    del ref_args
+                    torch.cuda.synchronize()
+                    check_s[0] += time.monotonic() - t0
+                    if router_log is not None:
+                        router_log["target"] = "kernel"
+                    got, cache = fn(*args)
+                    if router_log is not None:
+                        router_log["target"] = None
+                    compare(labels[kind], got, want)
+                if all_finite:
+                    check(bool(torch.isfinite(got).all()),
+                          f"non-finite logits in a {kind} step")
+                return got, cache
+            return run
+
+        eng.prefill_fns = {b: checked("prefill", f, ref.prefill_paged, 2)
+                           for b, f in eng.prefill_fns.items()}
+        eng.decode_fn = checked("decode", eng.decode_fn, ref.decode_paged,
+                                1)
+        return eng
+    return build_checked
+
+
+def path_phase(fa, md, dev):
     import torch
     from repro_torch.configs.base import resolve
     from repro_torch.launch import serve as tserve
-    from repro_torch.models.model import build_model
 
     full = resolve("tinyllama-1.1b")
 
@@ -338,60 +435,18 @@ def path_phase(fa, dev):
               f"{err:.4e} (tol {LOGIT_TOL * scale:.4e})", flush=True)
         check(err <= LOGIT_TOL * scale, f"{what}: logits differ by {err}")
 
-    def build_checked(model, params, layout, *a, **k):
-        eng = orig_build(model, params, layout, *a, **k)
-        ref = build_model(dataclasses.replace(model.cfg,
-                                              attention_impl="reference"),
-                          model.device)
-        first = {"prefill": True, "decode": True}
-
-        def prefill_checked(fn):
-            def run(prompts, lens, cache, tables):
-                if not first["prefill"]:
-                    return fn(prompts, lens, cache, tables)
-                first["prefill"] = False
-                t0 = time.monotonic()
-                copy = {n: c.clone() for n, c in cache.items()}
-                want, _ = ref.prefill_paged(params, prompts, lens, copy,
-                                            tables)
-                del copy
-                torch.cuda.synchronize()
-                check_s[0] += time.monotonic() - t0
-                got, cache = fn(prompts, lens, cache, tables)
-                compare("first prefill group", got, want)
-                return got, cache
-            return run
-
-        def decode_checked(fn):
-            def run(tokens, cache, tables, kv_lens):
-                if not first["decode"]:
-                    return fn(tokens, cache, tables, kv_lens)
-                first["decode"] = False
-                t0 = time.monotonic()
-                copy = {n: c.clone() for n, c in cache.items()}
-                want, _ = ref.decode_paged(params, tokens, copy, tables,
-                                           kv_lens)
-                del copy
-                torch.cuda.synchronize()
-                check_s[0] += time.monotonic() - t0
-                got, cache = fn(tokens, cache, tables, kv_lens)
-                compare("first decode step", got, want)
-                return got, cache
-            return run
-
-        eng.prefill_fns = {b: prefill_checked(f)
-                           for b, f in eng.prefill_fns.items()}
-        eng.decode_fn = decode_checked(eng.decode_fn)
-        return eng
-
-    tserve.build_engine = build_checked
+    tserve.build_engine = reference_checked_build(orig_build, compare,
+                                                  check_s)
     try:
         fa.flash_attention_cuda.launches = 0
         fa.flash_decode_paged_cuda.launches = 0
+        md.mla_decode_paged_cuda.launches = 0
         result = tserve.main(SERVE_ARGV)
         launches = {"flash_attention_cuda": fa.flash_attention_cuda.launches,
                     "flash_decode_paged_cuda":
-                        fa.flash_decode_paged_cuda.launches}
+                        fa.flash_decode_paged_cuda.launches,
+                    "mla_decode_paged_cuda":
+                        md.mla_decode_paged_cuda.launches}
     finally:
         tserve.build_engine = orig_build
 
@@ -417,6 +472,8 @@ def path_phase(fa, dev):
     check(launches["flash_decode_paged_cuda"] == layers * st["decode_steps"],
           f"decode launches {launches} != {layers} x "
           f"{st['decode_steps']} steps")
+    check(launches["mla_decode_paged_cuda"] == 0,
+          f"the MLA decode kernel launched on a GQA model: {launches}")
     check(st["kernel_launches"] == launches,
           f"engine stats {st['kernel_launches']} != counters {launches}")
     wall = st["wall_seconds"] - check_s[0]
@@ -1254,6 +1311,429 @@ def cards_main(dev, smi, cards):
 
 
 
+# --------------------------------------------------------------------------
+# MLA serving: kernel phase and path phase (deepseek-v2)
+# --------------------------------------------------------------------------
+
+MLA_H, MLA_R, MLA_DR, MLA_DQK = 128, 512, 64, 192
+MLA_SCALE = MLA_DQK ** -0.5
+MLA_LAYERS = 8            # depth cut: 8 of 60 layers fit one 80 GB card
+MLA_GATE_LAYERS = 2       # the fp32 kernel-vs-reference gate's depth
+# kernel path vs reference path logits of the fp32 gate (TF32 off):
+# the two differ in attention's summation order only. Relative to the
+# largest reference logit (at least 1).
+MLA_GATE_TOL = 1e-3
+MLA_SERVE_ARGV = [a if a != "tinyllama-1.1b" else "deepseek-v2-236b"
+                  for a in SERVE_ARGV]
+
+
+def _bound(nbytes, flops):
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = flops / H100_BF16_FLOPS * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def _mla_sdpa(qa, qr, ckv_win, kr_win, lens):
+    """The yardstick: SDPA as MQA over the dense window, q = [q_abs |
+    q_r] (B, H, 1, 576), k = [ckv | kr] (B, 1, S, 576), v = ckv (B, 1, S,
+    512), a boolean length mask (made before timing)."""
+    import torch
+    import torch.nn.functional as F
+    q = torch.cat([qa, qr], dim=-1)[:, :, None, :].contiguous()
+    k = torch.cat([ckv_win, kr_win], dim=-1)[:, None].contiguous()
+    v = ckv_win[:, None].contiguous()
+    pos = torch.arange(k.shape[2], device=k.device)
+    mask = (pos[None, :] < lens[:, None].long())[:, None, None, :]
+    return lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, scale=MLA_SCALE, enable_gqa=True)
+
+
+def mla_paged_case(md, mla_ref, gen, dev, dtype, timed):
+    """The serve phase's decode shape: B=8 slots, bs=16, MB=32, ragged
+    lengths (one at MB*bs, an inactive all-NULL slot), NULL holes."""
+    import torch
+    tables, kv_lens = paged_tables(dev)
+    b, mb = tables.shape
+    n, bs = b * mb, 16
+    qa = torch.randn((b, MLA_H, MLA_R), generator=gen, device=dev).to(dtype)
+    qr = torch.randn((b, MLA_H, MLA_DR), generator=gen, device=dev).to(dtype)
+    cp = torch.randn((n, bs, MLA_R), generator=gen, device=dev).to(dtype)
+    kp = torch.randn((n, bs, MLA_DR), generator=gen, device=dev).to(dtype)
+    args = (qa, qr, cp, kp, tables, kv_lens, MLA_SCALE)
+    got = md.mla_decode_paged_cuda(*args)
+    want = mla_ref.mla_decode_paged_online_plain(*args)
+    torch.cuda.synchronize()
+    check(not got[1].any().item(), "MLA decode: inactive slot is not 0")
+    rec = {"kernel": "mla_decode_paged_cuda", "dtype": str(dtype), "B": b,
+           "H": MLA_H, "r": MLA_R, "Dr": MLA_DR, "bs": bs, "N": n, "MB": mb,
+           "kv_lens": kv_lens.tolist(),
+           "max_abs_err": (got - want).abs().max().item()}
+    if timed:
+        rec["ms"] = cuda_ms(lambda: md.mla_decode_paged_cuda(*args))
+        rec["plain_ms"] = cuda_ms(
+            lambda: mla_ref.mla_decode_paged_online_plain(*args))
+        win = (mla_ref.gather_blocks(cp, tables),
+               mla_ref.gather_blocks(kp, tables))
+        rec["library_ms"] = cuda_ms(_mla_sdpa(qa, qr, *win, kv_lens))
+        # the latent rows below kv_len in mapped blocks, read once; q, the
+        # tables and lengths; the fp32 output
+        pos_ok = (torch.arange(mb * bs, device=dev)[None, :]
+                  < kv_lens[:, None].long())
+        mapped = ((tables >= 0) & (tables < n)).repeat_interleave(bs, dim=1)
+        rows = int((pos_ok & mapped).sum().item())
+        el = qa.element_size()
+        nbytes = (rows * (MLA_R + MLA_DR) * el + b * MLA_H * (MLA_R + MLA_DR)
+                  * el + tables.numel() * 4 + b * 4 + got.numel() * 4)
+        flops = (2.0 * (MLA_R + MLA_DR) + 2.0 * MLA_R) * MLA_H * int(
+            kv_lens.sum().item())
+        rec["bound_ms"], rec["bound_by"] = _bound(nbytes, flops)
+    return rec
+
+
+def mla_contiguous_case(md, mla_ref, s, gen, dev, dtype, timed):
+    """B=8 at S positions, lengths in [1, S] with one at S."""
+    import torch
+    b = 8
+    qa = torch.randn((b, MLA_H, MLA_R), generator=gen, device=dev).to(dtype)
+    qr = torch.randn((b, MLA_H, MLA_DR), generator=gen, device=dev).to(dtype)
+    ckv = torch.randn((b, s, MLA_R), generator=gen, device=dev).to(dtype)
+    kr = torch.randn((b, s, MLA_DR), generator=gen, device=dev).to(dtype)
+    lens = torch.randint(1, s + 1, (b,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    lens[0] = s
+    args = (qa, qr, ckv, kr, lens, MLA_SCALE)
+    got = md.mla_decode_cuda(*args)
+    want = mla_ref.mla_decode_online_plain(*args)
+    torch.cuda.synchronize()
+    rec = {"kernel": "mla_decode_cuda", "dtype": str(dtype), "B": b,
+           "H": MLA_H, "r": MLA_R, "Dr": MLA_DR, "S": s,
+           "kv_lens": lens.tolist(),
+           "max_abs_err": (got - want).abs().max().item()}
+    if timed:
+        rec["ms"] = cuda_ms(lambda: md.mla_decode_cuda(*args))
+        rec["plain_ms"] = cuda_ms(lambda: mla_ref.mla_decode_online_plain(
+            *args))
+        rec["library_ms"] = cuda_ms(_mla_sdpa(qa, qr, ckv, kr, lens))
+        el = qa.element_size()
+        live = int(lens.sum().item())
+        nbytes = (live * (MLA_R + MLA_DR) * el + b * MLA_H * (MLA_R + MLA_DR)
+                  * el + b * 4 + got.numel() * 4)
+        flops = (2.0 * (MLA_R + MLA_DR) + 2.0 * MLA_R) * MLA_H * live
+        rec["bound_ms"], rec["bound_by"] = _bound(nbytes, flops)
+    return rec
+
+
+def prefill192_case(fa, b, s, dtype, gen, dev, timed):
+    """The MLA prefill's attention: H = Hkv = 128, head dim 192 (v
+    zero-padded from 128 as the model pads it)."""
+    import torch
+    shape = (b, s, MLA_H, MLA_DQK)
+    q = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    k = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    v = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    v[..., 128:] = 0
+    run = lambda: fa.flash_attention_cuda(q, k, v, causal=True,
+                                          softmax_scale=MLA_SCALE)
+    got = run()
+    want = fa.flash_attention_plain(q, k, v, causal=True,
+                                    softmax_scale=MLA_SCALE)
+    torch.cuda.synchronize()
+    rec = {"kernel": "flash_attention_cuda", "dtype": str(dtype), "B": b,
+           "S": s, "H": MLA_H, "Hkv": MLA_H, "D": MLA_DQK,
+           "max_abs_err": (got.float() - want.float()).abs().max().item()}
+    if timed:
+        rec["ms"] = cuda_ms(run)
+        rec["plain_ms"] = cuda_ms(lambda: fa.flash_attention_plain(
+            q, k, v, causal=True, softmax_scale=MLA_SCALE))
+        qt, kt, vt = _sdpa_layout(q, k, v)
+        rec["library_ms"] = cuda_ms(lambda: _sdpa(qt, kt, vt, True))
+        rec["bound_ms"], rec["bound_by"] = _attn_bound(
+            b, s, MLA_H, MLA_H, MLA_DQK, 1.0, (q, k, v), (got,))
+    return rec
+
+
+def mla_kernel_phase(fa, md, mla_ref, dev):
+    """Both MLA decode kernels and the D=192 prefill against their plain
+    versions at deepseek-v2 widths, fp32 (TF32 off) and bf16; timed in
+    bf16 at the serve phase's shapes (decode: B=8 over the paged pool;
+    prefill: B=2 at the 512 bucket) and the contiguous kernel at B=8,
+    S=512."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(8)
+    recs = []
+    for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
+        bf16 = dtype == torch.bfloat16
+        new = [mla_paged_case(md, mla_ref, gen, dev, dtype, timed=bf16)]
+        new += [mla_contiguous_case(md, mla_ref, s, gen, dev, dtype,
+                                    timed=bf16 and s == 512)
+                for s in (200, 512, 2048)]
+        new += [prefill192_case(fa, 2, s, dtype, gen, dev,
+                                timed=bf16 and s == 512)
+                for s in (16, 512, 200)]
+        for r in new:
+            shape = {k: r[k] for k in ("B", "S", "H", "D", "MB") if k in r}
+            print(f"[mla-kernels] {r['kernel']} {r['dtype']} {shape}: max "
+                  f"abs err {r['max_abs_err']:.3e} (tol {tol:g})"
+                  + (f", {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+                     f"SDPA {r['library_ms']:.4f} ms, bound "
+                     f"{r['bound_ms']:.6f} ms ({r['bound_by']})"
+                     if "ms" in r else ""), flush=True)
+            r["tol"] = tol
+        bad = [f"{r['kernel']} {r['dtype']}: {r['max_abs_err']}"
+               for r in new if not r["max_abs_err"] <= tol]
+        check(not bad, "MLA kernels vs plain: " + "; ".join(bad))
+        recs += new
+    return recs
+
+
+# steps of the 8-layer run traced with torch.profiler, [first, last):
+# decode steps 10..12 and prefill group 2 (step and group 0 hold the
+# reference check and the first allocations)
+MLA_PROFILE = {"decode": (10, 13), "prefill": (2, 3)}
+
+
+def _kernel_times(prof):
+    """Device time of each kernel a profiler saw, summed by name."""
+    from torch.autograd import DeviceType
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n, us = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    return by_name
+
+
+def step_timed_build(build, times, profiles):
+    """Wrap ``build``'s prefill and decode steps: host clock between two
+    device synchronisations into ``times[kind]`` (and each prefill
+    group's bucket into ``times["prefill_bucket"]``); the steps in
+    ``MLA_PROFILE`` run under torch.profiler, and ``profiles[kind]`` gets
+    the window's wall time, the device time of its kernels and the top
+    kernels by device time. Starting and reading the profiler costs host
+    seconds outside the steps; they go to ``times["profiler_s"]``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    def timed(kind, fns):
+        lo, hi = MLA_PROFILE[kind]
+        prof = {}
+
+        def wrap(fn):
+            def run(*args):
+                step = len(times[kind])
+                if step == lo:
+                    t0 = time.monotonic()
+                    prof["p"] = tprofile(activities=[ProfilerActivity.CPU,
+                                                     ProfilerActivity.CUDA])
+                    prof["p"].__enter__()
+                    prof["t0"] = time.monotonic()
+                    times["profiler_s"] += prof["t0"] - t0
+                torch.cuda.synchronize()
+                t0 = time.monotonic()
+                out = fn(*args)
+                torch.cuda.synchronize()
+                times[kind].append(time.monotonic() - t0)
+                if kind == "prefill":
+                    times["prefill_bucket"].append(int(args[0].shape[1]))
+                if step == hi - 1:
+                    t0 = time.monotonic()
+                    wall_us = (t0 - prof["t0"]) * 1e6
+                    prof["p"].__exit__(None, None, None)
+                    by_name = _kernel_times(prof["p"])
+                    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+                    profiles[kind] = {
+                        "steps": hi - lo, "window_us": wall_us,
+                        "device_busy_us": sum(
+                            us for _, us in by_name.values()),
+                        "kernels": [{"name": n[:160], "count": c, "us": us}
+                                    for n, (c, us) in top[:20]]}
+                    times["profiler_s"] += time.monotonic() - t0
+                return out
+            return run
+        return {key: wrap(fn) for key, fn in fns.items()}
+
+    def build_timed(model, params, layout, *a, **k):
+        eng = build(model, params, layout, *a, **k)
+        eng.prefill_fns = timed("prefill", eng.prefill_fns)
+        eng.decode_fn = timed("decode", {0: eng.decode_fn})[0]
+        return eng
+    return build_timed
+
+
+def _serve_mla(cfg, args, build, counters):
+    """``serve_config`` on ``cfg``, its engine made by ``build``,
+    with every kernel counter zeroed just before and read just after;
+    frees the model when done."""
+    import gc
+    import torch
+    from repro_torch.launch import serve as tserve
+    orig = tserve.build_engine
+    tserve.build_engine = build
+    try:
+        for f in counters.values():
+            f.launches = 0
+        torch.cuda.reset_peak_memory_stats(torch.device("cuda", 0))
+        t0 = time.monotonic()
+        result = tserve.serve_config(cfg, args)
+        seconds = time.monotonic() - t0
+        launches = {n: f.launches for n, f in counters.items()}
+    finally:
+        tserve.build_engine = orig
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result, launches, peak, seconds
+
+
+def mla_path_phase(fa, md, dev, smi):
+    """deepseek-v2-236b served through ``serve_config`` at full width, 8
+    layers, bf16, attention_impl="kernel" (phase 4's settings): every
+    request finishes, launch counts, finite logits; the bf16 kernel vs
+    reference difference and the routing choices that differ on the
+    first prefill group and first decode step, for the record. Then the
+    gate: the same at fp32 (TF32 off) on 2 layers, where the kernel and
+    reference paths must agree."""
+    import torch
+    from repro_torch.configs.base import resolve
+    from repro_torch.launch import serve as tserve
+    from repro_torch.models import blocks as tblocks
+
+    full = resolve("deepseek-v2-236b")
+    args = tserve.parser().parse_args(MLA_SERVE_ARGV)
+    counters = {"flash_attention_cuda": fa.flash_attention_cuda,
+                "flash_decode_paged_cuda": fa.flash_decode_paged_cuda,
+                "mla_decode_paged_cuda": md.mla_decode_paged_cuda}
+    log = {"target": None, "reference": [], "kernel": []}
+    orig_router = tblocks._router
+
+    def router(params, x2d, cfg):
+        out = orig_router(params, x2d, cfg)
+        if log["target"] is not None:
+            log[log["target"]].append(out[1].sort(dim=-1).values)
+        return out
+
+    def run(cfg, gate):
+        checks, check_s = {}, [0.0]
+        log.update(reference=[], kernel=[])
+
+        def compare(what, got, want):
+            g, w = got.float(), want.float()
+            err = (g - w).abs().max().item()
+            scale = max(1.0, w.abs().max().item())
+            ks, rs = log["kernel"], log["reference"]
+            differ = sum(int((k != r).any(dim=-1).sum())
+                         for k, r in zip(ks, rs))
+            checks[what] = {"max_abs_err": err, "ref_max_abs": scale,
+                            "argmax_agree": float(
+                                (g.argmax(-1) == w.argmax(-1)).float()
+                                .mean()),
+                            "routed_tokens": sum(len(r) for r in rs),
+                            "routing_differs": differ}
+            log.update(reference=[], kernel=[])
+            tol = f" (tol {MLA_GATE_TOL * scale:.4e})" if gate else ""
+            print(f"[mla-path] {cfg.num_layers} layers {cfg.compute_dtype} "
+                  f"{what}: kernel vs reference logits max abs err "
+                  f"{err:.4e}{tol}, argmax agree "
+                  f"{checks[what]['argmax_agree']:.3f}, tokens routed "
+                  f"differently {differ} of "
+                  f"{checks[what]['routed_tokens']} (over the layers)",
+                  flush=True)
+            if gate:
+                checks[what]["tol"] = MLA_GATE_TOL * scale
+                check(err <= MLA_GATE_TOL * scale,
+                      f"MLA gate {what}: logits differ by {err}")
+
+        build = reference_checked_build(tserve.build_engine, compare,
+                                        check_s, router_log=log,
+                                        all_finite=True)
+        if not gate:
+            build = step_timed_build(build, step_s, profiles)
+        result, launches, peak, secs = _serve_mla(cfg, args, build, counters)
+        check(len(checks) == 2, f"reference checks ran: {sorted(checks)}")
+        return result, launches, peak, secs, checks, check_s[0]
+
+    step_s = {"prefill": [], "decode": [], "prefill_bucket": [],
+              "profiler_s": 0.0}
+    profiles = {}
+
+    tblocks._router = router
+    try:
+        held = torch.cuda.memory_allocated(dev) / 2**30
+        print(f"[mla-path] before: {held:.2f} GiB allocated on the card",
+              flush=True)
+        cfg = dataclasses.replace(full, num_layers=MLA_LAYERS,
+                                  attention_impl="kernel")
+        result, launches, peak, secs, checks, check_s = run(cfg, gate=False)
+        gate_cfg = dataclasses.replace(
+            full, num_layers=MLA_GATE_LAYERS, compute_dtype="float32",
+            attention_impl="kernel")
+        _, gate_launches, gate_peak, gate_secs, gate_checks, _ = run(
+            gate_cfg, gate=True)
+    finally:
+        tblocks._router = orig_router
+
+    st = result.stats
+    reqs = tserve.synthetic_requests(
+        args.requests, full.vocab_size, args.rate,
+        (args.min_prompt, args.max_prompt), (args.min_gen, args.max_gen),
+        args.seed)
+    for r in reqs:
+        toks = result.tokens[r.rid]
+        check(len(toks) == r.max_new_tokens,
+              f"MLA request {r.rid}: {len(toks)} of {r.max_new_tokens}")
+        check(all(0 <= t < full.vocab_size for t in toks),
+              f"MLA request {r.rid}: token id out of vocab")
+    expect = {"flash_attention_cuda": MLA_LAYERS * st["prefill_groups"],
+              "flash_decode_paged_cuda": 0,
+              "mla_decode_paged_cuda": MLA_LAYERS * st["decode_steps"]}
+    check(launches == expect, f"MLA launches {launches} != {expect}")
+    check(st["kernel_launches"] == launches,
+          f"engine stats {st['kernel_launches']} != counters {launches}")
+    gate_st = gate_launches["mla_decode_paged_cuda"]
+    check(gate_st > 0 and gate_launches["flash_attention_cuda"] > 0,
+          f"the fp32 gate did not run the kernels: {gate_launches}")
+    wall = st["wall_seconds"] - check_s - step_s["profiler_s"]
+    out = {"layers": MLA_LAYERS, "stats": st, "launches": launches,
+           "expected_launches": expect, "bf16_checks": checks,
+           "check_seconds": check_s, "seconds": secs,
+           "profiler_seconds": step_s["profiler_s"],
+           "tokens_per_s_wall": st["total_tokens"] / wall,
+           "ms_per_decode_step_median": statistics.median(
+               step_s["decode"][1:]) * 1e3,
+           "prefill_group_ms": [(bkt, t * 1e3) for bkt, t in zip(
+               step_s["prefill_bucket"], step_s["prefill"])],
+           "profiles": profiles,
+           "peak_memory_gib": peak, "weights_gib": tserve.weight_bytes(
+               cfg) / 2**30,
+           "gate": {"layers": MLA_GATE_LAYERS, "checks": gate_checks,
+                    "launches": gate_launches, "peak_memory_gib": gate_peak,
+                    "seconds": gate_secs}}
+    print(f"[mla-path] deepseek-v2-236b, {MLA_LAYERS} of 60 layers at full "
+          f"width, bf16: {st['requests']} requests, {st['total_tokens']} "
+          f"tokens in {wall:.3f} s of wall (reference checks and the "
+          f"profiler's start and stop excluded): "
+          f"{out['tokens_per_s_wall']:.1f} tok/s, {st['decode_steps']} decode "
+          f"steps (median {out['ms_per_decode_step_median']:.2f} ms, "
+          f"reference check excluded), {st['prefill_groups']} prefill "
+          f"groups, peak memory "
+          f"{peak:.2f} GiB (weights {out['weights_gib']:.2f} GiB), launches "
+          f"{launches}; fp32 gate on {MLA_GATE_LAYERS} layers: peak "
+          f"{gate_peak:.2f} GiB [{smi}]", flush=True)
+    print("[mla-path] prefill groups (bucket, ms; group 0 holds the "
+          "reference check): " + ", ".join(
+              f"({bkt}, {ms:.1f})" for bkt, ms in out["prefill_group_ms"]),
+          flush=True)
+    for kind, prof in profiles.items():
+        busy, win = prof["device_busy_us"], prof["window_us"]
+        print(f"[mla-path] torch.profiler over {prof['steps']} {kind} "
+              f"step(s): kernels {busy / 1e3:.3f} ms of device time in "
+              f"{win / 1e3:.3f} ms of wall; by kernel: " + "; ".join(
+                  f"{k['name'][:48]} x{k['count']} {k['us'] / 1e3:.3f} ms"
+                  for k in prof["kernels"][:10]), flush=True)
+    return out
+
+
 def _finite(x):
     return x == x and abs(x) != float("inf")
 
@@ -1300,6 +1780,8 @@ def main(argv=None) -> int:
     from repro_torch.kernels.cross_entropy import cross_entropy as ce
     from repro_torch.kernels.cross_entropy import ref as ce_ref
     from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.mla_decode import mla_decode as md
+    from repro_torch.kernels.mla_decode import ref as mla_ref
     t0 = time.monotonic()
     lib_path = _build.build(verbose=True)
     _build.load()
@@ -1317,7 +1799,7 @@ def main(argv=None) -> int:
     recs += train_kernel_phase(fa, ce, ce_ref, dev, rows_mb, seq)
     phases["train_kernels"] = time.monotonic() - t0
     t0 = time.monotonic()
-    path = path_phase(fa, dev)
+    path = path_phase(fa, md, dev)
     phases["serve_path"] = time.monotonic() - t0
     t0 = time.monotonic()
     train = train_phase(fa, ce, dev)
@@ -1328,6 +1810,12 @@ def main(argv=None) -> int:
     t0 = time.monotonic()
     multi = multi_rank_phase(dev, smi)
     phases["multi_rank_path"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    recs += mla_kernel_phase(fa, md, mla_ref, dev)
+    phases["mla_kernels"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    mla = mla_path_phase(fa, md, dev, smi)
+    phases["mla_serve_path"] = time.monotonic() - t0
     print("[phases] seconds: " + ", ".join(
         f"{k} {v:.1f}" for k, v in phases.items()), flush=True)
 
@@ -1352,25 +1840,42 @@ def main(argv=None) -> int:
                root + "quantize/quantize.py:50"),
            "dequant_accum_cuda": (
                "src/repro_torch/csrc/quantize.cu",
-               root + "quantize/quantize.py:107")}
-    # launches: the path each kernel serves (decode: serve; the exchange
-    # kernels: the multi-rank train path, this slice's, rank 0's counts;
-    # the rest: the one-rank train path); every path's counts go to the
-    # json
+               root + "quantize/quantize.py:107"),
+           "mla_decode_paged_cuda": (
+               "src/repro_torch/csrc/mla_decode.cu",
+               root + "mla_decode/mla_decode.py:178"),
+           "mla_decode_cuda": (
+               "src/repro_torch/csrc/mla_decode.cu",
+               root + "mla_decode/mla_decode.py:80")}
+    # launches: the path each kernel serves (GQA decode: serve; the MLA
+    # paged decode: the MLA serve path; the exchange kernels: the
+    # multi-rank train path, rank 0's counts; the rest: the one-rank
+    # train path); every path's counts go to the json. The contiguous
+    # MLA kernel lies on no path (none in the JAX package either): its
+    # launches are 0 and it is held to its plain version only.
     by_path = {n: {"serve": path["launches"].get(n, 0),
                    "train": train["launches"].get(n, 0),
-                   "multi_rank": multi["launches"].get(n, 0)} for n in src}
+                   "multi_rank": multi["launches"].get(n, 0),
+                   "mla_serve": mla["launches"].get(n, 0)} for n in src}
     path_of = {"flash_decode_paged_cuda": "serve",
                "quantize_int8_cuda": "multi_rank",
-               "dequant_accum_cuda": "multi_rank"}
+               "dequant_accum_cuda": "multi_rank",
+               "mla_decode_paged_cuda": "mla_serve",
+               "mla_decode_cuda": None}
+    at_keys = ("dtype", "B", "Sq", "S", "H", "Hkv", "D", "T", "V", "R",
+               "kv_lens", "bs", "rows", "MB")
     kernels = []
     for name, (source, replaces) in src.items():
         mine = [r for r in recs if r["kernel"] == name]
-        main_rec = [r for r in mine if "ms" in r][-1]
+        timed = [r for r in mine if "ms" in r]
+        # the prefill kernel's row is the train path's D=128 case; its
+        # D=192 case (the MLA prefill) rides beside it
+        main_rec = [r for r in timed if r.get("D") != MLA_DQK][-1]
         path_name = path_of.get(name, "train")
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": by_path[name][path_name],
+            "replaces": replaces,
+            "launches": by_path[name][path_name] if path_name else 0,
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"],
             "bound_ms": main_rec["bound_ms"],
@@ -1378,17 +1883,24 @@ def main(argv=None) -> int:
             "library_ms": main_rec["library_ms"],
             "launches_by_path": by_path[name],
             "two_call_ms": main_rec.get("two_call_ms"),
-            "at": {k: main_rec[k] for k in main_rec
-                   if k in ("dtype", "B", "Sq", "S", "H", "Hkv", "D", "T",
-                            "V", "R", "kv_lens", "bs", "rows")}})
-        check(kernels[-1]["launches"] > 0, f"{name} never launched on its "
-              f"path")
+            "at": {k: main_rec[k] for k in main_rec if k in at_keys}})
+        d192 = [r for r in timed if r.get("D") == MLA_DQK]
+        if d192:
+            kernels[-1]["at_d192"] = {
+                "launches": by_path[name]["mla_serve"],
+                **{k: d192[-1][k] for k in ("ms", "plain_ms", "bound_ms",
+                                            "bound_by", "library_ms")},
+                "at": {k: d192[-1][k] for k in d192[-1] if k in at_keys}}
+        if path_name:
+            check(kernels[-1]["launches"] > 0, f"{name} never launched on "
+                  f"its path")
+    check(len(kernels) == 9, f"{len(kernels)} kernels listed")
 
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"nvidia_smi": smi, "phase_seconds": phases, "kernel_cases": recs,
          "path": path, "train": train, "multi_rank": multi,
-         "kernels": kernels}, indent=1,
+         "mla_path": mla, "kernels": kernels}, indent=1,
         default=str))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

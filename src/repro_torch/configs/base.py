@@ -144,7 +144,7 @@ class ModelConfig:
         return self.num_heads // max(self.num_kv_heads, 1)
 
     def param_count(self) -> int:
-        """Total parameter count of the dense plan the port builds
+        """Total parameter count of the uniform plan the port builds
         (``transformer.init_params``), computed from the widths."""
         from repro_torch.models.transformer import count_params_analytic
         return count_params_analytic(self)
@@ -403,6 +403,7 @@ def smoke_config(arch_id: str) -> ModelConfig:
 
 
 def _ensure_loaded() -> None:
-    # the arch modules register themselves on import; the other eight
+    # the arch modules register themselves on import; the other seven
     # JAX arch files have no counterpart in the port yet
-    from repro_torch.configs import olmo_1b, tinyllama_1_1b  # noqa: F401
+    from repro_torch.configs import (  # noqa: F401
+        deepseek_v2_236b, olmo_1b, tinyllama_1_1b)

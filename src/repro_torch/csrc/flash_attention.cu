@@ -6,7 +6,8 @@
 //
 // Computes out = softmax(q k^T * scale + mask) v with
 //   q (B, Sq, H, D), k/v (B, Skv, Hkv, D), out (B, Sq, H, D), all in
-//   the same dtype (fp32 or bf16), contiguous, D in {64, 128}; q head h
+//   the same dtype (fp32 or bf16), contiguous, D in {64, 128, 192} (192:
+//   MLA prefill, q/k = [nope | rope] and v zero-padded); q head h
 //   reads kv head h / (H / Hkv); mask = (kpos < Skv) && (!causal ||
 //   qpos >= kpos), qpos = row + q_offset. Softmax state (running max m,
 //   running sum l, accumulator acc) is fp32. When lse is not null it
@@ -20,7 +21,9 @@
 //   byte: under the card's ~295 balance point up to S of about 660, so
 //   the serving buckets (16..512) are bound by bytes at 3.35 TB/s, and
 //   longer prompts by the tensor cores' 989 TFLOP/s. At olmo-1b widths
-//   (H=Hkv=16, D=128) training at S=1024 is bound by the tensor cores.
+//   (H=Hkv=16, D=128) training at S=1024 is bound by the tensor cores,
+//   and so is deepseek-v2's MLA prefill (H=Hkv=128, D=192) from S of
+//   about 300 on.
 //   Both bounds are two orders of magnitude below what this version
 //   takes.
 //
@@ -47,9 +50,13 @@
 //     32 rows at D=128. With 64 rows at D=128 a lane holds 16 rows x 4
 //     accumulators plus m and l, and ptxas spilled 24 bytes a thread
 //     (128 registers); with 32 rows it reports 80 registers and no
-//     spills (ptxas -v, on the card's nvcc). The tiles take 48.5 KB at
-//     D=128, above the 48 KB of static shared memory, so both widths
-//     take them as dynamic shared memory (opted in once per width).
+//     spills (ptxas -v, on the card's nvcc). At D=192 a lane holds 6
+//     accumulators a row, and the q tile is 16 rows (4 a warp): 72
+//     registers and no spills in fp32, 64 registers and an 8-byte spill
+//     in bf16 (nvcc 12.8), left as it is for this first version. The
+//     tiles take 48.5 KB at D=128 and 61.6 KB at D=192, above the 48 KB
+//     of static shared memory, so every width takes them as dynamic
+//     shared memory (opted in at each launch).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
@@ -86,7 +93,7 @@ __device__ __forceinline__ float warp_sum(float x) {
 // q rows per block
 template <int D>
 __host__ __device__ constexpr int q_tile() {
-  return D == 128 ? 32 : 64;
+  return D == 192 ? 16 : D == 128 ? 32 : 64;
 }
 
 template <int D>
@@ -226,23 +233,25 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    int Sq, int Skv, int H, int Hkv, int D,
                                    int causal, int q_offset, float scale,
                                    int dtype, void* stream) {
-  if ((D != 64 && D != 128) || Hkv <= 0 || H % Hkv != 0 || B <= 0 ||
-      Sq <= 0)
+  if ((D != 64 && D != 128 && D != 192) || Hkv <= 0 || H % Hkv != 0 ||
+      B <= 0 || Sq <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   float* l = (float*)lse;
+#define REPRO_FWD(T, DD)                                                  \
+  if (D == DD)                                                            \
+    return launch<T, DD>(q, k, v, o, l, B, Sq, Skv, H, Hkv, causal,      \
+                         q_offset, scale, s)
   if (dtype == 0) {
-    return D == 64 ? launch<float, 64>(q, k, v, o, l, B, Sq, Skv, H, Hkv,
-                                       causal, q_offset, scale, s)
-                   : launch<float, 128>(q, k, v, o, l, B, Sq, Skv, H, Hkv,
-                                        causal, q_offset, scale, s);
+    REPRO_FWD(float, 64);
+    REPRO_FWD(float, 128);
+    REPRO_FWD(float, 192);
   }
   if (dtype == 1) {
-    return D == 64
-               ? launch<__nv_bfloat16, 64>(q, k, v, o, l, B, Sq, Skv, H, Hkv,
-                                           causal, q_offset, scale, s)
-               : launch<__nv_bfloat16, 128>(q, k, v, o, l, B, Sq, Skv, H,
-                                            Hkv, causal, q_offset, scale, s);
+    REPRO_FWD(__nv_bfloat16, 64);
+    REPRO_FWD(__nv_bfloat16, 128);
+    REPRO_FWD(__nv_bfloat16, 192);
   }
+#undef REPRO_FWD
   return (int)cudaErrorInvalidValue;
 }

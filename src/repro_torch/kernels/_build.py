@@ -123,6 +123,19 @@ def load() -> ctypes.CDLL:
                 ci, ci, ci, ci, ci, ci, ci,     # B, H, Hkv, D, N, bs, MB
                 cf, ci, vp]                     # scale, dtype, stream
             lib.paged_decode_fwd.restype = ci
+            lib.mla_decode_fwd.argtypes = [
+                vp, vp, vp, vp, vp, vp,         # q_abs, q_r, ckv, kr,
+                                                # kv_len, out
+                ci, ci, ci, ci, ci,             # B, H, R, DR, S
+                cf, ci, vp]                     # scale, dtype, stream
+            lib.mla_decode_fwd.restype = ci
+            lib.mla_decode_paged_fwd.argtypes = [
+                vp, vp, vp, vp, vp, vp, vp,     # q_abs, q_r, ckv_pool,
+                                                # kr_pool, tables, kv_lens,
+                                                # out
+                ci, ci, ci, ci, ci, ci, ci,     # B, H, R, DR, N, bs, MB
+                cf, ci, vp]                     # scale, dtype, stream
+            lib.mla_decode_paged_fwd.restype = ci
             cll = ctypes.c_longlong
             lib.quantize_int8_fwd.argtypes = [
                 vp, vp, vp, vp, cll, vp]        # x, noise (or 0), q, s,

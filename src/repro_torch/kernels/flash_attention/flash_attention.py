@@ -2,11 +2,12 @@
 
   * :func:`flash_attention_cuda` — causal GQA flash-attention forward
     (``csrc/flash_attention.cu``), replacing the JAX package's
-    ``flash_attention_pallas``; head dim 64 or 128, optionally with the
-    row log-sum-exp. Used by prefill and by training.
+    ``flash_attention_pallas``; head dim 64, 128 or 192 (MLA prefill),
+    optionally with the row log-sum-exp. Used by prefill and by
+    training.
   * :func:`flash_attention_bwd_cuda` — its recompute backward
     (``csrc/flash_attention_bwd.cu``), held against ``ref.py::_flash_bwd``
-    (the Pallas kernel has no backward).
+    (the Pallas kernel has no backward); head dim 64 or 128.
   * :class:`FlashAttentionFn` — the two as one ``torch.autograd.Function``.
   * :func:`flash_decode_paged_cuda` — single-query GQA decode over a
     paged pool with the block-table gather inside the kernel
@@ -30,7 +31,8 @@ import torch
 from repro_torch.kernels.flash_attention import ref
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-PREFILL_HEAD_DIMS = (64, 128)   # head dims of the prefill kernels
+PREFILL_HEAD_DIMS = (64, 128, 192)   # head dims of the forward kernel
+BWD_HEAD_DIMS = (64, 128)            # head dims of the backward kernel
 HEAD_DIM = 64          # the head dim the decode kernel is built for
 MAX_GROUP = 16         # most query heads per kv head the decode kernel takes
 
@@ -101,7 +103,8 @@ def flash_attention_cuda(
                                      softmax_scale=softmax_scale,
                                      return_lse=return_lse)
     name = "flash_attention_cuda"
-    b, sq, h, d, skv, hkv = _check_attention(name, q, k, v, q_offset)
+    b, sq, h, d, skv, hkv = _check_attention(name, PREFILL_HEAD_DIMS, q, k,
+                                             v, q_offset)
     scale = softmax_scale if softmax_scale is not None else d ** -0.5
     out = torch.empty_like(q)
     lse = (torch.empty((b, sq, h), dtype=torch.float32, device=q.device)
@@ -125,7 +128,7 @@ def flash_attention_cuda(
 flash_attention_cuda.launches = 0
 
 
-def _check_attention(name, q, k, v, q_offset, *more):
+def _check_attention(name, dims, q, k, v, q_offset, *more):
     _check_cuda(name, q.dtype, q, k, v, *more)
     b, sq, h, d = q.shape
     bk, skv, hkv, dk = k.shape
@@ -134,8 +137,8 @@ def _check_attention(name, q, k, v, q_offset, *more):
     if v.shape != k.shape or bk != b or dk != d:
         raise ValueError(f"{name}: shapes q {tuple(q.shape)} k "
                          f"{tuple(k.shape)} v {tuple(v.shape)} disagree")
-    if d not in PREFILL_HEAD_DIMS or hkv <= 0 or h % hkv:
-        raise ValueError(f"{name}: needs D in {PREFILL_HEAD_DIMS} and "
+    if d not in dims or hkv <= 0 or h % hkv:
+        raise ValueError(f"{name}: needs D in {dims} and "
                          f"H % Hkv == 0, got D={d} H={h} Hkv={hkv}")
     if q_offset < 0:
         raise ValueError(f"{name}: q_offset must be >= 0")
@@ -163,8 +166,8 @@ def flash_attention_bwd_cuda(
                                          causal=causal, q_offset=q_offset,
                                          softmax_scale=softmax_scale)
     name = "flash_attention_bwd_cuda"
-    b, sq, h, d, skv, hkv = _check_attention(name, q, k, v, q_offset, out,
-                                             lse, dout)
+    b, sq, h, d, skv, hkv = _check_attention(name, BWD_HEAD_DIMS, q, k, v,
+                                             q_offset, out, lse, dout)
     if out.shape != q.shape or dout.shape != q.shape:
         raise ValueError(f"{name}: out {tuple(out.shape)} / dout "
                          f"{tuple(dout.shape)} differ from q "

@@ -12,12 +12,21 @@ The JAX driver's jitted step builders
 plain closures in :func:`build_engine`: without jit or shardings they
 need no module of their own.
 
+:func:`serve` resolves the config from the command line and hands it
+to :func:`serve_config`, which runs the engine on any config, such as
+one cut in depth (deepseek-v2-236b's 60 layers do not fit one card;
+``chip_smoke.py`` serves it at full width with 8 layers). Before it
+allocates, ``serve_config`` raises ``ValueError`` when the weights need
+more bytes than the card has.
+
 Example (H100):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
       --slots 8 --requests 16 --pod-speeds 1,0.5
-Example (CPU, smoke config):
+Example (CPU, smoke configs):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
       --smoke --device cpu --slots 4 --requests 12 --pod-speeds 1,0.5
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch deepseek-v2-236b --smoke --device cpu
 """
 from __future__ import annotations
 
@@ -29,6 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import base as cfgbase
+from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as tr
 from repro_torch.models.blocks import dtype_of
 from repro_torch.models.kvcache import PagedLayout
@@ -81,15 +91,46 @@ def synthetic_requests(n: int, vocab: int, rate: float,
     return reqs
 
 
+def weight_bytes(cfg: ModelConfig) -> int:
+    """Bytes of the weights serving holds: the parameters in their dtype,
+    plus the serving copy in the compute dtype where the two differ."""
+    n = cfg.param_count()
+    pdt, cdt = dtype_of(cfg.param_dtype), dtype_of(cfg.compute_dtype)
+    return n * (pdt.itemsize + (cdt.itemsize if cdt != pdt else 0))
+
+
+def check_fits(cfg: ModelConfig, device: torch.device) -> None:
+    """Raise ``ValueError`` when the weights alone need more bytes than
+    the card has (before anything is allocated)."""
+    if device.type != "cuda":
+        return
+    need = weight_bytes(cfg)
+    have = torch.cuda.get_device_properties(device).total_memory
+    if need > have:
+        raise ValueError(
+            f"{cfg.name} with {cfg.num_layers} layers: the weights need "
+            f"{need} bytes ({need / 2**30:.1f} GiB) and the card has "
+            f"{have} bytes ({have / 2**30:.1f} GiB); serve fewer layers "
+            f"(serve_config with dataclasses.replace(cfg, num_layers=...))")
+
+
 def serve(args):
+    cfg = (cfgbase.smoke_config(args.arch) if args.smoke
+           else cfgbase.resolve(args.arch))
+    cfg = dataclasses.replace(cfg, attention_impl=args.attention_impl)
+    return serve_config(cfg, args)
+
+
+def serve_config(cfg: ModelConfig, args):
+    """Serve ``cfg`` (its ``attention_impl`` as given) with the settings
+    of ``args`` (``parser()``'s namespace; ``--arch``, ``--smoke`` and
+    ``--attention-impl`` are not read here)."""
     dshape = tuple(int(x) for x in args.devices.split(","))
     if int(np.prod(dshape)) != 1:
         raise SystemExit(f"--devices {args.devices}: repro_torch serves on "
                          f"one device so far (mesh of size 1)")
-    cfg = (cfgbase.smoke_config(args.arch) if args.smoke
-           else cfgbase.resolve(args.arch))
-    cfg = dataclasses.replace(cfg, attention_impl=args.attention_impl)
     model = build_model(cfg, args.device)
+    check_fits(cfg, model.device)
     dp = int(np.prod(dshape[:-1]))
     pod_speeds = ([float(s) for s in args.pod_speeds.split(",")]
                   if args.pod_speeds else [1.0] * dp)
@@ -161,10 +202,12 @@ def parser() -> argparse.ArgumentParser:
                          "(default: 1.0 per DP rank)")
     ap.add_argument("--attention-impl", default="kernel",
                     choices=list(cfgbase.ATTENTION_IMPLS),
-                    help="'kernel' runs the hand-written CUDA prefill and "
-                         "paged-decode kernels on CUDA tensors (their plain "
-                         "versions on CPU tensors); 'reference' "
-                         "materializes the window")
+                    help="'kernel' runs the hand-written CUDA kernels on "
+                         "CUDA tensors (their plain versions on CPU "
+                         "tensors): prefill flash attention, and the GQA "
+                         "paged decode or, for MLA (deepseek-v2), the "
+                         "absorbed-MLA paged decode (csrc/mla_decode.cu); "
+                         "'reference' materializes the window")
     return ap
 
 

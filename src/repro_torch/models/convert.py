@@ -7,7 +7,10 @@ conversion copies each array as it is, with no transpose. The only
 change of structure is the layer stack: the JAX package stacks every
 ``layers`` leaf along a leading (L, ...) axis for ``lax.scan``; the
 port keeps a list of per-layer dicts. A tied model has no ``lm_head``
-and a non-parametric norm is an empty dict on both sides.
+and a non-parametric norm is an empty dict on both sides. Nested layer
+dicts (the MLA projections under ``attn``, the MoE ``router``,
+``w_gate``/``w_up``/``w_down`` of shape (E, ...) and ``shared`` under
+``moe``) are carried over key for key.
 :func:`params_to_numpy` is the inverse, for comparing a port tree with
 a JAX tree leaf by leaf.
 """
@@ -36,7 +39,7 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
                     device) -> Dict[str, Any]:
     """Map the JAX ``init_params`` tree (leaves as numpy arrays, e.g.
     ``jax.tree.map(np.asarray, params)``) to the port's parameters."""
-    check_supported(cfg)
+    check_supported(cfg, serving=True)
     expected = {"embed", "final_norm", "layers"}
     if not cfg.tie_embeddings:
         expected.add("lm_head")

@@ -1,9 +1,12 @@
-"""Paged KV cache and single-token paged decode attention
-(port of the paged GQA family of ``repro/models/kvcache.py``).
+"""Paged KV caches and single-token paged decode attention, GQA and
+absorbed MLA (port of the paged family of ``repro/models/kvcache.py``).
 
-The cache is a pool of fixed-size blocks, ``k``/``v`` (L, N, bs, Hkv,
-Dh) in the compute dtype, and each sequence owns a block table mapping
-its logical block j to a physical pool block. Unmapped entries hold the
+The cache is a pool of fixed-size blocks in the compute dtype, and each
+sequence owns a block table mapping its logical block j to a physical
+pool block:
+  GQA : ``k``/``v`` (L, N, bs, Hkv, Dh)
+  MLA : ``c_kv`` (L, N, bs, r) latent + ``k_rope`` (L, N, bs, Dr)
+ Unmapped entries hold the
 NULL sentinel ``N`` (one past the pool). The JAX package relies on
 ``mode="drop"`` scatters and ``mode="fill"`` gathers to make NULL
 entries inert; PyTorch raises on (or, on the card, faults at) an
@@ -24,7 +27,10 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import ops as attn_ops
-from repro_torch.models.blocks import _cast, attention_qkv, dtype_of
+from repro_torch.kernels.mla_decode import ops as mla_ops
+from repro_torch.kernels.mla_decode.ref import NEG_INF, gather_blocks
+from repro_torch.models.blocks import (_cast, attention_qkv, dtype_of,
+                                       mla_latent, mla_queries)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,6 +72,18 @@ def init_gqa_paged_cache(cfg: ModelConfig, num_layers: int,
     cdt = dtype_of(cfg.compute_dtype)
     return {"k": torch.zeros(shape, dtype=cdt, device=device),
             "v": torch.zeros(shape, dtype=cdt, device=device)}
+
+
+def init_mla_paged_cache(cfg: ModelConfig, num_layers: int,
+                         layout: PagedLayout, device
+                         ) -> Dict[str, torch.Tensor]:
+    m = cfg.mla
+    base = (num_layers, layout.num_blocks, layout.block_size)
+    cdt = dtype_of(cfg.compute_dtype)
+    return {"c_kv": torch.zeros(base + (m.kv_lora_rank,), dtype=cdt,
+                                device=device),
+            "k_rope": torch.zeros(base + (m.rope_head_dim,), dtype=cdt,
+                                  device=device)}
 
 
 def write_prefill_blocks(paged: Dict[str, torch.Tensor],
@@ -139,3 +157,62 @@ def attention_decode_paged(params, x: torch.Tensor, cfg: ModelConfig,
     out = out.reshape(b, 1, cfg.num_heads * cfg.head_dim)
     y = out @ _cast(params["wo"], cfg.compute_dtype)
     return y, (k_cache, v_cache)
+
+
+def mla_decode_paged(params, x: torch.Tensor, cfg: ModelConfig,
+                     ckv_cache: torch.Tensor, kr_cache: torch.Tensor,
+                     block_tables: torch.Tensor, kv_lens: torch.Tensor,
+                     write_index: Optional[Tuple] = None):
+    """One-token absorbed-MLA attention over a paged latent pool.
+
+    x (B, 1, d); ckv_cache (N, bs, r), kr_cache (N, bs, Dr), updated in
+    place; block_tables (B, MB); kv_lens (B,) tokens already cached (the
+    effective length is kv_lens + 1). W_uk is folded into the query
+    (``q_abs``, fp32 sums cast to the compute dtype), the scores are
+    taken against the shared latent, MQA-style, with scale (nope +
+    rope)^-0.5, and W_uv then wo map the latent output back. With
+    ``attention_impl="kernel"`` the attention is the paged kernel (the
+    block-table gather inside it); otherwise the window is gathered and
+    the probabilities are cast to the compute dtype before the value
+    product, as the JAX reference path does.
+    Returns (y (B, 1, d), (ckv_cache, kr_cache)).
+    """
+    b = x.shape[0]
+    m, h = cfg.mla, cfg.num_heads
+    cdt = dtype_of(cfg.compute_dtype)
+    n, bs = ckv_cache.shape[:2]
+    positions = kv_lens[:, None]
+    q_nope, q_rope = mla_queries(params, x, cfg, positions)
+    c_kv, k_r = mla_latent(params, x, cfg, positions)
+    if write_index is None:
+        write_index = decode_write_index(block_tables, kv_lens, bs, n)
+    rows, blk, off = write_index
+    ckv_cache[blk, off] = c_kv[rows, 0].to(ckv_cache.dtype)
+    kr_cache[blk, off] = k_r[rows, 0].to(kr_cache.dtype)
+    w_uk = _cast(params["w_uk"], cfg.compute_dtype).reshape(
+        m.kv_lora_rank, h, m.nope_head_dim)
+    q_abs = torch.einsum("bhd,rhd->bhr", q_nope[:, 0].float(),
+                         w_uk.float()).to(cdt).contiguous()
+    q_r = q_rope[:, 0].to(cdt).contiguous()
+    scale = (m.nope_head_dim + m.rope_head_dim) ** -0.5
+    if cfg.attention_impl == "kernel":
+        out_lat = mla_ops.mla_decode_paged_attention(
+            q_abs, q_r, ckv_cache, kr_cache, block_tables, kv_lens + 1,
+            scale, impl="kernel")
+    else:
+        ckv_g = gather_blocks(ckv_cache, block_tables)
+        kr_g = gather_blocks(kr_cache, block_tables)
+        scores = (torch.einsum("bhr,bsr->bhs", q_abs.float(), ckv_g.float())
+                  + torch.einsum("bhd,bsd->bhs", q_r.float(),
+                                 kr_g.float())) * scale
+        mask = (torch.arange(ckv_g.shape[1], device=x.device)[None, None, :]
+                < (kv_lens + 1)[:, None, None])
+        scores = torch.where(mask, scores, NEG_INF)
+        probs = torch.softmax(scores, dim=-1).to(cdt)
+        out_lat = torch.einsum("bhs,bsr->bhr", probs.float(), ckv_g.float())
+    w_uv = _cast(params["w_uv"], cfg.compute_dtype).reshape(
+        m.kv_lora_rank, h, m.v_head_dim)
+    out = torch.einsum("bhr,rhd->bhd", out_lat.to(cdt).float(), w_uv.float())
+    out = out.reshape(b, 1, h * m.v_head_dim).to(cdt)
+    y = out @ _cast(params["wo"], cfg.compute_dtype)
+    return y, (ckv_cache, kr_cache)

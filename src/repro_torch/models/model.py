@@ -3,8 +3,11 @@
 ``build_model(cfg, device)`` returns a :class:`Model` whose methods are
 the entry points: ``init_params``, the training loss ``loss_fn``, and
 the serving functions ``init_paged_cache``, ``prefill_paged`` and
-``decode_paged``. The device defaults to ``"cuda"`` and a CUDA device
-that is not there raises: the CPU runs only when the caller asks for it.
+``decode_paged``. A MoE or MLA config (deepseek-v2) serves: its paged
+pool holds the MLA latent, and its layers route through the MoE block;
+``loss_fn`` refuses it (training those layers is not ported yet). The
+device defaults to ``"cuda"`` and a CUDA device that is not there
+raises: the CPU runs only when the caller asks for it.
 
 The training loss follows the HetSeq aggregation contract (paper M1/M3):
 every token carries a weight (0 for dummy/padding tokens); ``loss_fn``
@@ -42,7 +45,7 @@ class Model:
     device."""
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
-        tr.check_supported(cfg)
+        tr.check_supported(cfg, serving=True)
         self.cfg = cfg
         self.device = resolve_device(device)
 

@@ -35,11 +35,15 @@ import torch
 
 from repro_torch.kernels.flash_attention.flash_attention import (
     flash_attention_cuda, flash_decode_paged_cuda)
+from repro_torch.kernels.mla_decode.mla_decode import mla_decode_paged_cuda
 from repro_torch.models.kvcache import PagedLayout
 from repro_torch.serve.scheduler import Request, Scheduler, SeqState
 
+# the serving kernels whose launches a run reports: prefill attention,
+# and the GQA or the MLA paged decode
 KERNELS = {"flash_attention_cuda": flash_attention_cuda,
-           "flash_decode_paged_cuda": flash_decode_paged_cuda}
+           "flash_decode_paged_cuda": flash_decode_paged_cuda,
+           "mla_decode_paged_cuda": mla_decode_paged_cuda}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -13,7 +13,10 @@ losses, dlogits) are not O(1): each is held by its relative L2 error to
 ``repro_torch.kernels.parity.RTOL`` for its kernel and dtype, and the
 autograd Functions against the "reference" impls' autograd to
 ``AUTOGRAD_RTOL``. The int8 exchange kernels must equal their plain
-versions bit for bit.
+versions bit for bit. The MLA decode kernels and the head-dim-192
+prefill are held like the serving kernels (1e-4 fp32, 2e-2 bf16;
+outputs O(1)), and the MLA serving path's kernel route against its
+reference route at fp32 by ``MLA_PATH_TOL``.
 """
 import numpy as np
 import pytest
@@ -22,6 +25,8 @@ import torch
 from repro_torch.kernels.cross_entropy import cross_entropy as ce
 from repro_torch.kernels.cross_entropy import ref as ce_ref
 from repro_torch.kernels.flash_attention import flash_attention as fa
+from repro_torch.kernels.mla_decode import mla_decode as md
+from repro_torch.kernels.mla_decode import ref as mla_ref
 from repro_torch.kernels.parity import RTOL, rel_l2
 from repro_torch.kernels.quantize import quantize as qz
 from repro_torch.kernels.quantize import ref as q_ref
@@ -327,3 +332,147 @@ def test_quantize_kernels_refuse_what_they_do_not_take(dev):
     q = torch.zeros((65, 2, 256), dtype=torch.int8, device=dev)
     with pytest.raises(ValueError, match="ranks"):
         qz.dequant_accum_cuda(q, torch.zeros((65, 2), device=dev))
+
+
+# --------------------------------------------------------------------------
+# absorbed-MLA decode kernels, the D=192 prefill, the MLA serving path
+# --------------------------------------------------------------------------
+
+def _mla_paged(rng, dev, dtype, h, bs, mb, lens):
+    """deepseek-v2 latent widths (r=512, Dr=64): ragged lengths, NULL
+    holes (N and -1), an all-NULL inactive slot with length 1."""
+    b, n = len(lens), len(lens) * mb
+    qa = _randn(rng, (b, h, md.RANK), dev, dtype)
+    qr = _randn(rng, (b, h, md.ROPE_DIM), dev, dtype)
+    cp = _randn(rng, (n, bs, md.RANK), dev, dtype)
+    kp = _randn(rng, (n, bs, md.ROPE_DIM), dev, dtype)
+    tables = np.full((b, mb), n, np.int32)
+    perm = rng.permutation(n)
+    for i, ln in enumerate(lens):
+        nb = min(-(-ln // bs), mb)
+        if ln > 1:
+            tables[i, :nb] = perm[i * mb:i * mb + nb]
+        if nb > 2:
+            tables[i, nb // 2] = n if i % 2 else -1
+    return (qa, qr, cp, kp, torch.from_numpy(tables).to(dev),
+            torch.tensor(lens, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("h,bs,mb,lens", [
+    (128, 16, 32, [512, 1, 37, 200, 16, 301, 455, 129]),   # the serve path
+    (20, 12, 5, [60, 1, 13, 59]),     # heads not a multiple of 16, bs 12
+    (16, 16, 4, [80, 64, 1]),         # kv_len past the window
+])
+def test_mla_paged_decode_kernel_matches_plain(dev, dtype, tol, h, bs, mb,
+                                               lens):
+    rng = np.random.default_rng(h * bs + mb)
+    args = _mla_paged(rng, dev, dtype, h, bs, mb, lens)
+    n0 = md.mla_decode_paged_cuda.launches
+    got = md.mla_decode_paged_cuda(*args, 192 ** -0.5)
+    assert md.mla_decode_paged_cuda.launches == n0 + 1
+    want = mla_ref.mla_decode_paged_online_plain(*args, 192 ** -0.5)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert _err(got, want) <= tol
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("h,s,lens", [
+    (128, 200, [200, 1, 77, 16]),
+    (128, 2048, [2048, 513, 1000, 3]),
+    (24, 40, [40, 39, 1]),
+])
+def test_mla_contiguous_decode_kernel_matches_plain(dev, dtype, tol, h, s,
+                                                    lens):
+    rng = np.random.default_rng(h + s)
+    b = len(lens)
+    qa = _randn(rng, (b, h, md.RANK), dev, dtype)
+    qr = _randn(rng, (b, h, md.ROPE_DIM), dev, dtype)
+    ckv = _randn(rng, (b, s, md.RANK), dev, dtype)
+    kr = _randn(rng, (b, s, md.ROPE_DIM), dev, dtype)
+    lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+    n0 = md.mla_decode_cuda.launches
+    got = md.mla_decode_cuda(qa, qr, ckv, kr, lens, 0.1)
+    assert md.mla_decode_cuda.launches == n0 + 1
+    want = mla_ref.mla_decode_online_plain(qa, qr, ckv, kr, lens, 0.1)
+    assert _err(got, want) <= tol
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("b,s,h", [(2, 16, 128), (1, 200, 8), (2, 70, 4)])
+def test_prefill_kernel_head_dim_192_matches_plain(dev, dtype, tol, b, s, h):
+    rng = np.random.default_rng(s + h)
+    q, k, v = (_randn(rng, (b, s, h, 192), dev, dtype) for _ in range(3))
+    got = fa.flash_attention_cuda(q, k, v, causal=True,
+                                  softmax_scale=192 ** -0.5)
+    want = fa.flash_attention_plain(q, k, v, causal=True,
+                                    softmax_scale=192 ** -0.5)
+    assert _err(got, want) <= tol
+
+
+def test_mla_kernels_refuse_what_they_do_not_take(dev):
+    z = lambda *shape, dt=torch.float32: torch.zeros(shape, device=dev,
+                                                     dtype=dt)
+    lens = torch.ones((2,), dtype=torch.int32, device=dev)
+    tables = torch.zeros((2, 3), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="r=512"):
+        md.mla_decode_cuda(z(2, 4, 256), z(2, 4, 64), z(2, 8, 256),
+                           z(2, 8, 64), lens, 1.0)
+    with pytest.raises(TypeError, match="share a dtype"):
+        md.mla_decode_paged_cuda(z(2, 4, 512), z(2, 4, 64),
+                                 z(6, 16, 512, dt=torch.bfloat16),
+                                 z(6, 16, 64, dt=torch.bfloat16), tables,
+                                 lens, 1.0)
+    with pytest.raises(TypeError, match="int32"):
+        md.mla_decode_paged_cuda(z(2, 4, 512), z(2, 4, 64), z(6, 16, 512),
+                                 z(6, 16, 64), tables.long(), lens, 1.0)
+    with pytest.raises(ValueError, match="D in"):
+        q = z(1, 8, 4, 192)
+        fa.flash_attention_bwd_cuda(q, q, q, q, z(1, 8, 4), q)
+
+
+# kernel route vs reference route of the MLA serving path at fp32 (TF32
+# off), a model with deepseek-v2's MLA widths and a narrow residual
+# stream: logits relative to the largest reference logit
+MLA_PATH_TOL = 1e-4
+
+
+def test_mla_serving_kernel_path_matches_reference(dev):
+    import dataclasses
+    from repro_torch.configs.base import resolve
+    from repro_torch.models.kvcache import PagedLayout
+    from repro_torch.models.model import build_model
+    full = resolve("deepseek-v2-236b")
+    cfg = dataclasses.replace(
+        full, num_layers=2, d_model=256, vocab_size=512, num_heads=20,
+        num_kv_heads=20, compute_dtype="float32", param_dtype="float32",
+        moe=dataclasses.replace(full.moe, num_experts=8, expert_d_ff=128,
+                                shared_d_ff=128), attention_impl="kernel")
+    kern = build_model(cfg, dev)
+    ref = build_model(dataclasses.replace(cfg, attention_impl="reference"),
+                      dev)
+    params = kern.init_params(0)
+    layout = PagedLayout(block_size=16, num_blocks=12, max_blocks_per_seq=6)
+    rng = np.random.default_rng(0)
+    lens = torch.tensor([40, 23], dtype=torch.int32, device=dev)
+    tables = torch.tensor([[0, 1, 2, 3, 12, 12], [4, 5, 12, 12, 12, 12]],
+                          dtype=torch.int32, device=dev)
+    x = torch.from_numpy(rng.integers(0, 512, (2, 48)).astype(np.int32)
+                         ).to(dev)
+    caches = {}
+    outs = {}
+    for name, model in (("kernel", kern), ("reference", ref)):
+        n0 = (fa.flash_attention_cuda.launches,
+              md.mla_decode_paged_cuda.launches)
+        c = model.init_paged_cache(layout)
+        pre, c = model.prefill_paged(params, x, lens, c, tables)
+        dec, c = model.decode_paged(params, x[:, 47], c, tables, lens)
+        caches[name], outs[name] = c, (pre, dec)
+        launched = (fa.flash_attention_cuda.launches - n0[0],
+                    md.mla_decode_paged_cuda.launches - n0[1])
+        assert launched == ((2, 2) if name == "kernel" else (0, 0))
+    for got, want in zip(outs["kernel"], outs["reference"]):
+        scale = max(1.0, want.abs().max().item())
+        assert _err(got, want) <= MLA_PATH_TOL * scale
+    for key in ("c_kv", "k_rope"):
+        assert _err(caches["kernel"][key], caches["reference"][key]) <= 1e-4

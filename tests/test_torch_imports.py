@@ -55,7 +55,11 @@ def test_importing_every_port_module_leaves_jax_unloaded():
             "repro_torch.core.compression",
             "repro_torch.kernels.quantize.ops",
             "repro_torch.kernels.quantize.quantize",
-            "repro_torch.kernels.quantize.ref"} <= set(mods)
+            "repro_torch.kernels.quantize.ref",
+            "repro_torch.configs.deepseek_v2_236b",
+            "repro_torch.kernels.mla_decode.ops",
+            "repro_torch.kernels.mla_decode.mla_decode",
+            "repro_torch.kernels.mla_decode.ref"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

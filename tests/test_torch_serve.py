@@ -127,7 +127,8 @@ def test_engine_tokens_and_stats_match_jax_engine():
     assert jres.stats["preemptions"] > 0
     assert tres.stats["attention_impl"] == "kernel"
     assert tres.stats["kernel_launches"] == {
-        "flash_attention_cuda": 0, "flash_decode_paged_cuda": 0}
+        "flash_attention_cuda": 0, "flash_decode_paged_cuda": 0,
+        "mla_decode_paged_cuda": 0}
     for r in treqs:
         assert len(tres.tokens[r.rid]) == r.max_new_tokens
 
