@@ -120,11 +120,40 @@ Phases (any failure exits non-zero; no phase swallows an error):
    at fp32 (TF32 off) on 2 layers, where the kernel path's logits must
    be within 1e-3 of the reference path's (relative to the largest
    reference logit). Each model is freed before the next is built.
-10. Prints one ``{"kernels": [...]}`` line (nine kernels; the prefill
-   kernel's D=192 case rides in its entry as ``at_d192``; the
-   contiguous MLA kernel lies on no path and reports 0 launches), then,
-   last, ``{"ok": true, "device": {...}}``. Details go to
-   ``chiprun_out/chip_smoke.json``.
+10. Zamba2 kernel phase: the Mamba2 SSD chunked-scan kernel
+   (``csrc/ssd_scan.cu``) against its plain version (``ref.ssd_chunked``)
+   in fp32 (TF32 off) and bf16, by the relative L2 error of y and of the
+   final state (``parity.RTOL``): zamba2's prefill shape (B=4, S=1024,
+   H=80, P=64, N=64, one group, chunk 256, with D), a ragged tail
+   (S=1000), S shorter than the chunk (S=100), two group layouts (G=2,
+   H=8; G=3, H=6 at chunk 128) and no D; the prefill kernel at head dim
+   80 (zamba2's shared attention block: B=4, S=1024, H=Hkv=32; and two
+   small cases) likewise. Both timed in bf16 at the generate phase's
+   shapes, with the bound, the plain version's time and the library's
+   (SDPA causal for the attention; none for the scan, which no PyTorch
+   call computes), beside the card's name and power limit.
+11. Zamba2 generate path phase: ``launch.serve.static_generate`` on
+   zamba2-2.7b at full width and depth (54 Mamba2 layers, d 2560, 80
+   SSM heads of 64, state 64, the shared attention and MLP block after
+   every 6 layers; random bf16 weights from seed 0,
+   attention_impl="kernel"): 4 sequences, a 1024-token prompt, 64
+   generated tokens, after every earlier model is freed. Every counter
+   is zeroed just before and read just after: the SSD kernel must
+   launch exactly 54 times and the D=80 prefill 9 times (one prefill;
+   decode runs neither, as in the JAX package), every other kernel 0.
+   Every step's logits finite; prints the prefill ms and the median
+   decode-step ms (host clock between two syncs), tokens/s of wall and
+   the peak memory; three decode steps and a second prefill run under
+   torch.profiler (device time by kernel). Then the fp32 gate (TF32
+   off) on 6 layers (one group), prompt 300 (a full chunk and a ragged
+   tail), 8 tokens: the kernel path and the reference path give
+   identical greedy tokens and every step's logits agree within 1e-3
+   of the largest reference logit.
+12. Prints one ``{"kernels": [...]}`` line (ten kernels; the prefill
+   kernel's D=192 and D=80 cases ride in its entry as ``at_d192`` and
+   ``at_d80``; the contiguous MLA kernel lies on no path and reports 0
+   launches), then, last, ``{"ok": true, "device": {...}}``. Details go
+   to ``chiprun_out/chip_smoke.json``.
 
 ``python3 chip_smoke.py --cards 4`` (a machine with four cards) runs
 only the multi-rank path with one card per rank over NCCL: the phase-7
@@ -1734,6 +1763,363 @@ def mla_path_phase(fa, md, dev, smi):
     return out
 
 
+# --------------------------------------------------------------------------
+# zamba2 (Mamba2 hybrid): SSD kernel phase and generate path phase
+# --------------------------------------------------------------------------
+
+ZAMBA_P, ZAMBA_N = 64, 64           # SSM head dim P and state dim N
+ZAMBA_HEADS, ZAMBA_DH = 32, 80      # the shared attention block
+ZAMBA_RUN = (4, 1024, 64)           # batch, prompt, generated tokens
+ZAMBA_GATE = (6, 300, 8)            # the fp32 gate: layers, prompt, tokens
+# kernel path vs reference path logits of the fp32 gate (TF32 off): they
+# differ in the SSD scan's and the prefill attention's summation order.
+# Relative to the largest reference logit of the step (at least 1).
+ZAMBA_GATE_TOL = 1e-3
+# (B, S, H, G, chunk, with D): the path's shape first (zamba2's prefill:
+# 80 heads, one group, chunk 256), then a ragged tail, S shorter than the
+# chunk, two group layouts, and no D
+SSD_CASES = [(4, 1024, 80, 1, 256, True), (4, 1000, 80, 1, 256, True),
+             (2, 100, 80, 1, 256, True), (2, 512, 8, 2, 256, True),
+             (2, 300, 6, 3, 128, True), (2, 700, 16, 1, 256, False)]
+# decode steps of the 64-token run traced with torch.profiler, [first,
+# last); the median decode step leaves them out
+ZAMBA_PROFILE = (10, 13)
+
+
+def ssd_flops_bytes(b, s, h, g, chunk, tensors):
+    """The SSD scan's operations and bytes for these shapes: per (b, h)
+    and chunk of q rows, C B^T and its product with dt x on the causal
+    half (q (q + 1) / 2 pairs, N and P multiply-adds each), the carried
+    state's term and the state update (q N P each); every input read
+    once and every output written once."""
+    q_full = min(chunk, s)
+    rows = [min(q_full, s - t0) for t0 in range(0, s, q_full)]
+    pairs = sum(q * (q + 1) // 2 for q in rows)
+    flops = 2.0 * b * h * (pairs * (ZAMBA_N + ZAMBA_P)
+                           + 2 * s * ZAMBA_N * ZAMBA_P)
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    return flops, nbytes
+
+
+def ssd_case(sk, b, s, h, g, chunk, use_d, dtype, gen, dev, timed):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.parity import rel_l2
+
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    x = r(b, s, h, ZAMBA_P).to(dtype)
+    dt = F.softplus(r(b, s, h) - 2.0)
+    A = -torch.exp(r(h) * 0.5)
+    Bm = (r(b, s, g, ZAMBA_N) * 0.3).to(dtype)
+    Cm = (r(b, s, g, ZAMBA_N) * 0.3).to(dtype)
+    D = r(h) if use_d else None
+    args = (x, dt, A, Bm, Cm, D)
+    y, fin = sk.ssd_scan_cuda(*args, chunk_size=chunk)
+    yw, fw = sk.ssd_scan_plain(*args, chunk_size=chunk)
+    torch.cuda.synchronize()
+    check(y.dtype == dtype and fin.dtype == torch.float32
+          and y.shape == x.shape and fin.shape == (b, h, ZAMBA_P, ZAMBA_N),
+          f"SSD kernel: y {y.dtype} {tuple(y.shape)}, final {fin.dtype} "
+          f"{tuple(fin.shape)}")
+    rec = {"kernel": "ssd_scan_cuda", "dtype": str(dtype), "B": b, "S": s,
+           "H": h, "G": g, "P": ZAMBA_P, "N": ZAMBA_N, "chunk": chunk,
+           "with_D": use_d,
+           "rel_l2": max(rel_l2(y, yw), rel_l2(fin, fw)),
+           "rel_l2_y": rel_l2(y, yw), "rel_l2_final": rel_l2(fin, fw),
+           "max_abs_err": max((y.float() - yw.float()).abs().max().item(),
+                              (fin - fw).abs().max().item())}
+    if timed:
+        rec["ms"] = cuda_ms(lambda: sk.ssd_scan_cuda(*args,
+                                                     chunk_size=chunk))
+        rec["plain_ms"] = cuda_ms(lambda: sk.ssd_scan_plain(
+            *args, chunk_size=chunk))
+        rec["library_ms"] = None        # no PyTorch call computes it
+        flops, nbytes = ssd_flops_bytes(
+            b, s, h, g, chunk, [t for t in args if t is not None]
+            + [y, fin])
+        rec["bound_ms"], rec["bound_by"] = _bound(nbytes, flops)
+    return rec
+
+
+def prefill80_case(fa, b, s, h, hkv, dtype, gen, dev, timed):
+    """The shared attention block's prefill: head dim 80, causal."""
+    import torch
+    from repro_torch.kernels.parity import rel_l2
+    q = torch.randn((b, s, h, ZAMBA_DH), generator=gen, device=dev).to(dtype)
+    k = torch.randn((b, s, hkv, ZAMBA_DH), generator=gen,
+                    device=dev).to(dtype)
+    v = torch.randn((b, s, hkv, ZAMBA_DH), generator=gen,
+                    device=dev).to(dtype)
+    got = fa.flash_attention_cuda(q, k, v, causal=True)
+    want = fa.flash_attention_plain(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    rec = {"kernel": "flash_attention_cuda", "dtype": str(dtype), "B": b,
+           "S": s, "H": h, "Hkv": hkv, "D": ZAMBA_DH,
+           "rel_l2": rel_l2(got, want),
+           "max_abs_err": (got.float() - want.float()).abs().max().item()}
+    if timed:
+        rec["ms"] = cuda_ms(lambda: fa.flash_attention_cuda(q, k, v))
+        rec["plain_ms"] = cuda_ms(lambda: fa.flash_attention_plain(q, k, v))
+        qt, kt, vt = _sdpa_layout(q, k, v)
+        rec["library_ms"] = cuda_ms(lambda: _sdpa(qt, kt, vt, True))
+        rec["bound_ms"], rec["bound_by"] = _attn_bound(
+            b, s, h, hkv, ZAMBA_DH, 1.0, (q, k, v), (got,))
+    return rec
+
+
+def zamba_kernel_phase(fa, sk, dev, smi):
+    """The SSD kernel and the D=80 prefill against their plain versions,
+    fp32 (TF32 off) and bf16, by relative L2 (``parity.RTOL``); timed in
+    bf16 at the generate phase's shapes (B=4, S=1024)."""
+    import torch
+    from repro_torch.kernels.parity import RTOL
+    gen = torch.Generator(device=dev).manual_seed(10)
+    b, s, _ = ZAMBA_RUN
+    recs = []
+    for dtype in (torch.float32, torch.bfloat16):
+        bf16 = dtype == torch.bfloat16
+        new = [ssd_case(sk, *c, dtype, gen, dev, timed=bf16 and i == 0)
+               for i, c in enumerate(SSD_CASES)]
+        new += [prefill80_case(fa, bb, ss, h, hkv, dtype, gen, dev,
+                               timed=bf16 and i == 0)
+                for i, (bb, ss, h, hkv) in enumerate(
+                    [(b, s, ZAMBA_HEADS, ZAMBA_HEADS), (2, 200, 8, 2),
+                     (1, 16, ZAMBA_HEADS, ZAMBA_HEADS)])]
+        for r in new:
+            r["tol"] = RTOL[(r["kernel"], dtype)]
+            shape = {k: r[k] for k in ("B", "S", "H", "G", "Hkv", "D",
+                                       "chunk", "with_D") if k in r}
+            print(f"[zamba-kernels] {r['kernel']} {r['dtype']} {shape}: "
+                  f"rel L2 {r['rel_l2']:.3e} (tol {r['tol']:g}), max abs "
+                  f"err {r['max_abs_err']:.3e}"
+                  + (f", {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+                     f"library "
+                     + ("none" if r["library_ms"] is None
+                        else f"{r['library_ms']:.4f} ms (SDPA)")
+                     + f", bound {r['bound_ms']:.6f} ms ({r['bound_by']}) "
+                       f"[{smi}]" if "ms" in r else ""), flush=True)
+        bad = [f"{r['kernel']} {r['dtype']}: {r['rel_l2']}"
+               for r in new if not r["rel_l2"] <= r["tol"]]
+        check(not bad, "zamba kernels vs plain: " + "; ".join(bad))
+        recs += new
+    return recs
+
+
+def _wrap_steps(model, record):
+    """Wrap ``model.prefill`` / ``model.decode`` (what the static steps
+    call): each call between two device syncs on the host clock, its
+    logits kept (``record["logits"]``) when asked and checked finite."""
+    import torch
+    orig = {"prefill": model.prefill, "decode": model.decode}
+
+    def wrap(kind):
+        def run(*args, **kwargs):
+            step = len(record[kind])
+            prof = record.get("profile") if kind == "decode" else None
+            if prof is not None and step == prof["lo"]:
+                t0 = time.monotonic()
+                prof["p"] = record["profiler"]()
+                prof["p"].__enter__()
+                prof["t0"] = time.monotonic()
+                record["profiler_s"] += prof["t0"] - t0
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            logits, cache = orig[kind](*args, **kwargs)
+            torch.cuda.synchronize()
+            record[kind].append(time.monotonic() - t0)
+            if prof is not None and step == prof["hi"] - 1:
+                t0 = time.monotonic()
+                wall_us = (t0 - prof["t0"]) * 1e6
+                prof["p"].__exit__(None, None, None)
+                by_name = _kernel_times(prof["p"])
+                top = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+                record["profiles"]["decode"] = {
+                    "steps": prof["hi"] - prof["lo"], "window_us": wall_us,
+                    "device_busy_us": sum(us for _, us in by_name.values()),
+                    "kernels": [{"name": n[:160], "count": c, "us": us}
+                                for n, (c, us) in top[:20]]}
+                record["profiler_s"] += time.monotonic() - t0
+            if "logits" in record:
+                record["logits"].append(logits.float().cpu())
+            record["finite"] &= bool(torch.isfinite(logits).all())
+            return logits, cache
+        return run
+    model.prefill = wrap("prefill")
+    model.decode = wrap("decode")
+
+
+def _zamba_generate(model, params, prompts, gen, counters, record):
+    """``static_generate`` with every kernel counter zeroed just before
+    and read just after."""
+    import torch
+    from repro_torch.launch import serve as tserve
+    _wrap_steps(model, record)
+    for f in counters.values():
+        f.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    toks = tserve.static_generate(model, params, prompts, gen)
+    seconds = time.monotonic() - t0
+    launches = {n: f.launches for n, f in counters.items()}
+    return toks, launches, seconds, torch.cuda.max_memory_allocated() / 2**30
+
+
+def zamba_path_phase(fa, md, sk, dev, smi):
+    """zamba2-2.7b at full width and depth (bf16, seed 0,
+    attention_impl="kernel") generates 64 tokens after a 1024-token
+    prompt for 4 sequences through ``launch.serve.static_generate``:
+    exact launch counts, finite logits, timings, a profile of three
+    decode steps. Then the fp32 gate on 6 layers: kernel path against
+    reference path, identical greedy tokens and logits within
+    ``ZAMBA_GATE_TOL``."""
+    import gc
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    from repro_torch.configs.base import resolve
+    from repro_torch.launch import serve as tserve
+    from repro_torch.models import transformer as tr
+    from repro_torch.models.model import build_model
+
+    held = torch.cuda.memory_allocated(dev) / 2**30
+    print(f"[zamba-path] before: {held:.2f} GiB allocated on the card",
+          flush=True)
+    full = resolve("zamba2-2.7b")
+    counters = {"ssd_scan_cuda": sk.ssd_scan_cuda,
+                "flash_attention_cuda": fa.flash_attention_cuda,
+                "flash_decode_paged_cuda": fa.flash_decode_paged_cuda,
+                "mla_decode_paged_cuda": md.mla_decode_paged_cuda,
+                "mla_decode_cuda": md.mla_decode_cuda}
+    batch, plen, ngen = ZAMBA_RUN
+    cfg = dataclasses.replace(full, attention_impl="kernel")
+    model = build_model(cfg, dev)
+    params = tr.cast_params(model.init_params(0), torch.bfloat16)
+    gc.collect()
+    torch.cuda.empty_cache()
+    weights = sum(t.numel() * t.element_size()
+                  for t in tr.tree_leaves(params)) / 2**30
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (batch, plen)).astype(np.int32)
+    record = {"prefill": [], "decode": [], "finite": True, "profiles": {},
+              "profiler_s": 0.0,
+              "profile": {"lo": ZAMBA_PROFILE[0], "hi": ZAMBA_PROFILE[1]},
+              "profiler": lambda: tprofile(activities=[
+                  ProfilerActivity.CPU, ProfilerActivity.CUDA])}
+    toks, launches, secs, peak = _zamba_generate(model, params, prompts,
+                                                 ngen, counters, record)
+    groups = cfg.num_layers // cfg.hybrid.attn_every
+    expect = {"ssd_scan_cuda": cfg.num_layers,
+              "flash_attention_cuda": groups,
+              "flash_decode_paged_cuda": 0, "mla_decode_paged_cuda": 0,
+              "mla_decode_cuda": 0}
+    check(launches == expect, f"zamba launches {launches} != {expect}")
+    check(toks.shape == (batch, ngen), f"zamba tokens {toks.shape}")
+    check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          "zamba token id out of vocab")
+    check(record["finite"], "zamba: non-finite logits")
+    check(len(record["prefill"]) == 1 and len(record["decode"]) == ngen - 1,
+          f"zamba steps {len(record['prefill'])} prefill, "
+          f"{len(record['decode'])} decode")
+    lo, hi = ZAMBA_PROFILE
+    decode_s = record["decode"][:lo] + record["decode"][hi:]
+    wall = secs - record["profiler_s"]
+    # the prefill once more under the profiler (after the counted run)
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        model.prefill(params, torch.as_tensor(prompts, device=dev),
+                      max_len=plen + ngen)
+        torch.cuda.synchronize()
+        pre_wall = (time.monotonic() - t0) * 1e6
+    by_name = _kernel_times(prof)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+    record["profiles"]["prefill"] = {
+        "steps": 1, "window_us": pre_wall,
+        "device_busy_us": sum(us for _, us in by_name.values()),
+        "kernels": [{"name": n[:160], "count": c, "us": us}
+                    for n, (c, us) in top[:20]]}
+    out = {"layers": cfg.num_layers, "batch": batch, "prompt": plen,
+           "generated": ngen, "launches": launches,
+           "expected_launches": expect, "seconds": secs,
+           "profiler_seconds": record["profiler_s"],
+           "prefill_ms": record["prefill"][0] * 1e3,
+           "decode_step_ms_median": statistics.median(decode_s) * 1e3,
+           "decode_step_ms": [t * 1e3 for t in record["decode"]],
+           "tokens_per_s_wall": batch * ngen / wall,
+           "peak_memory_gib": peak, "weights_gib": weights,
+           "profiles": record["profiles"], "tokens_head": toks[:, :8].tolist()}
+    print(f"[zamba-path] zamba2-2.7b, {cfg.num_layers} layers at full width, "
+          f"bf16, batch {batch}, prompt {plen}, {ngen} tokens: prefill "
+          f"{out['prefill_ms']:.2f} ms, decode step median "
+          f"{out['decode_step_ms_median']:.2f} ms (profiled steps "
+          f"excluded), {out['tokens_per_s_wall']:.1f} tok/s of wall "
+          f"(the profiler's start and stop excluded), peak memory "
+          f"{peak:.2f} GiB (weights {weights:.2f} GiB), launches "
+          f"{launches} [{smi}]", flush=True)
+    for kind, prof_rec in record["profiles"].items():
+        busy, win = prof_rec["device_busy_us"], prof_rec["window_us"]
+        print(f"[zamba-path] torch.profiler over {prof_rec['steps']} "
+              f"{kind} step(s): kernels {busy / 1e3:.3f} ms of device time "
+              f"in {win / 1e3:.3f} ms of wall; by kernel: " + "; ".join(
+                  f"{k['name'][:48]} x{k['count']} {k['us'] / 1e3:.3f} ms"
+                  for k in prof_rec["kernels"][:10]), flush=True)
+    del model, params, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the fp32 gate: 6 layers (one group), prompt 300 (a full chunk and
+    # a ragged tail), 8 tokens; kernel path against reference path
+    layers, gplen, ggen = ZAMBA_GATE
+    gcfg = dataclasses.replace(full, num_layers=layers,
+                               compute_dtype="float32",
+                               attention_impl="kernel")
+    kern = build_model(gcfg, dev)
+    gparams = kern.init_params(0)
+    gprompts = np.random.default_rng(1).integers(
+        0, gcfg.vocab_size, (batch, gplen)).astype(np.int32)
+    runs = {}
+    for name in ("kernel", "reference"):
+        model = kern if name == "kernel" else build_model(
+            dataclasses.replace(gcfg, attention_impl="reference"), dev)
+        rec = {"prefill": [], "decode": [], "finite": True, "logits": []}
+        gtoks, glaunch, _, gpeak = _zamba_generate(
+            model, gparams, gprompts, ggen, counters, rec)
+        check(rec["finite"], f"zamba gate {name}: non-finite logits")
+        runs[name] = (gtoks, rec["logits"], glaunch, gpeak)
+    check(runs["kernel"][2]["ssd_scan_cuda"] == layers
+          and runs["kernel"][2]["flash_attention_cuda"] == 1
+          and runs["reference"][2]["ssd_scan_cuda"] == 0
+          and runs["reference"][2]["flash_attention_cuda"] == 0,
+          f"zamba gate launches: kernel {runs['kernel'][2]}, reference "
+          f"{runs['reference'][2]}")
+    steps = []
+    for i, (g, w) in enumerate(zip(runs["kernel"][1], runs["reference"][1])):
+        err = (g - w).abs().max().item()
+        scale = max(1.0, w.abs().max().item())
+        steps.append({"step": i, "max_abs_err": err, "ref_max_abs": scale,
+                      "tol": ZAMBA_GATE_TOL * scale})
+    same = bool(np.array_equal(runs["kernel"][0], runs["reference"][0]))
+    worst = max(s_["max_abs_err"] / s_["tol"] for s_ in steps)
+    print(f"[zamba-path] fp32 gate, {layers} layers, prompt {gplen}, {ggen} "
+          f"tokens: greedy tokens identical {same}; logits max abs err by "
+          f"step " + ", ".join(f"{s_['max_abs_err']:.3e}" for s_ in steps)
+          + f" (largest err/tol {worst:.3f}); peak "
+          f"{runs['kernel'][3]:.2f} GiB", flush=True)
+    check(same, "zamba gate: kernel and reference tokens differ")
+    check(len(steps) == ggen and all(s_["max_abs_err"] <= s_["tol"]
+                                     for s_ in steps),
+          f"zamba gate: logits differ beyond {ZAMBA_GATE_TOL}")
+    out["gate"] = {"layers": layers, "prompt": gplen, "generated": ggen,
+                   "tokens_identical": same, "steps": steps,
+                   "launches": {n: r[2] for n, r in runs.items()},
+                   "peak_memory_gib": runs["kernel"][3]}
+    del kern, model, gparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def _finite(x):
     return x == x and abs(x) != float("inf")
 
@@ -1782,6 +2168,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.mla_decode import mla_decode as md
     from repro_torch.kernels.mla_decode import ref as mla_ref
+    from repro_torch.kernels.ssd_scan import ssd_scan as sk
     t0 = time.monotonic()
     lib_path = _build.build(verbose=True)
     _build.load()
@@ -1816,6 +2203,12 @@ def main(argv=None) -> int:
     t0 = time.monotonic()
     mla = mla_path_phase(fa, md, dev, smi)
     phases["mla_serve_path"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    recs += zamba_kernel_phase(fa, sk, dev, smi)
+    phases["zamba_kernels"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    zamba = zamba_path_phase(fa, md, sk, dev, smi)
+    phases["zamba_generate_path"] = time.monotonic() - t0
     print("[phases] seconds: " + ", ".join(
         f"{k} {v:.1f}" for k, v in phases.items()), flush=True)
 
@@ -1846,31 +2239,40 @@ def main(argv=None) -> int:
                root + "mla_decode/mla_decode.py:178"),
            "mla_decode_cuda": (
                "src/repro_torch/csrc/mla_decode.cu",
-               root + "mla_decode/mla_decode.py:80")}
+               root + "mla_decode/mla_decode.py:80"),
+           "ssd_scan_cuda": (
+               "src/repro_torch/csrc/ssd_scan.cu",
+               root + "ssd_scan/ssd_scan.py:86")}
     # launches: the path each kernel serves (GQA decode: serve; the MLA
     # paged decode: the MLA serve path; the exchange kernels: the
-    # multi-rank train path, rank 0's counts; the rest: the one-rank
-    # train path); every path's counts go to the json. The contiguous
+    # multi-rank train path, rank 0's counts; the SSD scan: the zamba2
+    # generate path; the rest: the one-rank train path); every path's
+    # counts go to the json. The contiguous
     # MLA kernel lies on no path (none in the JAX package either): its
     # launches are 0 and it is held to its plain version only.
     by_path = {n: {"serve": path["launches"].get(n, 0),
                    "train": train["launches"].get(n, 0),
                    "multi_rank": multi["launches"].get(n, 0),
-                   "mla_serve": mla["launches"].get(n, 0)} for n in src}
+                   "mla_serve": mla["launches"].get(n, 0),
+                   "zamba_generate": zamba["launches"].get(n, 0)}
+               for n in src}
     path_of = {"flash_decode_paged_cuda": "serve",
                "quantize_int8_cuda": "multi_rank",
                "dequant_accum_cuda": "multi_rank",
                "mla_decode_paged_cuda": "mla_serve",
-               "mla_decode_cuda": None}
+               "mla_decode_cuda": None,
+               "ssd_scan_cuda": "zamba_generate"}
     at_keys = ("dtype", "B", "Sq", "S", "H", "Hkv", "D", "T", "V", "R",
-               "kv_lens", "bs", "rows", "MB")
+               "kv_lens", "bs", "rows", "MB", "G", "P", "N", "chunk")
     kernels = []
     for name, (source, replaces) in src.items():
         mine = [r for r in recs if r["kernel"] == name]
         timed = [r for r in mine if "ms" in r]
         # the prefill kernel's row is the train path's D=128 case; its
-        # D=192 case (the MLA prefill) rides beside it
-        main_rec = [r for r in timed if r.get("D") != MLA_DQK][-1]
+        # D=192 case (the MLA prefill) and D=80 case (zamba2's shared
+        # attention) ride beside it
+        main_rec = [r for r in timed
+                    if r.get("D") not in (MLA_DQK, ZAMBA_DH)][-1]
         path_name = path_of.get(name, "train")
         kernels.append({
             "name": name, "route": "cuda", "source": source,
@@ -1884,23 +2286,30 @@ def main(argv=None) -> int:
             "launches_by_path": by_path[name],
             "two_call_ms": main_rec.get("two_call_ms"),
             "at": {k: main_rec[k] for k in main_rec if k in at_keys}})
-        d192 = [r for r in timed if r.get("D") == MLA_DQK]
-        if d192:
-            kernels[-1]["at_d192"] = {
-                "launches": by_path[name]["mla_serve"],
-                **{k: d192[-1][k] for k in ("ms", "plain_ms", "bound_ms",
-                                            "bound_by", "library_ms")},
-                "at": {k: d192[-1][k] for k in d192[-1] if k in at_keys}}
+        for key, d, path_name_d in (("at_d192", MLA_DQK, "mla_serve"),
+                                    ("at_d80", ZAMBA_DH, "zamba_generate")):
+            at_d = [r for r in timed if r.get("D") == d]
+            if at_d:
+                kernels[-1][key] = {
+                    "launches": by_path[name][path_name_d],
+                    **{k: at_d[-1][k] for k in (
+                        "ms", "plain_ms", "bound_ms", "bound_by",
+                        "library_ms")},
+                    "at": {k: at_d[-1][k] for k in at_d[-1]
+                           if k in at_keys}}
         if path_name:
             check(kernels[-1]["launches"] > 0, f"{name} never launched on "
                   f"its path")
-    check(len(kernels) == 9, f"{len(kernels)} kernels listed")
+    check(kernels[0]["at_d80"]["launches"] > 0,
+          "the D=80 prefill never launched on the zamba2 path")
+    check(len(kernels) == 10, f"{len(kernels)} kernels listed")
 
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"nvidia_smi": smi, "phase_seconds": phases, "kernel_cases": recs,
          "path": path, "train": train, "multi_rank": multi,
-         "mla_path": mla, "kernels": kernels}, indent=1,
+         "mla_path": mla, "zamba_path": zamba, "kernels": kernels},
+        indent=1,
         default=str))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -6,8 +6,9 @@
 //
 // Computes out = softmax(q k^T * scale + mask) v with
 //   q (B, Sq, H, D), k/v (B, Skv, Hkv, D), out (B, Sq, H, D), all in
-//   the same dtype (fp32 or bf16), contiguous, D in {64, 128, 192} (192:
-//   MLA prefill, q/k = [nope | rope] and v zero-padded); q head h
+//   the same dtype (fp32 or bf16), contiguous, D in {64, 80, 128, 192}
+//   (80: zamba2's shared attention block; 192: MLA prefill, q/k =
+//   [nope | rope] and v zero-padded); q head h
 //   reads kv head h / (H / Hkv); mask = (kpos < Skv) && (!causal ||
 //   qpos >= kpos), qpos = row + q_offset. Softmax state (running max m,
 //   running sum l, accumulator acc) is fp32. When lse is not null it
@@ -57,6 +58,13 @@
 //     tiles take 48.5 KB at D=128 and 61.6 KB at D=192, above the 48 KB
 //     of static shared memory, so every width takes them as dynamic
 //     shared memory (opted in at each launch).
+//   * D=80 (not a multiple of the 32 lanes): a lane holds ceil(D/32) = 3
+//     accumulator columns a row, lane + 32c, and the third is live only
+//     on lanes 0..15; the guard is a compile-time constant true at the
+//     other widths, so their code is unchanged. The q tile is 32 rows
+//     (as at D=128) and the tiles take 30.8 KB; q, k and v are read in
+//     place (no padded copy). ptxas -v: 72 registers, no spills, in
+//     fp32 and bf16.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
@@ -93,7 +101,7 @@ __device__ __forceinline__ float warp_sum(float x) {
 // q rows per block
 template <int D>
 __host__ __device__ constexpr int q_tile() {
-  return D == 192 ? 16 : D == 128 ? 32 : 64;
+  return D == 192 ? 16 : (D == 128 || D == 80) ? 32 : 64;
 }
 
 template <int D>
@@ -107,7 +115,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
                  float* __restrict__ lse, int Sq, int Skv, int H, int Hkv,
                  int causal, int q_offset, float scale) {
-  constexpr int kC = D / 32;     // accumulator columns per lane
+  constexpr int kC = (D + 31) / 32;  // accumulator columns per lane
+  constexpr bool kTail = D % 32 != 0;  // the last column is partial
   constexpr int kBQ = q_tile<D>();
   constexpr int kRowsPerWarp = kBQ / kWarps;
   extern __shared__ float smem[];
@@ -184,7 +193,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < kBKV; ++j) {
         const float pj = __shfl_sync(0xffffffffu, p, j);
 #pragma unroll
-        for (int c = 0; c < kC; ++c) a[c] = fmaf(pj, v_s[j][lane + 32 * c], a[c]);
+        for (int c = 0; c < kC; ++c)
+          if (!kTail || lane + 32 * c < D)
+            a[c] = fmaf(pj, v_s[j][lane + 32 * c], a[c]);
       }
 #pragma unroll
       for (int c = 0; c < kC; ++c) acc[i][c] = a[c];
@@ -200,7 +211,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float inv = 1.f / lc;
     T* dst = o + ((size_t)(b * Sq + row) * H + h) * D;
 #pragma unroll
-    for (int c = 0; c < kC; ++c) dst[lane + 32 * c] = from_f<T>(acc[i][c] * inv);
+    for (int c = 0; c < kC; ++c)
+      if (!kTail || lane + 32 * c < D)
+        dst[lane + 32 * c] = from_f<T>(acc[i][c] * inv);
     if (lse != nullptr && lane == 0)
       lse[(size_t)(b * Sq + row) * H + h] = m[i] + logf(lc);
   }
@@ -233,7 +246,8 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    int Sq, int Skv, int H, int Hkv, int D,
                                    int causal, int q_offset, float scale,
                                    int dtype, void* stream) {
-  if ((D != 64 && D != 128 && D != 192) || Hkv <= 0 || H % Hkv != 0 ||
+  if ((D != 64 && D != 80 && D != 128 && D != 192) || Hkv <= 0 ||
+      H % Hkv != 0 ||
       B <= 0 || Sq <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
@@ -244,11 +258,13 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
                          q_offset, scale, s)
   if (dtype == 0) {
     REPRO_FWD(float, 64);
+    REPRO_FWD(float, 80);
     REPRO_FWD(float, 128);
     REPRO_FWD(float, 192);
   }
   if (dtype == 1) {
     REPRO_FWD(__nv_bfloat16, 64);
+    REPRO_FWD(__nv_bfloat16, 80);
     REPRO_FWD(__nv_bfloat16, 128);
     REPRO_FWD(__nv_bfloat16, 192);
   }

@@ -136,6 +136,12 @@ def load() -> ctypes.CDLL:
                 ci, ci, ci, ci, ci, ci, ci,     # B, H, R, DR, N, bs, MB
                 cf, ci, vp]                     # scale, dtype, stream
             lib.mla_decode_paged_fwd.restype = ci
+            lib.ssd_scan_fwd.argtypes = [
+                vp, vp, vp, vp, vp, vp,         # x, dt, A, B, C, D (or 0)
+                vp, vp,                         # y, final state
+                ci, ci, ci, ci, ci, ci, ci,     # B, S, H, P, G, N, Q
+                ci, vp]                         # dtype, stream
+            lib.ssd_scan_fwd.restype = ci
             cll = ctypes.c_longlong
             lib.quantize_int8_fwd.argtypes = [
                 vp, vp, vp, vp, cll, vp]        # x, noise (or 0), q, s,

@@ -2,7 +2,8 @@
 
   * :func:`flash_attention_cuda` — causal GQA flash-attention forward
     (``csrc/flash_attention.cu``), replacing the JAX package's
-    ``flash_attention_pallas``; head dim 64, 128 or 192 (MLA prefill),
+    ``flash_attention_pallas``; head dim 64, 80 (zamba2's shared
+    block), 128 or 192 (MLA prefill),
     optionally with the row log-sum-exp. Used by prefill and by
     training.
   * :func:`flash_attention_bwd_cuda` — its recompute backward
@@ -31,7 +32,7 @@ import torch
 from repro_torch.kernels.flash_attention import ref
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-PREFILL_HEAD_DIMS = (64, 128, 192)   # head dims of the forward kernel
+PREFILL_HEAD_DIMS = (64, 80, 128, 192)   # head dims of the forward kernel
 BWD_HEAD_DIMS = (64, 128)            # head dims of the backward kernel
 HEAD_DIM = 64          # the head dim the decode kernel is built for
 MAX_GROUP = 16         # most query heads per kv head the decode kernel takes

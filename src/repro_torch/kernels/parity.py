@@ -12,6 +12,7 @@ and ``tests/test_torch_cuda.py``. Each is about 10x the largest error
 (TF32 off) the kernel and its plain version differ only in summation
 order; in bf16 both take the same bf16 inputs and round their outputs
 to bf16, so most of what is left is a 1-ulp rounding of some outputs.
+The SSD scan's error is the larger of y's and the final state's.
 """
 from __future__ import annotations
 
@@ -26,6 +27,8 @@ RTOL = {            # largest reading, chip_smoke.py or the cuda tests
     ("cross_entropy_cuda", torch.bfloat16): 2e-6,          # 2.1e-7
     ("ce_dlogits_cuda", torch.float32): 5e-7,              # 5.2e-8
     ("ce_dlogits_cuda", torch.bfloat16): 1e-6,             # 8.1e-8
+    ("ssd_scan_cuda", torch.float32): 4e-5,                # 3.5e-6
+    ("ssd_scan_cuda", torch.bfloat16): 4e-4,               # 5.1e-5
 }
 
 

@@ -17,7 +17,18 @@ to :func:`serve_config`, which runs the engine on any config, such as
 one cut in depth (deepseek-v2-236b's 60 layers do not fit one card;
 ``chip_smoke.py`` serves it at full width with 8 layers). Before it
 allocates, ``serve_config`` raises ``ValueError`` when the weights need
-more bytes than the card has.
+more bytes than the card has, and, as the JAX driver does, when the
+config's stack is not the uniform plan the paged cache takes (zamba2).
+
+:func:`static_generate` is the static-batch path (one shared prompt
+length, every sequence decodes in lock-step over a contiguous cache):
+the baseline the paged path is held to, and the path that serves the
+Mamba2 hybrid (zamba2). Like the JAX package it has no command-line
+flag; call it from Python:
+
+  model = build_model(resolve("zamba2-2.7b"))        # on the card
+  params = cast_params(model.init_params(0), torch.bfloat16)
+  tokens = static_generate(model, params, prompts, gen=64)
 
 Example (H100):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
@@ -39,6 +50,7 @@ import torch
 
 from repro_torch.configs import base as cfgbase
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch import steps as steps_mod
 from repro_torch.models import transformer as tr
 from repro_torch.models.blocks import dtype_of
 from repro_torch.models.kvcache import PagedLayout
@@ -91,6 +103,29 @@ def synthetic_requests(n: int, vocab: int, rate: float,
     return reqs
 
 
+def static_generate(model: Model, params, prompts: np.ndarray,
+                    gen: int) -> np.ndarray:
+    """Static-batch reference path (the pre-engine serving loop): one
+    shared prompt length, every sequence decodes ``gen`` tokens in
+    lock-step, greedy, over a contiguous cache of ``prompt + gen``
+    positions. ``prompts`` (B, S) token ids. Returns (B, gen) generated
+    token ids."""
+    batch, prompt_len = prompts.shape
+    shape = cfgbase.ShapeConfig("serve-static", prompt_len + gen, batch,
+                                "decode")
+    prefill = steps_mod.build_prefill_step(model, shape)
+    decode = steps_mod.build_decode_step(model, shape)
+    logits, cache = prefill(params, torch.as_tensor(
+        np.asarray(prompts), dtype=torch.int32, device=model.device))
+    tok = torch.argmax(logits, dim=-1)
+    out = [tok]
+    for i in range(gen - 1):
+        logits, cache = decode(params, tok, cache, prompt_len + i)
+        tok = torch.argmax(logits, dim=-1)
+        out.append(tok)
+    return torch.stack(out, dim=1).cpu().numpy()
+
+
 def weight_bytes(cfg: ModelConfig) -> int:
     """Bytes of the weights serving holds: the parameters in their dtype,
     plus the serving copy in the compute dtype where the two differ."""
@@ -129,6 +164,7 @@ def serve_config(cfg: ModelConfig, args):
     if int(np.prod(dshape)) != 1:
         raise SystemExit(f"--devices {args.devices}: repro_torch serves on "
                          f"one device so far (mesh of size 1)")
+    tr.check_paged(cfg)
     model = build_model(cfg, args.device)
     check_fits(cfg, model.device)
     dp = int(np.prod(dshape[:-1]))

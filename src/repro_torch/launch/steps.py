@@ -1,5 +1,10 @@
-"""Train state and the data-parallel train step
-(port of ``repro/launch/steps.py``).
+"""Train state, the data-parallel train step, and the static-batch
+serve steps (port of ``repro/launch/steps.py``).
+
+The JAX package's jitted ``build_prefill_step`` / ``build_decode_step``
+become plain closures under ``torch.inference_mode()`` (no jit, no
+shardings on one device); :func:`repro_torch.launch.serve.static_generate`
+runs them.
 
 The JAX step runs one SPMD program over a mesh; here each data-parallel
 rank is a process (``launch/mesh.py::ProcessMesh``) that runs the step
@@ -40,7 +45,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import TrainConfig
+from repro_torch.configs.base import ShapeConfig, TrainConfig
 from repro_torch.core import buckets as bkt
 from repro_torch.core import weighting
 from repro_torch.core.accumulate import (accumulate_grads, accumulate_sums,
@@ -346,3 +351,28 @@ def params_checksum(params: Any) -> int:
             torch.int16 if p.element_size() == 2 else torch.int32)
         total += int(bits.sum(dtype=torch.int64))
     return total
+
+
+# --------------------------------------------------------------------------
+# serve steps (static batch, contiguous cache)
+# --------------------------------------------------------------------------
+
+
+def build_prefill_step(model: Model, shape: ShapeConfig):
+    """``prefill(params, inputs) -> (next-token logits (B, V), cache)``
+    with the contiguous cache covering ``shape.seq_len`` positions."""
+    def prefill(params, inputs: torch.Tensor):
+        with torch.inference_mode():
+            return model.prefill(params, inputs, max_len=shape.seq_len)
+    return prefill
+
+
+def build_decode_step(model: Model, shape: ShapeConfig):
+    """``decode(params, tokens, cache, pos) -> (logits (B, V), cache)``;
+    the cache (from the prefill step) is updated in place."""
+    del shape       # the cache carries its own length
+
+    def decode(params, tokens: torch.Tensor, cache, pos: int):
+        with torch.inference_mode():
+            return model.decode(params, tokens, cache, pos)
+    return decode

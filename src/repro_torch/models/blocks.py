@@ -1,5 +1,5 @@
-"""Transformer building blocks: norms, RoPE, GQA and MLA attention, MLP,
-MoE (port of ``repro/models/blocks.py``).
+"""Transformer building blocks: norms (and Mamba2's gated RMSNorm), RoPE,
+GQA and MLA attention, MLP, MoE (port of ``repro/models/blocks.py``).
 
 Pure functions ``apply(params, x, ...)`` over plain dicts of tensors.
 Weights keep the JAX ``(in, out)`` layout and are applied as ``x @ W``;
@@ -111,6 +111,15 @@ def apply_norm(params: Dict[str, torch.Tensor], x: torch.Tensor,
     else:
         raise ValueError(f"norm '{cfg.norm}' is not ported yet")
     return xf.to(x.dtype)
+
+
+def rms_norm_gated(x: torch.Tensor, gate: torch.Tensor,
+                   scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Mamba2 gated RMSNorm: norm(x * silu(gate)) * scale, in fp32, cast
+    back to x's dtype (eps 1e-5, not the MLA norms' 1e-6)."""
+    xf = x.float() * F.silu(gate.float())
+    xf = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    return (xf * scale.float()).to(x.dtype)
 
 
 def rope_freqs(dim: int, theta: float, device=None) -> torch.Tensor:

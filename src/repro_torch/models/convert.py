@@ -10,7 +10,11 @@ port keeps a list of per-layer dicts. A tied model has no ``lm_head``
 and a non-parametric norm is an empty dict on both sides. Nested layer
 dicts (the MLA projections under ``attn``, the MoE ``router``,
 ``w_gate``/``w_up``/``w_down`` of shape (E, ...) and ``shared`` under
-``moe``) are carried over key for key.
+``moe``) are carried over key for key, and so are the Mamba2 layers
+(``ln`` and ``mamba``: ``in_proj`` (d, d_in_proj), ``conv_w`` (K, C),
+``conv_b``, ``A_log``, ``D``, ``dt_bias``, ``norm``, ``out_proj``) and
+zamba's ``shared_attn`` (``ln1``, ``attn``, ``ln2``, ``mlp``), which is
+one dict, not stacked, on both sides.
 :func:`params_to_numpy` is the inverse, for comparing a port tree with
 a JAX tree leaf by leaf.
 """
@@ -22,7 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.transformer import check_supported
+from repro_torch.models.transformer import check_supported, stack_plan
 
 
 def _tensor(x, device) -> torch.Tensor:
@@ -43,6 +47,8 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
     expected = {"embed", "final_norm", "layers"}
     if not cfg.tie_embeddings:
         expected.add("lm_head")
+    if stack_plan(cfg) == "zamba":
+        expected.add("shared_attn")
     if set(tree) != expected:
         raise ValueError(f"JAX params have keys {sorted(tree)}, expected "
                          f"{sorted(expected)}")
@@ -53,6 +59,7 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
     }
     if "lm_head" in tree:
         out["lm_head"] = _tensor(tree["lm_head"], device)
+
     def layer(a, i):
         a = np.asarray(a)
         if a.shape[0] != cfg.num_layers:
@@ -62,13 +69,16 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
 
     out["layers"] = [_tree(tree["layers"], lambda a, i=i: layer(a, i))
                      for i in range(cfg.num_layers)]
+    if "shared_attn" in tree:
+        out["shared_attn"] = _tree(tree["shared_attn"],
+                                   lambda a: _tensor(a, device))
     return out
 
 
 def params_to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:
     """The port's tree in the JAX layout, leaves as numpy arrays: the
     per-layer list stacked back along a leading (L, ...) axis (an empty
-    norm dict stays empty)."""
+    norm dict stays empty; ``shared_attn`` stays one dict)."""
     def host(t):
         return t.detach().float().cpu().numpy() if t.dtype == torch.bfloat16 \
             else t.detach().cpu().numpy()

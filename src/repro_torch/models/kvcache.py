@@ -1,13 +1,20 @@
-"""Paged KV caches and single-token paged decode attention, GQA and
-absorbed MLA (port of the paged family of ``repro/models/kvcache.py``).
+"""KV caches and single-token decode attention (port of
+``repro/models/kvcache.py``): the contiguous GQA cache of static-batch
+serving, and the paged family, GQA and absorbed MLA.
 
-The cache is a pool of fixed-size blocks in the compute dtype, and each
-sequence owns a block table mapping its logical block j to a physical
-pool block:
+**Contiguous** (``init_gqa_cache``, ``attention_decode``): one slab per
+sequence slot, k/v (L, B, S_max, Hkv, Dh) in the compute dtype; decode
+writes position ``pos`` and attends ``pos + 1`` positions with the
+dense oracle, as the JAX package does (no kernel on this path there
+either). The contiguous MLA cache (``init_mla_cache``, ``mla_decode``)
+is not ported yet.
+
+**Paged**: the cache is a pool of fixed-size blocks in the compute
+dtype, and each sequence owns a block table mapping its logical block j
+to a physical pool block:
   GQA : ``k``/``v`` (L, N, bs, Hkv, Dh)
   MLA : ``c_kv`` (L, N, bs, r) latent + ``k_rope`` (L, N, bs, Dr)
- Unmapped entries hold the
-NULL sentinel ``N`` (one past the pool). The JAX package relies on
+Unmapped entries hold the NULL sentinel ``N`` (one past the pool). The JAX package relies on
 ``mode="drop"`` scatters and ``mode="fill"`` gathers to make NULL
 entries inert; PyTorch raises on (or, on the card, faults at) an
 out-of-range index, so the port masks them: a write at a NULL entry is
@@ -15,8 +22,8 @@ dropped before it is issued and a NULL block is read as zeros without
 being read at all. The pool is not padded with a spare block.
 
 Unlike the JAX functions, which return new arrays, these update the
-pool in place (it is the largest tensor of the serving state) and
-return it for symmetry.
+cache or pool in place (it is the largest tensor of the serving state)
+and return it for symmetry.
 """
 from __future__ import annotations
 
@@ -27,6 +34,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import ops as attn_ops
+from repro_torch.kernels.flash_attention import ref as attn_ref
 from repro_torch.kernels.mla_decode import ops as mla_ops
 from repro_torch.kernels.mla_decode.ref import NEG_INF, gather_blocks
 from repro_torch.models.blocks import (_cast, attention_qkv, dtype_of,
@@ -62,6 +70,36 @@ class PagedLayout:
     def blocks_for(self, n_tokens: int) -> int:
         """Blocks needed to hold n_tokens (ceil-div; 0 tokens -> 0)."""
         return -(-n_tokens // self.block_size)
+
+
+def init_gqa_cache(cfg: ModelConfig, num_layers: int, batch: int,
+                   max_len: int, device) -> Dict[str, torch.Tensor]:
+    cdt = dtype_of(cfg.compute_dtype)
+    shape = (num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=cdt, device=device),
+            "v": torch.zeros(shape, dtype=cdt, device=device)}
+
+
+def attention_decode(params, x: torch.Tensor, cfg: ModelConfig,
+                     k_cache: torch.Tensor, v_cache: torch.Tensor,
+                     pos: int):
+    """One-token attention over a contiguous cache. x (B, 1, d); caches
+    (B, S_max, Hkv, Dh), updated in place. ``pos`` is the index of the
+    new token: it is written there and ``pos + 1`` positions are
+    attended with the dense oracle (``mha_dense``). Returns (y (B, 1,
+    d), (k_cache, v_cache))."""
+    b = x.shape[0]
+    pos = int(pos)
+    positions = torch.tensor([pos], device=x.device)
+    q, k, v = attention_qkv(params, x, cfg, positions)
+    k_cache[:, pos] = k[:, 0].to(k_cache.dtype)
+    v_cache[:, pos] = v[:, 0].to(v_cache.dtype)
+    kv_len = torch.full((b,), pos + 1, dtype=torch.int32, device=x.device)
+    out = attn_ref.mha_dense(q, k_cache, v_cache, causal=False,
+                             kv_len=kv_len)
+    out = out.reshape(b, 1, cfg.num_heads * cfg.head_dim)
+    y = out @ _cast(params["wo"], cfg.compute_dtype)
+    return y, (k_cache, v_cache)
 
 
 def init_gqa_paged_cache(cfg: ModelConfig, num_layers: int,

@@ -1,11 +1,15 @@
 """Model facade (port of ``repro/models/model.py``).
 
 ``build_model(cfg, device)`` returns a :class:`Model` whose methods are
-the entry points: ``init_params``, the training loss ``loss_fn``, and
-the serving functions ``init_paged_cache``, ``prefill_paged`` and
-``decode_paged``. A MoE or MLA config (deepseek-v2) serves: its paged
-pool holds the MLA latent, and its layers route through the MoE block;
-``loss_fn`` refuses it (training those layers is not ported yet). The
+the entry points: ``init_params``, the training loss ``loss_fn``, the
+forward ``logits_fn``, the static-batch serving functions ``prefill``,
+``decode`` and ``init_cache`` (a contiguous cache), and the paged
+serving functions ``init_paged_cache``, ``prefill_paged`` and
+``decode_paged``. A MoE or MLA config (deepseek-v2) serves through the
+paged pool (its latent), and its layers route through the MoE block; a
+Mamba2 hybrid (zamba2) serves through the contiguous cache (the paged
+pool takes the uniform plan only, as in the JAX package); ``loss_fn``
+refuses all of them (training those layers is not ported yet). The
 device defaults to ``"cuda"`` and a CUDA device that is not there
 raises: the CPU runs only when the caller asks for it.
 
@@ -69,6 +73,7 @@ class Model:
             from_batch = batch.get("label_smoothing", 0.0)
             label_smoothing = (from_batch
                                if isinstance(from_batch, float) else 0.0)
+        tr.check_supported(cfg)
         x = tr.embed_tokens(params, batch["inputs"], cfg)
         hidden, aux = tr.hidden_states(params, x, cfg)
         b, s, d = hidden.shape
@@ -80,6 +85,42 @@ class Model:
             logit_softcap=cfg.logit_softcap, impl=ce_impl)
         objective_sum = loss_sum + aux * w_sum.detach()
         return objective_sum, w_sum, {"ce_sum": loss_sum, "aux": aux}
+
+    @torch.no_grad()
+    def logits_fn(self, params, inputs: torch.Tensor) -> torch.Tensor:
+        """inputs (B, S) token ids -> logits (B, S, V) (no cache)."""
+        x = tr.embed_tokens(params, inputs, self.cfg)
+        hidden, _ = tr.hidden_states(params, x, self.cfg)
+        return tr.unembed(params, hidden, self.cfg)
+
+    @torch.no_grad()
+    def prefill(self, params, inputs: torch.Tensor,
+                max_len: Optional[int] = None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """inputs (B, S) token ids, one shared length. Returns
+        (next-token logits (B, V) of the last position, the contiguous
+        cache covering ``max_len`` (default S) positions)."""
+        cfg = self.cfg
+        tr.check_servable(cfg, self.device, paged=False)
+        s = inputs.shape[1]
+        x = tr.embed_tokens(params, inputs, cfg)
+        hidden, cache = tr.prefill(params, x, cfg, max_len or s)
+        logits = tr.unembed(params, hidden[:, -1:, :], cfg)[:, 0, :]
+        return logits, cache
+
+    @torch.no_grad()
+    def decode(self, params, inputs: torch.Tensor, cache, pos: int
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """inputs: token ids (B,) at position ``pos`` (an int). Returns
+        (logits (B, V), the cache updated in place)."""
+        x = tr.embed_tokens(params, inputs[:, None], self.cfg)
+        hidden, cache = tr.decode_step(params, x, self.cfg, cache, pos)
+        return tr.unembed(params, hidden, self.cfg)[:, 0, :], cache
+
+    def init_cache(self, batch: int, max_len: int
+                   ) -> Dict[str, torch.Tensor]:
+        tr.check_servable(self.cfg, self.device, paged=False)
+        return tr.init_cache(self.cfg, batch, max_len, self.device)
 
     def init_paged_cache(self, layout: kvc.PagedLayout
                          ) -> Dict[str, torch.Tensor]:

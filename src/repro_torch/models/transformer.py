@@ -1,17 +1,35 @@
-"""Decoder stack for the uniform plan (dense, MoE and MLA layers;
-port of ``repro/models/transformer.py``).
+"""Decoder stacks (port of ``repro/models/transformer.py``).
+
+Stack plans (:func:`stack_plan`, from the config):
+  uniform — dense, MoE and MLA layers: identical (attention, ffn)
+            layers;
+  mamba   — a stack of Mamba2 layers;
+  zamba   — the Mamba2 backbone with one weight-shared attention block
+            (attention, then an MLP) applied after every
+            ``hybrid.attn_every`` Mamba2 layers (zamba2);
+  xlstm   — not ported yet.
 
 Parameters are a plain dict: ``embed`` (V, d), ``final_norm``,
 ``lm_head`` (d, V; absent with tied embeddings, where the head is
-``embed`` transposed) and ``layers``, a list with one dict per layer
-(``ln1``, ``attn``, ``ln2`` and ``mlp`` or ``moe``; ``attn`` holds the
-MLA projections on an MLA config). Norm dicts are empty for OLMo's
-non-parametric LayerNorm. The JAX package stacks the layers along a
-leading axis for ``lax.scan``; here the stack is a Python loop, each
-layer under ``torch.utils.checkpoint`` when ``remat="full"``. MoE and
-MLA layers are ported for serving (prefill and paged decode) only;
-:func:`check_supported` names what a config may not use yet,
-:func:`check_servable` what serving may not.
+``embed`` transposed) and ``layers``, a list with one dict per layer:
+``ln1``, ``attn``, ``ln2`` and ``mlp`` or ``moe`` on the uniform plan
+(``attn`` holds the MLA projections on an MLA config), ``ln`` and
+``mamba`` on the mamba and zamba plans; the zamba plan adds
+``shared_attn`` (``ln1``, ``attn``, ``ln2``, ``mlp``), ONE dict applied
+``num_layers // attn_every`` times, each application with its own KV
+cache. Norm dicts are empty for OLMo's non-parametric LayerNorm. The
+JAX package stacks the layers along a leading axis for ``lax.scan``
+(for zamba an outer scan over groups and an inner one over a group's
+layers); here the stacks are Python loops, each uniform layer under
+``torch.utils.checkpoint`` when ``remat="full"``.
+
+Serving runs two cache families: the paged pool (:func:`prefill`, then
+:func:`decode_step_paged`; the uniform plan only, as in the JAX
+package) and the contiguous cache of static-batch serving
+(:func:`prefill`, :func:`init_cache`, :func:`decode_step`; the uniform
+GQA, mamba and zamba plans). MoE, MLA, Mamba2 and zamba stacks are
+ported for serving only; :func:`check_supported` names what a config
+may not use yet, :func:`check_servable` what serving may not.
 """
 from __future__ import annotations
 
@@ -25,28 +43,48 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.flash_attention import (
     HEAD_DIM, PREFILL_HEAD_DIMS)
 from repro_torch.kernels.mla_decode.mla_decode import RANK, ROPE_DIM
+from repro_torch.kernels.ssd_scan.ssd_scan import (MAX_CHUNK, P_SLICE,
+                                                   STATE_DIM)
 from repro_torch.models.blocks import (_cast, apply_norm, attention_block,
                                        dtype_of, embed_init, dense_init,
                                        init_attention, init_mla, init_mlp,
                                        init_moe, init_norm, mla_block,
                                        mlp_block, moe_block)
-from repro_torch.models.kvcache import (PagedLayout, attention_decode_paged,
-                                        decode_write_index,
+from repro_torch.models.kvcache import (PagedLayout, attention_decode,
+                                        attention_decode_paged,
+                                        decode_write_index, init_gqa_cache,
                                         init_gqa_paged_cache,
                                         init_mla_paged_cache,
                                         mla_decode_paged)
+from repro_torch.models.ssm import (init_mamba, mamba_block,
+                                    mamba_decode_step, mamba_dims)
+
+
+def stack_plan(cfg: ModelConfig) -> str:
+    if cfg.xlstm.enabled:
+        return "xlstm"
+    if cfg.hybrid.enabled:
+        return "zamba"
+    if cfg.ssm.enabled:
+        return "mamba"
+    return "uniform"
 
 
 def check_supported(cfg: ModelConfig, serving: bool = False) -> None:
-    """Raise for any config feature outside this port. MoE and MLA
-    layers pass only with ``serving`` (prefill and paged decode): their
-    training (the MoE aux loss, the MLA backward) is not ported yet."""
+    """Raise for any config feature outside this port. MoE, MLA, SSM
+    (Mamba2) and hybrid (zamba) stacks pass only with ``serving``
+    (prefill and decode): their training (the MoE aux loss, the MLA
+    backward, the SSD backward) is not ported yet."""
     unsupported = [
         (cfg.moe.enabled and not serving, "MoE training"),
         (cfg.mla.enabled and not serving, "MLA training"),
+        (cfg.ssm.enabled and not cfg.hybrid.enabled and not serving,
+         "SSM training"),
+        (cfg.hybrid.enabled and not serving, "hybrid training"),
+        (cfg.hybrid.enabled and not cfg.ssm.enabled,
+         "hybrid without an SSM"),
         (cfg.moe.dense_residual, "MoE dense_residual"),
-        (cfg.ssm.enabled, "SSM"), (cfg.xlstm.enabled, "xLSTM"),
-        (cfg.hybrid.enabled, "hybrid"), (cfg.qk_norm, "qk_norm"),
+        (cfg.xlstm.enabled, "xLSTM"), (cfg.qk_norm, "qk_norm"),
         (cfg.frontend != "token", f"frontend '{cfg.frontend}'"),
         (cfg.norm not in ("rmsnorm", "layernorm", "nonparam_ln"),
          f"norm '{cfg.norm}'"),
@@ -55,19 +93,49 @@ def check_supported(cfg: ModelConfig, serving: bool = False) -> None:
     missing = [name for bad, name in unsupported if bad]
     if missing:
         raise ValueError(f"{cfg.name}: {', '.join(missing)} not ported to "
-                         f"repro_torch yet (uniform plan: dense layers, "
-                         f"and MoE/MLA layers for serving)")
+                         f"repro_torch yet (dense layers; MoE/MLA layers, "
+                         f"Mamba2 and zamba stacks for serving)")
 
 
-def check_servable(cfg: ModelConfig, device) -> None:
+def check_paged(cfg: ModelConfig) -> None:
+    """The paged pool holds the uniform attention stack only (recurrent
+    plans keep O(1) state per sequence: nothing to page), as in the
+    JAX package."""
+    plan = stack_plan(cfg)
+    if plan != "uniform":
+        raise ValueError(
+            f"paged KV cache supports the uniform attention stack only, "
+            f"got stack plan {plan!r}")
+
+
+def check_servable(cfg: ModelConfig, device, paged: bool = True) -> None:
     """``check_supported(serving=True)`` plus what the serving kernels
-    cannot take on the card: the GQA paged-decode kernel is built for
-    head_dim 64, the MLA decode kernels for latent rank 512 and RoPE
-    width 64, the prefill kernel for head dims 64, 128 and 192 (on the
-    CPU the kernels' plain versions take any width)."""
+    cannot take on the card: the GQA paged-decode kernel (``paged``) is
+    built for head_dim 64, the MLA decode kernels for latent rank 512
+    and RoPE width 64, the prefill kernel for head dims 64, 80, 128 and
+    192, the SSD kernel for state dim 64, a head dim that is a multiple
+    of 32 and chunks of at most 256 (on the CPU the kernels' plain
+    versions take any width)."""
     check_supported(cfg, serving=True)
     if (cfg.attention_impl != "kernel"
             or torch.device(device).type != "cuda"):
+        return
+    plan = stack_plan(cfg)
+    if plan in ("mamba", "zamba"):
+        s = cfg.ssm
+        if (s.state_dim != STATE_DIM or s.head_dim % P_SLICE
+                or s.chunk_size > MAX_CHUNK):
+            raise ValueError(
+                f"{cfg.name}: the SSD kernel (attention_impl='kernel') "
+                f"needs state_dim {STATE_DIM}, a head_dim that is a "
+                f"multiple of {P_SLICE} and chunk_size <= {MAX_CHUNK}, got "
+                f"{s.state_dim}, {s.head_dim}, {s.chunk_size}; not ported "
+                f"yet")
+        if plan == "zamba" and cfg.head_dim not in PREFILL_HEAD_DIMS:
+            raise ValueError(
+                f"{cfg.name}: the shared attention block's prefill "
+                f"kernel needs head_dim in {PREFILL_HEAD_DIMS}, got "
+                f"{cfg.head_dim}; not ported yet")
         return
     if cfg.mla.enabled:
         m = cfg.mla
@@ -80,12 +148,17 @@ def check_servable(cfg: ModelConfig, device) -> None:
                 f"nope + rope in {PREFILL_HEAD_DIMS}, got "
                 f"{m.kv_lora_rank}, {m.rope_head_dim}, {dqk}; not ported "
                 f"yet")
-    elif cfg.head_dim != HEAD_DIM:
+    elif paged and cfg.head_dim != HEAD_DIM:
         raise ValueError(
             f"{cfg.name}: serving with attention_impl='kernel' needs "
             f"head_dim {HEAD_DIM} (the paged-decode kernel's), got "
             f"{cfg.head_dim}; serving at head_dim {cfg.head_dim} is not "
             f"ported yet")
+    elif cfg.head_dim not in PREFILL_HEAD_DIMS:
+        raise ValueError(
+            f"{cfg.name}: the prefill kernel (attention_impl='kernel') "
+            f"needs head_dim in {PREFILL_HEAD_DIMS}, got {cfg.head_dim}; "
+            f"not ported yet")
 
 
 def init_params(cfg: ModelConfig, seed: int, device) -> Dict[str, Any]:
@@ -102,8 +175,12 @@ def init_params(cfg: ModelConfig, seed: int, device) -> Dict[str, Any]:
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, (cfg.d_model, cfg.vocab_size),
                                        dt)
-    params["layers"] = [init_uniform_layer(cfg, gen)
-                        for _ in range(cfg.num_layers)]
+    plan = stack_plan(cfg)
+    layer_init = init_uniform_layer if plan == "uniform" else \
+        init_mamba_layer
+    params["layers"] = [layer_init(cfg, gen) for _ in range(cfg.num_layers)]
+    if plan == "zamba":
+        params["shared_attn"] = init_shared_attn(cfg, gen)
     return params
 
 
@@ -121,10 +198,38 @@ def init_uniform_layer(cfg: ModelConfig, gen: torch.Generator
     return p
 
 
+def init_mamba_layer(cfg: ModelConfig, gen: torch.Generator
+                     ) -> Dict[str, Any]:
+    return {"ln": init_norm(cfg, gen), "mamba": init_mamba(cfg, gen)}
+
+
+def init_shared_attn(cfg: ModelConfig, gen: torch.Generator
+                     ) -> Dict[str, Any]:
+    p: Dict[str, Any] = {"ln1": init_norm(cfg, gen),
+                         "attn": init_attention(cfg, gen)}
+    if cfg.hybrid.shared_attn_d_ff > 0:
+        p["ln2"] = init_norm(cfg, gen)
+        p["mlp"] = init_mlp(cfg, gen, d_ff=cfg.hybrid.shared_attn_d_ff)
+    return p
+
+
 def count_params_analytic(cfg: ModelConfig) -> int:
     """Parameters of ``init_params(cfg)``, from the widths alone."""
     d, dh, h = cfg.d_model, cfg.head_dim, cfg.num_heads
     norm = {"rmsnorm": d, "layernorm": 2 * d, "nonparam_ln": 0}[cfg.norm]
+    head = 0 if cfg.tie_embeddings else d * cfg.vocab_size
+    base = cfg.vocab_size * d + norm + head
+    plan = stack_plan(cfg)
+    if plan in ("mamba", "zamba"):
+        d_inner, nheads, conv_ch, d_in_proj = mamba_dims(cfg)
+        mamba = (d * d_in_proj + (cfg.ssm.conv_kernel + 1) * conv_ch
+                 + 3 * nheads + d_inner + d_inner * d)
+        total = base + cfg.num_layers * (norm + mamba)
+        if plan == "zamba":
+            ff = cfg.hybrid.shared_attn_d_ff
+            total += (norm + d * dh * (h * 2 + cfg.num_kv_heads * 2)
+                      + (norm + 3 * d * ff if ff > 0 else 0))
+        return total
     if cfg.mla.enabled:
         m = cfg.mla
         qd = m.nope_head_dim + m.rope_head_dim
@@ -142,8 +247,7 @@ def count_params_analytic(cfg: ModelConfig) -> int:
     else:
         ffn = 3 * d * cfg.d_ff
     layer = 2 * norm + attn + ffn
-    head = 0 if cfg.tie_embeddings else d * cfg.vocab_size
-    return cfg.vocab_size * d + norm + head + cfg.num_layers * layer
+    return base + cfg.num_layers * layer
 
 
 def tree_leaves(tree: Any) -> List[torch.Tensor]:
@@ -208,14 +312,58 @@ def apply_uniform_layer(p, x: torch.Tensor, cfg: ModelConfig,
     return x + mlp_block(p["mlp"], apply_norm(p["ln2"], x, cfg), cfg)
 
 
+def _apply_shared_attn(p, x, cfg, positions):
+    h = apply_norm(p["ln1"], x, cfg)
+    x = x + attention_block(p["attn"], h, cfg, positions)
+    if "mlp" in p:
+        x = x + mlp_block(p["mlp"], apply_norm(p["ln2"], x, cfg), cfg)
+    return x
+
+
+def _apply_shared_attn_prefill(p, x, cfg, positions):
+    h = apply_norm(p["ln1"], x, cfg)
+    a, kv = attention_block(p["attn"], h, cfg, positions, return_kv=True)
+    x = x + a
+    if "mlp" in p:
+        x = x + mlp_block(p["mlp"], apply_norm(p["ln2"], x, cfg), cfg)
+    return x, kv
+
+
+def _apply_shared_attn_decode(p, x, cfg, k_cache, v_cache, pos):
+    h = apply_norm(p["ln1"], x, cfg)
+    a, (k_cache, v_cache) = attention_decode(p["attn"], h, cfg, k_cache,
+                                             v_cache, pos)
+    x = x + a
+    if "mlp" in p:
+        x = x + mlp_block(p["mlp"], apply_norm(p["ln2"], x, cfg), cfg)
+    return x, (k_cache, v_cache)
+
+
 def hidden_states(params, embeds: torch.Tensor, cfg: ModelConfig
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """embeds (B, S, d) -> (final-normed hidden (B, S, d), aux loss 0).
 
-    ``cfg.remat``: "full" runs each layer under a non-reentrant
-    checkpoint (only the layer input is kept; the backward recomputes
-    the layer, attention kernel included), "none" keeps every
-    activation; "dots" (save matmul outputs only) is not ported yet."""
+    The uniform plan is the training forward. ``cfg.remat``: "full" runs
+    each layer under a non-reentrant checkpoint (only the layer input is
+    kept; the backward recomputes the layer, attention kernel
+    included), "none" keeps every activation; "dots" (save matmul
+    outputs only) is not ported yet. The mamba and zamba plans are
+    forward only (scoring, ``Model.logits_fn``): their training is not
+    ported yet."""
+    plan = stack_plan(cfg)
+    if plan in ("mamba", "zamba"):
+        check_supported(cfg, serving=True)
+        positions = torch.arange(embeds.shape[1], device=embeds.device)
+        x = embeds
+        every = cfg.hybrid.attn_every if plan == "zamba" else 0
+        for i, lp in enumerate(params["layers"]):
+            x = x + mamba_block(lp["mamba"], apply_norm(lp["ln"], x, cfg),
+                                cfg)
+            if every and (i + 1) % every == 0:
+                x = _apply_shared_attn(params["shared_attn"], x, cfg,
+                                       positions)
+        aux = torch.zeros((), dtype=torch.float32, device=embeds.device)
+        return apply_norm(params["final_norm"], x, cfg), aux
     check_supported(cfg)
     if cfg.remat not in ("none", "full"):
         raise ValueError(f"remat '{cfg.remat}' is not ported yet "
@@ -256,32 +404,130 @@ def cache_names(cfg: ModelConfig) -> Tuple[str, str]:
 
 def prefill(params, embeds: torch.Tensor, cfg: ModelConfig,
             max_len: int) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Returns (hidden (B, S, d), cache): {"k","v"} (L, B, max_len, Hkv,
-    Dh), or for MLA {"c_kv"} (L, B, max_len, r) and {"k_rope"} (L, B,
-    max_len, Dr); positions past S are zeros."""
+    """Returns (hidden (B, S, d), cache). Uniform plan: {"k","v"} (L, B,
+    max_len, Hkv, Dh), or for MLA {"c_kv"} (L, B, max_len, r) and
+    {"k_rope"} (L, B, max_len, Dr). Mamba plan: {"conv"} (L, B, K-1,
+    conv_ch) and {"ssm"} (L, B, H, P, N), both in the compute dtype.
+    Zamba plan: those, plus {"attn_k","attn_v"} (G, B, max_len, Hkv,
+    Dh), one per application of the shared block. Attention positions
+    past S are zeros."""
     b, s, _ = embeds.shape
     positions = torch.arange(s, device=embeds.device)
-    x = embeds
-    kvs: List[Tuple[torch.Tensor, torch.Tensor]] = []
-    for lp in params["layers"]:
-        x, kv = _layer_prefill(lp, x, cfg, positions)
-        kvs.append(kv)
     pad = max_len - s
 
-    def stack(parts):
+    def stack(parts, pad_seq=True):
         out = torch.stack(parts)
-        if pad:
+        if pad and pad_seq:
             out = F.pad(out, (0, 0) * (out.ndim - 3) + (0, pad))
         return out
 
-    return (apply_norm(params["final_norm"], x, cfg),
-            {name: stack([kv[i] for kv in kvs])
-             for i, name in enumerate(cache_names(cfg))})
+    plan = stack_plan(cfg)
+    x = embeds
+    kvs: List[Tuple[torch.Tensor, torch.Tensor]] = []
+    if plan == "uniform":
+        for lp in params["layers"]:
+            x, kv = _layer_prefill(lp, x, cfg, positions)
+            kvs.append(kv)
+        cache = {name: stack([kv[i] for kv in kvs])
+                 for i, name in enumerate(cache_names(cfg))}
+    elif plan in ("mamba", "zamba"):
+        every = cfg.hybrid.attn_every if plan == "zamba" else 0
+        states = []
+        for i, lp in enumerate(params["layers"]):
+            y, st = mamba_block(lp["mamba"], apply_norm(lp["ln"], x, cfg),
+                                cfg, return_state=True)
+            x = x + y
+            states.append(st)
+            if every and (i + 1) % every == 0:
+                x, kv = _apply_shared_attn_prefill(params["shared_attn"], x,
+                                                   cfg, positions)
+                kvs.append(kv)
+        cache = {"conv": stack([st[0] for st in states], pad_seq=False),
+                 "ssm": stack([st[1] for st in states], pad_seq=False)}
+        if plan == "zamba":
+            cache["attn_k"] = stack([kv[0] for kv in kvs])
+            cache["attn_v"] = stack([kv[1] for kv in kvs])
+    else:
+        raise ValueError(f"stack plan {plan!r} is not ported yet")
+    return apply_norm(params["final_norm"], x, cfg), cache
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device
+               ) -> Dict[str, torch.Tensor]:
+    """Zero contiguous cache with :func:`prefill`'s structure (uniform
+    GQA, mamba and zamba plans; the contiguous MLA cache is not ported
+    yet)."""
+    plan = stack_plan(cfg)
+    cdt = dtype_of(cfg.compute_dtype)
+    L = cfg.num_layers
+    if plan == "uniform":
+        if cfg.mla.enabled:
+            raise ValueError(f"{cfg.name}: the contiguous MLA cache "
+                             f"(mla_decode) is not ported yet; serve MLA "
+                             f"through the paged engine")
+        return init_gqa_cache(cfg, L, batch, max_len, device)
+    if plan not in ("mamba", "zamba"):
+        raise ValueError(f"stack plan {plan!r} is not ported yet")
+    _, nheads, conv_ch, _ = mamba_dims(cfg)
+    s = cfg.ssm
+    cache = {
+        "conv": torch.zeros((L, batch, s.conv_kernel - 1, conv_ch),
+                            dtype=cdt, device=device),
+        "ssm": torch.zeros((L, batch, nheads, s.head_dim, s.state_dim),
+                           dtype=cdt, device=device)}
+    if plan == "zamba":
+        groups = cfg.num_layers // cfg.hybrid.attn_every
+        shape = (groups, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+        cache["attn_k"] = torch.zeros(shape, dtype=cdt, device=device)
+        cache["attn_v"] = torch.zeros(shape, dtype=cdt, device=device)
+    return cache
+
+
+def apply_uniform_layer_decode(p, x, cfg, k_cache, v_cache, pos):
+    h = apply_norm(p["ln1"], x, cfg)
+    a, kv = attention_decode(p["attn"], h, cfg, k_cache, v_cache, pos)
+    x = x + a
+    return x + _ffn_serving(p, apply_norm(p["ln2"], x, cfg), cfg), kv
+
+
+def decode_step(params, embeds: torch.Tensor, cfg: ModelConfig,
+                cache: Dict[str, torch.Tensor], pos: int
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """embeds (B, 1, d) of the token at position ``pos`` -> (hidden (B, 1,
+    d), cache). The contiguous cache is updated in place (the JAX
+    function returns a new one) and returned."""
+    plan = stack_plan(cfg)
+    x = embeds
+    if plan == "uniform":
+        if cfg.mla.enabled:
+            raise ValueError(f"{cfg.name}: contiguous MLA decode "
+                             f"(mla_decode) is not ported yet")
+        for i, lp in enumerate(params["layers"]):
+            x, _ = apply_uniform_layer_decode(lp, x, cfg, cache["k"][i],
+                                              cache["v"][i], pos)
+    elif plan in ("mamba", "zamba"):
+        every = cfg.hybrid.attn_every if plan == "zamba" else 0
+        for i, lp in enumerate(params["layers"]):
+            y, (conv, ssm) = mamba_decode_step(
+                lp["mamba"], apply_norm(lp["ln"], x, cfg), cfg,
+                (cache["conv"][i], cache["ssm"][i]))
+            x = x + y
+            cache["conv"][i] = conv
+            cache["ssm"][i] = ssm
+            if every and (i + 1) % every == 0:
+                g = (i + 1) // every - 1
+                x, _ = _apply_shared_attn_decode(
+                    params["shared_attn"], x, cfg, cache["attn_k"][g],
+                    cache["attn_v"][g], pos)
+    else:
+        raise ValueError(f"stack plan {plan!r} is not ported yet")
+    return apply_norm(params["final_norm"], x, cfg), cache
 
 
 def init_paged_cache(cfg: ModelConfig, layout: PagedLayout, device
                      ) -> Dict[str, torch.Tensor]:
     """Zero paged block pool for the uniform attention stack."""
+    check_paged(cfg)
     check_servable(cfg, device)
     init = init_mla_paged_cache if cfg.mla.enabled else init_gqa_paged_cache
     return init(cfg, cfg.num_layers, layout, device)

@@ -16,7 +16,11 @@ autograd Functions against the "reference" impls' autograd to
 versions bit for bit. The MLA decode kernels and the head-dim-192
 prefill are held like the serving kernels (1e-4 fp32, 2e-2 bf16;
 outputs O(1)), and the MLA serving path's kernel route against its
-reference route at fp32 by ``MLA_PATH_TOL``.
+reference route at fp32 by ``MLA_PATH_TOL``. The SSD scan kernel and the
+head-dim-80 prefill are held by relative L2 error to ``parity.RTOL``
+(the scan on the larger of y's and the final state's), and zamba2's
+static path, kernel route against reference route at fp32, by
+``ZAMBA_PATH_TOL``.
 """
 import numpy as np
 import pytest
@@ -30,6 +34,8 @@ from repro_torch.kernels.mla_decode import ref as mla_ref
 from repro_torch.kernels.parity import RTOL, rel_l2
 from repro_torch.kernels.quantize import quantize as qz
 from repro_torch.kernels.quantize import ref as q_ref
+from repro_torch.kernels.ssd_scan import ref as ssd_ref
+from repro_torch.kernels.ssd_scan import ssd_scan as sk
 
 pytestmark = pytest.mark.cuda
 DTYPES = [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)]
@@ -476,3 +482,119 @@ def test_mla_serving_kernel_path_matches_reference(dev):
         assert _err(got, want) <= MLA_PATH_TOL * scale
     for key in ("c_kv", "k_rope"):
         assert _err(caches["kernel"][key], caches["reference"][key]) <= 1e-4
+
+
+# --------------------------------------------------------------------------
+# zamba2: the SSD scan kernel, the head-dim-80 prefill, the static path
+# --------------------------------------------------------------------------
+
+def _ssd_inputs(rng, dev, dtype, b, s, h, g, use_d):
+    def f(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev)
+    x = f(b, s, h, 64).to(dtype)
+    dt = torch.nn.functional.softplus(f(b, s, h) - 2.0)
+    A = -torch.exp(f(h) * 0.5)
+    Bm, Cm = (f(b, s, g, 64) * 0.3).to(dtype), (f(b, s, g, 64) * 0.3).to(dtype)
+    return x, dt, A, Bm, Cm, (f(h) if use_d else None)
+
+
+@pytest.mark.parametrize("dtype", DTYPE_ONLY)
+@pytest.mark.parametrize("b,s,h,g,chunk,use_d", [
+    (4, 1024, 80, 1, 256, True),      # zamba2's prefill shape
+    (4, 1000, 80, 1, 256, True),      # ragged tail
+    (2, 100, 80, 1, 256, True),       # S shorter than the chunk
+    (2, 512, 8, 2, 256, True),        # groups
+    (2, 300, 6, 3, 128, True),        # groups, ragged
+    (2, 700, 16, 1, 256, False),      # no D
+])
+def test_ssd_scan_kernel_matches_plain(dev, dtype, b, s, h, g, chunk,
+                                       use_d):
+    rng = np.random.default_rng(s + h + g)
+    args = _ssd_inputs(rng, dev, dtype, b, s, h, g, use_d)
+    n0 = sk.ssd_scan_cuda.launches
+    y, fin = sk.ssd_scan_cuda(*args, chunk_size=chunk)
+    assert sk.ssd_scan_cuda.launches == n0 + 1
+    yw, fw = ssd_ref.ssd_chunked(*args, chunk_size=chunk)
+    assert y.dtype == dtype and fin.dtype == torch.float32
+    tol = RTOL[("ssd_scan_cuda", dtype)]
+    assert _close("ssd y", y, yw, tol)
+    assert _close("ssd final", fin, fw, tol)
+
+
+@pytest.mark.parametrize("dtype", DTYPE_ONLY)
+@pytest.mark.parametrize("b,s,h,hkv", [(4, 1024, 32, 32), (2, 200, 8, 2),
+                                       (1, 16, 32, 32)])
+def test_prefill_kernel_head_dim_80_matches_plain(dev, dtype, b, s, h, hkv):
+    rng = np.random.default_rng(s + h)
+    q = _randn(rng, (b, s, h, 80), dev, dtype)
+    k, v = (_randn(rng, (b, s, hkv, 80), dev, dtype) for _ in range(2))
+    got = fa.flash_attention_cuda(q, k, v, causal=True)
+    want = fa.flash_attention_plain(q, k, v, causal=True)
+    assert got.shape == q.shape
+    assert _close("prefill D=80", got, want,
+                  RTOL[("flash_attention_cuda", dtype)])
+
+
+def test_ssd_kernel_refuses_what_it_does_not_take(dev):
+    rng = np.random.default_rng(0)
+    x, dt, A, Bm, Cm, D = _ssd_inputs(rng, dev, torch.float32, 1, 8, 4, 1,
+                                      True)
+    with pytest.raises(ValueError, match="N == 64"):
+        sk.ssd_scan_cuda(x, dt, A, Bm[..., :32].contiguous(),
+                         Cm[..., :32].contiguous(), D)
+    with pytest.raises(ValueError, match="P % 32"):
+        sk.ssd_scan_cuda(x[..., :48].contiguous(), dt, A, Bm, Cm, D)
+    with pytest.raises(ValueError, match="chunk of 1..256"):
+        sk.ssd_scan_cuda(torch.cat([x] * 40, 1), torch.cat([dt] * 40, 1), A,
+                         torch.cat([Bm] * 40, 1), torch.cat([Cm] * 40, 1),
+                         D, chunk_size=300)
+    with pytest.raises(TypeError, match="B/C dtypes"):
+        sk.ssd_scan_cuda(x, dt, A, Bm.bfloat16(), Cm.bfloat16(), D)
+    with pytest.raises(TypeError, match="float32"):
+        sk.ssd_scan_cuda(x, dt.bfloat16(), A, Bm, Cm, D)
+    with pytest.raises(ValueError, match="contiguous"):
+        sk.ssd_scan_cuda(x.transpose(1, 2), dt, A, Bm, Cm, D)
+
+
+# kernel route vs reference route of zamba2's static path at fp32 (TF32
+# off), zamba2's SSM and attention widths over a narrow residual stream:
+# logits relative to the largest reference logit
+ZAMBA_PATH_TOL = 1e-4
+
+
+def test_zamba_static_kernel_path_matches_reference(dev):
+    import dataclasses
+    from repro_torch.configs.base import resolve
+    from repro_torch.launch.serve import static_generate
+    from repro_torch.models.model import build_model
+    full = resolve("zamba2-2.7b")
+    cfg = dataclasses.replace(
+        full, num_layers=6, d_model=256, num_heads=4, num_kv_heads=4,
+        head_dim=80, d_ff=512, vocab_size=512, compute_dtype="float32",
+        hybrid=dataclasses.replace(full.hybrid, shared_attn_d_ff=512),
+        attention_impl="kernel")
+    kern = build_model(cfg, dev)
+    ref = build_model(dataclasses.replace(cfg, attention_impl="reference"),
+                      dev)
+    params = kern.init_params(0)
+    x = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 512, (2, 300)).astype(np.int32)).to(dev)
+    outs = {}
+    for name, model in (("kernel", kern), ("reference", ref)):
+        n0 = (sk.ssd_scan_cuda.launches, fa.flash_attention_cuda.launches)
+        logits, cache = model.prefill(params, x, max_len=302)
+        dec, cache = model.decode(params, x[:, -1], cache, 300)
+        outs[name] = (logits, dec, cache)
+        launched = (sk.ssd_scan_cuda.launches - n0[0],
+                    fa.flash_attention_cuda.launches - n0[1])
+        assert launched == ((6, 1) if name == "kernel" else (0, 0))
+    for got, want in zip(outs["kernel"][:2], outs["reference"][:2]):
+        scale = max(1.0, want.abs().max().item())
+        assert _err(got, want) <= ZAMBA_PATH_TOL * scale
+    for key in ("conv", "ssm", "attn_k", "attn_v"):
+        assert _err(outs["kernel"][2][key], outs["reference"][2][key]) \
+            <= 1e-4
+    toks = {n: static_generate(m, params, x[:, :40].cpu().numpy(), 4)
+            for n, m in (("kernel", kern), ("reference", ref))}
+    assert np.array_equal(toks["kernel"], toks["reference"])

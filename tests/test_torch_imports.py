@@ -59,7 +59,12 @@ def test_importing_every_port_module_leaves_jax_unloaded():
             "repro_torch.configs.deepseek_v2_236b",
             "repro_torch.kernels.mla_decode.ops",
             "repro_torch.kernels.mla_decode.mla_decode",
-            "repro_torch.kernels.mla_decode.ref"} <= set(mods)
+            "repro_torch.kernels.mla_decode.ref",
+            "repro_torch.configs.zamba2_2_7b",
+            "repro_torch.kernels.ssd_scan.ops",
+            "repro_torch.kernels.ssd_scan.ssd_scan",
+            "repro_torch.kernels.ssd_scan.ref",
+            "repro_torch.models.ssm"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

@@ -1,8 +1,12 @@
 """repro_torch serving path against the JAX package on the tinyllama
 smoke config at fp32, with the JAX ``init_params`` carried over by
 ``params_from_jax``: paged prefill/decode logits and pools, a whole
-engine run (identical greedy tokens and scheduling stats), and the
-configs and CLI flags field by field.
+engine run (identical greedy tokens and scheduling stats), the
+contiguous-cache static path (prefill cache and decode against JAX's,
+``static_generate`` tokens identical to JAX's and, for one sequence, to
+the port's own paged engine, the invariant
+``benchmarks/serve_bench.py`` asserts in JAX), and the configs and CLI
+flags field by field.
 
 Tolerance for logits and pools: 2e-5 absolute (the same fp32 arithmetic
 in another summation order; logits here are O(1)).
@@ -28,6 +32,7 @@ from repro_torch.launch import serve as tserve
 from repro_torch.models.convert import params_from_jax
 from repro_torch.models.kvcache import PagedLayout as TLayout
 from repro_torch.models.model import build_model as tbuild
+from repro_torch.serve import Request
 
 TOL = 2e-5
 ARCH = "tinyllama-1.1b"
@@ -131,6 +136,65 @@ def test_engine_tokens_and_stats_match_jax_engine():
         "mla_decode_paged_cuda": 0}
     for r in treqs:
         assert len(tres.tokens[r.rid]) == r.max_new_tokens
+
+
+def _auto_mesh():
+    return jax.make_mesh((1, 1), ("data", "model"),
+                         axis_types=(jax.sharding.AxisType.Auto,) * 2)
+
+
+@pytest.mark.parametrize("impl", ["reference", "kernel"])
+def test_static_path_matches_jax(impl):
+    """The uniform GQA plan over the contiguous cache: prefill logits and
+    cache, two decode steps (the dense oracle over ``pos + 1``
+    positions), and ``static_generate`` tokens identical to JAX's."""
+    jcfg, jmodel, _ = _jax_side()
+    mesh = _auto_mesh()
+    jparams = jsteps.init_params_sharded(jmodel, mesh, jax.random.PRNGKey(0))
+    _, tmodel, tparams = _torch_side(jparams, impl)
+    x = np.random.default_rng(4).integers(
+        0, jcfg.vocab_size, (2, 13)).astype(np.int32)
+    jl, jc = jmodel.prefill(jparams, jnp.asarray(x[:, :11]), max_len=14)
+    tl, tc = tmodel.prefill(tparams, torch.from_numpy(x[:, :11]),
+                            max_len=14)
+    for pos in (11, 12):
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=TOL,
+                                   rtol=0)
+        for name in ("k", "v"):
+            np.testing.assert_allclose(tc[name].numpy(),
+                                       np.asarray(jc[name]), atol=TOL,
+                                       rtol=0)
+        jl, jc = jmodel.decode(jparams, jnp.asarray(x[:, pos]), jc,
+                               jnp.int32(pos))
+        tl, tc = tmodel.decode(tparams, torch.from_numpy(x[:, pos]), tc, pos)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=TOL, rtol=0)
+    prompts = x[:, :9]
+    with compat.set_mesh(mesh):
+        want = jserve.static_generate(jmodel, jparams, mesh, prompts, 8)
+    got = tserve.static_generate(tmodel, tparams, prompts, 8)
+    assert got.shape == (2, 8) and np.array_equal(got, np.asarray(want))
+
+
+@pytest.mark.parametrize("impl", ["dense", "kernel"])
+def test_static_generate_equals_the_paged_engine_on_one_sequence(impl):
+    """For a single sequence the paged path is an implementation detail:
+    the engine's tokens (block tables, bucket-padded prefill) equal
+    ``static_generate``'s (contiguous cache, scalar position), fp32."""
+    jcfg, _, jparams = _jax_side()
+    _, tmodel, tparams = _torch_side(jparams, impl)
+    plen, gen = 7, 6
+    prompt = tuple(int(t) for t in np.random.default_rng(1).integers(
+        0, jcfg.vocab_size, plen))
+    mbs = -(-(plen + gen) // 4)
+    eng = tserve.build_engine(
+        tmodel, tparams, TLayout(block_size=4, num_blocks=2 * mbs,
+                                 max_blocks_per_seq=mbs),
+        slots=2, prefill_batch=1, pod_speeds=[1.0])
+    paged = eng.run([Request(rid=0, prompt=prompt, max_new_tokens=gen,
+                             arrival=0.0)]).tokens[0]
+    static = tserve.static_generate(tmodel, tparams,
+                                    np.asarray([prompt], np.int32), gen)
+    assert [int(t) for t in static[0]] == list(paged)
 
 
 def _port_impl(name):
