@@ -149,7 +149,35 @@ Phases (any failure exits non-zero; no phase swallows an error):
    tail), 8 tokens: the kernel path and the reference path give
    identical greedy tokens and every step's logits agree within 1e-3
    of the largest reference logit.
-12. Prints one ``{"kernels": [...]}`` line (ten kernels; the prefill
+12. xLSTM kernel phase: the mLSTM chunked-scan kernel
+   (``csrc/mlstm_scan.cu``) against its plain version
+   (``ref.mlstm_chunked``) in fp32 (TF32 off) and bf16, by the relative
+   L2 error of h, C, n and m, the largest of the four held to
+   ``parity.RTOL``; every case is printed before any is checked:
+   xlstm-125m's prefill shape (B=4, S=1024, H=4, dk=dv=384, chunk 256),
+   a ragged tail (S=1000), S shorter than the chunk (S=100), the Pallas
+   wrapper's chunk of 128, and the smoke widths (dk=dv=64). Timed in
+   bf16 at the path's shape, with the bound, the plain version's time
+   and library none (no PyTorch call computes the scan), beside the
+   card's name and power limit.
+13. xLSTM generate path phase: ``launch.serve.static_generate`` on
+   xlstm-125m at full width and depth (12 layers: 6 mLSTM blocks with 4
+   heads of 384 and 6 sLSTM blocks, d 768, vocab 50304; random bf16
+   weights from seed 0, attention_impl="kernel"): 4 sequences, a
+   1024-token prompt (four chunks), 64 generated tokens, after every
+   earlier model is freed. Every counter (all eleven kernels) is zeroed
+   just before and read just after: the mLSTM kernel must launch
+   exactly 6 times (one prefill; decode is the plain recurrence, as in
+   the JAX package), every other kernel 0. Every step's logits finite;
+   prints the prefill ms and the median decode-step ms (host clock
+   between two syncs), tokens/s of wall and the peak memory; three
+   decode steps and a second prefill run under torch.profiler (device
+   time by kernel), the prefill with its mLSTM and sLSTM blocks timed
+   between syncs. Then the fp32 gate (TF32 off) at full depth, prompt
+   300 (a full chunk and a ragged tail), 8 tokens: the kernel path and
+   the reference path give identical greedy tokens and every step's
+   logits agree within 1e-3 of the largest reference logit.
+14. Prints one ``{"kernels": [...]}`` line (eleven kernels; the prefill
    kernel's D=192 and D=80 cases ride in its entry as ``at_d192`` and
    ``at_d80``; the contiguous MLA kernel lies on no path and reports 0
    launches), then, last, ``{"ok": true, "device": {...}}``. Details go
@@ -1533,6 +1561,17 @@ def _kernel_times(prof):
     return by_name
 
 
+def _profile_rec(prof, wall_us, steps=1):
+    """A profiler window's record: its wall time, the device time of its
+    kernels and the top 20 kernels by device time."""
+    by_name = _kernel_times(prof)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+    return {"steps": steps, "window_us": wall_us,
+            "device_busy_us": sum(us for _, us in by_name.values()),
+            "kernels": [{"name": n[:160], "count": c, "us": us}
+                        for n, (c, us) in top[:20]]}
+
+
 def step_timed_build(build, times, profiles):
     """Wrap ``build``'s prefill and decode steps: host clock between two
     device synchronisations into ``times[kind]`` (and each prefill
@@ -1569,14 +1608,8 @@ def step_timed_build(build, times, profiles):
                     t0 = time.monotonic()
                     wall_us = (t0 - prof["t0"]) * 1e6
                     prof["p"].__exit__(None, None, None)
-                    by_name = _kernel_times(prof["p"])
-                    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])
-                    profiles[kind] = {
-                        "steps": hi - lo, "window_us": wall_us,
-                        "device_busy_us": sum(
-                            us for _, us in by_name.values()),
-                        "kernels": [{"name": n[:160], "count": c, "us": us}
-                                    for n, (c, us) in top[:20]]}
+                    profiles[kind] = _profile_rec(prof["p"], wall_us,
+                                                  hi - lo)
                     times["profiler_s"] += time.monotonic() - t0
                 return out
             return run
@@ -1932,13 +1965,8 @@ def _wrap_steps(model, record):
                 t0 = time.monotonic()
                 wall_us = (t0 - prof["t0"]) * 1e6
                 prof["p"].__exit__(None, None, None)
-                by_name = _kernel_times(prof["p"])
-                top = sorted(by_name.items(), key=lambda kv: -kv[1][1])
-                record["profiles"]["decode"] = {
-                    "steps": prof["hi"] - prof["lo"], "window_us": wall_us,
-                    "device_busy_us": sum(us for _, us in by_name.values()),
-                    "kernels": [{"name": n[:160], "count": c, "us": us}
-                                for n, (c, us) in top[:20]]}
+                record["profiles"]["decode"] = _profile_rec(
+                    prof["p"], wall_us, prof["hi"] - prof["lo"])
                 record["profiler_s"] += time.monotonic() - t0
             if "logits" in record:
                 record["logits"].append(logits.float().cpu())
@@ -1949,7 +1977,7 @@ def _wrap_steps(model, record):
     model.decode = wrap("decode")
 
 
-def _zamba_generate(model, params, prompts, gen, counters, record):
+def _counted_generate(model, params, prompts, gen, counters, record):
     """``static_generate`` with every kernel counter zeroed just before
     and read just after."""
     import torch
@@ -2006,7 +2034,7 @@ def zamba_path_phase(fa, md, sk, dev, smi):
               "profile": {"lo": ZAMBA_PROFILE[0], "hi": ZAMBA_PROFILE[1]},
               "profiler": lambda: tprofile(activities=[
                   ProfilerActivity.CPU, ProfilerActivity.CUDA])}
-    toks, launches, secs, peak = _zamba_generate(model, params, prompts,
+    toks, launches, secs, peak = _counted_generate(model, params, prompts,
                                                  ngen, counters, record)
     groups = cfg.num_layers // cfg.hybrid.attn_every
     expect = {"ssd_scan_cuda": cfg.num_layers,
@@ -2032,13 +2060,7 @@ def zamba_path_phase(fa, md, sk, dev, smi):
                       max_len=plen + ngen)
         torch.cuda.synchronize()
         pre_wall = (time.monotonic() - t0) * 1e6
-    by_name = _kernel_times(prof)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])
-    record["profiles"]["prefill"] = {
-        "steps": 1, "window_us": pre_wall,
-        "device_busy_us": sum(us for _, us in by_name.values()),
-        "kernels": [{"name": n[:160], "count": c, "us": us}
-                    for n, (c, us) in top[:20]]}
+    record["profiles"]["prefill"] = _profile_rec(prof, pre_wall)
     out = {"layers": cfg.num_layers, "batch": batch, "prompt": plen,
            "generated": ngen, "launches": launches,
            "expected_launches": expect, "seconds": secs,
@@ -2083,7 +2105,7 @@ def zamba_path_phase(fa, md, sk, dev, smi):
         model = kern if name == "kernel" else build_model(
             dataclasses.replace(gcfg, attention_impl="reference"), dev)
         rec = {"prefill": [], "decode": [], "finite": True, "logits": []}
-        gtoks, glaunch, _, gpeak = _zamba_generate(
+        gtoks, glaunch, _, gpeak = _counted_generate(
             model, gparams, gprompts, ggen, counters, rec)
         check(rec["finite"], f"zamba gate {name}: non-finite logits")
         runs[name] = (gtoks, rec["logits"], glaunch, gpeak)
@@ -2112,6 +2134,294 @@ def zamba_path_phase(fa, md, sk, dev, smi):
           f"zamba gate: logits differ beyond {ZAMBA_GATE_TOL}")
     out["gate"] = {"layers": layers, "prompt": gplen, "generated": ggen,
                    "tokens_identical": same, "steps": steps,
+                   "launches": {n: r[2] for n, r in runs.items()},
+                   "peak_memory_gib": runs["kernel"][3]}
+    del kern, model, gparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# --------------------------------------------------------------------------
+# xLSTM: mLSTM kernel phase and generate path phase
+# --------------------------------------------------------------------------
+
+XLSTM_RUN = (4, 1024, 64)           # batch, prompt, generated tokens
+XLSTM_GATE = (300, 8)               # the fp32 gate at full depth: prompt,
+                                    # tokens
+# kernel path vs reference path logits of the fp32 gate (TF32 off): they
+# differ in the mLSTM scan's summation order only. Relative to the
+# largest reference logit of the step (at least 1).
+XLSTM_GATE_TOL = 1e-3
+# (B, S, H, dk, dv, chunk): the path's shape first (xlstm-125m's prefill:
+# 4 heads of 384, chunk 256), then a ragged tail, S shorter than the
+# chunk, the Pallas wrapper's chunk of 128, and the smoke widths
+MLSTM_CASES = [(4, 1024, 4, 384, 384, 256), (4, 1000, 4, 384, 384, 256),
+               (2, 100, 4, 384, 384, 256), (2, 300, 4, 384, 384, 128),
+               (2, 300, 2, 64, 64, 256)]
+# decode steps of the 64-token run traced with torch.profiler, [first,
+# last); the median decode step leaves them out
+XLSTM_PROFILE = (10, 13)
+
+
+def mlstm_flops_bytes(b, s, h, dk, dv, chunk, tensors):
+    """The mLSTM scan's operations and bytes for these shapes: per (b, h)
+    and chunk of q rows, q k^T and the weighted sum of v on the causal
+    half (q (q + 1) / 2 pairs, dk and dv multiply-adds each); q C and
+    q.n for every row after the first chunk (the state is zero before
+    it); the state update C and n over every row; every input read once
+    and every output written once."""
+    q_full = min(chunk, s)
+    rows = [min(q_full, s - t0) for t0 in range(0, s, q_full)]
+    pairs = sum(q * (q + 1) // 2 for q in rows)
+    flops = 2.0 * b * h * (pairs * (dk + dv)
+                           + (s - rows[0]) * dk * (dv + 1)
+                           + s * dk * (dv + 1))
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    return flops, nbytes
+
+
+def mlstm_case(mk, b, s, h, dk, dv, chunk, dtype, gen, dev, timed):
+    import torch
+    from repro_torch.kernels.parity import rel_l2
+
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    q, k, v = (r(b, s, h, dk).to(dtype), r(b, s, h, dk).to(dtype),
+               r(b, s, h, dv).to(dtype))
+    # the gate pre-activations as xlstm-125m's init sets them up: i~
+    # about N(0, 1), f~ shifted by its bias of 3..6
+    i_pre, f_pre = r(b, s, h), r(b, s, h) + 3.0
+    args = (q, k, v, i_pre, f_pre)
+    hout, state = mk.mlstm_scan_cuda(*args, chunk_size=chunk)
+    hw, state_w = mk.mlstm_scan_plain(*args, chunk_size=chunk)
+    torch.cuda.synchronize()
+    check(hout.dtype == dtype and hout.shape == (b, s, h, dv)
+          and tuple(x.shape for x in state) == ((b, h, dk, dv), (b, h, dk),
+                                                (b, h))
+          and all(x.dtype == torch.float32 for x in state),
+          f"mLSTM kernel: h {hout.dtype} {tuple(hout.shape)}, state "
+          f"{[(x.dtype, tuple(x.shape)) for x in state]}")
+    outs = list(zip(("h", "C", "n", "m"), (hout,) + state, (hw,) + state_w))
+    errs = {name: rel_l2(g, w) for name, g, w in outs}
+    rec = {"kernel": "mlstm_scan_cuda", "dtype": str(dtype), "B": b, "S": s,
+           "H": h, "dk": dk, "dv": dv, "chunk": chunk,
+           "rel_l2": max(errs.values()), "rel_l2_by_output": errs,
+           "max_abs_err": max((g.float() - w.float()).abs().max().item()
+                              for _, g, w in outs)}
+    if timed:
+        rec["ms"] = cuda_ms(lambda: mk.mlstm_scan_cuda(*args,
+                                                       chunk_size=chunk))
+        rec["plain_ms"] = cuda_ms(lambda: mk.mlstm_scan_plain(
+            *args, chunk_size=chunk))
+        rec["library_ms"] = None        # no PyTorch call computes it
+        flops, nbytes = mlstm_flops_bytes(b, s, h, dk, dv, chunk,
+                                          list(args) + [hout, *state])
+        rec["bound_ms"], rec["bound_by"] = _bound(nbytes, flops)
+    return rec
+
+
+def xlstm_kernel_phase(mk, dev, smi):
+    """The mLSTM kernel against its plain version, fp32 (TF32 off) and
+    bf16, by relative L2 (``parity.RTOL``; the largest over h, C, n and
+    m); every case printed before any is checked; timed in bf16 at the
+    generate phase's shape (B=4, S=1024)."""
+    import torch
+    from repro_torch.kernels.parity import RTOL
+    gen = torch.Generator(device=dev).manual_seed(12)
+    recs = []
+    for dtype in (torch.float32, torch.bfloat16):
+        bf16 = dtype == torch.bfloat16
+        recs += [mlstm_case(mk, *c, dtype, gen, dev, timed=bf16 and i == 0)
+                 for i, c in enumerate(MLSTM_CASES)]
+    for r in recs:
+        r["tol"] = RTOL[(r["kernel"], {"torch.float32": torch.float32,
+                                       "torch.bfloat16": torch.bfloat16}[
+                                           r["dtype"]])]
+        shape = {k: r[k] for k in ("B", "S", "H", "dk", "dv", "chunk")}
+        print(f"[xlstm-kernels] {r['kernel']} {r['dtype']} {shape}: rel L2 "
+              f"{r['rel_l2']:.3e} (tol {r['tol']:g}; "
+              + ", ".join(f"{k} {v:.3e}"
+                          for k, v in r["rel_l2_by_output"].items())
+              + f"), max abs err {r['max_abs_err']:.3e}"
+              + (f", {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+                 f"library none, bound {r['bound_ms']:.6f} ms "
+                 f"({r['bound_by']}) [{smi}]" if "ms" in r else ""),
+              flush=True)
+    bad = [f"{r['kernel']} {r['dtype']} S={r['S']}: {r['rel_l2']}"
+           for r in recs if not r["rel_l2"] <= r["tol"]]
+    check(not bad, "mLSTM kernel vs plain: " + "; ".join(bad))
+    return recs
+
+
+def _block_timed_prefill(model, params, prompts, max_len):
+    """One prefill under torch.profiler with every mLSTM and sLSTM block
+    between two device syncs on the host clock: the blocks' wall time by
+    kind, and the window's kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    from repro_torch.models import transformer as tr
+    orig = {"mlstm": tr.mlstm_block, "slstm": tr.slstm_block}
+    wall = {"mlstm": 0.0, "slstm": 0.0}
+
+    def timed(kind):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            out = orig[kind](*args, **kwargs)
+            torch.cuda.synchronize()
+            wall[kind] += time.monotonic() - t0
+            return out
+        return run
+    tr.mlstm_block, tr.slstm_block = timed("mlstm"), timed("slstm")
+    try:
+        with tprofile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            model.prefill(params,
+                          torch.as_tensor(prompts, device=model.device),
+                          max_len=max_len)
+            torch.cuda.synchronize()
+            pre_wall = time.monotonic() - t0
+    finally:
+        tr.mlstm_block, tr.slstm_block = orig["mlstm"], orig["slstm"]
+    rec = _profile_rec(prof, pre_wall * 1e6)
+    rec["block_wall_ms"] = {k: v * 1e3 for k, v in wall.items()}
+    return rec
+
+
+def xlstm_path_phase(counters, dev, smi):
+    """xlstm-125m at full width and depth (bf16, seed 0,
+    attention_impl="kernel") generates 64 tokens after a 1024-token
+    prompt for 4 sequences through ``launch.serve.static_generate``:
+    exact launch counts, finite logits, timings, a profile of three
+    decode steps and of a prefill. Then the fp32 gate at full depth:
+    kernel path against reference path, identical greedy tokens and
+    logits within ``XLSTM_GATE_TOL``."""
+    import gc
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    from repro_torch.configs.base import resolve
+    from repro_torch.models import transformer as tr
+    from repro_torch.models.model import build_model
+
+    held = torch.cuda.memory_allocated(dev) / 2**30
+    print(f"[xlstm-path] before: {held:.2f} GiB allocated on the card",
+          flush=True)
+    full = resolve("xlstm-125m")
+    pairs = full.num_layers // 2
+    batch, plen, ngen = XLSTM_RUN
+    cfg = dataclasses.replace(full, attention_impl="kernel")
+    model = build_model(cfg, dev)
+    params = tr.cast_params(model.init_params(0), torch.bfloat16)
+    gc.collect()
+    torch.cuda.empty_cache()
+    weights = sum(t.numel() * t.element_size()
+                  for t in tr.tree_leaves(params)) / 2**30
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (batch, plen)).astype(np.int32)
+    record = {"prefill": [], "decode": [], "finite": True, "profiles": {},
+              "profiler_s": 0.0,
+              "profile": {"lo": XLSTM_PROFILE[0], "hi": XLSTM_PROFILE[1]},
+              "profiler": lambda: tprofile(activities=[
+                  ProfilerActivity.CPU, ProfilerActivity.CUDA])}
+    toks, launches, secs, peak = _counted_generate(model, params, prompts,
+                                                   ngen, counters, record)
+    expect = {n: (pairs if n == "mlstm_scan_cuda" else 0) for n in counters}
+    check(launches == expect, f"xlstm launches {launches} != {expect}")
+    check(toks.shape == (batch, ngen), f"xlstm tokens {toks.shape}")
+    check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          "xlstm token id out of vocab")
+    check(record["finite"], "xlstm: non-finite logits")
+    check(len(record["prefill"]) == 1 and len(record["decode"]) == ngen - 1,
+          f"xlstm steps {len(record['prefill'])} prefill, "
+          f"{len(record['decode'])} decode")
+    lo, hi = XLSTM_PROFILE
+    decode_s = record["decode"][:lo] + record["decode"][hi:]
+    wall = secs - record["profiler_s"]
+    # the prefill once more under the profiler (after the counted run),
+    # its blocks timed by kind
+    record["profiles"]["prefill"] = _block_timed_prefill(
+        model, params, prompts, plen + ngen)
+    out = {"layers": cfg.num_layers, "batch": batch, "prompt": plen,
+           "generated": ngen, "launches": launches,
+           "expected_launches": expect, "seconds": secs,
+           "profiler_seconds": record["profiler_s"],
+           "prefill_ms": record["prefill"][0] * 1e3,
+           "decode_step_ms_median": statistics.median(decode_s) * 1e3,
+           "decode_step_ms": [t * 1e3 for t in record["decode"]],
+           "tokens_per_s_wall": batch * ngen / wall,
+           "peak_memory_gib": peak, "weights_gib": weights,
+           "profiles": record["profiles"], "tokens_head": toks[:, :8].tolist()}
+    print(f"[xlstm-path] xlstm-125m, {cfg.num_layers} layers at full width, "
+          f"bf16, batch {batch}, prompt {plen}, {ngen} tokens: prefill "
+          f"{out['prefill_ms']:.2f} ms, decode step median "
+          f"{out['decode_step_ms_median']:.2f} ms (profiled steps "
+          f"excluded), {out['tokens_per_s_wall']:.1f} tok/s of wall "
+          f"(the profiler's start and stop excluded), peak memory "
+          f"{peak:.2f} GiB (weights {weights:.2f} GiB), launches "
+          f"{launches} [{smi}]", flush=True)
+    blocks = record["profiles"]["prefill"]["block_wall_ms"]
+    print(f"[xlstm-path] profiled prefill, blocks between syncs: mLSTM "
+          f"{blocks['mlstm']:.2f} ms, sLSTM {blocks['slstm']:.2f} ms of "
+          f"{record['profiles']['prefill']['window_us'] / 1e3:.2f} ms",
+          flush=True)
+    for kind, prof_rec in record["profiles"].items():
+        busy, win = prof_rec["device_busy_us"], prof_rec["window_us"]
+        print(f"[xlstm-path] torch.profiler over {prof_rec['steps']} "
+              f"{kind} step(s): kernels {busy / 1e3:.3f} ms of device time "
+              f"in {win / 1e3:.3f} ms of wall; by kernel: " + "; ".join(
+                  f"{k['name'][:48]} x{k['count']} {k['us'] / 1e3:.3f} ms"
+                  for k in prof_rec["kernels"][:10]), flush=True)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the fp32 gate at full depth: prompt 300 (a full chunk and a ragged
+    # tail), 8 tokens; kernel path against reference path
+    gplen, ggen = XLSTM_GATE
+    gcfg = dataclasses.replace(full, compute_dtype="float32",
+                               attention_impl="kernel")
+    kern = build_model(gcfg, dev)
+    gparams = kern.init_params(0)
+    gprompts = np.random.default_rng(1).integers(
+        0, gcfg.vocab_size, (batch, gplen)).astype(np.int32)
+    runs = {}
+    for name in ("kernel", "reference"):
+        model = kern if name == "kernel" else build_model(
+            dataclasses.replace(gcfg, attention_impl="reference"), dev)
+        rec = {"prefill": [], "decode": [], "finite": True, "logits": []}
+        gtoks, glaunch, _, gpeak = _counted_generate(
+            model, gparams, gprompts, ggen, counters, rec)
+        check(rec["finite"], f"xlstm gate {name}: non-finite logits")
+        runs[name] = (gtoks, rec["logits"], glaunch, gpeak)
+    check(runs["kernel"][2]["mlstm_scan_cuda"] == pairs
+          and runs["reference"][2]["mlstm_scan_cuda"] == 0,
+          f"xlstm gate launches: kernel {runs['kernel'][2]}, reference "
+          f"{runs['reference'][2]}")
+    steps = []
+    for i, (g, w) in enumerate(zip(runs["kernel"][1], runs["reference"][1])):
+        err = (g - w).abs().max().item()
+        scale = max(1.0, w.abs().max().item())
+        steps.append({"step": i, "max_abs_err": err, "ref_max_abs": scale,
+                      "tol": XLSTM_GATE_TOL * scale})
+    same = bool(np.array_equal(runs["kernel"][0], runs["reference"][0]))
+    worst = max(s_["max_abs_err"] / s_["tol"] for s_ in steps)
+    print(f"[xlstm-path] fp32 gate, {gcfg.num_layers} layers, prompt "
+          f"{gplen}, {ggen} tokens: greedy tokens identical {same}; logits "
+          f"max abs err by step "
+          + ", ".join(f"{s_['max_abs_err']:.3e}" for s_ in steps)
+          + f" (largest err/tol {worst:.3f}); peak "
+          f"{runs['kernel'][3]:.2f} GiB", flush=True)
+    check(same, "xlstm gate: kernel and reference tokens differ")
+    check(len(steps) == ggen and all(s_["max_abs_err"] <= s_["tol"]
+                                     for s_ in steps),
+          f"xlstm gate: logits differ beyond {XLSTM_GATE_TOL}")
+    out["gate"] = {"layers": gcfg.num_layers, "prompt": gplen,
+                   "generated": ggen, "tokens_identical": same,
+                   "steps": steps,
                    "launches": {n: r[2] for n, r in runs.items()},
                    "peak_memory_gib": runs["kernel"][3]}
     del kern, model, gparams
@@ -2168,6 +2478,8 @@ def main(argv=None) -> int:
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.mla_decode import mla_decode as md
     from repro_torch.kernels.mla_decode import ref as mla_ref
+    from repro_torch.kernels.mlstm_scan import mlstm_scan as mk
+    from repro_torch.kernels.quantize import quantize as qz
     from repro_torch.kernels.ssd_scan import ssd_scan as sk
     t0 = time.monotonic()
     lib_path = _build.build(verbose=True)
@@ -2209,6 +2521,19 @@ def main(argv=None) -> int:
     t0 = time.monotonic()
     zamba = zamba_path_phase(fa, md, sk, dev, smi)
     phases["zamba_generate_path"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    recs += xlstm_kernel_phase(mk, dev, smi)
+    phases["xlstm_kernels"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    every = {**_counters(fa, ce),
+             "quantize_int8_cuda": qz.quantize_int8_cuda,
+             "dequant_accum_cuda": qz.dequant_accum_cuda,
+             "mla_decode_paged_cuda": md.mla_decode_paged_cuda,
+             "mla_decode_cuda": md.mla_decode_cuda,
+             "ssd_scan_cuda": sk.ssd_scan_cuda,
+             "mlstm_scan_cuda": mk.mlstm_scan_cuda}
+    xlstm = xlstm_path_phase(every, dev, smi)
+    phases["xlstm_generate_path"] = time.monotonic() - t0
     print("[phases] seconds: " + ", ".join(
         f"{k} {v:.1f}" for k, v in phases.items()), flush=True)
 
@@ -2242,28 +2567,35 @@ def main(argv=None) -> int:
                root + "mla_decode/mla_decode.py:80"),
            "ssd_scan_cuda": (
                "src/repro_torch/csrc/ssd_scan.cu",
-               root + "ssd_scan/ssd_scan.py:86")}
+               root + "ssd_scan/ssd_scan.py:86"),
+           "mlstm_scan_cuda": (
+               "src/repro_torch/csrc/mlstm_scan.cu",
+               root + "mlstm_scan/mlstm_scan.py:95")}
     # launches: the path each kernel serves (GQA decode: serve; the MLA
     # paged decode: the MLA serve path; the exchange kernels: the
     # multi-rank train path, rank 0's counts; the SSD scan: the zamba2
-    # generate path; the rest: the one-rank train path); every path's
-    # counts go to the json. The contiguous
-    # MLA kernel lies on no path (none in the JAX package either): its
-    # launches are 0 and it is held to its plain version only.
+    # generate path; the mLSTM scan: the xLSTM generate path; the rest:
+    # the one-rank train path); every path's counts go to the json. The
+    # contiguous MLA kernel lies on no path (none in the JAX package
+    # either): its launches are 0 and it is held to its plain version
+    # only.
     by_path = {n: {"serve": path["launches"].get(n, 0),
                    "train": train["launches"].get(n, 0),
                    "multi_rank": multi["launches"].get(n, 0),
                    "mla_serve": mla["launches"].get(n, 0),
-                   "zamba_generate": zamba["launches"].get(n, 0)}
+                   "zamba_generate": zamba["launches"].get(n, 0),
+                   "xlstm_generate": xlstm["launches"].get(n, 0)}
                for n in src}
     path_of = {"flash_decode_paged_cuda": "serve",
                "quantize_int8_cuda": "multi_rank",
                "dequant_accum_cuda": "multi_rank",
                "mla_decode_paged_cuda": "mla_serve",
                "mla_decode_cuda": None,
-               "ssd_scan_cuda": "zamba_generate"}
+               "ssd_scan_cuda": "zamba_generate",
+               "mlstm_scan_cuda": "xlstm_generate"}
     at_keys = ("dtype", "B", "Sq", "S", "H", "Hkv", "D", "T", "V", "R",
-               "kv_lens", "bs", "rows", "MB", "G", "P", "N", "chunk")
+               "kv_lens", "bs", "rows", "MB", "G", "P", "N", "chunk", "dk",
+               "dv")
     kernels = []
     for name, (source, replaces) in src.items():
         mine = [r for r in recs if r["kernel"] == name]
@@ -2302,13 +2634,14 @@ def main(argv=None) -> int:
                   f"its path")
     check(kernels[0]["at_d80"]["launches"] > 0,
           "the D=80 prefill never launched on the zamba2 path")
-    check(len(kernels) == 10, f"{len(kernels)} kernels listed")
+    check(len(kernels) == 11, f"{len(kernels)} kernels listed")
 
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"nvidia_smi": smi, "phase_seconds": phases, "kernel_cases": recs,
          "path": path, "train": train, "multi_rank": multi,
-         "mla_path": mla, "zamba_path": zamba, "kernels": kernels},
+         "mla_path": mla, "zamba_path": zamba, "xlstm_path": xlstm,
+         "kernels": kernels},
         indent=1,
         default=str))
     print(json.dumps({"kernels": kernels}))

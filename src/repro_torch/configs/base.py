@@ -403,7 +403,7 @@ def smoke_config(arch_id: str) -> ModelConfig:
 
 
 def _ensure_loaded() -> None:
-    # the arch modules register themselves on import; the other six
+    # the arch modules register themselves on import; the other five
     # JAX arch files have no counterpart in the port yet
     from repro_torch.configs import (  # noqa: F401
-        deepseek_v2_236b, olmo_1b, tinyllama_1_1b, zamba2_2_7b)
+        deepseek_v2_236b, olmo_1b, tinyllama_1_1b, xlstm_125m, zamba2_2_7b)

@@ -142,6 +142,12 @@ def load() -> ctypes.CDLL:
                 ci, ci, ci, ci, ci, ci, ci,     # B, S, H, P, G, N, Q
                 ci, vp]                         # dtype, stream
             lib.ssd_scan_fwd.restype = ci
+            lib.mlstm_scan_fwd.argtypes = [
+                vp, vp, vp, vp, vp,             # q, k, v, i_pre, f_pre
+                vp, vp, vp, vp,                 # h, C, n, m
+                ci, ci, ci, ci, ci, ci,         # B, S, H, dk, dv, Q
+                cf, ci, vp]                     # scale, dtype, stream
+            lib.mlstm_scan_fwd.restype = ci
             cll = ctypes.c_longlong
             lib.quantize_int8_fwd.argtypes = [
                 vp, vp, vp, vp, cll, vp]        # x, noise (or 0), q, s,

@@ -14,7 +14,9 @@ dicts (the MLA projections under ``attn``, the MoE ``router``,
 (``ln`` and ``mamba``: ``in_proj`` (d, d_in_proj), ``conv_w`` (K, C),
 ``conv_b``, ``A_log``, ``D``, ``dt_bias``, ``norm``, ``out_proj``) and
 zamba's ``shared_attn`` (``ln1``, ``attn``, ``ln2``, ``mlp``), which is
-one dict, not stacked, on both sides.
+one dict, not stacked, on both sides. An xLSTM tree has no ``layers``
+but two stacks, ``mlstm_layers`` and ``slstm_layers`` (``ln`` and
+``blk``), whose leading axis is the num_layers // 2 pairs.
 :func:`params_to_numpy` is the inverse, for comparing a port tree with
 a JAX tree leaf by leaf.
 """
@@ -44,10 +46,14 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
     """Map the JAX ``init_params`` tree (leaves as numpy arrays, e.g.
     ``jax.tree.map(np.asarray, params)``) to the port's parameters."""
     check_supported(cfg, serving=True)
-    expected = {"embed", "final_norm", "layers"}
+    plan = stack_plan(cfg)
+    stacks = ({"mlstm_layers": cfg.num_layers // 2,
+               "slstm_layers": cfg.num_layers // 2} if plan == "xlstm"
+              else {"layers": cfg.num_layers})
+    expected = {"embed", "final_norm", *stacks}
     if not cfg.tie_embeddings:
         expected.add("lm_head")
-    if stack_plan(cfg) == "zamba":
+    if plan == "zamba":
         expected.add("shared_attn")
     if set(tree) != expected:
         raise ValueError(f"JAX params have keys {sorted(tree)}, expected "
@@ -60,15 +66,17 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
     if "lm_head" in tree:
         out["lm_head"] = _tensor(tree["lm_head"], device)
 
-    def layer(a, i):
+    def layer(a, i, n):
         a = np.asarray(a)
-        if a.shape[0] != cfg.num_layers:
+        if a.shape[0] != n:
             raise ValueError(f"stacked layer leaf of shape {a.shape} does "
-                             f"not lead with num_layers={cfg.num_layers}")
+                             f"not lead with {n} (num_layers="
+                             f"{cfg.num_layers})")
         return _tensor(a[i], device)
 
-    out["layers"] = [_tree(tree["layers"], lambda a, i=i: layer(a, i))
-                     for i in range(cfg.num_layers)]
+    for name, n in stacks.items():
+        out[name] = [_tree(tree[name], lambda a, i=i, n=n: layer(a, i, n))
+                     for i in range(n)]
     if "shared_attn" in tree:
         out["shared_attn"] = _tree(tree["shared_attn"],
                                    lambda a: _tensor(a, device))
@@ -76,15 +84,16 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
 
 
 def params_to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:
-    """The port's tree in the JAX layout, leaves as numpy arrays: the
-    per-layer list stacked back along a leading (L, ...) axis (an empty
-    norm dict stays empty; ``shared_attn`` stays one dict)."""
+    """The port's tree in the JAX layout, leaves as numpy arrays: each
+    per-layer list (``layers``, or xLSTM's ``mlstm_layers`` and
+    ``slstm_layers``) stacked back along a leading axis (an empty norm
+    dict stays empty; ``shared_attn`` stays one dict)."""
     def host(t):
         return t.detach().float().cpu().numpy() if t.dtype == torch.bfloat16 \
             else t.detach().cpu().numpy()
 
-    out = {k: _tree(v, host) for k, v in params.items() if k != "layers"}
-    layers = [_tree(lp, host) for lp in params["layers"]]
+    out = {k: _tree(v, host) for k, v in params.items()
+           if not isinstance(v, list)}
 
     def stack(*leaves):
         return np.stack(leaves)
@@ -95,5 +104,7 @@ def params_to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:
             return {k: zip_tree([t[k] for t in trees]) for k in first}
         return stack(*trees)
 
-    out["layers"] = zip_tree(layers)
+    for k, v in params.items():
+        if isinstance(v, list):
+            out[k] = zip_tree([_tree(lp, host) for lp in v])
     return out

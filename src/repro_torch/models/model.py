@@ -7,9 +7,10 @@ forward ``logits_fn``, the static-batch serving functions ``prefill``,
 serving functions ``init_paged_cache``, ``prefill_paged`` and
 ``decode_paged``. A MoE or MLA config (deepseek-v2) serves through the
 paged pool (its latent), and its layers route through the MoE block; a
-Mamba2 hybrid (zamba2) serves through the contiguous cache (the paged
-pool takes the uniform plan only, as in the JAX package); ``loss_fn``
-refuses all of them (training those layers is not ported yet). The
+Mamba2 hybrid (zamba2) and xLSTM (xlstm-125m) serve through the
+contiguous cache (the paged pool takes the uniform plan only, as in the
+JAX package); ``loss_fn`` refuses all of them (training those layers is
+not ported yet). The
 device defaults to ``"cuda"`` and a CUDA device that is not there
 raises: the CPU runs only when the caller asks for it.
 

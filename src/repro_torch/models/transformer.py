@@ -7,7 +7,8 @@ Stack plans (:func:`stack_plan`, from the config):
   zamba   — the Mamba2 backbone with one weight-shared attention block
             (attention, then an MLP) applied after every
             ``hybrid.attn_every`` Mamba2 layers (zamba2);
-  xlstm   — not ported yet.
+  xlstm   — alternating mLSTM and sLSTM blocks, num_layers // 2 pairs
+            (xlstm-125m).
 
 Parameters are a plain dict: ``embed`` (V, d), ``final_norm``,
 ``lm_head`` (d, V; absent with tied embeddings, where the head is
@@ -17,18 +18,21 @@ Parameters are a plain dict: ``embed`` (V, d), ``final_norm``,
 ``mamba`` on the mamba and zamba plans; the zamba plan adds
 ``shared_attn`` (``ln1``, ``attn``, ``ln2``, ``mlp``), ONE dict applied
 ``num_layers // attn_every`` times, each application with its own KV
-cache. Norm dicts are empty for OLMo's non-parametric LayerNorm. The
-JAX package stacks the layers along a leading axis for ``lax.scan``
-(for zamba an outer scan over groups and an inner one over a group's
-layers); here the stacks are Python loops, each uniform layer under
+cache. The xlstm plan has no ``layers``: ``mlstm_layers`` and
+``slstm_layers`` are lists of num_layers // 2 dicts ``{"ln", "blk"}``,
+pair p running mLSTM block p then sLSTM block p. Norm dicts are empty
+for OLMo's non-parametric LayerNorm. The JAX package stacks the layers
+along a leading axis for ``lax.scan`` (for zamba an outer scan over
+groups and an inner one over a group's layers; for xlstm one scan over
+the pairs); here the stacks are Python loops, each uniform layer under
 ``torch.utils.checkpoint`` when ``remat="full"``.
 
 Serving runs two cache families: the paged pool (:func:`prefill`, then
 :func:`decode_step_paged`; the uniform plan only, as in the JAX
 package) and the contiguous cache of static-batch serving
 (:func:`prefill`, :func:`init_cache`, :func:`decode_step`; the uniform
-GQA, mamba and zamba plans). MoE, MLA, Mamba2 and zamba stacks are
-ported for serving only; :func:`check_supported` names what a config
+GQA, mamba, zamba and xlstm plans). MoE, MLA, Mamba2, zamba and xLSTM
+stacks are ported for serving only; :func:`check_supported` names what a config
 may not use yet, :func:`check_servable` what serving may not.
 """
 from __future__ import annotations
@@ -43,6 +47,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.flash_attention import (
     HEAD_DIM, PREFILL_HEAD_DIMS)
 from repro_torch.kernels.mla_decode.mla_decode import RANK, ROPE_DIM
+from repro_torch.kernels.mlstm_scan.mlstm_scan import MAX_DK, WIDTH_MULT
 from repro_torch.kernels.ssd_scan.ssd_scan import (MAX_CHUNK, P_SLICE,
                                                    STATE_DIM)
 from repro_torch.models.blocks import (_cast, apply_norm, attention_block,
@@ -58,6 +63,11 @@ from repro_torch.models.kvcache import (PagedLayout, attention_decode,
                                         mla_decode_paged)
 from repro_torch.models.ssm import (init_mamba, mamba_block,
                                     mamba_decode_step, mamba_dims)
+from repro_torch.models.xlstm import (init_mlstm_block, init_mlstm_state,
+                                      init_slstm_block, init_slstm_state,
+                                      mlstm_block, mlstm_block_decode,
+                                      mlstm_dims, slstm_block,
+                                      slstm_block_decode, slstm_ff)
 
 
 def stack_plan(cfg: ModelConfig) -> str:
@@ -72,9 +82,10 @@ def stack_plan(cfg: ModelConfig) -> str:
 
 def check_supported(cfg: ModelConfig, serving: bool = False) -> None:
     """Raise for any config feature outside this port. MoE, MLA, SSM
-    (Mamba2) and hybrid (zamba) stacks pass only with ``serving``
+    (Mamba2), hybrid (zamba) and xLSTM stacks pass only with ``serving``
     (prefill and decode): their training (the MoE aux loss, the MLA
-    backward, the SSD backward) is not ported yet."""
+    backward, the SSD backward, the mLSTM backward) is not ported
+    yet."""
     unsupported = [
         (cfg.moe.enabled and not serving, "MoE training"),
         (cfg.mla.enabled and not serving, "MLA training"),
@@ -84,7 +95,9 @@ def check_supported(cfg: ModelConfig, serving: bool = False) -> None:
         (cfg.hybrid.enabled and not cfg.ssm.enabled,
          "hybrid without an SSM"),
         (cfg.moe.dense_residual, "MoE dense_residual"),
-        (cfg.xlstm.enabled, "xLSTM"), (cfg.qk_norm, "qk_norm"),
+        (cfg.xlstm.enabled and not serving,
+         "xLSTM training (the mLSTM backward)"),
+        (cfg.qk_norm, "qk_norm"),
         (cfg.frontend != "token", f"frontend '{cfg.frontend}'"),
         (cfg.norm not in ("rmsnorm", "layernorm", "nonparam_ln"),
          f"norm '{cfg.norm}'"),
@@ -94,7 +107,7 @@ def check_supported(cfg: ModelConfig, serving: bool = False) -> None:
     if missing:
         raise ValueError(f"{cfg.name}: {', '.join(missing)} not ported to "
                          f"repro_torch yet (dense layers; MoE/MLA layers, "
-                         f"Mamba2 and zamba stacks for serving)")
+                         f"Mamba2, zamba and xLSTM stacks for serving)")
 
 
 def check_paged(cfg: ModelConfig) -> None:
@@ -114,13 +127,23 @@ def check_servable(cfg: ModelConfig, device, paged: bool = True) -> None:
     built for head_dim 64, the MLA decode kernels for latent rank 512
     and RoPE width 64, the prefill kernel for head dims 64, 80, 128 and
     192, the SSD kernel for state dim 64, a head dim that is a multiple
-    of 32 and chunks of at most 256 (on the CPU the kernels' plain
-    versions take any width)."""
+    of 32 and chunks of at most 256, the mLSTM kernel for a head dim
+    (d_inner / heads) that is a multiple of 64 and at most 512 (on the
+    CPU the kernels' plain versions take any width)."""
     check_supported(cfg, serving=True)
     if (cfg.attention_impl != "kernel"
             or torch.device(device).type != "cuda"):
         return
     plan = stack_plan(cfg)
+    if plan == "xlstm":
+        dk = mlstm_dims(cfg)[2]
+        if dk % WIDTH_MULT or dk > MAX_DK:
+            raise ValueError(
+                f"{cfg.name}: the mLSTM kernel (attention_impl='kernel') "
+                f"needs a head dim (d_inner / heads) that is a multiple of "
+                f"{WIDTH_MULT} and at most {MAX_DK}, got {dk}; not ported "
+                f"yet")
+        return
     if plan in ("mamba", "zamba"):
         s = cfg.ssm
         if (s.state_dim != STATE_DIM or s.head_dim % P_SLICE
@@ -176,6 +199,13 @@ def init_params(cfg: ModelConfig, seed: int, device) -> Dict[str, Any]:
         params["lm_head"] = dense_init(gen, (cfg.d_model, cfg.vocab_size),
                                        dt)
     plan = stack_plan(cfg)
+    if plan == "xlstm":
+        pairs = cfg.num_layers // 2
+        for name, init in (("mlstm_layers", init_mlstm_block),
+                           ("slstm_layers", init_slstm_block)):
+            params[name] = [{"ln": init_norm(cfg, gen),
+                             "blk": init(cfg, gen)} for _ in range(pairs)]
+        return params
     layer_init = init_uniform_layer if plan == "uniform" else \
         init_mamba_layer
     params["layers"] = [layer_init(cfg, gen) for _ in range(cfg.num_layers)]
@@ -220,6 +250,13 @@ def count_params_analytic(cfg: ModelConfig) -> int:
     head = 0 if cfg.tie_embeddings else d * cfg.vocab_size
     base = cfg.vocab_size * d + norm + head
     plan = stack_plan(cfg)
+    if plan == "xlstm":
+        di, nh, _ = mlstm_dims(cfg)
+        k = cfg.xlstm.conv_kernel
+        mlstm = 3 * d * di + (k + 3) * di + 3 * di * di + 2 * nh * (di + 1)
+        slstm = ((k + 6) * d + 4 * d * d + 4 * d * d // nh
+                 + 3 * d * slstm_ff(cfg))
+        return base + cfg.num_layers // 2 * (2 * norm + mlstm + slstm)
     if plan in ("mamba", "zamba"):
         d_inner, nheads, conv_ch, d_in_proj = mamba_dims(cfg)
         mamba = (d * d_in_proj + (cfg.ssm.conv_kernel + 1) * conv_ch
@@ -347,10 +384,18 @@ def hidden_states(params, embeds: torch.Tensor, cfg: ModelConfig
     each layer under a non-reentrant checkpoint (only the layer input is
     kept; the backward recomputes the layer, attention kernel
     included), "none" keeps every activation; "dots" (save matmul
-    outputs only) is not ported yet. The mamba and zamba plans are
-    forward only (scoring, ``Model.logits_fn``): their training is not
-    ported yet."""
+    outputs only) is not ported yet. The mamba, zamba and xlstm plans
+    are forward only (scoring, ``Model.logits_fn``): their training is
+    not ported yet."""
     plan = stack_plan(cfg)
+    if plan == "xlstm":
+        check_supported(cfg, serving=True)
+        x = embeds
+        for mp, sp in zip(params["mlstm_layers"], params["slstm_layers"]):
+            x = x + mlstm_block(mp["blk"], apply_norm(mp["ln"], x, cfg), cfg)
+            x = x + slstm_block(sp["blk"], apply_norm(sp["ln"], x, cfg), cfg)
+        aux = torch.zeros((), dtype=torch.float32, device=embeds.device)
+        return apply_norm(params["final_norm"], x, cfg), aux
     if plan in ("mamba", "zamba"):
         check_supported(cfg, serving=True)
         positions = torch.arange(embeds.shape[1], device=embeds.device)
@@ -396,6 +441,28 @@ def _layer_prefill(p, x, cfg, positions):
     return x + _ffn_serving(p, apply_norm(p["ln2"], x, cfg), cfg), kv
 
 
+# The xlstm plan's contiguous cache: one flat name per leaf of the JAX
+# package's nested cache, {"mlstm": (conv, (C, n, m)), "slstm": (conv,
+# (c, n, m, h))}, each stacked over the num_layers // 2 pairs.
+XLSTM_CACHE = {"mlstm": ("mlstm_conv", "mlstm_C", "mlstm_n", "mlstm_m"),
+               "slstm": ("slstm_conv", "slstm_c", "slstm_n", "slstm_m",
+                         "slstm_h")}
+
+
+def _xlstm_leaves(kind: str, states) -> Dict[str, torch.Tensor]:
+    """Per-pair block states (conv, cell tuple) -> the flat cache leaves
+    of one block kind, stacked over pairs."""
+    per_pair = [(st[0],) + tuple(st[1]) for st in states]
+    return {name: torch.stack([leaves[i] for leaves in per_pair])
+            for i, name in enumerate(XLSTM_CACHE[kind])}
+
+
+def _xlstm_state(cache: Dict[str, torch.Tensor], kind: str, p: int):
+    """Pair p's block state (conv, cell tuple) as views of the cache."""
+    conv, *cell = (cache[name][p] for name in XLSTM_CACHE[kind])
+    return conv, tuple(cell)
+
+
 def cache_names(cfg: ModelConfig) -> Tuple[str, str]:
     """The two cache tensors of a layer: the MLA latent and RoPE key, or
     GQA's k and v."""
@@ -410,7 +477,11 @@ def prefill(params, embeds: torch.Tensor, cfg: ModelConfig,
     conv_ch) and {"ssm"} (L, B, H, P, N), both in the compute dtype.
     Zamba plan: those, plus {"attn_k","attn_v"} (G, B, max_len, Hkv,
     Dh), one per application of the shared block. Attention positions
-    past S are zeros."""
+    past S are zeros. Xlstm plan: the leaves of :data:`XLSTM_CACHE`,
+    (P, B, ...) over the P = num_layers // 2 pairs: the conv tails (P,
+    B, K-1, d_inner) and (P, B, K-1, d) in the compute dtype; mLSTM C
+    (P, B, H, dk, dk), n (P, B, H, dk), m (P, B, H) and sLSTM c, n, m, h
+    (P, B, d) in fp32; ``max_len`` is not read (the state is O(1))."""
     b, s, _ = embeds.shape
     positions = torch.arange(s, device=embeds.device)
     pad = max_len - s
@@ -447,6 +518,18 @@ def prefill(params, embeds: torch.Tensor, cfg: ModelConfig,
         if plan == "zamba":
             cache["attn_k"] = stack([kv[0] for kv in kvs])
             cache["attn_v"] = stack([kv[1] for kv in kvs])
+    elif plan == "xlstm":
+        mst, sst = [], []
+        for mp, sp in zip(params["mlstm_layers"], params["slstm_layers"]):
+            y, st = mlstm_block(mp["blk"], apply_norm(mp["ln"], x, cfg), cfg,
+                                return_state=True)
+            x = x + y
+            mst.append(st)
+            y, st = slstm_block(sp["blk"], apply_norm(sp["ln"], x, cfg), cfg,
+                                return_state=True)
+            x = x + y
+            sst.append(st)
+        cache = {**_xlstm_leaves("mlstm", mst), **_xlstm_leaves("slstm", sst)}
     else:
         raise ValueError(f"stack plan {plan!r} is not ported yet")
     return apply_norm(params["final_norm"], x, cfg), cache
@@ -455,11 +538,19 @@ def prefill(params, embeds: torch.Tensor, cfg: ModelConfig,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device
                ) -> Dict[str, torch.Tensor]:
     """Zero contiguous cache with :func:`prefill`'s structure (uniform
-    GQA, mamba and zamba plans; the contiguous MLA cache is not ported
-    yet)."""
+    GQA, mamba, zamba and xlstm plans; the contiguous MLA cache is not
+    ported yet). The xlstm plan's stabilizers m start at -1e30, as in the
+    JAX package."""
     plan = stack_plan(cfg)
     cdt = dtype_of(cfg.compute_dtype)
     L = cfg.num_layers
+    if plan == "xlstm":
+        pairs = L // 2
+        return {
+            **_xlstm_leaves("mlstm",
+                            [init_mlstm_state(cfg, batch, device)] * pairs),
+            **_xlstm_leaves("slstm",
+                            [init_slstm_state(cfg, batch, device)] * pairs)}
     if plan == "uniform":
         if cfg.mla.enabled:
             raise ValueError(f"{cfg.name}: the contiguous MLA cache "
@@ -519,6 +610,16 @@ def decode_step(params, embeds: torch.Tensor, cfg: ModelConfig,
                 x, _ = _apply_shared_attn_decode(
                     params["shared_attn"], x, cfg, cache["attn_k"][g],
                     cache["attn_v"][g], pos)
+    elif plan == "xlstm":
+        for p, (mp, sp) in enumerate(zip(params["mlstm_layers"],
+                                         params["slstm_layers"])):
+            for kind, lp, step in (("mlstm", mp, mlstm_block_decode),
+                                   ("slstm", sp, slstm_block_decode)):
+                y, (conv, cell) = step(lp["blk"], apply_norm(lp["ln"], x, cfg),
+                                       cfg, _xlstm_state(cache, kind, p))
+                x = x + y
+                for name, t in zip(XLSTM_CACHE[kind], (conv,) + tuple(cell)):
+                    cache[name][p] = t
     else:
         raise ValueError(f"stack plan {plan!r} is not ported yet")
     return apply_norm(params["final_norm"], x, cfg), cache

@@ -20,7 +20,10 @@ reference route at fp32 by ``MLA_PATH_TOL``. The SSD scan kernel and the
 head-dim-80 prefill are held by relative L2 error to ``parity.RTOL``
 (the scan on the larger of y's and the final state's), and zamba2's
 static path, kernel route against reference route at fp32, by
-``ZAMBA_PATH_TOL``.
+``ZAMBA_PATH_TOL``. The mLSTM scan kernel is held by relative L2 error
+to ``parity.RTOL`` (the largest over h, C, n and m), and xLSTM's static
+path, kernel route against reference route at fp32, by
+``XLSTM_PATH_TOL``.
 """
 import numpy as np
 import pytest
@@ -31,6 +34,7 @@ from repro_torch.kernels.cross_entropy import ref as ce_ref
 from repro_torch.kernels.flash_attention import flash_attention as fa
 from repro_torch.kernels.mla_decode import mla_decode as md
 from repro_torch.kernels.mla_decode import ref as mla_ref
+from repro_torch.kernels.mlstm_scan import mlstm_scan as mk
 from repro_torch.kernels.parity import RTOL, rel_l2
 from repro_torch.kernels.quantize import quantize as qz
 from repro_torch.kernels.quantize import ref as q_ref
@@ -595,6 +599,107 @@ def test_zamba_static_kernel_path_matches_reference(dev):
     for key in ("conv", "ssm", "attn_k", "attn_v"):
         assert _err(outs["kernel"][2][key], outs["reference"][2][key]) \
             <= 1e-4
+    toks = {n: static_generate(m, params, x[:, :40].cpu().numpy(), 4)
+            for n, m in (("kernel", kern), ("reference", ref))}
+    assert np.array_equal(toks["kernel"], toks["reference"])
+
+
+# --------------------------------------------------------------------------
+# xLSTM: the mLSTM scan kernel, the static path
+# --------------------------------------------------------------------------
+
+def _mlstm_inputs(rng, dev, dtype, b, s, h, dk, dv):
+    def f(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev)
+    q, k, v = (f(b, s, h, dk).to(dtype), f(b, s, h, dk).to(dtype),
+               f(b, s, h, dv).to(dtype))
+    return q, k, v, f(b, s, h), f(b, s, h) + 3.0
+
+
+@pytest.mark.parametrize("dtype", DTYPE_ONLY)
+@pytest.mark.parametrize("b,s,h,dk,dv,chunk", [
+    (4, 1024, 4, 384, 384, 256),      # xlstm-125m's prefill shape
+    (4, 1000, 4, 384, 384, 256),      # ragged tail
+    (2, 100, 4, 384, 384, 256),       # S shorter than the chunk
+    (2, 300, 4, 384, 384, 128),       # the Pallas wrapper's chunk
+    (2, 300, 2, 64, 64, 256),         # the smoke widths
+    (1, 70, 3, 128, 64, 32),          # dk != dv
+])
+def test_mlstm_scan_kernel_matches_plain(dev, dtype, b, s, h, dk, dv, chunk):
+    rng = np.random.default_rng(s + h + dk)
+    args = _mlstm_inputs(rng, dev, dtype, b, s, h, dk, dv)
+    n0 = mk.mlstm_scan_cuda.launches
+    hout, (C, n, m) = mk.mlstm_scan_cuda(*args, chunk_size=chunk)
+    assert mk.mlstm_scan_cuda.launches == n0 + 1
+    hw, (Cw, nw, mw) = mk.mlstm_scan_plain(*args, chunk_size=chunk)
+    assert hout.dtype == dtype and hout.shape == (b, s, h, dv)
+    assert C.shape == (b, h, dk, dv) and n.shape == (b, h, dk)
+    assert m.shape == (b, h) and C.dtype == torch.float32
+    tol = RTOL[("mlstm_scan_cuda", dtype)]
+    for what, got, want in (("h", hout, hw), ("C", C, Cw), ("n", n, nw),
+                            ("m", m, mw)):
+        assert _close(f"mlstm {what}", got, want, tol)
+
+
+def test_mlstm_kernel_refuses_what_it_does_not_take(dev):
+    rng = np.random.default_rng(0)
+    q, k, v, i, f = _mlstm_inputs(rng, dev, torch.float32, 1, 8, 2, 64, 64)
+    with pytest.raises(ValueError, match="dk % 64"):
+        mk.mlstm_scan_cuda(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                           v, i, f)
+    with pytest.raises(ValueError, match="dk <= 512"):
+        wide = torch.cat([q] * 9, -1)
+        mk.mlstm_scan_cuda(wide, wide, v, i, f)
+    with pytest.raises(ValueError, match="chunk of 1..256"):
+        big = [torch.cat([t] * 40, 1) for t in (q, k, v, i, f)]
+        mk.mlstm_scan_cuda(*big, chunk_size=300)
+    with pytest.raises(TypeError, match="k/v dtypes"):
+        mk.mlstm_scan_cuda(q, k.bfloat16(), v, i, f)
+    with pytest.raises(TypeError, match="float32"):
+        mk.mlstm_scan_cuda(q, k, v, i.bfloat16(), f)
+    with pytest.raises(ValueError, match="contiguous"):
+        mk.mlstm_scan_cuda(q.transpose(1, 2), k, v, i, f)
+    with pytest.raises(ValueError, match="disagree"):
+        mk.mlstm_scan_cuda(q, k, v, i[:, :4].contiguous(), f)
+
+
+# kernel route vs reference route of xLSTM's static path at fp32 (TF32
+# off), xlstm-125m's mLSTM head dim 384 over 4 layers and a small vocab:
+# logits relative to the largest reference logit
+XLSTM_PATH_TOL = 1e-4
+
+
+def test_xlstm_static_kernel_path_matches_reference(dev):
+    import dataclasses
+    from repro_torch.configs.base import resolve
+    from repro_torch.launch.serve import static_generate
+    from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import XLSTM_CACHE
+    cfg = dataclasses.replace(resolve("xlstm-125m"), num_layers=4,
+                              vocab_size=512, compute_dtype="float32",
+                              attention_impl="kernel")
+    kern = build_model(cfg, dev)
+    ref = build_model(dataclasses.replace(cfg, attention_impl="reference"),
+                      dev)
+    params = kern.init_params(0)
+    x = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 512, (2, 300)).astype(np.int32)).to(dev)
+    outs = {}
+    for name, model in (("kernel", kern), ("reference", ref)):
+        n0 = mk.mlstm_scan_cuda.launches
+        logits, cache = model.prefill(params, x, max_len=302)
+        dec, cache = model.decode(params, x[:, -1], cache, 300)
+        outs[name] = (logits, dec, cache)
+        assert mk.mlstm_scan_cuda.launches - n0 == (
+            2 if name == "kernel" else 0)
+    for got, want in zip(outs["kernel"][:2], outs["reference"][:2]):
+        scale = max(1.0, want.abs().max().item())
+        assert _err(got, want) <= XLSTM_PATH_TOL * scale
+    for key in XLSTM_CACHE["mlstm"] + XLSTM_CACHE["slstm"]:
+        want = outs["reference"][2][key]
+        scale = max(1.0, want.abs().max().item())
+        assert _err(outs["kernel"][2][key], want) <= 1e-4 * scale, key
     toks = {n: static_generate(m, params, x[:, :40].cpu().numpy(), 4)
             for n, m in (("kernel", kern), ("reference", ref))}
     assert np.array_equal(toks["kernel"], toks["reference"])

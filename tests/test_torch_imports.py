@@ -64,7 +64,12 @@ def test_importing_every_port_module_leaves_jax_unloaded():
             "repro_torch.kernels.ssd_scan.ops",
             "repro_torch.kernels.ssd_scan.ssd_scan",
             "repro_torch.kernels.ssd_scan.ref",
-            "repro_torch.models.ssm"} <= set(mods)
+            "repro_torch.models.ssm",
+            "repro_torch.configs.xlstm_125m",
+            "repro_torch.kernels.mlstm_scan.ops",
+            "repro_torch.kernels.mlstm_scan.mlstm_scan",
+            "repro_torch.kernels.mlstm_scan.ref",
+            "repro_torch.models.xlstm"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
