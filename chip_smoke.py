@@ -10,14 +10,22 @@ Phases (any failure exits non-zero; no phase swallows an error):
 
 1. Prints the card's name and power limit (nvidia-smi), builds every
    CUDA kernel from ``src/repro_torch/csrc`` with nvcc (one nvcc per
-   source, all started together) and prints the build time.
+   source, all started together) and prints the build time. Then the
+   bf16 tensor-core kernels (the prefill forward at head dims 64, 80,
+   128 and 192, the CE forward for both head layouts, and its merge):
+   ptxas's registers and spills, the dynamic shared memory of each
+   launch, and the count of ``wgmma.mma_async`` and ``cp.async`` in
+   their PTX (``nvcc -ptx``) and of HGMMA in their SASS (cuobjdump,
+   where the toolkit has it); every product kernel must have both
+   instructions and no spill.
 2. Serving kernel phase: the prefill and paged-decode kernels against
    their plain PyTorch versions on the card, in fp32 (tolerance 1e-4)
    and bf16 (tolerance 2e-2), at tinyllama-1.1b widths (H=32, Hkv=4,
    D=64). Prefill at buckets 16, 128 and 512 with B=2, plus Sq=Skv=200
    (not a tile multiple); paged decode with B=8, bs=16, ragged kv_lens
    up to 512, NULL holes, one all-NULL inactive slot and one sequence at
-   exactly MB*bs. TF32 is off for every fp32 comparison. Times are
+   exactly MB*bs. TF32 is off for every fp32 comparison. Each prefill
+   case runs twice and must give bitwise-equal outputs. Times are
    CUDA-event medians of 20 runs after warm-up; ``library_ms`` is
    ``torch.nn.functional.scaled_dot_product_attention`` on the same
    dense inputs, a yardstick the port never calls.
@@ -30,9 +38,11 @@ Phases (any failure exits non-zero; no phase swallows an error):
    held against the plain version's by its relative L2 error, with the
    limits of ``repro_torch.kernels.parity.RTOL`` (per kernel and dtype,
    about 10x the errors read on an H100); every case is printed before
-   any is checked. Each kernel is timed at the shape the train phase gives
-   it (B=5 rows of 1024 tokens a microbatch, T=5120, a 4096-row dlogits
-   chunk). Yardsticks: the autograd backward of SDPA(is_causal=True);
+   any is checked. The attention forward and the CE forward each run
+   twice and must give bitwise-equal outputs. Each kernel is timed at
+   the shape the train phase gives it (B=5 rows of 1024 tokens a
+   microbatch, T=5120, a 4096-row dlogits chunk). Yardsticks: the
+   autograd backward of SDPA(is_causal=True);
    ``F.linear`` then ``F.cross_entropy(reduction="none")``, two calls
    (no single PyTorch call fuses the head with the loss); none for the
    dlogits pass (no PyTorch call computes it).
@@ -98,7 +108,8 @@ Phases (any failure exits non-zero; no phase swallows an error):
    slot whose output must be 0, one sequence at exactly MB*bs); the
    contiguous kernel at B=8, S in {200, 512, 2048}; the prefill forward
    at head dim 192 (B=2, S in {16, 512, 200}, H=Hkv=128, v zero-padded
-   from 128). Timed in bf16 at the MLA serve path's shapes (the paged
+   from 128; each run twice, bitwise equal). Timed in bf16 at the MLA
+   serve path's shapes (the paged
    decode at B=8, the prefill at the 512 bucket; the contiguous kernel,
    on no path, at S=512). Yardsticks: SDPA as MQA over the gathered
    dense window (q = [q_abs | q_r], k = [ckv | kr], v = ckv, a boolean
@@ -128,7 +139,8 @@ Phases (any failure exits non-zero; no phase swallows an error):
    (S=1000), S shorter than the chunk (S=100), two group layouts (G=2,
    H=8; G=3, H=6 at chunk 128) and no D; the prefill kernel at head dim
    80 (zamba2's shared attention block: B=4, S=1024, H=Hkv=32; and two
-   small cases) likewise. Both timed in bf16 at the generate phase's
+   small cases) likewise, each run twice and bitwise equal. Both timed
+   in bf16 at the generate phase's
    shapes, with the bound, the plain version's time and the library's
    (SDPA causal for the attention; none for the scan, which no PyTorch
    call computes), beside the card's name and power limit.
@@ -178,9 +190,10 @@ Phases (any failure exits non-zero; no phase swallows an error):
    the reference path give identical greedy tokens and every step's
    logits agree within 1e-3 of the largest reference logit.
 14. Prints one ``{"kernels": [...]}`` line (eleven kernels; the prefill
-   kernel's D=192 and D=80 cases ride in its entry as ``at_d192`` and
-   ``at_d80``; the contiguous MLA kernel lies on no path and reports 0
-   launches), then, last, ``{"ok": true, "device": {...}}``. Details go
+   kernel's D=64 (phase 2's S=512 bucket), D=192 and D=80 cases ride in
+   its entry as ``at_d64``, ``at_d192`` and ``at_d80``; the contiguous
+   MLA kernel lies on no path and reports 0 launches), then, last,
+   ``{"ok": true, "device": {...}}``. Details go
    to ``chiprun_out/chip_smoke.json``.
 
 ``python3 chip_smoke.py --cards 4`` (a machine with four cards) runs
@@ -255,6 +268,110 @@ def cuda_ms(fn, reps: int = REPS):
 
 
 # --------------------------------------------------------------------------
+# the bf16 tensor-core kernels: what the compiler made of them
+# --------------------------------------------------------------------------
+
+SM90_SOURCES = ("flash_attention.cu", "cross_entropy.cu")
+
+
+def _sm90_name(mangled: str):
+    """A short name for the bf16 tensor-core kernels' entry points (the
+    product kernels and the CE merge), None for any other."""
+    import re
+    m = re.search(r"flash_fwd_sm90ILi(\d+)E", mangled)
+    if m:
+        return f"flash_fwd_sm90<D={m.group(1)}>"
+    m = re.search(r"ce_fwd_sm90ILi(\d)E", mangled)
+    if m:
+        return "ce_fwd_sm90<" + ("(D, V) head" if m.group(1) == "1"
+                                 else "tied (V, D) head") + ">"
+    return "ce_merge" if "ce_merge" in mangled else None
+
+
+def _by_entry(text: str, start_re: str):
+    """Split compiler output into {short name: body} at each entry point
+    that ``start_re`` (one group: the mangled name) finds."""
+    import re
+    marks = [(m.start(), m.group(1)) for m in re.finditer(start_re, text)]
+    out = {}
+    for i, (pos, mangled) in enumerate(marks):
+        name = _sm90_name(mangled)
+        if name:
+            end = marks[i + 1][0] if i + 1 < len(marks) else len(text)
+            out[name] = out.get(name, "") + text[pos:end]
+    return out
+
+
+def sm90_report(build, lib, fa, ce):
+    """ptxas's registers and spills of the bf16 tensor-core kernels, the
+    dynamic shared memory each launch asks for, the tiles each takes
+    (held equal to those the CPU models of the tests follow: ``KV_TILES``,
+    ``TOKEN_TILE``, ``VOCAB_TILE``), and the instructions
+    their PTX (``nvcc -ptx``) and, where the toolkit has cuobjdump, their
+    SASS hold: every product kernel must issue ``wgmma.mma_async``
+    (HGMMA) on operands that ``cp.async`` brought to shared memory."""
+    import re
+    import shutil
+    rows = {}
+    for name, body in _by_entry(build.ptxas_log(),
+                                r"Compiling entry function '(\S+)'").items():
+        regs = re.findall(r"Used (\d+) registers", body)
+        spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                            r"loads", body)
+        rows[name] = {"registers": int(regs[0]),
+                      "spill_bytes": sum(int(a) + int(b) for a, b in spills)}
+    for d in (64, 80, 128, 192):
+        rows[f"flash_fwd_sm90<D={d}>"]["dynamic_smem"] = \
+            lib.flash_attention_fwd_sm90_smem(d)
+        kv_tile = lib.flash_attention_fwd_sm90_kv_tile(d)
+        check(kv_tile == fa.KV_TILES[d], f"D={d}: the kernel's kv tile is "
+              f"{kv_tile}, KV_TILES says {fa.KV_TILES[d]}")
+    ce_tiles = (lib.ce_fwd_sm90_tile(0), lib.ce_fwd_sm90_tile(1))
+    check(ce_tiles == (ce.TOKEN_TILE, ce.VOCAB_TILE),
+          f"ce_fwd's tiles are {ce_tiles}, the wrapper says "
+          f"{(ce.TOKEN_TILE, ce.VOCAB_TILE)}")
+    print(f"[sm90] tiles as the CPU models take them: kv {fa.KV_TILES}, "
+          f"CE {ce_tiles[0]} tokens x {ce_tiles[1]} vocab columns",
+          flush=True)
+    for name in rows:
+        if name.startswith("ce_fwd_sm90"):
+            rows[name]["dynamic_smem"] = lib.ce_fwd_sm90_smem()
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    have_sass = Path(cuobjdump).exists()
+    objs = {o.stem.rsplit("_", 1)[0]: o for o in build.objects()}
+    for src in SM90_SOURCES:
+        path = build.CSRC / src
+        for name, body in _by_entry(build.ptx(path),
+                                    r"\.entry\s+(\w+)\(").items():
+            rows[name]["ptx_wgmma"] = body.count("wgmma.mma_async")
+            rows[name]["ptx_cp_async"] = body.count("cp.async.cg")
+        if have_sass:
+            sass = subprocess.run([cuobjdump, "-sass", str(
+                objs[path.stem])], capture_output=True,
+                text=True, check=True, timeout=300).stdout
+            for name, body in _by_entry(sass, r"Function : (\S+)").items():
+                rows[name]["sass_hgmma"] = body.count("HGMMA")
+    for name, r in rows.items():
+        print(f"[sm90] {name}: {r['registers']} registers, "
+              f"{r['spill_bytes']} bytes spilled, "
+              f"{r.get('dynamic_smem', 0)} B dynamic shared memory; PTX "
+              f"{r.get('ptx_wgmma', 0)} wgmma.mma_async, "
+              f"{r.get('ptx_cp_async', 0)} cp.async"
+              + (f"; SASS {r.get('sass_hgmma', 0)} HGMMA" if have_sass
+                 else "; no cuobjdump: SASS not read"), flush=True)
+    products = [n for n in rows if n != "ce_merge"]
+    check(len(products) == 6, f"bf16 tensor-core kernels found: {products}")
+    for n in products:
+        r = rows[n]
+        check(r["spill_bytes"] == 0, f"{n}: ptxas spilled")
+        check(r.get("ptx_wgmma", 0) > 0 and r.get("ptx_cp_async", 0) > 0,
+              f"{n}: no wgmma.mma_async or cp.async in its PTX")
+        check(not have_sass or r.get("sass_hgmma", 0) > 0,
+              f"{n}: no HGMMA in its SASS")
+    return rows
+
+
+# --------------------------------------------------------------------------
 # kernel phase
 # --------------------------------------------------------------------------
 
@@ -291,9 +408,11 @@ def prefill_case(fa, b, s, dtype, gen, dev):
     want = fa.flash_attention_plain(q, k, v, causal=True)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
+    check(torch.equal(fa.flash_attention_cuda(q, k, v, causal=True), got),
+          f"prefill {dtype} at S={s}: two runs differ")
     rec = {"kernel": "flash_attention_cuda", "dtype": str(dtype),
            "B": b, "Sq": s, "Skv": s, "H": h, "Hkv": hkv, "D": d,
-           "max_abs_err": err}
+           "max_abs_err": err, "bitwise_repeat": True}
     if dtype == torch.bfloat16:
         qt, kt, vt = _sdpa_layout(q, k, v)
         rec["ms"] = cuda_ms(lambda: fa.flash_attention_cuda(q, k, v))
@@ -584,6 +703,9 @@ def attention_train_case(fa, b, s, h, hkv, d, dtype, gen, dev, timed):
     out, lse = fa.flash_attention_cuda(q, k, v, return_lse=True)
     e_fwd, r_fwd = _errs((out, lse), fa.flash_attention_plain(
         q, k, v, return_lse=True))
+    again = fa.flash_attention_cuda(q, k, v, return_lse=True)
+    check(torch.equal(again[0], out) and torch.equal(again[1], lse),
+          "attention forward differs between two runs")
     grads = fa.flash_attention_bwd_cuda(q, k, v, out, lse, dout)
     e_bwd, r_bwd = _errs(grads, fa.flash_attention_bwd_plain(
         q, k, v, out, lse, dout))
@@ -593,7 +715,7 @@ def attention_train_case(fa, b, s, h, hkv, d, dtype, gen, dev, timed):
     shape = {"dtype": str(dtype), "B": b, "S": s, "H": h, "Hkv": hkv,
              "D": d}
     fwd = {"kernel": "flash_attention_cuda", **shape, "with_lse": True,
-           "max_abs_err": e_fwd, "rel_l2": r_fwd}
+           "max_abs_err": e_fwd, "rel_l2": r_fwd, "bitwise_repeat": True}
     bwd = {"kernel": "flash_attention_bwd_cuda", **shape,
            "max_abs_err": e_bwd, "rel_l2": r_bwd, "bitwise_repeat": True}
     if timed:
@@ -634,10 +756,14 @@ def ce_case(ce, ce_ref, t, d, v, eps, tied, dtype, gen, dev, timed):
     want = ce.cross_entropy_plain(hid, head, labels, weights,
                                   label_smoothing=eps, return_lse=True)
     e, r = _errs(got, want)
+    again = ce.cross_entropy_cuda(hid, head, labels, weights,
+                                  label_smoothing=eps, return_lse=True)
+    check(all(torch.equal(a, g) for a, g in zip(again, got)),
+          "cross entropy forward differs between two runs")
     rec = {"kernel": "cross_entropy_cuda", "dtype": str(dtype), "T": t,
            "D": d, "V": v, "eps": eps, "tied_rows": tied,
            "zero_weights": int((weights == 0).sum().item()),
-           "max_abs_err": e, "rel_l2": r}
+           "max_abs_err": e, "rel_l2": r, "bitwise_repeat": True}
     if timed:
         rec["ms"] = cuda_ms(lambda: ce.cross_entropy_cuda(
             hid, head, labels, weights, label_smoothing=eps), reps=5)
@@ -1496,9 +1622,12 @@ def prefill192_case(fa, b, s, dtype, gen, dev, timed):
     want = fa.flash_attention_plain(q, k, v, causal=True,
                                     softmax_scale=MLA_SCALE)
     torch.cuda.synchronize()
+    check(torch.equal(run(), got), f"D=192 prefill {dtype} at S={s}: two "
+          f"runs differ")
     rec = {"kernel": "flash_attention_cuda", "dtype": str(dtype), "B": b,
            "S": s, "H": MLA_H, "Hkv": MLA_H, "D": MLA_DQK,
-           "max_abs_err": (got.float() - want.float()).abs().max().item()}
+           "max_abs_err": (got.float() - want.float()).abs().max().item(),
+           "bitwise_repeat": True}
     if timed:
         rec["ms"] = cuda_ms(run)
         rec["plain_ms"] = cuda_ms(lambda: fa.flash_attention_plain(
@@ -1887,10 +2016,13 @@ def prefill80_case(fa, b, s, h, hkv, dtype, gen, dev, timed):
     got = fa.flash_attention_cuda(q, k, v, causal=True)
     want = fa.flash_attention_plain(q, k, v, causal=True)
     torch.cuda.synchronize()
+    check(torch.equal(fa.flash_attention_cuda(q, k, v, causal=True), got),
+          f"D=80 prefill {dtype} at S={s}: two runs differ")
     rec = {"kernel": "flash_attention_cuda", "dtype": str(dtype), "B": b,
            "S": s, "H": h, "Hkv": hkv, "D": ZAMBA_DH,
            "rel_l2": rel_l2(got, want),
-           "max_abs_err": (got.float() - want.float()).abs().max().item()}
+           "max_abs_err": (got.float() - want.float()).abs().max().item(),
+           "bitwise_repeat": True}
     if timed:
         rec["ms"] = cuda_ms(lambda: fa.flash_attention_cuda(q, k, v))
         rec["plain_ms"] = cuda_ms(lambda: fa.flash_attention_plain(q, k, v))
@@ -2486,10 +2618,13 @@ def main(argv=None) -> int:
     _build.load()
     build_s = time.monotonic() - t0
     print(f"[build] {lib_path.name} from "
-          f"{[s.name for s in _build.sources()]} in {build_s:.1f} s",
+          f"{[s.name for s in _build.sources()]} and "
+          f"{[s.name for s in _build.headers()]} in {build_s:.1f} s",
           flush=True)
+    t0 = time.monotonic()
+    sm90 = sm90_report(_build, _build.load(), fa, ce)
 
-    phases = {"build": build_s}
+    phases = {"build": build_s, "sm90_report": time.monotonic() - t0}
     t0 = time.monotonic()
     recs = kernel_phase(fa, dev)
     phases["serve_kernels"] = time.monotonic() - t0
@@ -2604,7 +2739,8 @@ def main(argv=None) -> int:
         # D=192 case (the MLA prefill) and D=80 case (zamba2's shared
         # attention) ride beside it
         main_rec = [r for r in timed
-                    if r.get("D") not in (MLA_DQK, ZAMBA_DH)][-1]
+                    if r.get("D") not in (64, MLA_DQK, ZAMBA_DH)
+                    or name != "flash_attention_cuda"][-1]
         path_name = path_of.get(name, "train")
         kernels.append({
             "name": name, "route": "cuda", "source": source,
@@ -2618,9 +2754,12 @@ def main(argv=None) -> int:
             "launches_by_path": by_path[name],
             "two_call_ms": main_rec.get("two_call_ms"),
             "at": {k: main_rec[k] for k in main_rec if k in at_keys}})
-        for key, d, path_name_d in (("at_d192", MLA_DQK, "mla_serve"),
+        for key, d, path_name_d in (("at_d64", 64, "serve"),
+                                    ("at_d192", MLA_DQK, "mla_serve"),
                                     ("at_d80", ZAMBA_DH, "zamba_generate")):
-            at_d = [r for r in timed if r.get("D") == d]
+            # D=64: phase 2's largest bucket (B=2, S=512)
+            at_d = [r for r in timed if r.get("D") == d
+                    and (d != 64 or r.get("Sq") == 512)]
             if at_d:
                 kernels[-1][key] = {
                     "launches": by_path[name][path_name_d],
@@ -2638,7 +2777,8 @@ def main(argv=None) -> int:
 
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
-        {"nvidia_smi": smi, "phase_seconds": phases, "kernel_cases": recs,
+        {"nvidia_smi": smi, "phase_seconds": phases, "sm90": sm90,
+         "kernel_cases": recs,
          "path": path, "train": train, "multi_rank": multi,
          "mla_path": mla, "zamba_path": zamba, "xlstm_path": xlstm,
          "kernels": kernels},

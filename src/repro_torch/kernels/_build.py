@@ -4,9 +4,11 @@ Every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into one
 shared library with a plain C interface (one ``nvcc`` per source, all
 started together, then one link), which is loaded with ``ctypes``. The
 build happens at first use, never at import, into
-``src/repro_torch/_build/`` under a name that hashes the sources, so an
-edited kernel is rebuilt and an unchanged one is reused within a
-checkout. A failed build raises; nothing falls back.
+``src/repro_torch/_build/`` under a name that hashes the sources and the
+shared headers (``csrc/*.cuh``), so an edited kernel or header is
+rebuilt and an unchanged one is reused within a checkout. ptxas's
+report (registers, shared memory, spills per kernel) is kept beside the
+library (:func:`ptxas_log`). A failed build raises; nothing falls back.
 """
 from __future__ import annotations
 
@@ -32,6 +34,21 @@ def sources() -> List[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
+def headers() -> List[Path]:
+    return sorted(CSRC.glob("*.cuh"))
+
+
+def tag() -> str:
+    """Hash of every source and header and the target flags: the name
+    under which the library is built."""
+    digest = hashlib.sha256()
+    for s in sources() + headers():
+        digest.update(s.name.encode())
+        digest.update(s.read_bytes())
+    digest.update(" ".join(ARCH_FLAGS).encode())
+    return digest.hexdigest()[:16]
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -45,48 +62,66 @@ def _nvcc() -> str:
         "CUDA kernels of repro_torch are built from source at first use")
 
 
-def _run(cmds: List[List[str]], verbose: bool = False) -> None:
+def _run(cmds: List[List[str]], verbose: bool = False) -> str:
+    """Run the commands in parallel; returns their joined output."""
     procs = [(c, subprocess.Popen(c, stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True))
              for c in cmds]
-    failed = []
+    failed, outs = [], []
     for cmd, p in procs:
         out, _ = p.communicate()
+        outs.append(out)
         if p.returncode != 0:
             failed.append(f"$ {' '.join(cmd)}\n{out}")
         elif verbose and out:
             print(out, end="", flush=True)
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return "".join(outs)
 
 
 def build(verbose: bool = False) -> Path:
     """Compile every source (in parallel) and link the shared library.
     Returns its path; reuses a library already built from these exact
-    sources. ``verbose`` prints ptxas's registers and shared memory per
-    kernel."""
+    sources and headers. ``verbose`` prints ptxas's registers and shared
+    memory per kernel (kept in :func:`ptxas_log` either way)."""
     srcs = sources()
-    digest = hashlib.sha256()
-    for s in srcs:
-        digest.update(s.name.encode())
-        digest.update(s.read_bytes())
-    digest.update(" ".join(ARCH_FLAGS).encode())
-    tag = digest.hexdigest()[:16]
-    lib_path = BUILD_DIR / f"libreprotorch_{tag}.so"
+    t = tag()
+    lib_path = BUILD_DIR / f"libreprotorch_{t}.so"
     if lib_path.exists():
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    common = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
-    if verbose:
-        common += ["-Xptxas", "-v"]
-    objs = [BUILD_DIR / f"{s.stem}_{tag}.o" for s in srcs]
-    _run([common + ["-c", str(s), "-o", str(o)] for s, o in zip(srcs, objs)],
-         verbose)
+    common = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
+    objs = [BUILD_DIR / f"{s.stem}_{t}.o" for s in srcs]
+    log = _run([common + ["-c", str(s), "-o", str(o)]
+                for s, o in zip(srcs, objs)], verbose)
+    (BUILD_DIR / f"ptxas_{t}.log").write_text(log)
     tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
     _run([[nvcc, *ARCH_FLAGS, "-shared", *map(str, objs), "-o", str(tmp)]])
     os.replace(tmp, lib_path)
     return lib_path
+
+
+def ptxas_log() -> str:
+    """ptxas's report of the current build (``build`` first)."""
+    return (BUILD_DIR / f"ptxas_{tag()}.log").read_text()
+
+
+def objects() -> List[Path]:
+    """The current build's object files, one a source (``build`` first)."""
+    t = tag()
+    return [BUILD_DIR / f"{s.stem}_{t}.o" for s in sources()]
+
+
+def ptx(source: Path) -> str:
+    """The PTX nvcc makes of one source for the build's target."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = BUILD_DIR / f"{source.stem}_{tag()}.ptx"
+    _run([[_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-ptx", str(source),
+           "-o", str(out)]])
+    return out.read_text()
 
 
 def load() -> ctypes.CDLL:
@@ -108,10 +143,19 @@ def load() -> ctypes.CDLL:
                 ci, ci, cf, ci, vp]             # causal, q_offset, scale,
             lib.flash_attention_bwd.restype = ci  # dtype, stream
             lib.ce_fwd.argtypes = [
-                vp, vp, vp, vp, vp,             # h, w, labels, nll, lse
-                ci, ci, ci, ci,                 # T, D, V, w_rows
+                vp, vp, vp, vp, vp, vp,         # h, w, labels, nll, lse,
+                                                # partials (bf16, or 0)
+                ci, ci, ci, ci, ci,             # T, D, V, w_rows, splits
                 cf, cf, ci, vp]                 # eps, softcap, dtype, stream
             lib.ce_fwd.restype = ci
+            lib.flash_attention_fwd_sm90_smem.argtypes = [ci]  # D
+            lib.flash_attention_fwd_sm90_smem.restype = ci
+            lib.ce_fwd_sm90_smem.argtypes = []
+            lib.ce_fwd_sm90_smem.restype = ci
+            lib.flash_attention_fwd_sm90_kv_tile.argtypes = [ci]  # D
+            lib.flash_attention_fwd_sm90_kv_tile.restype = ci
+            lib.ce_fwd_sm90_tile.argtypes = [ci]  # axis
+            lib.ce_fwd_sm90_tile.restype = ci
             lib.ce_dlogits.argtypes = [
                 vp, vp, vp, vp, vp, vp,         # logits, lse, labels,
                                                 # weights, dloss, out

@@ -3,7 +3,12 @@
   * :func:`cross_entropy_cuda` — the LM-head product fused with an online
     log-sum-exp over vocab tiles, softcap and label smoothing
     (``csrc/cross_entropy.cu::ce_fwd``), replacing the JAX package's
-    ``cross_entropy_pallas``. Returns ``(sum nll*w, sum w)``.
+    ``cross_entropy_pallas``. Returns ``(sum nll*w, sum w)``. In bf16 the
+    kernel runs on the tensor cores with the vocab split across
+    :func:`ce_splits` blocks a token tile, whose partials a second
+    kernel merges in split order; :func:`cross_entropy_split_plain`
+    models that arithmetic for the tests. fp32 keeps the CUDA-core
+    kernel.
   * :func:`ce_dlogits_cuda` — the elementwise dlogits pass of the
     recompute backward (``csrc/cross_entropy.cu::ce_dlogits``), held
     against the chunk body of ``ref.py::_ce_bwd``.
@@ -13,7 +18,8 @@
 As for the attention kernels, each wrapper runs its plain version
 (:func:`cross_entropy_plain`, ``ref.ce_dlogits``) when, and only when, its
 tensors lie on the CPU, launches the kernel or raises for CUDA tensors,
-and counts its launches in ``.launches``.
+and counts its launches in ``.launches`` (in bf16 one a call, which is
+two kernels: the split products, then the merge).
 """
 from __future__ import annotations
 
@@ -21,11 +27,40 @@ import torch
 
 from repro_torch.kernels.cross_entropy import ref
 from repro_torch.kernels.flash_attention.flash_attention import (
-    _DTYPE_CODES, _check_cuda, _raise_on)
+    _DTYPE_CODES, _check_aligned, _check_cuda, _raise_on)
 
 # token chunk of the backward: the fp32 (chunk, V) logits tile stays
 # under ~1 GB (4096 x 50304 x 4 B = 0.82 GB at olmo-1b's vocab)
 BWD_CHUNK = 4096
+# the bf16 forward kernel's tiles (csrc/cross_entropy.cu, kCeBT, kCeBV;
+# chip_smoke.py and the card tests hold them equal to ce_fwd_sm90_tile):
+# tokens a block, vocab columns a tile
+TOKEN_TILE = 128
+VOCAB_TILE = 256
+# blocks the bf16 forward aims for, set for the H100 (132 SMs, one block
+# an SM): 16 waves, so the last wave leaves few SMs idle
+H100_TARGET_BLOCKS = 16 * 132
+
+
+def ce_splits(t: int, v: int) -> int:
+    """Vocab splits of the bf16 forward: the least power of two that
+    gives ``H100_TARGET_BLOCKS`` blocks over the token tiles, at most one
+    vocab tile a split."""
+    n_tt = -(-t // TOKEN_TILE)
+    n_vt = -(-v // VOCAB_TILE)
+    s = 1
+    while n_tt * s < H100_TARGET_BLOCKS and 2 * s <= n_vt:
+        s *= 2
+    return s
+
+
+def split_bounds(v: int, splits: int):
+    """[start, end) vocab columns of each split's slab, in split order:
+    split ``s`` takes vocab tiles ``[s n / S, (s+1) n / S)`` of ``n``."""
+    n_vt = -(-v // VOCAB_TILE)
+    return [(s * n_vt // splits * VOCAB_TILE,
+             min((s + 1) * n_vt // splits * VOCAB_TILE, v))
+            for s in range(splits)]
 
 
 def cross_entropy_plain(hidden, lm_head, labels, weights, *,
@@ -35,6 +70,46 @@ def cross_entropy_plain(hidden, lm_head, labels, weights, *,
     logits = ref._logits(hidden, lm_head, logit_softcap)
     lse = torch.logsumexp(logits, dim=-1)
     nll = ref._nll(logits, labels, lse, label_smoothing)
+    w = weights.float()
+    out = (torch.sum(nll * w), torch.sum(w))
+    return (*out, lse) if return_lse else out
+
+
+def cross_entropy_split_plain(hidden, lm_head, labels, weights, *,
+                              label_smoothing=0.0, logit_softcap=0.0,
+                              return_lse=False, splits=None):
+    """The bf16 kernel's arithmetic in plain PyTorch, for the tests: fp32
+    logits of the (bf16) operands; per split, its slab's max, sum of
+    exponentials, true logit and sum of logits; then the partials merged
+    in split order into lse and nll. ``splits`` defaults to the
+    kernel's, :func:`ce_splits`."""
+    t = hidden.shape[0]
+    v = lm_head.shape[1]
+    splits = ce_splits(t, v) if splits is None else splits
+    logits = ref._logits(hidden, lm_head, logit_softcap)
+    lab = labels.long()
+    m = torch.full((t,), -1e30)
+    parts = []
+    for a, e in split_bounds(v, splits):
+        x = logits[:, a:e]
+        mx = x.amax(dim=-1)
+        inside = (lab >= a) & (lab < e)
+        tru = torch.where(inside, torch.gather(
+            x, 1, (lab - a).clamp(0, e - a - 1)[:, None])[:, 0],
+            torch.zeros(()))
+        parts.append((mx, torch.exp(x - mx[:, None]).sum(-1), tru,
+                      x.sum(-1)))
+        m = torch.maximum(m, mx)
+    l, tru, tot = torch.zeros(t), torch.zeros(t), torch.zeros(t)
+    for mx, ls, tr, sm in parts:
+        l = l + ls * torch.exp(mx - m)
+        tru = tru + tr
+        tot = tot + sm
+    lse = m + torch.log(torch.clamp(l, min=1e-30))
+    nll = lse - tru
+    if label_smoothing > 0.0:
+        nll = (1.0 - label_smoothing) * nll + \
+            label_smoothing * (lse - tot / v)
     w = weights.float()
     out = (torch.sum(nll * w), torch.sum(w))
     return (*out, lse) if return_lse else out
@@ -55,7 +130,8 @@ def cross_entropy_cuda(
 
     ``lm_head`` is either contiguous (D, V) or the transposed view of a
     contiguous (V, D) matrix (a tied embedding table): the kernel reads
-    either layout in place."""
+    either layout in place. In bf16, D must be a multiple of 16 (the
+    tensor cores' k step) and both operands 16-byte aligned."""
     if hidden.device.type == "cpu":
         return cross_entropy_plain(hidden, lm_head, labels, weights,
                                    label_smoothing=label_smoothing,
@@ -75,6 +151,12 @@ def cross_entropy_cuda(
                          f"lm_head {tuple(lm_head.shape)} labels "
                          f"{tuple(labels.shape)} weights "
                          f"{tuple(weights.shape)} disagree")
+    bf16 = hidden.dtype == torch.bfloat16
+    if bf16 and d % 16:
+        raise ValueError(f"{name}: bf16 needs D a multiple of 16, got "
+                         f"D={d}")
+    if bf16:
+        _check_aligned(name, hidden, w_mem)
     nll = torch.empty((t,), dtype=torch.float32, device=hidden.device)
     lse = torch.empty((t,), dtype=torch.float32, device=hidden.device)
     w = weights.float()
@@ -82,15 +164,19 @@ def cross_entropy_cuda(
         out = (nll.sum(), w.sum())
         return (*out, lse) if return_lse else out
     lab = labels.to(torch.int32).contiguous()
+    splits = ce_splits(t, v) if bf16 else 1
+    part = (torch.empty((t, splits, 4), dtype=torch.float32,
+                        device=hidden.device) if bf16 else None)
     from repro_torch.kernels import _build
     lib = _build.load()
     with torch.cuda.device(hidden.device):
         stream = torch.cuda.current_stream(hidden.device).cuda_stream
         err = lib.ce_fwd(hidden.data_ptr(), w_mem.data_ptr(),
                          lab.data_ptr(), nll.data_ptr(), lse.data_ptr(),
-                         t, d, v, int(w_rows), float(label_smoothing),
-                         float(logit_softcap), _DTYPE_CODES[hidden.dtype],
-                         stream)
+                         part.data_ptr() if bf16 else None,
+                         t, d, v, int(w_rows), splits,
+                         float(label_smoothing), float(logit_softcap),
+                         _DTYPE_CODES[hidden.dtype], stream)
     _raise_on(name, err)
     cross_entropy_cuda.launches += 1
     out = (torch.sum(nll * w), torch.sum(w))

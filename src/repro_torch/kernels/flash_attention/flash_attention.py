@@ -5,7 +5,10 @@
     ``flash_attention_pallas``; head dim 64, 80 (zamba2's shared
     block), 128 or 192 (MLA prefill),
     optionally with the row log-sum-exp. Used by prefill and by
-    training.
+    training. bf16 runs on the tensor cores (wgmma) with p fed to the
+    P·V product as a bf16 pair; :func:`flash_attention_tiled_plain`
+    models that arithmetic for the tests. fp32 keeps the CUDA-core
+    kernel.
   * :func:`flash_attention_bwd_cuda` — its recompute backward
     (``csrc/flash_attention_bwd.cu``), held against ``ref.py::_flash_bwd``
     (the Pallas kernel has no backward); head dim 64 or 128.
@@ -36,6 +39,12 @@ PREFILL_HEAD_DIMS = (64, 80, 128, 192)   # head dims of the forward kernel
 BWD_HEAD_DIMS = (64, 128)            # head dims of the backward kernel
 HEAD_DIM = 64          # the head dim the decode kernel is built for
 MAX_GROUP = 16         # most query heads per kv head the decode kernel takes
+# kv positions a tile of the bf16 forward kernel, by head dim
+# (csrc/flash_attention.cu, Sm90Tiles; chip_smoke.py and the card tests
+# hold it equal to flash_attention_fwd_sm90_kv_tile)
+KV_TILES = {64: 64, 80: 64, 128: 64, 192: 32}
+_LOG2E = 1.4426950408889634
+_LN2 = 0.6931471805599453
 
 
 def flash_attention_plain(q, k, v, *, causal=True, q_offset=0,
@@ -44,6 +53,49 @@ def flash_attention_plain(q, k, v, *, causal=True, q_offset=0,
     ``return_lse``, also its lse (B, Sq, H) fp32)."""
     return ref.mha_dense(q, k, v, causal=causal, q_offset=q_offset,
                          softmax_scale=softmax_scale, want_lse=return_lse)
+
+
+def flash_attention_tiled_plain(q, k, v, *, causal=True, q_offset=0,
+                                softmax_scale=None, return_lse=False,
+                                split_p=True):
+    """The bf16 kernel's arithmetic in plain PyTorch, for the tests: fp32
+    scores of q k^T, scaled after the product (in log2 units); an online
+    softmax over the kernel's kv tiles (``KV_TILES``) with fp32 (m, l);
+    p as the bf16 pair hi = bf16(p), lo = bf16(p - hi), each times v
+    summed in fp32 (``split_p=False``: p rounded to bf16 once); the
+    output times 1 / max(l, 1e-30), in q's dtype."""
+    b, sq, h, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    block_kv = KV_TILES[d]
+    scale = softmax_scale if softmax_scale is not None else d ** -0.5
+    qf = q.float().transpose(1, 2)                          # (B, H, Sq, D)
+    kf = ref._repeat_kv(k, h // hkv).float().transpose(1, 2)
+    vf = ref._repeat_kv(v, h // hkv).float().transpose(1, 2)
+    qpos = torch.arange(sq, device=q.device)[:, None] + q_offset
+    m = torch.full((b, h, sq), -1e30, device=q.device)
+    l = torch.zeros((b, h, sq), device=q.device)
+    acc = torch.zeros((b, h, sq, d), device=q.device)
+    for k0 in range(0, skv, block_kv):
+        k1 = min(k0 + block_kv, skv)
+        s = (qf @ kf[:, :, k0:k1].transpose(-1, -2)) * (scale * _LOG2E)
+        if causal:
+            kpos = torch.arange(k0, k1, device=q.device)[None, :]
+            s = s.masked_fill(kpos > qpos, float("-inf"))
+        mn = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp2(s - mn[..., None])
+        corr = torch.exp2(m - mn)
+        l = l * corr + p.sum(dim=-1)
+        hi = p.bfloat16().float()
+        pv = hi @ vf[:, :, k0:k1]
+        if split_p:
+            pv = pv + (p - hi).bfloat16().float() @ vf[:, :, k0:k1]
+        acc = acc * corr[..., None] + pv
+        m = mn
+    lc = torch.clamp(l, min=1e-30)
+    out = (acc * (1.0 / lc)[..., None]).transpose(1, 2).to(q.dtype)
+    if return_lse:
+        return out, (m * _LN2 + torch.log(lc)).transpose(1, 2)
+    return out
 
 
 def flash_attention_bwd_plain(q, k, v, out, lse, dout, *, causal=True,
@@ -73,6 +125,15 @@ def _check_cuda(name: str, dtype: torch.dtype, *tensors: torch.Tensor):
                              f"({t.device} vs {dev})")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
+
+
+def _check_aligned(name: str, *tensors: torch.Tensor):
+    """The bf16 kernels copy 16-byte chunks: every base address must be
+    16-byte aligned."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: bf16 tensors must be 16-byte "
+                             f"aligned")
 
 
 def _raise_on(name: str, err: int) -> None:
@@ -106,6 +167,8 @@ def flash_attention_cuda(
     name = "flash_attention_cuda"
     b, sq, h, d, skv, hkv = _check_attention(name, PREFILL_HEAD_DIMS, q, k,
                                              v, q_offset)
+    if q.dtype == torch.bfloat16:
+        _check_aligned(name, q, k, v)
     scale = softmax_scale if softmax_scale is not None else d ** -0.5
     out = torch.empty_like(q)
     lse = (torch.empty((b, sq, h), dtype=torch.float32, device=q.device)

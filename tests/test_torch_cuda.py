@@ -23,7 +23,10 @@ static path, kernel route against reference route at fp32, by
 ``ZAMBA_PATH_TOL``. The mLSTM scan kernel is held by relative L2 error
 to ``parity.RTOL`` (the largest over h, C, n and m), and xLSTM's static
 path, kernel route against reference route at fp32, by
-``XLSTM_PATH_TOL``.
+``XLSTM_PATH_TOL``. The bf16 prefill forward and CE forward run on the
+tensor cores: each is held to its plain version by relative L2 error
+(``parity.RTOL``) at every head dim and both head layouts, on ragged
+shapes, and must give bitwise-equal outputs on a second run.
 """
 import numpy as np
 import pytest
@@ -227,6 +230,103 @@ def test_cross_entropy_kernels_match_plain(dev, dtype, t, d, v, rows, eps,
     assert dl.dtype == dtype
     assert _close("dlogits", dl, ref, RTOL[("ce_dlogits_cuda", dtype)])
     assert not dl[weights == 0].any()        # dummy rows: exactly zero
+
+
+# the bf16 prefill forward (tensor cores): head dims 64, 80, 128 and 192
+# at (b, sq, skv, h, hkv, causal, q_offset): more than one q tile of
+# either size with a ragged tail (group 2), chunked prefill with Skv > Sq
+# (group 1), MQA (group 8), non-causal with a ragged Skv
+SM90_ATTN_CASES = [
+    (2, 300, 300, 8, 4, True, 0),
+    (1, 40, 200, 4, 4, True, 160),
+    (1, 130, 130, 8, 1, True, 0),
+    (1, 70, 150, 4, 2, False, 0),
+]
+
+
+@pytest.mark.parametrize("d", [64, 80, 128, 192])
+@pytest.mark.parametrize("b,sq,skv,h,hkv,causal,off", SM90_ATTN_CASES)
+def test_bf16_prefill_kernel_matches_plain_and_repeats(dev, d, b, sq, skv,
+                                                       h, hkv, causal, off):
+    rng = np.random.default_rng(d + sq + skv)
+    q = _randn(rng, (b, sq, h, d), dev, torch.bfloat16)
+    k, v = (_randn(rng, (b, skv, hkv, d), dev, torch.bfloat16)
+            for _ in range(2))
+    kw = dict(causal=causal, q_offset=off)
+    n0 = fa.flash_attention_cuda.launches
+    out, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    assert fa.flash_attention_cuda.launches == n0 + 1
+    want, want_lse = fa.flash_attention_plain(q, k, v, return_lse=True, **kw)
+    tol = RTOL[("flash_attention_cuda", torch.bfloat16)]
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    assert _close(f"prefill D={d} out", out, want, tol)
+    assert _close(f"prefill D={d} lse", lse, want_lse, tol)
+    again, again_lse = fa.flash_attention_cuda(q, k, v, return_lse=True,
+                                               **kw)
+    assert torch.equal(again, out) and torch.equal(again_lse, lse)
+
+
+# (t, d, v, tied, eps, cap): T and V not multiples of the 128-token and
+# 128-column tiles, tied and untied; a (D, V) head whose rows are not
+# 16-byte aligned (V % 8 != 0); label smoothing and softcap
+SM90_CE_CASES = [
+    (300, 64, 5000, True, 0.0, 0.0),
+    (300, 64, 5000, False, 0.1, 0.0),
+    (129, 96, 1001, False, 0.0, 5.0),
+    (77, 32, 257, True, 0.1, 3.0),
+]
+
+
+@pytest.mark.parametrize("t,d,v,tied,eps,cap", SM90_CE_CASES)
+def test_bf16_cross_entropy_kernel_matches_plain_and_repeats(dev, t, d, v,
+                                                             tied, eps, cap):
+    rng = np.random.default_rng(t + v)
+    hid = _randn(rng, (t, d), dev, torch.bfloat16)
+    table = (_randn(rng, (v, d), dev, torch.float32) * d ** -0.5).bfloat16()
+    head = table.t() if tied else table.t().contiguous()
+    labels = torch.from_numpy(rng.integers(0, v, t)).to(dev)
+    weights = torch.from_numpy(
+        (rng.random(t) > 0.3).astype(np.float32)).to(dev)
+    kw = dict(label_smoothing=eps, logit_softcap=cap, return_lse=True)
+    n0 = ce.cross_entropy_cuda.launches
+    got = ce.cross_entropy_cuda(hid, head, labels, weights, **kw)
+    assert ce.cross_entropy_cuda.launches == n0 + 1
+    want = ce.cross_entropy_plain(hid, head, labels, weights, **kw)
+    tol = RTOL[("cross_entropy_cuda", torch.bfloat16)]
+    for name, g, r in zip(("loss_sum", "w_sum", "lse"), got, want):
+        assert _close(f"ce {name}", g, r, tol)
+    again = ce.cross_entropy_cuda(hid, head, labels, weights, **kw)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+def test_bf16_kernels_refuse_what_they_do_not_take(dev):
+    bf = torch.bfloat16
+    q = torch.zeros((1, 8, 4, 96), device=dev, dtype=bf)
+    with pytest.raises(ValueError, match="D in"):
+        fa.flash_attention_cuda(q, q, q)
+    buf = torch.zeros((1 + 8 * 4 * 64,), device=dev, dtype=bf)
+    q = buf[1:].view(1, 8, 4, 64)                 # 2 bytes off alignment
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_attention_cuda(q, q, q)
+    hid = torch.zeros((8, 40), device=dev, dtype=bf)
+    lab = torch.zeros((8,), dtype=torch.int32, device=dev)
+    wts = torch.ones((8,), device=dev)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        ce.cross_entropy_cuda(hid, torch.zeros((40, 300), device=dev,
+                                               dtype=bf), lab, wts)
+
+
+def test_bf16_kernels_take_the_tiles_the_cpu_models_follow(dev):
+    """The tiles of flash_attention_tiled_plain and
+    cross_entropy_split_plain (tests/test_torch_sm90_numerics.py) are the
+    ones the built kernels launch with."""
+    from repro_torch.kernels import _build
+    lib = _build.load()
+    for d in fa.PREFILL_HEAD_DIMS:
+        assert lib.flash_attention_fwd_sm90_kv_tile(d) == fa.KV_TILES[d]
+    assert lib.flash_attention_fwd_sm90_kv_tile(96) == -1
+    assert (lib.ce_fwd_sm90_tile(0), lib.ce_fwd_sm90_tile(1)) == \
+        (ce.TOKEN_TILE, ce.VOCAB_TILE)
 
 
 @pytest.mark.parametrize("dtype", DTYPE_ONLY)
