@@ -12,21 +12,28 @@ Phases (any failure exits non-zero; no phase swallows an error):
    CUDA kernel from ``src/repro_torch/csrc`` with nvcc (one nvcc per
    source, all started together) and prints the build time. Then the
    bf16 tensor-core kernels (the prefill forward at head dims 64, 80,
-   128 and 192, the CE forward for both head layouts, and its merge):
-   ptxas's registers and spills, the dynamic shared memory of each
-   launch, and the count of ``wgmma.mma_async`` and ``cp.async`` in
-   their PTX (``nvcc -ptx``) and of HGMMA in their SASS (cuobjdump,
-   where the toolkit has it); every product kernel must have both
-   instructions and no spill.
+   128 and 192, the backward's dq and dk/dv passes at 64 and 128, the
+   CE forward for both head layouts, and its merge): ptxas's registers
+   and spills, the dynamic shared memory of each launch, and the count
+   of ``wgmma.mma_async`` and ``cp.async`` in their PTX (``nvcc -ptx``)
+   and of HGMMA in their SASS (cuobjdump, where the toolkit has it);
+   every product kernel must have both instructions and no spill. The
+   tiles the library reports (forward kv tiles, the backward's four
+   tiles, the CE tiles, the decode's split length) must be those the
+   CPU models of the tests follow.
 2. Serving kernel phase: the prefill and paged-decode kernels against
    their plain PyTorch versions on the card, in fp32 (tolerance 1e-4)
    and bf16 (tolerance 2e-2), at tinyllama-1.1b widths (H=32, Hkv=4,
    D=64). Prefill at buckets 16, 128 and 512 with B=2, plus Sq=Skv=200
    (not a tile multiple); paged decode with B=8, bs=16, ragged kv_lens
    up to 512, NULL holes, one all-NULL inactive slot and one sequence at
-   exactly MB*bs. TF32 is off for every fp32 comparison. Each prefill
-   case runs twice and must give bitwise-equal outputs. Times are
-   CUDA-event medians of 20 runs after warm-up; ``library_ms`` is
+   exactly MB*bs; and a longer window (B=8, MB=128, kv_lens up to
+   2048). TF32 is off for every fp32 comparison. Each prefill and
+   decode case runs twice and must give bitwise-equal outputs. Times
+   are CUDA-event medians of 20 runs after warm-up (the decode at both
+   windows), and for the decode also the device time of a call (its
+   kernels' time under torch.profiler over 20 calls: the call is
+   host-bound), SDPA's likewise; ``library_ms`` is
    ``torch.nn.functional.scaled_dot_product_attention`` on the same
    dense inputs, a yardstick the port never calls.
 3. Training kernel phase: the prefill forward with its lse and the
@@ -38,10 +45,12 @@ Phases (any failure exits non-zero; no phase swallows an error):
    held against the plain version's by its relative L2 error, with the
    limits of ``repro_torch.kernels.parity.RTOL`` (per kernel and dtype,
    about 10x the errors read on an H100); every case is printed before
-   any is checked. The attention forward and the CE forward each run
-   twice and must give bitwise-equal outputs. Each kernel is timed at
-   the shape the train phase gives it (B=5 rows of 1024 tokens a
-   microbatch, T=5120, a 4096-row dlogits chunk). Yardsticks: the
+   any is checked. The attention forward and backward and the CE
+   forward each run twice and must give bitwise-equal outputs. Each
+   kernel is timed at the shape the train phase gives it (B=5 rows of
+   1024 tokens a microbatch, T=5120, a 4096-row dlogits chunk); the
+   backward and its yardstick also by device time under torch.profiler
+   (the kernels' time over 20 calls). Yardsticks: the
    autograd backward of SDPA(is_causal=True);
    ``F.linear`` then ``F.cross_entropy(reduction="none")``, two calls
    (no single PyTorch call fuses the head with the loss); none for the
@@ -70,7 +79,9 @@ Phases (any failure exits non-zero; no phase swallows an error):
    relative L2 error) agree with the reference path's; the
    HetSeq invariant on the card (the first batch's real rows packed for
    capacities 2,1,1,0 give the single-batch gradient, fp32); a repeated
-   step from one state and batch gives bit-identical parameters.
+   step from one state and batch gives bit-identical parameters. One
+   more step runs under torch.profiler (device time by kernel), after
+   the counters are read.
 6. Exchange kernel phase: the int8 quantize and dequant-accumulate
    kernels (``csrc/quantize.cu``) against their plain versions, which
    must be bitwise equal (codes, scales, sums): 1, 7, 1001 and 4099
@@ -191,7 +202,8 @@ Phases (any failure exits non-zero; no phase swallows an error):
    logits agree within 1e-3 of the largest reference logit.
 14. Prints one ``{"kernels": [...]}`` line (eleven kernels; the prefill
    kernel's D=64 (phase 2's S=512 bucket), D=192 and D=80 cases ride in
-   its entry as ``at_d64``, ``at_d192`` and ``at_d80``; the contiguous
+   its entry as ``at_d64``, ``at_d192`` and ``at_d80``, the decode's
+   longer window as ``at_long_window``; the contiguous
    MLA kernel lies on no path and reports 0 launches), then, last,
    ``{"ok": true, "device": {...}}``. Details go
    to ``chiprun_out/chip_smoke.json``.
@@ -267,11 +279,40 @@ def cuda_ms(fn, reps: int = REPS):
     return statistics.median(times)
 
 
+def device_ms(fn, reps: int = REPS):
+    """Device time of one call: the kernels torch.profiler sees over
+    ``reps`` calls after three warm-up calls, summed, over ``reps``. Where
+    a call is host-bound, :func:`cuda_ms` reads the host's time and this
+    the card's. The profiler's trace can come back without kernels: then
+    it is taken once more, and a second empty trace gives None (not
+    measured)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(t for _, t in _kernel_times(prof).values())
+        if us > 0:
+            return us / reps / 1e3
+    return None
+
+
+def _ms_or_not(x) -> str:
+    return "not measured" if x is None else f"{x:.4f} ms"
+
+
 # --------------------------------------------------------------------------
 # the bf16 tensor-core kernels: what the compiler made of them
 # --------------------------------------------------------------------------
 
-SM90_SOURCES = ("flash_attention.cu", "cross_entropy.cu")
+SM90_SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu",
+                "cross_entropy.cu")
 
 
 def _sm90_name(mangled: str):
@@ -281,6 +322,9 @@ def _sm90_name(mangled: str):
     m = re.search(r"flash_fwd_sm90ILi(\d+)E", mangled)
     if m:
         return f"flash_fwd_sm90<D={m.group(1)}>"
+    m = re.search(r"flash_bwd_(dq|dkv)_sm90ILi(\d+)E", mangled)
+    if m:
+        return f"flash_bwd_{m.group(1)}_sm90<D={m.group(2)}>"
     m = re.search(r"ce_fwd_sm90ILi(\d)E", mangled)
     if m:
         return "ce_fwd_sm90<" + ("(D, V) head" if m.group(1) == "1"
@@ -306,7 +350,8 @@ def sm90_report(build, lib, fa, ce):
     """ptxas's registers and spills of the bf16 tensor-core kernels, the
     dynamic shared memory each launch asks for, the tiles each takes
     (held equal to those the CPU models of the tests follow: ``KV_TILES``,
-    ``TOKEN_TILE``, ``VOCAB_TILE``), and the instructions
+    ``BWD_TILES``, ``TOKEN_TILE``, ``VOCAB_TILE``, and the decode's
+    ``DECODE_SPLIT``), and the instructions
     their PTX (``nvcc -ptx``) and, where the toolkit has cuobjdump, their
     SASS hold: every product kernel must issue ``wgmma.mma_async``
     (HGMMA) on operands that ``cp.async`` brought to shared memory."""
@@ -326,13 +371,25 @@ def sm90_report(build, lib, fa, ce):
         kv_tile = lib.flash_attention_fwd_sm90_kv_tile(d)
         check(kv_tile == fa.KV_TILES[d], f"D={d}: the kernel's kv tile is "
               f"{kv_tile}, KV_TILES says {fa.KV_TILES[d]}")
+    for d in fa.BWD_HEAD_DIMS:
+        tiles = tuple(lib.flash_attention_bwd_sm90_tile(d, a)
+                      for a in range(4))
+        check(tiles == fa.BWD_TILES[d], f"backward D={d}: the kernels' "
+              f"tiles are {tiles}, BWD_TILES says {fa.BWD_TILES[d]}")
+        for pass_, part in ((0, "dq"), (1, "dkv")):
+            rows[f"flash_bwd_{part}_sm90<D={d}>"]["dynamic_smem"] = \
+                lib.flash_attention_bwd_sm90_smem(d, pass_)
+    split = lib.paged_decode_split_len()
+    check(split == fa.DECODE_SPLIT, f"the decode kernel splits by {split} "
+          f"positions, DECODE_SPLIT says {fa.DECODE_SPLIT}")
     ce_tiles = (lib.ce_fwd_sm90_tile(0), lib.ce_fwd_sm90_tile(1))
     check(ce_tiles == (ce.TOKEN_TILE, ce.VOCAB_TILE),
           f"ce_fwd's tiles are {ce_tiles}, the wrapper says "
           f"{(ce.TOKEN_TILE, ce.VOCAB_TILE)}")
     print(f"[sm90] tiles as the CPU models take them: kv {fa.KV_TILES}, "
-          f"CE {ce_tiles[0]} tokens x {ce_tiles[1]} vocab columns",
-          flush=True)
+          f"backward (dq rows, kv, dk/dv keys, q) {fa.BWD_TILES}, "
+          f"CE {ce_tiles[0]} tokens x {ce_tiles[1]} vocab columns, "
+          f"decode split {split} positions", flush=True)
     for name in rows:
         if name.startswith("ce_fwd_sm90"):
             rows[name]["dynamic_smem"] = lib.ce_fwd_sm90_smem()
@@ -360,7 +417,7 @@ def sm90_report(build, lib, fa, ce):
               + (f"; SASS {r.get('sass_hgmma', 0)} HGMMA" if have_sass
                  else "; no cuobjdump: SASS not read"), flush=True)
     products = [n for n in rows if n != "ce_merge"]
-    check(len(products) == 6, f"bf16 tensor-core kernels found: {products}")
+    check(len(products) == 10, f"bf16 tensor-core kernels found: {products}")
     for n in products:
         r = rows[n]
         check(r["spill_bytes"] == 0, f"{n}: ptxas spilled")
@@ -427,13 +484,19 @@ def prefill_case(fa, b, s, dtype, gen, dev):
     return rec
 
 
-def paged_tables(dev, b=8, bs=16, mb=32):
+# kv_lens of the serve shape (MB=32: up to 512, one exactly 512) and of
+# the longer window (MB=128: up to 2048, one exactly 2048); slot 1 is
+# inactive in both
+SERVE_LENS = [512, 1, 37, 200, 16, 301, 455, 129]
+LONG_LENS = [2048, 1, 150, 800, 64, 1203, 1820, 517]
+
+
+def paged_tables(dev, b=8, bs=16, mb=32, lens=SERVE_LENS):
     """Block tables of B=8 sequences over a pool of B*MB blocks of 16
-    tokens: ragged kv_lens up to MB*bs=512 (one exactly 512), NULL holes
+    tokens: ragged kv_lens up to MB*bs (one exactly MB*bs), NULL holes
     inside live windows and one all-NULL inactive slot with kv_len 1."""
     import torch
     n = b * mb
-    lens = [512, 1, 37, 200, 16, 301, 455, 129]     # slot 1: inactive
     tables = torch.full((b, mb), n, dtype=torch.int32)
     perm = torch.randperm(n, generator=torch.Generator().manual_seed(0))
     used = 0
@@ -449,31 +512,35 @@ def paged_tables(dev, b=8, bs=16, mb=32):
     return tables.to(dev), kv_lens.to(dev)
 
 
-def paged_inputs(gen, dev, dtype):
+def paged_inputs(gen, dev, dtype, mb=32, lens=SERVE_LENS):
     """GQA decode inputs at tinyllama widths over :func:`paged_tables`."""
     import torch
-    b, bs, mb, hkv, h, d = 8, 16, 32, 4, 32, 64
+    b, bs, hkv, h, d = 8, 16, 4, 32, 64
     n = b * mb
     q = torch.randn((b, 1, h, d), generator=gen, device=dev).to(dtype)
     kp = torch.randn((n, bs, hkv, d), generator=gen, device=dev).to(dtype)
     vp = torch.randn((n, bs, hkv, d), generator=gen, device=dev).to(dtype)
-    return (q, kp, vp) + paged_tables(dev, b, bs, mb)
+    return (q, kp, vp) + paged_tables(dev, b, bs, mb, lens)
 
 
-def decode_case(fa, gen, dev, dtype):
+def decode_case(fa, gen, dev, dtype, mb=32, lens=SERVE_LENS):
     import torch
-    q, kp, vp, tables, kv_lens = paged_inputs(gen, dev, dtype)
+    q, kp, vp, tables, kv_lens = paged_inputs(gen, dev, dtype, mb, lens)
     got = fa.flash_decode_paged_cuda(q, kp, vp, tables, kv_lens)
     want = fa.flash_decode_paged_plain(q, kp, vp, tables, kv_lens)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     check(not got[1].any().item(), "decode: inactive slot output is not 0")
+    check(torch.equal(fa.flash_decode_paged_cuda(q, kp, vp, tables,
+                                                 kv_lens), got),
+          f"decode {dtype} at MB={mb}: two runs differ")
     b, _, h, d = q.shape
     n, bs, hkv, _ = kp.shape
     rec = {"kernel": "flash_decode_paged_cuda", "dtype": str(dtype),
            "B": b, "H": h, "Hkv": hkv, "D": d, "bs": bs, "N": n,
            "MB": tables.shape[1], "kv_lens": kv_lens.tolist(),
-           "max_abs_err": err}
+           "max_abs_err": err, "bitwise_repeat": True,
+           "window": "serve" if lens is SERVE_LENS else "long"}
     if dtype == torch.bfloat16:
         rec["ms"] = cuda_ms(lambda: fa.flash_decode_paged_cuda(
             q, kp, vp, tables, kv_lens))
@@ -488,6 +555,10 @@ def decode_case(fa, gen, dev, dtype):
         mask = (pos[None, :] < kv_lens[:, None].long())[:, None, None, :]
         qt, kt, vt = _sdpa_layout(q, win_k, win_v)
         rec["library_ms"] = cuda_ms(lambda: _sdpa(qt, kt, vt, False, mask))
+        rec["device_ms"] = device_ms(lambda: fa.flash_decode_paged_cuda(
+            q, kp, vp, tables, kv_lens))
+        rec["library_device_ms"] = device_ms(
+            lambda: _sdpa(qt, kt, vt, False, mask))
         # bytes this data needs: the K/V rows below kv_len in mapped
         # blocks, each read once, plus q, tables, lens and the output
         pos_ok = (torch.arange(tables.shape[1] * bs, device=dev)[None, :]
@@ -511,15 +582,19 @@ def kernel_phase(fa, dev):
     for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
         for s in (16, 128, 200, 512):
             recs.append(prefill_case(fa, 2, s, dtype, gen, dev))
+        recs.append(decode_case(fa, gen, dev, dtype, 128, LONG_LENS))
         recs.append(decode_case(fa, gen, dev, dtype))
-        for r in recs[-5:]:
+        for r in recs[-6:]:
             shape = r.get("Sq", r.get("kv_lens"))
             print(f"[kernels] {r['kernel']} {r['dtype']} at {shape}: max "
                   f"abs err {r['max_abs_err']:.3e} (tol {tol:g})"
                   + (f", {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
                      f"SDPA {r['library_ms']:.4f} ms, bound "
                      f"{r['bound_ms']:.6f} ms ({r['bound_by']})"
-                     if "ms" in r else ""), flush=True)
+                     if "ms" in r else "")
+                  + (f"; device time {_ms_or_not(r['device_ms'])}, SDPA's "
+                     f"{_ms_or_not(r['library_device_ms'])}"
+                     if "device_ms" in r else ""), flush=True)
             check(r["max_abs_err"] <= tol,
                   f"{r['kernel']} {r['dtype']} at {shape}: error "
                   f"{r['max_abs_err']} > {tol}")
@@ -736,6 +811,10 @@ def attention_train_case(fa, b, s, h, hkv, d, dtype, gen, dev, timed):
         do_t = dout.transpose(1, 2).contiguous()
         bwd["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
             o_t, (qt, kt, vt), do_t, retain_graph=True))
+        bwd["device_ms"] = device_ms(lambda: fa.flash_attention_bwd_cuda(
+            q, k, v, out, lse, dout))
+        bwd["library_device_ms"] = device_ms(lambda: torch.autograd.grad(
+            o_t, (qt, kt, vt), do_t, retain_graph=True))
         # five products of the forward's size (2.5x its operations)
         bwd["bound_ms"], bwd["bound_by"] = _attn_bound(
             b, s, h, hkv, d, 2.5, (q, k, v, out, lse, dout), grads)
@@ -851,7 +930,10 @@ def train_kernel_phase(fa, ce, ce_ref, dev, main_rows, main_seq):
                   + (f", {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
                      f"library {r['library_ms']} ms, bound "
                      f"{r['bound_ms']:.6f} ms ({r['bound_by']})"
-                     if "ms" in r else ""), flush=True)
+                     if "ms" in r else "")
+                  + (f"; device time {_ms_or_not(r['device_ms'])}, the "
+                     f"library's {_ms_or_not(r['library_device_ms'])}"
+                     if "device_ms" in r else ""), flush=True)
             if not r["rel_l2"] <= r["tol"]:
                 bad.append(f"{r['kernel']} {r['dtype']} {shape}: "
                            f"{r['rel_l2']} > {r['tol']}")
@@ -1091,7 +1173,24 @@ def train_phase(fa, ce, dev, argv=None):
     repeat_s = time.monotonic() - t0
     print(f"[train] repeated step bitwise identical: {same}", flush=True)
     check(same, "train: a repeated step gave different parameters")
-    del a, b, twin, state, result["state"]
+    del b, twin, state, result["state"]
+
+    # one more step under torch.profiler: device time by kernel
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        c, _ = step(a, batch)
+        torch.cuda.synchronize()
+    step_profile = _profile_rec(prof, (time.monotonic() - t0) * 1e6)
+    del a, c, prof
+    busy, win = step_profile["device_busy_us"], step_profile["window_us"]
+    print(f"[train] torch.profiler over 1 step: kernels {busy / 1e3:.3f} ms "
+          f"of device time in {win / 1e3:.3f} ms of wall; by kernel: "
+          + "; ".join(f"{k['name'][:60]} x{k['count']} {k['us'] / 1e3:.3f} "
+                      f"ms" for k in step_profile["kernels"][:12]),
+          flush=True)
 
     step_s = result["step_s"][1:]
     ms = statistics.median(step_s) * 1e3
@@ -1105,7 +1204,7 @@ def train_phase(fa, ce, dev, argv=None):
         "losses": losses, "metrics": result["metrics"], "plan": plan,
         "launches": launches, "expected_launches": expect,
         "checks": checks, "check_seconds": check_s[0],
-        "repeat_step_seconds": repeat_s,
+        "repeat_step_seconds": repeat_s, "step_profile": step_profile,
         "ms_per_step_median_2_to_n": ms,
         "tokens_per_s": tokens / (ms / 1e3),
         "processed_tokens_per_s": processed / (ms / 1e3),
@@ -2739,8 +2838,9 @@ def main(argv=None) -> int:
         # D=192 case (the MLA prefill) and D=80 case (zamba2's shared
         # attention) ride beside it
         main_rec = [r for r in timed
-                    if r.get("D") not in (64, MLA_DQK, ZAMBA_DH)
-                    or name != "flash_attention_cuda"][-1]
+                    if (r.get("D") not in (64, MLA_DQK, ZAMBA_DH)
+                        or name != "flash_attention_cuda")
+                    and r.get("window") != "long"][-1]
         path_name = path_of.get(name, "train")
         kernels.append({
             "name": name, "route": "cuda", "source": source,
@@ -2753,6 +2853,8 @@ def main(argv=None) -> int:
             "library_ms": main_rec["library_ms"],
             "launches_by_path": by_path[name],
             "two_call_ms": main_rec.get("two_call_ms"),
+            "device_ms": main_rec.get("device_ms"),
+            "library_device_ms": main_rec.get("library_device_ms"),
             "at": {k: main_rec[k] for k in main_rec if k in at_keys}})
         for key, d, path_name_d in (("at_d64", 64, "serve"),
                                     ("at_d192", MLA_DQK, "mla_serve"),
@@ -2768,6 +2870,14 @@ def main(argv=None) -> int:
                         "library_ms")},
                     "at": {k: at_d[-1][k] for k in at_d[-1]
                            if k in at_keys}}
+        long_window = [r for r in timed if r.get("window") == "long"]
+        if long_window:
+            kernels[-1]["at_long_window"] = {
+                **{k: long_window[-1][k] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "device_ms", "library_device_ms")},
+                "at": {k: long_window[-1][k] for k in long_window[-1]
+                       if k in at_keys}}
         if path_name:
             check(kernels[-1]["launches"] > 0, f"{name} never launched on "
                   f"its path")

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the bf16 tensor-core
-// kernels (flash_attention.cu, cross_entropy.cu): cp.async copies into
+// kernels (flash_attention.cu, flash_attention_bwd.cu, cross_entropy.cu)
+// and the paged decode (paged_decode.cu): cp.async copies into
 // 128-byte-swizzled shared-memory tiles, the wgmma matrix descriptor for
 // those tiles, the wgmma fences, and the wgmma.mma_async shapes the
 // kernels use, written as inline PTX.
@@ -41,6 +42,13 @@ __device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src,
                                             bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :: "r"(dst), "l"(src), "r"(valid ? 16 : 0));
+}
+// 4 bytes global -> shared (one fp32 of a strided row), zero-filled when
+// `valid` is false
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(valid ? 4 : 0));
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");

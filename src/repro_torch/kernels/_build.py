@@ -162,11 +162,18 @@ def load() -> ctypes.CDLL:
                 ci, ci, cf, ci, vp]             # R, V, eps, dtype, stream
             lib.ce_dlogits.restype = ci
             lib.paged_decode_fwd.argtypes = [
-                vp, vp, vp, vp, vp, vp,         # q, k_pool, v_pool,
-                                                # tables, kv_lens, o
+                vp, vp, vp, vp, vp, vp, vp,     # q, k_pool, v_pool,
+                                                # tables, kv_lens, o,
+                                                # partials
                 ci, ci, ci, ci, ci, ci, ci,     # B, H, Hkv, D, N, bs, MB
-                cf, ci, vp]                     # scale, dtype, stream
-            lib.paged_decode_fwd.restype = ci
+                ci, cf, ci, vp]                 # splits, scale, dtype,
+            lib.paged_decode_fwd.restype = ci   # stream
+            lib.paged_decode_split_len.argtypes = []
+            lib.paged_decode_split_len.restype = ci
+            lib.flash_attention_bwd_sm90_tile.argtypes = [ci, ci]  # D, axis
+            lib.flash_attention_bwd_sm90_tile.restype = ci
+            lib.flash_attention_bwd_sm90_smem.argtypes = [ci, ci]  # D, pass
+            lib.flash_attention_bwd_sm90_smem.restype = ci
             lib.mla_decode_fwd.argtypes = [
                 vp, vp, vp, vp, vp, vp,         # q_abs, q_r, ckv, kr,
                                                 # kv_len, out

@@ -26,7 +26,10 @@ path, kernel route against reference route at fp32, by
 ``XLSTM_PATH_TOL``. The bf16 prefill forward and CE forward run on the
 tensor cores: each is held to its plain version by relative L2 error
 (``parity.RTOL``) at every head dim and both head layouts, on ragged
-shapes, and must give bitwise-equal outputs on a second run.
+shapes, and must give bitwise-equal outputs on a second run. So is the
+bf16 attention backward (tensor cores) at head dims 64 and 128. The
+split paged decode must repeat its bits and give a sequence the same
+bits alone as inside a wider batch.
 """
 import numpy as np
 import pytest
@@ -327,6 +330,72 @@ def test_bf16_kernels_take_the_tiles_the_cpu_models_follow(dev):
     assert lib.flash_attention_fwd_sm90_kv_tile(96) == -1
     assert (lib.ce_fwd_sm90_tile(0), lib.ce_fwd_sm90_tile(1)) == \
         (ce.TOKEN_TILE, ce.VOCAB_TILE)
+
+
+# the bf16 backward (tensor cores): the forward's cases and a group of 16
+SM90_BWD_CASES = SM90_ATTN_CASES + [(1, 96, 96, 16, 1, True, 0)]
+
+
+@pytest.mark.parametrize("d", list(fa.BWD_HEAD_DIMS))
+@pytest.mark.parametrize("b,sq,skv,h,hkv,causal,off", SM90_BWD_CASES)
+def test_bf16_backward_kernel_matches_plain_and_repeats(dev, d, b, sq, skv,
+                                                        h, hkv, causal, off):
+    rng = np.random.default_rng(3 * d + sq + skv)
+    q = _randn(rng, (b, sq, h, d), dev, torch.bfloat16)
+    k, v = (_randn(rng, (b, skv, hkv, d), dev, torch.bfloat16)
+            for _ in range(2))
+    dout = _randn(rng, (b, sq, h, d), dev, torch.bfloat16)
+    kw = dict(causal=causal, q_offset=off)
+    out, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    n0 = fa.flash_attention_bwd_cuda.launches
+    got = fa.flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
+    assert fa.flash_attention_bwd_cuda.launches == n0 + 1
+    want = fa.flash_attention_bwd_plain(q, k, v, out, lse, dout, **kw)
+    tol = RTOL[("flash_attention_bwd_cuda", torch.bfloat16)]
+    for name, g, r in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == r.shape
+        assert _close(f"backward D={d} {name}", g, r, tol)
+    again = fa.flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_paged_decode_kernel_repeats_and_is_batch_invariant(dev, dtype, tol):
+    """The split decode: equal bits on a second run, and one sequence
+    alone (a 24-block table) gives the bits it gets inside a batch of 8
+    with a 64-block table (more splits of the window)."""
+    rng = np.random.default_rng(5)
+    lens = [1000, 1, 37, 300, 16, 512, 455, 129]
+    q, kp, vp, tables, kv_lens = _paged(rng, dev, dtype, 8, 16, 64, 4, 8,
+                                        lens)
+    got = fa.flash_decode_paged_cuda(q, kp, vp, tables, kv_lens)
+    assert _err(got, fa.flash_decode_paged_plain(
+        q, kp, vp, tables, kv_lens)) <= tol
+    assert not got[1].any()
+    assert torch.equal(fa.flash_decode_paged_cuda(q, kp, vp, tables,
+                                                  kv_lens), got)
+    seq = 3
+    alone = fa.flash_decode_paged_cuda(
+        q[seq:seq + 1].contiguous(), kp, vp,
+        tables[seq:seq + 1, :24].contiguous(), kv_lens[seq:seq + 1])
+    assert fa.decode_splits(24, 16) < fa.decode_splits(64, 16)
+    assert torch.equal(alone[0], got[seq])
+
+
+def test_backward_and_decode_take_the_tiles_the_cpu_models_follow(dev):
+    """The tiles of flash_attention_bwd_tiled_plain and the split of
+    flash_decode_paged_split_plain (tests/test_torch_sm90_numerics.py)
+    are the ones the built kernels launch with."""
+    from repro_torch.kernels import _build
+    lib = _build.load()
+    for d in fa.BWD_HEAD_DIMS:
+        assert tuple(lib.flash_attention_bwd_sm90_tile(d, a)
+                     for a in range(4)) == fa.BWD_TILES[d]
+        assert lib.flash_attention_bwd_sm90_smem(d, 0) > 0
+        assert lib.flash_attention_bwd_sm90_smem(d, 1) > 0
+    assert lib.flash_attention_bwd_sm90_tile(96, 0) == -1
+    assert lib.flash_attention_bwd_sm90_tile(128, 4) == -1
+    assert lib.paged_decode_split_len() == fa.DECODE_SPLIT
 
 
 @pytest.mark.parametrize("dtype", DTYPE_ONLY)

@@ -9,6 +9,15 @@ the P·V product as the bf16 pair hi = bf16(p), lo = bf16(p - hi).
 path: per-split partials over the kernel's vocab slabs, merged in split
 order. Both are held against the Pallas kernels (interpret mode) and
 the port's plain versions on bf16 inputs from a numpy seed.
+``flash_attention_bwd_tiled_plain`` follows ``csrc/flash_attention_bwd.cu``'s
+bf16 path (fp32 products of bf16 tiles, p and ds rounded to bf16 once,
+sums in the kernel's tile order, the GQA group summed in order) and is
+held against ``jax.vjp`` of the JAX package's ``ref.mha_chunked`` (its
+``_flash_bwd``) and the port's ``flash_bwd_ref``.
+``flash_decode_paged_split_plain`` follows ``csrc/paged_decode.cu``
+(splits of ``DECODE_SPLIT`` positions, merged in order) and is held
+against ``flash_decode_paged_pallas`` in interpret mode and
+``paged_decode_ref``, and against itself for batch invariance.
 
 Tolerances are the card's limits for the kernels
 (``repro_torch.kernels.parity.RTOL``, relative L2): 5e-4 for the bf16
@@ -16,8 +25,14 @@ attention output and lse, 2e-6 for the bf16 cross entropy's loss sum,
 weight sum and lse. Both sides round the attention output to bf16, so
 most of what is left is a 1-ulp rounding of some outputs. The reading of
 a single bf16 rounding of p (about 2e-3, above the limit: why the kernel
-takes the pair) is printed, not asserted.
+takes the pair) is printed, not asserted. The backward model is held to
+the bf16 backward's limit, 1e-3; the decode model to the card tests'
+limits for the decode kernel, 1e-4 absolute in fp32 (outputs are O(1),
+only the order of sums differs) and 2e-2 in bf16 (the two round to bf16
+at different points), and to equal bits for batch invariance.
 """
+import re
+
 import shutil
 
 import jax.numpy as jnp
@@ -27,14 +42,17 @@ import torch
 
 from repro.kernels.cross_entropy import ref as jref
 from repro.kernels.cross_entropy.cross_entropy import cross_entropy_pallas
+from repro.kernels.flash_attention import ref as fa_jref
 from repro.kernels.flash_attention.flash_attention import (
-    flash_attention_pallas)
+    flash_attention_pallas, flash_decode_paged_pallas)
 from repro_torch.kernels import _build
 from repro_torch.kernels.cross_entropy import cross_entropy as tce
 from repro_torch.kernels.flash_attention import flash_attention as tfa
 from repro_torch.kernels.parity import RTOL, rel_l2
 
 ATTN_TOL = RTOL[("flash_attention_cuda", torch.bfloat16)]
+BWD_TOL = RTOL[("flash_attention_bwd_cuda", torch.bfloat16)]
+DECODE_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 CE_TOL = RTOL[("cross_entropy_cuda", torch.bfloat16)]
 
 # (b, sq, skv, h, hkv, causal, q_offset): ragged Sq = Skv over several q
@@ -84,6 +102,176 @@ def test_attention_tile_model_matches_pallas_and_plain(d, b, sq, skv, h,
           + ", ".join(f"{k_} {v_:.2e}" for k_, v_ in readings.items()))
     for what in ("pair vs plain", "pair vs pallas", "lse vs plain"):
         assert readings[what] <= ATTN_TOL, (what, readings[what])
+
+
+def _attention_bwd_inputs(rng, b, sq, skv, h, hkv, d):
+    q = _bf16(rng, (b, sq, h, d))
+    k = _bf16(rng, (b, skv, hkv, d))
+    v = _bf16(rng, (b, skv, hkv, d))
+    dout = _bf16(rng, (b, sq, h, d))
+    return q, k, v, dout
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("b,sq,skv,h,hkv,causal,off", ATTN_CASES)
+def test_attention_bwd_tile_model_matches_jax_vjp_and_plain(d, b, sq, skv,
+                                                            h, hkv, causal,
+                                                            off):
+    import jax
+    rng = np.random.default_rng(7 * d + sq + skv)
+    q, k, v, dout = _attention_bwd_inputs(rng, b, sq, skv, h, hkv, d)
+    kw = dict(causal=causal, q_offset=off)
+    jq, jk, jv = _jax(q), _jax(k), _jax(v)
+    _, vjp = jax.vjp(lambda q_, k_, v_: fa_jref.mha_chunked(
+        q_, k_, v_, **kw), jq, jk, jv)
+    jgrads = [torch.from_numpy(np.array(g.astype(jnp.float32)))
+              for g in vjp(_jax(dout))]
+    # the residuals that vjp's backward rebuilds p from: JAX's forward
+    # output (p cast to bf16 before P V) and its lse
+    _, (*_, jout, jlse) = fa_jref._flash_fwd(
+        jq, jk, jv, jnp.full((b,), skv, jnp.int32), causal, off, d ** -0.5,
+        512)
+    out = torch.from_numpy(np.array(jout.astype(jnp.float32))).bfloat16()
+    lse = torch.from_numpy(np.array(jlse))
+    got = tfa.flash_attention_bwd_tiled_plain(q, k, v, out, lse, dout, **kw)
+    want = tfa.flash_attention_bwd_plain(q, k, v, out, lse, dout, **kw)
+    readings = {}
+    for name, g, w, j in zip(("dq", "dk", "dv"), got, want, jgrads):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        readings[f"{name} vs plain"] = rel_l2(g, w)
+        readings[f"{name} vs jax"] = rel_l2(g, j)
+    print(f"[sm90-attention-bwd] D={d} {(b, sq, skv, h, hkv, causal, off)}: "
+          + ", ".join(f"{k_} {v_:.2e}" for k_, v_ in readings.items()))
+    for what, r in readings.items():
+        assert r <= BWD_TOL, (what, r)
+
+
+def _decode_inputs(rng, dtype, bs, mb, hkv, group, lens, holes):
+    """GQA decode inputs over a pool of B*MB blocks: each sequence maps
+    its own blocks up to its length, the rest NULL (== N); ``holes``
+    puts a NULL block inside every window of three or more blocks; a
+    length of 1 is an all-NULL inactive slot."""
+    b = len(lens)
+    n = b * mb
+    q = torch.from_numpy(rng.standard_normal(
+        (b, 1, hkv * group, 64)).astype(np.float32)).to(dtype)
+    kp, vp = (torch.from_numpy(rng.standard_normal(
+        (n, bs, hkv, 64)).astype(np.float32)).to(dtype) for _ in range(2))
+    tables = np.full((b, mb), n, np.int32)
+    perm = rng.permutation(n)
+    for i, ln in enumerate(lens):
+        nb = min(-(-ln // bs), mb)
+        if ln > 1:
+            tables[i, :nb] = perm[i * mb:i * mb + nb]
+        if holes and nb > 2:
+            tables[i, nb // 2] = n
+    return (q, kp, vp, torch.from_numpy(tables),
+            torch.tensor(lens, dtype=torch.int32))
+
+
+# (bs, mb, hkv, group, lens): three splits with one length exactly
+# MB*bs and an inactive slot; a block size that divides neither the
+# split nor the stage; a group of 16 over five splits; lengths past the
+# window
+DECODE_CASES = [
+    (16, 12, 2, 4, [192, 1, 37, 150]),
+    (12, 5, 2, 4, [60, 1, 13, 59]),
+    (8, 40, 1, 16, [320, 1, 129, 300]),
+    (16, 9, 2, 8, [200, 144, 1]),
+]
+
+
+@pytest.mark.pallas_interpret
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bs,mb,hkv,group,lens", DECODE_CASES)
+def test_decode_split_model_matches_pallas_and_plain(pallas_interpret, dtype,
+                                                     bs, mb, hkv, group,
+                                                     lens):
+    rng = np.random.default_rng(bs * mb + group)
+    q, kp, vp, tables, kv_lens = _decode_inputs(rng, dtype, bs, mb, hkv,
+                                                group, lens, holes=True)
+    got = tfa.flash_decode_paged_split_plain(q, kp, vp, tables, kv_lens)
+    want = tfa.flash_decode_paged_plain(q, kp, vp, tables, kv_lens)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    pallas = torch.from_numpy(np.array(flash_decode_paged_pallas(
+        *(jnp.asarray(x.float().numpy()).astype(jdt) for x in (q, kp, vp)),
+        jnp.asarray(tables.numpy()), jnp.asarray(kv_lens.numpy()),
+        interpret=pallas_interpret).astype(jnp.float32)))
+    assert got.dtype == dtype and got.shape == q.shape
+    errs = {"vs plain": (got.float() - want.float()).abs().max().item(),
+            "vs pallas": (got.float() - pallas).abs().max().item()}
+    print(f"[decode-split] {dtype} {(bs, mb, hkv, group, lens)}: "
+          + ", ".join(f"{k_} {v_:.2e}" for k_, v_ in errs.items()))
+    for what, e in errs.items():
+        assert e <= DECODE_TOL[dtype], (what, e)
+    inactive = [i for i, ln in enumerate(lens) if ln == 1]
+    assert not got[inactive].any()
+
+
+def test_decode_split_model_treats_out_of_pool_entries_as_zeros():
+    rng = np.random.default_rng(11)
+    q, kp, vp, tables, kv_lens = _decode_inputs(
+        rng, torch.float32, 16, 8, 2, 4, [128, 100, 1], holes=False)
+    tables[0, 2] = -1                       # below the pool
+    tables[1, 3] = kp.shape[0] + 5          # past the NULL sentinel
+    got = tfa.flash_decode_paged_split_plain(q, kp, vp, tables, kv_lens)
+    want = tfa.flash_decode_paged_plain(q, kp, vp, tables, kv_lens)
+    assert (got - want).abs().max().item() <= DECODE_TOL[torch.float32]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_split_model_is_batch_invariant(dtype):
+    """One sequence alone and the same sequence inside a batch of 8 with
+    a wider table (more splits of the window) give equal bits."""
+    rng = np.random.default_rng(3)
+    bs, hkv, group = 16, 4, 8
+    q, kp, vp, tables, kv_lens = _decode_inputs(
+        rng, dtype, bs, 64, hkv, group,
+        [1000, 1, 37, 300, 16, 512, 455, 129], holes=True)
+    seq = 3
+    alone = tfa.flash_decode_paged_split_plain(
+        q[seq:seq + 1], kp, vp, tables[seq:seq + 1, :24],
+        kv_lens[seq:seq + 1])
+    batched = tfa.flash_decode_paged_split_plain(q, kp, vp, tables, kv_lens)
+    assert tfa.decode_splits(24, bs) < tfa.decode_splits(64, bs)
+    assert torch.equal(alone[0], batched[seq])
+
+
+def test_decode_splits_come_from_the_window_shape():
+    split = tfa.DECODE_SPLIT
+    assert tfa.decode_splits(32, 16) == -(-512 // split)   # the serve phase
+    assert tfa.decode_splits(128, 16) == -(-2048 // split)
+    assert tfa.decode_splits(1, 1) == 1
+    for mb, bs in ((5, 12), (9, 16), (40, 8)):
+        n = tfa.decode_splits(mb, bs)
+        assert (n - 1) * split < mb * bs <= n * split
+    assert tfa.DECODE_SPLIT % tfa.DECODE_TILE == 0
+
+
+def _constexpr(src, name):
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+def test_tile_constants_match_the_sources_build_hashes():
+    """The tiles the CPU models follow are the ones written in the
+    sources that ``_build`` compiles and hashes: the decode split and
+    stage, the backward's tiles (BwdTiles) and the forward's kv tiles
+    (Sm90Tiles)."""
+    srcs = {p.name: p for p in _build.sources()}
+    decode = srcs["paged_decode.cu"].read_text()
+    assert _constexpr(decode, "kSplit") == tfa.DECODE_SPLIT
+    assert _constexpr(decode, "kTile") == tfa.DECODE_TILE
+    bwd = srcs["flash_attention_bwd.cu"].read_text()
+    for d in tfa.BWD_HEAD_DIMS:
+        dq = re.search(rf"using Dq = DqCfg<{d}, (\d+), (\d+)>;", bwd)
+        dkv = re.search(rf"using Dkv = DkvCfg<{d}, (\d+), (\d+)>;", bwd)
+        tiles = tuple(int(x) for x in dq.groups() + dkv.groups())
+        assert tiles == tfa.BWD_TILES[d], (d, tiles)
+    fwd = srcs["flash_attention.cu"].read_text()
+    for d in tfa.PREFILL_HEAD_DIMS:
+        cfg = re.search(rf"struct Sm90Tiles<{d}> {{ using C = "
+                        rf"Sm90Cfg<{d}, (\d+), (\d+)>; }};", fwd)
+        assert int(cfg.group(2)) == tfa.KV_TILES[d], d
 
 
 # (t, d, v, eps, softcap, tied, splits): T and V not tile multiples; the
