@@ -13,14 +13,17 @@ Phases (any failure exits non-zero; no phase swallows an error):
    source, all started together) and prints the build time. Then the
    bf16 tensor-core kernels (the prefill forward at head dims 64, 80,
    128 and 192, the backward's dq and dk/dv passes at 64 and 128, the
-   CE forward for both head layouts, and its merge): ptxas's registers
-   and spills, the dynamic shared memory of each launch, and the count
-   of ``wgmma.mma_async`` and ``cp.async`` in their PTX (``nvcc -ptx``)
-   and of HGMMA in their SASS (cuobjdump, where the toolkit has it);
-   every product kernel must have both instructions and no spill. The
-   tiles the library reports (forward kv tiles, the backward's four
-   tiles, the CE tiles, the decode's split length) must be those the
-   CPU models of the tests follow.
+   CE forward for both head layouts, the paged MLA decode's split
+   kernel, the SSD scan's chunk-state and chunk-scan kernels, and their
+   helpers: the CE and MLA merges, the SSD state passing): ptxas's
+   registers and spills, the dynamic shared memory of each launch, and
+   the count of ``wgmma.mma_async`` and ``cp.async`` in their PTX
+   (``nvcc -ptx``) and of HGMMA in their SASS (cuobjdump, where the
+   toolkit has it); every product kernel must have both instructions
+   and no spill. The tiles the library reports (forward kv tiles, the
+   backward's four tiles, the CE tiles, the decode's split length, the
+   MLA decode's split, tile and partial length, the SSD scan's row
+   tile) must be those the CPU models of the tests follow.
 2. Serving kernel phase: the prefill and paged-decode kernels against
    their plain PyTorch versions on the card, in fp32 (tolerance 1e-4)
    and bf16 (tolerance 2e-2), at tinyllama-1.1b widths (H=32, Hkv=4,
@@ -116,15 +119,17 @@ Phases (any failure exits non-zero; no phase swallows an error):
    deepseek-v2 widths (H=128, r=512, Dr=64), fp32 (tolerance 1e-4, TF32
    off) and bf16 (2e-2): the paged kernel with phase 2's tables (B=8,
    bs=16, ragged kv_lens up to 512, NULL holes, an all-NULL inactive
-   slot whose output must be 0, one sequence at exactly MB*bs); the
-   contiguous kernel at B=8, S in {200, 512, 2048}; the prefill forward
-   at head dim 192 (B=2, S in {16, 512, 200}, H=Hkv=128, v zero-padded
-   from 128; each run twice, bitwise equal). Timed in bf16 at the MLA
-   serve path's shapes (the paged
-   decode at B=8, the prefill at the 512 bucket; the contiguous kernel,
-   on no path, at S=512). Yardsticks: SDPA as MQA over the gathered
-   dense window (q = [q_abs | q_r], k = [ckv | kr], v = ckv, a boolean
-   length mask) and SDPA causal at head dim 192.
+   slot whose output must be 0, one sequence at exactly MB*bs) and over
+   the longer window (MB=128, kv_lens up to 2048), each run twice and
+   bitwise equal; the contiguous kernel at B=8, S in {200, 512, 2048};
+   the prefill forward at head dim 192 (B=2, S in {16, 512, 200},
+   H=Hkv=128, v zero-padded from 128; each run twice, bitwise equal).
+   Timed in bf16 at the MLA serve path's shapes (the paged decode at
+   B=8, also at the longer window, each with the device time of a call
+   and of SDPA's under torch.profiler; the prefill at the 512 bucket;
+   the contiguous kernel, on no path, at S=512). Yardsticks: SDPA as
+   MQA over the gathered dense window (q = [q_abs | q_r], k = [ckv |
+   kr], v = ckv, a boolean length mask) and SDPA causal at head dim 192.
 9. MLA serve path phase: ``launch.serve.serve_config`` serves
    deepseek-v2-236b at full width (d 5120, 128 heads, 160 routed top-6
    experts and 2 shared, vocab 102400), depth cut to 8 of 60 layers
@@ -150,11 +155,13 @@ Phases (any failure exits non-zero; no phase swallows an error):
    (S=1000), S shorter than the chunk (S=100), two group layouts (G=2,
    H=8; G=3, H=6 at chunk 128) and no D; the prefill kernel at head dim
    80 (zamba2's shared attention block: B=4, S=1024, H=Hkv=32; and two
-   small cases) likewise, each run twice and bitwise equal. Both timed
-   in bf16 at the generate phase's
-   shapes, with the bound, the plain version's time and the library's
-   (SDPA causal for the attention; none for the scan, which no PyTorch
-   call computes), beside the card's name and power limit.
+   small cases) likewise; every case of both runs twice and must be
+   bitwise equal. Both timed in bf16 at the generate phase's shapes,
+   with the bound, the plain version's time and the library's (SDPA
+   causal for the attention; none for the scan, which no PyTorch call
+   computes), beside the card's name and power limit; the scan also by
+   the device time of each of its three launches (chunk states, state
+   passing, chunk scan) under torch.profiler.
 11. Zamba2 generate path phase: ``launch.serve.static_generate`` on
    zamba2-2.7b at full width and depth (54 Mamba2 layers, d 2560, 80
    SSM heads of 64, state 64, the shared attention and MLP block after
@@ -202,8 +209,8 @@ Phases (any failure exits non-zero; no phase swallows an error):
    logits agree within 1e-3 of the largest reference logit.
 14. Prints one ``{"kernels": [...]}`` line (eleven kernels; the prefill
    kernel's D=64 (phase 2's S=512 bucket), D=192 and D=80 cases ride in
-   its entry as ``at_d64``, ``at_d192`` and ``at_d80``, the decode's
-   longer window as ``at_long_window``; the contiguous
+   its entry as ``at_d64``, ``at_d192`` and ``at_d80``, the GQA and MLA
+   decodes' longer windows as ``at_long_window``; the contiguous
    MLA kernel lies on no path and reports 0 launches), then, last,
    ``{"ok": true, "device": {...}}``. Details go
    to ``chiprun_out/chip_smoke.json``.
@@ -286,6 +293,12 @@ def device_ms(fn, reps: int = REPS):
     the card's. The profiler's trace can come back without kernels: then
     it is taken once more, and a second empty trace gives None (not
     measured)."""
+    by_kernel = device_ms_by_kernel(fn, reps)
+    return by_kernel and sum(by_kernel.values())
+
+
+def device_ms_by_kernel(fn, reps: int = REPS):
+    """:func:`device_ms` by kernel name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
@@ -297,9 +310,9 @@ def device_ms(fn, reps: int = REPS):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        us = sum(t for _, t in _kernel_times(prof).values())
-        if us > 0:
-            return us / reps / 1e3
+        by_name = _kernel_times(prof)
+        if by_name:
+            return {n: us / reps / 1e3 for n, (_, us) in by_name.items()}
     return None
 
 
@@ -312,13 +325,21 @@ def _ms_or_not(x) -> str:
 # --------------------------------------------------------------------------
 
 SM90_SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu",
-                "cross_entropy.cu")
+                "cross_entropy.cu", "mla_decode.cu", "ssd_scan.cu")
+# the bf16 kernels' entry points that run no product: merges and the
+# SSD state passing
+SM90_HELPERS = ("ce_merge", "mla_paged_merge", "ssd_state_pass")
 
 
 def _sm90_name(mangled: str):
     """A short name for the bf16 tensor-core kernels' entry points (the
-    product kernels and the CE merge), None for any other."""
+    product kernels and their helpers: the CE and MLA merges, the SSD
+    state passing), None for any other."""
     import re
+    for name in ("mla_paged_split_sm90", "ssd_chunk_state_sm90",
+                 "ssd_chunk_scan_sm90") + SM90_HELPERS[1:]:
+        if name in mangled:
+            return name
     m = re.search(r"flash_fwd_sm90ILi(\d+)E", mangled)
     if m:
         return f"flash_fwd_sm90<D={m.group(1)}>"
@@ -346,12 +367,13 @@ def _by_entry(text: str, start_re: str):
     return out
 
 
-def sm90_report(build, lib, fa, ce):
+def sm90_report(build, lib, fa, ce, md, sk):
     """ptxas's registers and spills of the bf16 tensor-core kernels, the
     dynamic shared memory each launch asks for, the tiles each takes
     (held equal to those the CPU models of the tests follow: ``KV_TILES``,
-    ``BWD_TILES``, ``TOKEN_TILE``, ``VOCAB_TILE``, and the decode's
-    ``DECODE_SPLIT``), and the instructions
+    ``BWD_TILES``, ``TOKEN_TILE``, ``VOCAB_TILE``, the decode's
+    ``DECODE_SPLIT``, the MLA decode's ``SPLIT``, ``TILE`` and ``PART``,
+    the SSD scan's ``ROW_TILE``), and the instructions
     their PTX (``nvcc -ptx``) and, where the toolkit has cuobjdump, their
     SASS hold: every product kernel must issue ``wgmma.mma_async``
     (HGMMA) on operands that ``cp.async`` brought to shared memory."""
@@ -386,13 +408,28 @@ def sm90_report(build, lib, fa, ce):
     check(ce_tiles == (ce.TOKEN_TILE, ce.VOCAB_TILE),
           f"ce_fwd's tiles are {ce_tiles}, the wrapper says "
           f"{(ce.TOKEN_TILE, ce.VOCAB_TILE)}")
+    mla = (lib.mla_decode_paged_split_len(), lib.mla_decode_paged_tile(),
+           lib.mla_decode_paged_part_len())
+    check(mla == (md.SPLIT, md.TILE, md.PART), f"the MLA decode's split, "
+          f"tile and partial are {mla}, the wrapper says "
+          f"{(md.SPLIT, md.TILE, md.PART)}")
+    ssd = lib.ssd_scan_sm90_tile()
+    check(ssd == sk.ROW_TILE, f"the SSD scan's row tile is {ssd}, the "
+          f"wrapper says {sk.ROW_TILE}")
     print(f"[sm90] tiles as the CPU models take them: kv {fa.KV_TILES}, "
           f"backward (dq rows, kv, dk/dv keys, q) {fa.BWD_TILES}, "
           f"CE {ce_tiles[0]} tokens x {ce_tiles[1]} vocab columns, "
-          f"decode split {split} positions", flush=True)
+          f"decode split {split} positions, MLA decode split {mla[0]} "
+          f"positions in tiles of {mla[1]} (partials of {mla[2]} floats), "
+          f"SSD chunk scan tiles of {ssd} rows",
+          flush=True)
     for name in rows:
         if name.startswith("ce_fwd_sm90"):
             rows[name]["dynamic_smem"] = lib.ce_fwd_sm90_smem()
+    rows["mla_paged_split_sm90"]["dynamic_smem"] = \
+        lib.mla_decode_paged_sm90_smem()
+    rows["ssd_chunk_state_sm90"]["dynamic_smem"] = lib.ssd_scan_sm90_smem(0)
+    rows["ssd_chunk_scan_sm90"]["dynamic_smem"] = lib.ssd_scan_sm90_smem(1)
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     have_sass = Path(cuobjdump).exists()
     objs = {o.stem.rsplit("_", 1)[0]: o for o in build.objects()}
@@ -416,8 +453,8 @@ def sm90_report(build, lib, fa, ce):
               f"{r.get('ptx_cp_async', 0)} cp.async"
               + (f"; SASS {r.get('sass_hgmma', 0)} HGMMA" if have_sass
                  else "; no cuobjdump: SASS not read"), flush=True)
-    products = [n for n in rows if n != "ce_merge"]
-    check(len(products) == 10, f"bf16 tensor-core kernels found: {products}")
+    products = [n for n in rows if n not in SM90_HELPERS]
+    check(len(products) == 13, f"bf16 tensor-core kernels found: {products}")
     for n in products:
         r = rows[n]
         check(r["spill_bytes"] == 0, f"{n}: ptxas spilled")
@@ -1631,11 +1668,15 @@ def _mla_sdpa(qa, qr, ckv_win, kr_win, lens):
         q, k, v, attn_mask=mask, scale=MLA_SCALE, enable_gqa=True)
 
 
-def mla_paged_case(md, mla_ref, gen, dev, dtype, timed):
+def mla_paged_case(md, mla_ref, gen, dev, dtype, timed, mb=32,
+                   lens=SERVE_LENS):
     """The serve phase's decode shape: B=8 slots, bs=16, MB=32, ragged
-    lengths (one at MB*bs, an inactive all-NULL slot), NULL holes."""
+    lengths (one at MB*bs, an inactive all-NULL slot), NULL holes; or
+    the longer window (MB=128, lengths up to 2048). Two runs must give
+    equal bits; timed, it also reads the device time of a call and of
+    the yardstick's (the call is host-bound)."""
     import torch
-    tables, kv_lens = paged_tables(dev)
+    tables, kv_lens = paged_tables(dev, mb=mb, lens=lens)
     b, mb = tables.shape
     n, bs = b * mb, 16
     qa = torch.randn((b, MLA_H, MLA_R), generator=gen, device=dev).to(dtype)
@@ -1647,17 +1688,24 @@ def mla_paged_case(md, mla_ref, gen, dev, dtype, timed):
     want = mla_ref.mla_decode_paged_online_plain(*args)
     torch.cuda.synchronize()
     check(not got[1].any().item(), "MLA decode: inactive slot is not 0")
+    check(torch.equal(md.mla_decode_paged_cuda(*args), got),
+          f"MLA decode {dtype} at MB={mb}: two runs differ")
     rec = {"kernel": "mla_decode_paged_cuda", "dtype": str(dtype), "B": b,
            "H": MLA_H, "r": MLA_R, "Dr": MLA_DR, "bs": bs, "N": n, "MB": mb,
            "kv_lens": kv_lens.tolist(),
-           "max_abs_err": (got - want).abs().max().item()}
+           "max_abs_err": (got - want).abs().max().item(),
+           "bitwise_repeat": True,
+           "window": "serve" if lens is SERVE_LENS else "long"}
     if timed:
         rec["ms"] = cuda_ms(lambda: md.mla_decode_paged_cuda(*args))
         rec["plain_ms"] = cuda_ms(
             lambda: mla_ref.mla_decode_paged_online_plain(*args))
         win = (mla_ref.gather_blocks(cp, tables),
                mla_ref.gather_blocks(kp, tables))
-        rec["library_ms"] = cuda_ms(_mla_sdpa(qa, qr, *win, kv_lens))
+        sdpa = _mla_sdpa(qa, qr, *win, kv_lens)
+        rec["library_ms"] = cuda_ms(sdpa)
+        rec["device_ms"] = device_ms(lambda: md.mla_decode_paged_cuda(*args))
+        rec["library_device_ms"] = device_ms(sdpa)
         # the latent rows below kv_len in mapped blocks, read once; q, the
         # tables and lengths; the fp32 output
         pos_ok = (torch.arange(mb * bs, device=dev)[None, :]
@@ -1749,7 +1797,9 @@ def mla_kernel_phase(fa, md, mla_ref, dev):
     recs = []
     for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
         bf16 = dtype == torch.bfloat16
-        new = [mla_paged_case(md, mla_ref, gen, dev, dtype, timed=bf16)]
+        new = [mla_paged_case(md, mla_ref, gen, dev, dtype, timed=bf16),
+               mla_paged_case(md, mla_ref, gen, dev, dtype, timed=bf16,
+                              mb=128, lens=LONG_LENS)]
         new += [mla_contiguous_case(md, mla_ref, s, gen, dev, dtype,
                                     timed=bf16 and s == 512)
                 for s in (200, 512, 2048)]
@@ -1763,7 +1813,10 @@ def mla_kernel_phase(fa, md, mla_ref, dev):
                   + (f", {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
                      f"SDPA {r['library_ms']:.4f} ms, bound "
                      f"{r['bound_ms']:.6f} ms ({r['bound_by']})"
-                     if "ms" in r else ""), flush=True)
+                     if "ms" in r else "")
+                  + (f"; device time {_ms_or_not(r['device_ms'])}, SDPA's "
+                     f"{_ms_or_not(r['library_device_ms'])}"
+                     if "device_ms" in r else ""), flush=True)
             r["tol"] = tol
         bad = [f"{r['kernel']} {r['dtype']}: {r['max_abs_err']}"
                for r in new if not r["max_abs_err"] <= tol]
@@ -2083,16 +2136,28 @@ def ssd_case(sk, b, s, h, g, chunk, use_d, dtype, gen, dev, timed):
           and y.shape == x.shape and fin.shape == (b, h, ZAMBA_P, ZAMBA_N),
           f"SSD kernel: y {y.dtype} {tuple(y.shape)}, final {fin.dtype} "
           f"{tuple(fin.shape)}")
+    y2, fin2 = sk.ssd_scan_cuda(*args, chunk_size=chunk)
+    check(torch.equal(y2, y) and torch.equal(fin2, fin),
+          f"SSD kernel {dtype} at {(b, s, h, g, chunk)}: two runs differ")
     rec = {"kernel": "ssd_scan_cuda", "dtype": str(dtype), "B": b, "S": s,
            "H": h, "G": g, "P": ZAMBA_P, "N": ZAMBA_N, "chunk": chunk,
            "with_D": use_d,
            "rel_l2": max(rel_l2(y, yw), rel_l2(fin, fw)),
            "rel_l2_y": rel_l2(y, yw), "rel_l2_final": rel_l2(fin, fw),
            "max_abs_err": max((y.float() - yw.float()).abs().max().item(),
-                              (fin - fw).abs().max().item())}
+                              (fin - fw).abs().max().item()),
+           "bitwise_repeat": True}
     if timed:
-        rec["ms"] = cuda_ms(lambda: sk.ssd_scan_cuda(*args,
-                                                     chunk_size=chunk))
+        run = lambda: sk.ssd_scan_cuda(*args, chunk_size=chunk)
+        rec["ms"] = cuda_ms(run)
+        # the device time of each launch of a call (bf16: chunk states,
+        # state passing, chunk scan), and their sum
+        by_kernel = device_ms_by_kernel(run)
+        rec["device_ms_by_launch"] = by_kernel and {
+            next((k for k in ("ssd_chunk_state_sm90", "ssd_state_pass",
+                              "ssd_chunk_scan_sm90", "ssd_scan_kernel")
+                  if k in n), n[:60]): ms for n, ms in by_kernel.items()}
+        rec["device_ms"] = by_kernel and sum(by_kernel.values())
         rec["plain_ms"] = cuda_ms(lambda: sk.ssd_scan_plain(
             *args, chunk_size=chunk))
         rec["library_ms"] = None        # no PyTorch call computes it
@@ -2162,7 +2227,10 @@ def zamba_kernel_phase(fa, sk, dev, smi):
                      + ("none" if r["library_ms"] is None
                         else f"{r['library_ms']:.4f} ms (SDPA)")
                      + f", bound {r['bound_ms']:.6f} ms ({r['bound_by']}) "
-                       f"[{smi}]" if "ms" in r else ""), flush=True)
+                       f"[{smi}]" if "ms" in r else "")
+                  + (f"; device time {_ms_or_not(r['device_ms'])} by "
+                     f"launch {r['device_ms_by_launch']}"
+                     if "device_ms_by_launch" in r else ""), flush=True)
         bad = [f"{r['kernel']} {r['dtype']}: {r['rel_l2']}"
                for r in new if not r["rel_l2"] <= r["tol"]]
         check(not bad, "zamba kernels vs plain: " + "; ".join(bad))
@@ -2721,7 +2789,7 @@ def main(argv=None) -> int:
           f"{[s.name for s in _build.headers()]} in {build_s:.1f} s",
           flush=True)
     t0 = time.monotonic()
-    sm90 = sm90_report(_build, _build.load(), fa, ce)
+    sm90 = sm90_report(_build, _build.load(), fa, ce, md, sk)
 
     phases = {"build": build_s, "sm90_report": time.monotonic() - t0}
     t0 = time.monotonic()
@@ -2855,6 +2923,7 @@ def main(argv=None) -> int:
             "two_call_ms": main_rec.get("two_call_ms"),
             "device_ms": main_rec.get("device_ms"),
             "library_device_ms": main_rec.get("library_device_ms"),
+            "device_ms_by_launch": main_rec.get("device_ms_by_launch"),
             "at": {k: main_rec[k] for k in main_rec if k in at_keys}})
         for key, d, path_name_d in (("at_d64", 64, "serve"),
                                     ("at_d192", MLA_DQK, "mla_serve"),

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the bf16 tensor-core
-// kernels (flash_attention.cu, flash_attention_bwd.cu, cross_entropy.cu)
-// and the paged decode (paged_decode.cu): cp.async copies into
+// kernels (flash_attention.cu, flash_attention_bwd.cu, cross_entropy.cu,
+// mla_decode.cu, ssd_scan.cu) and the paged decode (paged_decode.cu):
+// cp.async copies into
 // 128-byte-swizzled shared-memory tiles, the wgmma matrix descriptor for
 // those tiles, the wgmma fences, and the wgmma.mma_async shapes the
 // kernels use, written as inline PTX.
@@ -13,10 +14,10 @@
 //   * K-major (the contraction runs along the row): rows are M or N,
 //     the descriptor's stride byte offset is 1024 (8 rows) and a k16
 //     step inside a block adds 32 bytes to the start address;
-//   * MN-major (the contraction runs down the rows, B with the transpose
-//     bit): rows are K, the stride byte offset is 1024 (8 rows of K), the
-//     leading byte offset is the block size R * 128 (the next 64 columns
-//     of N), and a k16 step adds 16 rows (2048 bytes).
+//   * MN-major (the contraction runs down the rows, A or B with its
+//     transpose bit): rows are K, the stride byte offset is 1024 (8 rows
+//     of K), the leading byte offset is the block size R * 128 (the next
+//     64 columns of M or N), and a k16 step adds 16 rows (2048 bytes).
 #pragma once
 
 #include <cstdint>
@@ -181,8 +182,9 @@ __device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t a,
 }
 
 // D (64 x 64 fp32, 32 registers a thread) (+)= A (64 x 16) B (16 x 64), both
-// from shared memory by descriptor; kTransB = 1 reads B MN-major.
-template <int kTransB>
+// from shared memory by descriptor; kTransB = 1 reads B MN-major, kTransA
+// = 1 reads A MN-major.
+template <int kTransB, int kTransA = 0>
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
                                              uint64_t b, int accumulate) {
   asm volatile(
@@ -193,7 +195,7 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
       "%8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+      "}, %32, %33, p, 1, 1, %36, %35;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -202,7 +204,7 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(accumulate), "n"(kTransB));
+      : "l"(a), "l"(b), "r"(accumulate), "n"(kTransB), "n"(kTransA));
 }
 
 // D (64 x 256 fp32, 128 registers a thread) (+)= A (64 x 16) B (16 x 256), both
@@ -413,24 +415,91 @@ __device__ __forceinline__ void wgmma_rs_n192(float (&d)[96],
         "r"(accumulate), "n"(kTransB));
 }
 
+// D (64 x 256 fp32, 128 registers a thread) += A (64 x 16, bf16 from
+// registers: the accumulator fragment's k16 slice) B (16 x 256, shared).
+template <int kTransB>
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, %134;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate), "n"(kTransB));
+}
+
 // the shapes above by N
-template <int N, int kTransB>
+// (kTransA = 1, A read MN-major, is built at N = 64)
+template <int N, int kTransB, int kTransA = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
                                          uint64_t b, int accumulate) {
   static_assert(N == 32 || N == 64 || N == 256, "wgmma_ss N");
+  static_assert(kTransA == 0 || N == 64, "wgmma_ss: MN-major A at N=64");
   if constexpr (N == 32) wgmma_ss_n32<kTransB>(d, a, b, accumulate);
-  if constexpr (N == 64) wgmma_ss_n64<kTransB>(d, a, b, accumulate);
+  if constexpr (N == 64) wgmma_ss_n64<kTransB, kTransA>(d, a, b, accumulate);
   if constexpr (N == 256) wgmma_ss_n256<kTransB>(d, a, b, accumulate);
 }
 template <int N, int kTransB>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4], uint64_t b,
                                          int accumulate) {
-  static_assert(N == 64 || N == 80 || N == 128 || N == 192, "wgmma_rs N");
+  static_assert(N == 64 || N == 80 || N == 128 || N == 192 || N == 256,
+                "wgmma_rs N");
   if constexpr (N == 64) wgmma_rs_n64<kTransB>(d, a, b, accumulate);
   if constexpr (N == 80) wgmma_rs_n80<kTransB>(d, a, b, accumulate);
   if constexpr (N == 128) wgmma_rs_n128<kTransB>(d, a, b, accumulate);
   if constexpr (N == 192) wgmma_rs_n192<kTransB>(d, a, b, accumulate);
+  if constexpr (N == 256) wgmma_rs_n256<kTransB>(d, a, b, accumulate);
 }
 
 }  // namespace sm90

@@ -182,14 +182,22 @@ def load() -> ctypes.CDLL:
             lib.mla_decode_fwd.restype = ci
             lib.mla_decode_paged_fwd.argtypes = [
                 vp, vp, vp, vp, vp, vp, vp,     # q_abs, q_r, ckv_pool,
-                                                # kr_pool, tables, kv_lens,
-                                                # out
+                vp,                             # kr_pool, tables, kv_lens,
+                                                # out, partials (bf16)
                 ci, ci, ci, ci, ci, ci, ci,     # B, H, R, DR, N, bs, MB
-                cf, ci, vp]                     # scale, dtype, stream
-            lib.mla_decode_paged_fwd.restype = ci
+                ci, cf, ci, vp]                 # splits, scale, dtype,
+            lib.mla_decode_paged_fwd.restype = ci  # stream
+            for fn in ("mla_decode_paged_split_len", "mla_decode_paged_tile",
+                       "mla_decode_paged_part_len",
+                       "mla_decode_paged_sm90_smem", "ssd_scan_sm90_tile",
+                       "ssd_scan_sm90_smem"):
+                getattr(lib, fn).argtypes = []
+                getattr(lib, fn).restype = ci
+            lib.ssd_scan_sm90_smem.argtypes = [ci]      # kernel
             lib.ssd_scan_fwd.argtypes = [
                 vp, vp, vp, vp, vp, vp,         # x, dt, A, B, C, D (or 0)
-                vp, vp,                         # y, final state
+                vp, vp, vp,                     # y, final state, scratch
+                                                # (bf16)
                 ci, ci, ci, ci, ci, ci, ci,     # B, S, H, P, G, N, Q
                 ci, vp]                         # dtype, stream
             lib.ssd_scan_fwd.restype = ci

@@ -9,7 +9,12 @@
     ``mla_decode_paged_pallas``: the decode attention of MLA serving.
 
 Both read each tile of latent positions once and use it for the scores
-and for the values; no (B, H, S) tensor reaches device memory. Each
+and for the values; no (B, H, S) tensor reaches device memory. In bf16
+the paged kernel runs on the tensor cores with the positions split
+across blocks (``SPLIT`` a split, merged in split order);
+:func:`mla_decode_paged_split_plain` models that arithmetic for the
+tests. fp32, and the contiguous kernel in both dtypes, keep the
+CUDA-core kernel. Each
 wrapper runs its plain version (``ref.mla_decode_online_plain``,
 ``ref.mla_decode_paged_online_plain``) when, and only when, its tensors
 lie on the CPU; for CUDA tensors it launches the kernel or raises. Each
@@ -26,6 +31,72 @@ from repro_torch.kernels.mla_decode import ref
 
 RANK = 512          # latent rank r the kernels are built for
 ROPE_DIM = 64       # RoPE width Dr the kernels are built for
+# positions a split of the bf16 paged kernel and a tile of its ring
+# (csrc/mla_decode.cu; held equal to mla_decode_paged_split_len and
+# mla_decode_paged_tile)
+SPLIT = 128
+TILE = 64
+PART = RANK + 4     # floats a partial of a split: acc, m, l, 2 of padding
+_LOG2E = 1.4426950408889634
+
+
+def mla_splits(mb: int, bs: int) -> int:
+    """Splits of the bf16 paged kernel over a window of ``mb * bs``
+    positions: a shape, never the lengths."""
+    return -(-mb * bs // SPLIT)
+
+
+def mla_decode_paged_split_plain(q_abs, q_r, ckv_pool, kr_pool,
+                                 block_tables, kv_lens, scale: float
+                                 ) -> torch.Tensor:
+    """The bf16 paged kernel's arithmetic in plain PyTorch, for the
+    tests: the window min(kv_lens, MB * bs) cut into splits of ``SPLIT``
+    positions from position 0, each an online softmax in fp32 (log2
+    units) over tiles of ``TILE`` positions; scores are fp32 sums of the
+    inputs' products, scaled after the sum; rows of entries outside [0,
+    N) are zeros (they score 0 and count in the denominator); p is
+    rounded to the cache dtype once a tile before the value product; the
+    splits that hold positions are merged in split order and the output
+    is acc / max(l, 1e-30) in fp32. Each sequence is computed on its
+    own, as each of the kernel's blocks is, so its result depends on its
+    own q, table row and length only."""
+    b, h, r = q_abs.shape
+    window = block_tables.shape[1] * ckv_pool.shape[1]
+    sl2 = torch.tensor(scale, dtype=torch.float32) * _LOG2E
+    out = torch.zeros((b, h, r), dtype=torch.float32, device=q_abs.device)
+    for i in range(b):
+        n_pos = min(int(kv_lens[i]), window)
+        tbl = block_tables[i:i + 1]
+        ckv = ref.gather_blocks(ckv_pool, tbl)[0, :n_pos]
+        kw = torch.cat([ckv, ref.gather_blocks(kr_pool, tbl)[0, :n_pos]],
+                       dim=-1).float()                       # (len, 576)
+        q = torch.cat([q_abs[i], q_r[i]], dim=-1).float()    # (H, 576)
+        m = l = acc = None
+        for s0 in range(0, n_pos, SPLIT):
+            ms = torch.full((h,), float("-inf"), device=q.device)
+            ls = torch.zeros((h,), device=q.device)
+            accs = torch.zeros((h, r), device=q.device)
+            for t0 in range(s0, min(s0 + SPLIT, n_pos), TILE):
+                t1 = min(t0 + TILE, s0 + SPLIT, n_pos)
+                x = (q @ kw[t0:t1].t()) * sl2     # dead positions: -inf,
+                mn = torch.maximum(ms, x.amax(-1))      # p = 0 (omitted)
+                p = torch.exp2(x - mn[:, None])
+                c = torch.exp2(ms - mn)
+                pv = p.to(ckv_pool.dtype).float() @ ckv[t0:t1].float()
+                ls = ls * c + p.sum(-1)
+                accs = accs * c[:, None] + pv
+                ms = mn
+            if m is None:
+                m, l, acc = ms, ls, accs
+                continue
+            mn = torch.maximum(m, ms)
+            c0, c1 = torch.exp2(m - mn), torch.exp2(ms - mn)
+            l = l * c0 + ls * c1
+            acc = acc * c0[:, None] + accs * c1[:, None]
+            m = mn
+        if acc is not None:
+            out[i] = acc / torch.clamp(l, min=1e-30)[:, None]
+    return out
 
 
 def _check_mla(name, q_abs, q_r, ckv, kr, lens, *more):
@@ -92,7 +163,10 @@ def mla_decode_paged_cuda(q_abs: torch.Tensor, q_r: torch.Tensor,
     """q_abs (B, H, r), q_r (B, H, Dr), pools (N, bs, r) and (N, bs, Dr)
     in one dtype; block_tables (B, MB) int32 with NULL == N; kv_lens (B,)
     int32 effective lengths >= 1. Table entries outside [0, N) act as
-    blocks of zeros and are never read. Returns (B, H, r) fp32."""
+    blocks of zeros and are never read. Returns (B, H, r) fp32. In bf16
+    the kernel splits the positions across blocks and merges the
+    partials (a scratch of (B, H, splits, PART) fp32) in split order:
+    one count in ``.launches`` for its two launches."""
     if q_abs.device.type == "cpu":
         return ref.mla_decode_paged_online_plain(
             q_abs, q_r, ckv_pool, kr_pool, block_tables, kv_lens, scale)
@@ -110,14 +184,20 @@ def mla_decode_paged_cuda(q_abs: torch.Tensor, q_r: torch.Tensor,
         return out
     from repro_torch.kernels import _build
     lib = _build.load()
+    mb = block_tables.shape[1]
+    splits = mla_splits(mb, bs)
+    part = None
+    if q_abs.dtype == torch.bfloat16:   # the split kernel's partials
+        part = torch.empty((b, h, splits, PART), dtype=torch.float32,
+                           device=q_abs.device)
     with torch.cuda.device(q_abs.device):
         stream = torch.cuda.current_stream(q_abs.device).cuda_stream
         err = lib.mla_decode_paged_fwd(
             q_abs.data_ptr(), q_r.data_ptr(), ckv_pool.data_ptr(),
             kr_pool.data_ptr(), block_tables.data_ptr(), kv_lens.data_ptr(),
-            out.data_ptr(), b, h, RANK, ROPE_DIM, n, bs,
-            block_tables.shape[1], float(scale), _DTYPE_CODES[q_abs.dtype],
-            stream)
+            out.data_ptr(), part.data_ptr() if part is not None else None,
+            b, h, RANK, ROPE_DIM, n, bs, mb, splits, float(scale),
+            _DTYPE_CODES[q_abs.dtype], stream)
     _raise_on(name, err)
     mla_decode_paged_cuda.launches += 1
     return out

@@ -29,7 +29,10 @@ tensor cores: each is held to its plain version by relative L2 error
 shapes, and must give bitwise-equal outputs on a second run. So is the
 bf16 attention backward (tensor cores) at head dims 64 and 128. The
 split paged decode must repeat its bits and give a sequence the same
-bits alone as inside a wider batch.
+bits alone as inside a wider batch; so must the bf16 paged MLA decode
+(tensor cores, positions split across blocks), at 128 heads and at 16.
+The bf16 SSD scan (tensor cores, three kernels) must repeat its bits,
+also where the chunk is not a multiple of its 64-row tile.
 """
 import numpy as np
 import pytest
@@ -589,6 +592,44 @@ def test_prefill_kernel_head_dim_192_matches_plain(dev, dtype, tol, b, s, h):
     assert _err(got, want) <= tol
 
 
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("h", [128, 16])
+def test_mla_paged_decode_kernel_repeats_and_is_batch_invariant(dev, dtype,
+                                                                tol, h):
+    """Equal bits on a second run, and one sequence alone (a 20-block
+    table) gives the bits it gets inside a batch of 8 with a 64-block
+    table (more splits of the window in bf16)."""
+    rng = np.random.default_rng(6 + h)
+    lens = [1000, 1, 37, 300, 16, 512, 455, 129]
+    args = _mla_paged(rng, dev, dtype, h, 16, 64, lens)
+    qa, qr, cp, kp, tables, kv_lens = args
+    got = md.mla_decode_paged_cuda(*args, 0.1)
+    assert _err(got, mla_ref.mla_decode_paged_online_plain(*args, 0.1)) <= tol
+    assert not got[1].any()
+    assert torch.equal(md.mla_decode_paged_cuda(*args, 0.1), got)
+    seq = 3
+    alone = md.mla_decode_paged_cuda(
+        qa[seq:seq + 1].contiguous(), qr[seq:seq + 1].contiguous(), cp, kp,
+        tables[seq:seq + 1, :20].contiguous(), kv_lens[seq:seq + 1], 0.1)
+    assert md.mla_splits(20, 16) < md.mla_splits(64, 16)
+    assert torch.equal(alone[0], got[seq])
+
+
+def test_mla_and_ssd_take_the_tiles_the_cpu_models_follow(dev):
+    """The split, tile and partial length of mla_decode_paged_split_plain
+    and the row tile of ssd_scan_tiled_plain
+    (tests/test_torch_sm90_numerics.py) are the ones the built kernels
+    launch with."""
+    from repro_torch.kernels import _build
+    lib = _build.load()
+    assert lib.mla_decode_paged_split_len() == md.SPLIT
+    assert lib.mla_decode_paged_tile() == md.TILE
+    assert lib.mla_decode_paged_part_len() == md.PART
+    assert lib.mla_decode_paged_sm90_smem() > 0
+    assert lib.ssd_scan_sm90_tile() == sk.ROW_TILE
+    assert lib.ssd_scan_sm90_smem(0) > 0 and lib.ssd_scan_sm90_smem(1) > 0
+
+
 def test_mla_kernels_refuse_what_they_do_not_take(dev):
     z = lambda *shape, dt=torch.float32: torch.zeros(shape, device=dev,
                                                      dtype=dt)
@@ -661,11 +702,11 @@ def test_mla_serving_kernel_path_matches_reference(dev):
 # zamba2: the SSD scan kernel, the head-dim-80 prefill, the static path
 # --------------------------------------------------------------------------
 
-def _ssd_inputs(rng, dev, dtype, b, s, h, g, use_d):
+def _ssd_inputs(rng, dev, dtype, b, s, h, g, use_d, p=64):
     def f(*shape):
         return torch.from_numpy(rng.standard_normal(shape).astype(
             np.float32)).to(dev)
-    x = f(b, s, h, 64).to(dtype)
+    x = f(b, s, h, p).to(dtype)
     dt = torch.nn.functional.softplus(f(b, s, h) - 2.0)
     A = -torch.exp(f(h) * 0.5)
     Bm, Cm = (f(b, s, g, 64) * 0.3).to(dtype), (f(b, s, g, 64) * 0.3).to(dtype)
@@ -693,6 +734,28 @@ def test_ssd_scan_kernel_matches_plain(dev, dtype, b, s, h, g, chunk,
     tol = RTOL[("ssd_scan_cuda", dtype)]
     assert _close("ssd y", y, yw, tol)
     assert _close("ssd final", fin, fw, tol)
+
+
+@pytest.mark.parametrize("b,s,h,g,chunk,use_d,p", [
+    (4, 1024, 80, 1, 256, True, 64),  # zamba2's prefill shape
+    (2, 100, 8, 1, 256, True, 64),    # Q = 100: a 36-row second tile
+    (2, 300, 6, 3, 96, True, 64),     # Q = 96, groups, ragged tail
+    (1, 400, 4, 2, 200, False, 96),   # Q = 200, P of 1.5 slices, no D
+    (2, 130, 4, 1, 130, True, 32),    # Q = 130, P = 32
+])
+def test_bf16_ssd_scan_kernel_matches_plain_and_repeats(dev, b, s, h, g,
+                                                        chunk, use_d, p):
+    rng = np.random.default_rng(s + h + g + p)
+    args = _ssd_inputs(rng, dev, torch.bfloat16, b, s, h, g, use_d, p)
+    n0 = sk.ssd_scan_cuda.launches
+    y, fin = sk.ssd_scan_cuda(*args, chunk_size=chunk)
+    assert sk.ssd_scan_cuda.launches == n0 + 1
+    yw, fw = ssd_ref.ssd_chunked(*args, chunk_size=chunk)
+    tol = RTOL[("ssd_scan_cuda", torch.bfloat16)]
+    assert _close("ssd y", y, yw, tol)
+    assert _close("ssd final", fin, fw, tol)
+    y2, fin2 = sk.ssd_scan_cuda(*args, chunk_size=chunk)
+    assert torch.equal(y2, y) and torch.equal(fin2, fin)
 
 
 @pytest.mark.parametrize("dtype", DTYPE_ONLY)

@@ -18,6 +18,16 @@ held against ``jax.vjp`` of the JAX package's ``ref.mha_chunked`` (its
 (splits of ``DECODE_SPLIT`` positions, merged in order) and is held
 against ``flash_decode_paged_pallas`` in interpret mode and
 ``paged_decode_ref``, and against itself for batch invariance.
+``mla_decode_paged_split_plain`` follows ``csrc/mla_decode.cu``'s bf16
+path (splits of ``SPLIT`` positions in tiles of ``TILE``, p rounded to
+the cache dtype once a tile, merged in order) and is held against
+``mla_decode_paged_pallas`` in interpret mode and
+``mla_decode_paged_online_plain``, and against itself for batch
+invariance. ``ssd_scan_tiled_plain`` follows ``csrc/ssd_scan.cu``'s bf16
+path (chunk states, the state passing, the chunk scan in 64-row tiles,
+the weighted B, the carried state and the decay-weighted scores fed as
+bf16 hi/lo pairs) and is held against ``ssd_scan_pallas`` in interpret
+mode and JAX's ``ref.ssd_chunked``.
 
 Tolerances are the card's limits for the kernels
 (``repro_torch.kernels.parity.RTOL``, relative L2): 5e-4 for the bf16
@@ -29,7 +39,12 @@ takes the pair) is printed, not asserted. The backward model is held to
 the bf16 backward's limit, 1e-3; the decode model to the card tests'
 limits for the decode kernel, 1e-4 absolute in fp32 (outputs are O(1),
 only the order of sums differs) and 2e-2 in bf16 (the two round to bf16
-at different points), and to equal bits for batch invariance.
+at different points), and to equal bits for batch invariance; the MLA
+model likewise (1e-4 fp32, 2e-2 bf16, equal bits); the SSD model to the
+bf16 scan's limit, ``RTOL[("ssd_scan_cuda", bf16)]`` = 4e-4, on y and on
+the final state. The readings of one bf16 rounding of the SSD scan's
+made operands and of TF32 (both above the limit: why the kernel takes
+pairs) are printed, not asserted.
 """
 import re
 
@@ -45,15 +60,22 @@ from repro.kernels.cross_entropy.cross_entropy import cross_entropy_pallas
 from repro.kernels.flash_attention import ref as fa_jref
 from repro.kernels.flash_attention.flash_attention import (
     flash_attention_pallas, flash_decode_paged_pallas)
+from repro.kernels.mla_decode.mla_decode import mla_decode_paged_pallas
+from repro.kernels.ssd_scan import ref as ssd_jref
+from repro.kernels.ssd_scan.ssd_scan import ssd_scan_pallas
 from repro_torch.kernels import _build
 from repro_torch.kernels.cross_entropy import cross_entropy as tce
 from repro_torch.kernels.flash_attention import flash_attention as tfa
+from repro_torch.kernels.mla_decode import mla_decode as tmd
+from repro_torch.kernels.mla_decode import ref as tmla_ref
 from repro_torch.kernels.parity import RTOL, rel_l2
+from repro_torch.kernels.ssd_scan import ssd_scan as tsk
 
 ATTN_TOL = RTOL[("flash_attention_cuda", torch.bfloat16)]
 BWD_TOL = RTOL[("flash_attention_bwd_cuda", torch.bfloat16)]
 DECODE_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 CE_TOL = RTOL[("cross_entropy_cuda", torch.bfloat16)]
+SSD_TOL = RTOL[("ssd_scan_cuda", torch.bfloat16)]
 
 # (b, sq, skv, h, hkv, causal, q_offset): ragged Sq = Skv over several q
 # and kv tiles (group 2), chunked prefill (q_offset > 0, Skv > Sq, group
@@ -248,6 +270,171 @@ def test_decode_splits_come_from_the_window_shape():
     assert tfa.DECODE_SPLIT % tfa.DECODE_TILE == 0
 
 
+def _mla_inputs(rng, dtype, h, bs, mb, lens, holes):
+    """deepseek-v2 latent widths (r=512, Dr=64) over a pool of B*MB
+    blocks: each sequence maps its own blocks up to its length, the rest
+    NULL (== N); ``holes`` puts a NULL block inside every window of three
+    or more blocks; a length of 1 is an all-NULL inactive slot."""
+    b = len(lens)
+    n = b * mb
+    f = lambda *shape: torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32)).to(dtype)
+    qa, qr = f(b, h, tmd.RANK), f(b, h, tmd.ROPE_DIM)
+    cp, kp = f(n, bs, tmd.RANK), f(n, bs, tmd.ROPE_DIM)
+    tables = np.full((b, mb), n, np.int32)
+    perm = rng.permutation(n)
+    for i, ln in enumerate(lens):
+        nb = min(-(-ln // bs), mb)
+        if ln > 1:
+            tables[i, :nb] = perm[i * mb:i * mb + nb]
+        if holes and nb > 2:
+            tables[i, nb // 2] = n
+    return (qa, qr, cp, kp, torch.from_numpy(tables),
+            torch.tensor(lens, dtype=torch.int32))
+
+
+# (h, bs, mb, lens): the serve shape's heads over three splits with one
+# length exactly MB*bs and an inactive slot; heads not a multiple of 64
+# and a block size that divides neither the split nor the tile; heads
+# over 64 and not a multiple of it, lengths past the window
+MLA_CASES = [
+    (128, 16, 20, [320, 1, 37, 150]),
+    (20, 12, 9, [108, 1, 13, 70]),
+    (72, 16, 5, [80, 1, 100, 33]),
+]
+
+
+@pytest.mark.pallas_interpret
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,bs,mb,lens", MLA_CASES)
+def test_mla_split_model_matches_pallas_and_plain(pallas_interpret, dtype, h,
+                                                  bs, mb, lens):
+    rng = np.random.default_rng(h + bs * mb)
+    args = _mla_inputs(rng, dtype, h, bs, mb, lens, holes=True)
+    scale = 192 ** -0.5
+    got = tmd.mla_decode_paged_split_plain(*args, scale)
+    want = tmla_ref.mla_decode_paged_online_plain(*args, scale)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    pallas = torch.from_numpy(np.array(mla_decode_paged_pallas(
+        *(jnp.asarray(x.float().numpy()).astype(jdt) for x in args[:4]),
+        jnp.asarray(args[4].numpy()), jnp.asarray(args[5].numpy()), scale,
+        interpret=pallas_interpret)))
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    errs = {"vs plain": (got - want).abs().max().item(),
+            "vs pallas": (got - pallas).abs().max().item()}
+    print(f"[mla-split] {dtype} {(h, bs, mb, lens)}: "
+          + ", ".join(f"{k_} {v_:.2e}" for k_, v_ in errs.items()))
+    for what, e in errs.items():
+        assert e <= DECODE_TOL[dtype], (what, e)
+    inactive = [i for i, ln in enumerate(lens) if ln == 1]
+    assert not got[inactive].any()
+
+
+def test_mla_split_model_treats_out_of_pool_entries_as_zeros():
+    rng = np.random.default_rng(12)
+    qa, qr, cp, kp, tables, lens = _mla_inputs(
+        rng, torch.float32, 16, 16, 8, [128, 100, 1], holes=False)
+    tables[0, 2] = -1                       # below the pool
+    tables[1, 3] = cp.shape[0] + 5          # past the NULL sentinel
+    args = (qa, qr, cp, kp, tables, lens, 0.1)
+    got = tmd.mla_decode_paged_split_plain(*args)
+    want = tmla_ref.mla_decode_paged_online_plain(*args)
+    assert (got - want).abs().max().item() <= DECODE_TOL[torch.float32]
+    assert not got[2].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mla_split_model_is_batch_invariant(dtype):
+    """One sequence alone and the same sequence inside a batch of 6 with
+    a wider table (more splits of the window) give equal bits."""
+    rng = np.random.default_rng(4)
+    qa, qr, cp, kp, tables, lens = _mla_inputs(
+        rng, dtype, 20, 16, 40, [600, 1, 37, 300, 16, 455], holes=True)
+    seq = 3
+    alone = tmd.mla_decode_paged_split_plain(
+        qa[seq:seq + 1], qr[seq:seq + 1], cp, kp, tables[seq:seq + 1, :20],
+        lens[seq:seq + 1], 0.1)
+    batched = tmd.mla_decode_paged_split_plain(qa, qr, cp, kp, tables, lens,
+                                               0.1)
+    assert tmd.mla_splits(20, 16) < tmd.mla_splits(40, 16)
+    assert torch.equal(alone[0], batched[seq])
+
+
+def test_mla_splits_come_from_the_window_shape():
+    split = tmd.SPLIT
+    assert tmd.mla_splits(32, 16) == -(-512 // split)     # the serve phase
+    assert tmd.mla_splits(128, 16) == -(-2048 // split)
+    assert tmd.mla_splits(1, 1) == 1
+    for mb, bs in ((5, 12), (9, 16), (40, 8)):
+        n = tmd.mla_splits(mb, bs)
+        assert (n - 1) * split < mb * bs <= n * split
+    assert tmd.SPLIT % tmd.TILE == 0 and tmd.TILE % 16 == 0
+
+
+def _ssd_inputs(rng, b, s, h, g, use_d):
+    """bf16 x, B and C (the kernel's path dtype), fp32 dt, A and D."""
+    f = lambda *shape: torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32))
+    x = f(b, s, h, 64).bfloat16()
+    dt = torch.nn.functional.softplus(f(b, s, h) - 2.0)
+    a = -torch.exp(f(h) * 0.5)
+    bm, cm = (f(b, s, g, 64) * 0.3).bfloat16(), (f(b, s, g, 64) * 0.3
+                                                 ).bfloat16()
+    return x, dt, a, bm, cm, (f(h) if use_d else None)
+
+
+# (b, s, h, g, chunk, with D): a ragged tail over four chunks; S shorter
+# than the chunk and not a multiple of the 64-row tile; chunk 128 with
+# two groups and a ragged tail; three groups, no D
+SSD_CASES = [
+    (1, 1000, 4, 1, 256, True),
+    (2, 100, 4, 1, 256, True),
+    (1, 300, 4, 2, 128, True),
+    (1, 200, 6, 3, 128, False),
+]
+
+
+@pytest.mark.pallas_interpret
+@pytest.mark.parametrize("b,s,h,g,chunk,use_d", SSD_CASES)
+def test_ssd_tile_model_matches_pallas_and_jax_ref(pallas_interpret, b, s, h,
+                                                   g, chunk, use_d):
+    rng = np.random.default_rng(s + h + g)
+    args = _ssd_inputs(rng, b, s, h, g, use_d)
+    y, fin = tsk.ssd_scan_tiled_plain(*args, chunk_size=chunk)
+    assert y.dtype == torch.bfloat16 and y.shape == args[0].shape
+    assert fin.dtype == torch.float32 and fin.shape == (b, h, 64, 64)
+
+    def jax_of(t):
+        if t is None:
+            return None
+        a = jnp.asarray(t.float().numpy())
+        return a.astype(jnp.bfloat16) if t.dtype == torch.bfloat16 else a
+
+    jargs = [jax_of(t) for t in args]
+    readings = {}
+    for name, (jy, jf) in (
+            ("pallas", ssd_scan_pallas(*jargs[:5], jargs[5],
+                                       chunk_size=chunk,
+                                       interpret=pallas_interpret)),
+            ("jax ref", ssd_jref.ssd_chunked(*jargs[:5], jargs[5],
+                                             chunk_size=chunk))):
+        jy = torch.from_numpy(np.asarray(jy.astype(jnp.float32)))
+        jf = torch.from_numpy(np.asarray(jf))
+        readings[f"y vs {name}"] = rel_l2(y, jy)
+        readings[f"state vs {name}"] = rel_l2(fin, jf)
+        if name == "jax ref":
+            for rnd in ("bf16", "tf32"):
+                oy, of = tsk.ssd_scan_tiled_plain(*args, chunk_size=chunk,
+                                                  rounding=rnd)
+                readings[f"{rnd} y"] = rel_l2(oy, jy)
+                readings[f"{rnd} state"] = rel_l2(of, jf)
+    print(f"[sm90-ssd] {(b, s, h, g, chunk, use_d)}: "
+          + ", ".join(f"{k_} {v_:.2e}" for k_, v_ in readings.items()))
+    for what, r in readings.items():
+        if what.split()[0] in ("y", "state"):
+            assert r <= SSD_TOL, (what, r)
+
+
 def _constexpr(src, name):
     return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
 
@@ -255,8 +442,9 @@ def _constexpr(src, name):
 def test_tile_constants_match_the_sources_build_hashes():
     """The tiles the CPU models follow are the ones written in the
     sources that ``_build`` compiles and hashes: the decode split and
-    stage, the backward's tiles (BwdTiles) and the forward's kv tiles
-    (Sm90Tiles)."""
+    stage, the backward's tiles (BwdTiles), the forward's kv tiles
+    (Sm90Tiles), the MLA decode's split and tile, and the SSD chunk
+    scan's row tile."""
     srcs = {p.name: p for p in _build.sources()}
     decode = srcs["paged_decode.cu"].read_text()
     assert _constexpr(decode, "kSplit") == tfa.DECODE_SPLIT
@@ -272,6 +460,11 @@ def test_tile_constants_match_the_sources_build_hashes():
         cfg = re.search(rf"struct Sm90Tiles<{d}> {{ using C = "
                         rf"Sm90Cfg<{d}, (\d+), (\d+)>; }};", fwd)
         assert int(cfg.group(2)) == tfa.KV_TILES[d], d
+    mla = srcs["mla_decode.cu"].read_text()
+    assert _constexpr(mla, "kSplit") == tmd.SPLIT
+    assert _constexpr(mla, "kTile") == tmd.TILE
+    ssd = srcs["ssd_scan.cu"].read_text()
+    assert _constexpr(ssd, "kRowTile") == tsk.ROW_TILE
 
 
 # (t, d, v, eps, softcap, tied, splits): T and V not tile multiples; the
