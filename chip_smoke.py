@@ -13,8 +13,9 @@ Phases (any failure exits non-zero; no phase swallows an error):
    source, all started together) and prints the build time. Then the
    bf16 tensor-core kernels (the prefill forward at head dims 64, 80,
    128 and 192, the backward's dq and dk/dv passes at 64 and 128, the
-   CE forward for both head layouts, the paged MLA decode's split
-   kernel, the SSD scan's chunk-state and chunk-scan kernels, and their
+   CE forward for both head layouts, the MLA decode's split kernel for
+   the paged and the contiguous cache, the SSD scan's chunk-state and
+   chunk-scan kernels, and their
    helpers: the CE and MLA merges, the SSD state passing): ptxas's
    registers and spills, the dynamic shared memory of each launch, and
    the count of ``wgmma.mma_async`` and ``cp.async`` in their PTX
@@ -121,18 +122,24 @@ Phases (any failure exits non-zero; no phase swallows an error):
    bs=16, ragged kv_lens up to 512, NULL holes, an all-NULL inactive
    slot whose output must be 0, one sequence at exactly MB*bs) and over
    the longer window (MB=128, kv_lens up to 2048), each run twice and
-   bitwise equal; the contiguous kernel at B=8, S in {200, 512, 2048};
-   the prefill forward at head dim 192 (B=2, S in {16, 512, 200},
-   H=Hkv=128, v zero-padded from 128; each run twice, bitwise equal).
-   Timed in bf16 at the MLA serve path's shapes (the paged decode at
-   B=8, also at the longer window, each with the device time of a call
-   and of SDPA's under torch.profiler; the prefill at the 512 bucket;
-   the contiguous kernel, on no path, at S=512). Yardsticks: SDPA as
-   MQA over the gathered dense window (q = [q_abs | q_r], k = [ckv |
-   kr], v = ckv, a boolean length mask) and SDPA causal at head dim 192.
-9. MLA serve path phase: ``launch.serve.serve_config`` serves
-   deepseek-v2-236b at full width (d 5120, 128 heads, 160 routed top-6
-   experts and 2 shared, vocab 102400), depth cut to 8 of 60 layers
+   bitwise equal; the contiguous kernel at B=8, S in {200, 512, 2048}
+   and at the generate shape (B=4, S=1088, every kv_len at 1088, and a
+   ragged set), each run twice and bitwise equal, the last sequence
+   alone (over its own rows) bitwise equal to itself inside a batch of
+   8, and in bf16 also within 2e-3 of its split model
+   (``mla_decode_split_plain``); the prefill forward at head dim 192
+   (B=2, S in {16, 512, 200}, H=Hkv=128, v zero-padded from 128; each
+   run twice, bitwise equal). Timed in bf16 at the MLA paths' shapes
+   (the paged decode at B=8, also at the longer window; the contiguous
+   decode at the generate shape and at B=8, S=512; each with the device
+   time of a call (the contiguous one by launch: split and merge) and of
+   SDPA's under torch.profiler; the prefill at the 512 bucket).
+   Yardsticks: SDPA as MQA over the (gathered) dense window (q = [q_abs
+   | q_r], k = [ckv | kr], v = ckv, a boolean length mask) and SDPA
+   causal at head dim 192.
+9. MLA serve and generate path phase: ``launch.serve.serve_config``
+   serves deepseek-v2-236b at full width (d 5120, 128 heads, 160 routed
+   top-6 experts and 2 shared, vocab 102400), depth cut to 8 of 60 layers
    (65.6 GB of bf16 weights), random weights from seed 0, bf16 compute,
    attention_impl="kernel", with phase 4's settings. The counters are
    zeroed just before and read just after; every request must finish,
@@ -143,10 +150,24 @@ Phases (any failure exits non-zero; no phase swallows an error):
    a copy of the cache; in bf16 the logit difference and the number of
    tokens whose top-6 experts differ are printed for the record (the
    routing flips on near-ties). Three decode steps run under
-   torch.profiler (device time by kernel). Then the gate: the same serve
-   at fp32 (TF32 off) on 2 layers, where the kernel path's logits must
-   be within 1e-3 of the reference path's (relative to the largest
-   reference logit). Each model is freed before the next is built.
+   torch.profiler (device time by kernel). The engine and its pool are
+   freed, and the same weights generate through
+   ``launch.serve.static_generate`` (the contiguous MLA cache): 4
+   sequences, a 1024-token prompt, 64 greedy tokens. Every counter (all
+   eleven kernels) is zeroed just before and read just after: the
+   contiguous MLA decode must launch exactly 8 x 63 = 504 times and the
+   D=192 prefill 8 times, every other kernel 0; every step's logits
+   finite; prints the prefill ms, the median decode-step ms (host clock
+   between two syncs), tokens/s of wall and the peak memory; three
+   decode steps and a second prefill run under torch.profiler (device
+   time by kernel). Then the gate: the same serve at fp32 (TF32 off) on
+   2 layers, where the kernel path's logits must be within 1e-3 of the
+   reference path's (relative to the largest reference logit); and on
+   its weights ``static_generate`` (B=4, prompt 300, 8 tokens) through
+   the kernel path and the reference path gives identical greedy tokens
+   with every step's logits within 1e-3 of the largest reference logit,
+   and one sequence through the paged engine gives the static path's
+   tokens. Each model is freed before the next is built.
 10. Zamba2 kernel phase: the Mamba2 SSD chunked-scan kernel
    (``csrc/ssd_scan.cu``) against its plain version (``ref.ssd_chunked``)
    in fp32 (TF32 off) and bf16, by the relative L2 error of y and of the
@@ -207,13 +228,14 @@ Phases (any failure exits non-zero; no phase swallows an error):
    300 (a full chunk and a ragged tail), 8 tokens: the kernel path and
    the reference path give identical greedy tokens and every step's
    logits agree within 1e-3 of the largest reference logit.
-14. Prints one ``{"kernels": [...]}`` line (eleven kernels; the prefill
-   kernel's D=64 (phase 2's S=512 bucket), D=192 and D=80 cases ride in
-   its entry as ``at_d64``, ``at_d192`` and ``at_d80``, the GQA and MLA
-   decodes' longer windows as ``at_long_window``; the contiguous
-   MLA kernel lies on no path and reports 0 launches), then, last,
-   ``{"ok": true, "device": {...}}``. Details go
-   to ``chiprun_out/chip_smoke.json``.
+14. Prints the seconds of each phase, then one ``{"kernels": [...]}``
+   line (eleven kernels, each with its launches on its path, which must
+   be above 0; the prefill kernel's D=64 (phase 2's S=512 bucket), D=192
+   and D=80 cases ride in its entry as ``at_d64``, ``at_d192`` and
+   ``at_d80``, the GQA and MLA paged decodes' longer windows as
+   ``at_long_window``, the contiguous MLA decode's B=8, S=512 case as
+   ``at_b8_s512``), then, last, ``{"ok": true, "device": {...}}``.
+   Details go to ``chiprun_out/chip_smoke.json``.
 
 ``python3 chip_smoke.py --cards 4`` (a machine with four cards) runs
 only the multi-rank path with one card per rank over NCCL: the phase-7
@@ -238,6 +260,10 @@ OUT_DIR = ROOT / "chiprun_out"
 
 FP32_TOL = 1e-4
 BF16_TOL = 2e-2
+# the bf16 contiguous MLA decode against its split model, which follows
+# the kernel's tiles, splits and rounding: about 4x the largest gap read
+# on the card (5.4e-4)
+SPLIT_MODEL_TOL = 2e-3
 # Kernel path vs reference path logits of the whole 22-layer model in
 # bf16: the two paths round attention at different points, and the
 # difference compounds through the layers. Relative to the largest
@@ -328,7 +354,7 @@ SM90_SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu",
                 "cross_entropy.cu", "mla_decode.cu", "ssd_scan.cu")
 # the bf16 kernels' entry points that run no product: merges and the
 # SSD state passing
-SM90_HELPERS = ("ce_merge", "mla_paged_merge", "ssd_state_pass")
+SM90_HELPERS = ("ce_merge", "mla_merge", "ssd_state_pass")
 
 
 def _sm90_name(mangled: str):
@@ -336,10 +362,14 @@ def _sm90_name(mangled: str):
     product kernels and their helpers: the CE and MLA merges, the SSD
     state passing), None for any other."""
     import re
-    for name in ("mla_paged_split_sm90", "ssd_chunk_state_sm90",
+    for name in ("ssd_chunk_state_sm90",
                  "ssd_chunk_scan_sm90") + SM90_HELPERS[1:]:
         if name in mangled:
             return name
+    m = re.search(r"mla_split_sm90ILb([01])E", mangled)
+    if m:
+        return "mla_split_sm90<" + ("paged" if m.group(1) == "1"
+                                    else "contiguous") + ">"
     m = re.search(r"flash_fwd_sm90ILi(\d+)E", mangled)
     if m:
         return f"flash_fwd_sm90<D={m.group(1)}>"
@@ -426,8 +456,9 @@ def sm90_report(build, lib, fa, ce, md, sk):
     for name in rows:
         if name.startswith("ce_fwd_sm90"):
             rows[name]["dynamic_smem"] = lib.ce_fwd_sm90_smem()
-    rows["mla_paged_split_sm90"]["dynamic_smem"] = \
-        lib.mla_decode_paged_sm90_smem()
+    for cache in ("paged", "contiguous"):
+        rows[f"mla_split_sm90<{cache}>"]["dynamic_smem"] = \
+            lib.mla_decode_paged_sm90_smem()
     rows["ssd_chunk_state_sm90"]["dynamic_smem"] = lib.ssd_scan_sm90_smem(0)
     rows["ssd_chunk_scan_sm90"]["dynamic_smem"] = lib.ssd_scan_sm90_smem(1)
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -454,7 +485,7 @@ def sm90_report(build, lib, fa, ce, md, sk):
               + (f"; SASS {r.get('sass_hgmma', 0)} HGMMA" if have_sass
                  else "; no cuobjdump: SASS not read"), flush=True)
     products = [n for n in rows if n not in SM90_HELPERS]
-    check(len(products) == 13, f"bf16 tensor-core kernels found: {products}")
+    check(len(products) == 14, f"bf16 tensor-core kernels found: {products}")
     for n in products:
         r = rows[n]
         check(r["spill_bytes"] == 0, f"{n}: ptxas spilled")
@@ -1721,32 +1752,84 @@ def mla_paged_case(md, mla_ref, gen, dev, dtype, timed, mb=32,
     return rec
 
 
-def mla_contiguous_case(md, mla_ref, s, gen, dev, dtype, timed):
-    """B=8 at S positions, lengths in [1, S] with one at S."""
+# the MLA generate phase's decode shape: B=4 sequences over a contiguous
+# cache of S = 1024 + 64 positions; the last step's lengths (all at S)
+# and a ragged set
+MLA_GEN_B, MLA_GEN_S = 4, 1088
+MLA_GEN_LENS = {"full": [MLA_GEN_S] * 4, "ragged": [MLA_GEN_S, 1, 513, 700]}
+# the contiguous kernel's continuity row (PERF.md's B=8, S=512)
+MLA_CONT_AT = (8, 512)
+
+
+def _mla_contiguous_inputs(gen, dev, dtype, b, s, lens):
+    """(q_abs, q_r, ckv, kr, kv_len, scale) of B sequences at S
+    positions, lengths ``lens`` or drawn in [1, S] with one at S."""
     import torch
-    b = 8
     qa = torch.randn((b, MLA_H, MLA_R), generator=gen, device=dev).to(dtype)
     qr = torch.randn((b, MLA_H, MLA_DR), generator=gen, device=dev).to(dtype)
     ckv = torch.randn((b, s, MLA_R), generator=gen, device=dev).to(dtype)
     kr = torch.randn((b, s, MLA_DR), generator=gen, device=dev).to(dtype)
-    lens = torch.randint(1, s + 1, (b,), generator=gen, device=dev,
-                         dtype=torch.int32)
-    lens[0] = s
-    args = (qa, qr, ckv, kr, lens, MLA_SCALE)
+    if lens is None:
+        kv = torch.randint(1, s + 1, (b,), generator=gen, device=dev,
+                           dtype=torch.int32)
+        kv[0] = s
+    else:
+        kv = torch.tensor(lens, dtype=torch.int32, device=dev)
+    return qa, qr, ckv, kr, kv, MLA_SCALE
+
+
+def mla_contiguous_case(md, mla_ref, s, gen, dev, dtype, timed, b=8,
+                        lens=None):
+    """:func:`_mla_contiguous_inputs`' case. Two runs must give equal
+    bits, and the last sequence alone (over its own rows: fewer splits)
+    the bits it gets inside a batch of 8; bf16 is also held to the split
+    model. Timed, it also reads the device time of a call by launch
+    (bf16: split and merge) and of the yardstick's (the call is
+    host-bound)."""
+    import torch
+    args = _mla_contiguous_inputs(gen, dev, dtype, b, s, lens)
+    qa, qr, ckv, kr, kv, _ = args
     got = md.mla_decode_cuda(*args)
     want = mla_ref.mla_decode_online_plain(*args)
     torch.cuda.synchronize()
+    what = f"MLA contiguous decode {dtype} at B={b}, S={s}"
+    check(torch.equal(md.mla_decode_cuda(*args), got),
+          f"{what}: two runs differ")
+    wide = [t.repeat((8 // b,) + (1,) * (t.ndim - 1)) for t in args[:5]]
+    batched = md.mla_decode_cuda(*wide, MLA_SCALE)
+    seq, n = b - 1, int(kv[b - 1].item())
+    alone = md.mla_decode_cuda(
+        qa[seq:seq + 1].contiguous(), qr[seq:seq + 1].contiguous(),
+        ckv[seq:seq + 1, :n].contiguous(), kr[seq:seq + 1, :n].contiguous(),
+        kv[seq:seq + 1].contiguous(), MLA_SCALE)
+    check(torch.equal(batched[:b], got) and torch.equal(alone[0], got[seq]),
+          f"{what}: a sequence's bits depend on the batch")
     rec = {"kernel": "mla_decode_cuda", "dtype": str(dtype), "B": b,
            "H": MLA_H, "r": MLA_R, "Dr": MLA_DR, "S": s,
-           "kv_lens": lens.tolist(),
-           "max_abs_err": (got - want).abs().max().item()}
+           "kv_lens": kv.tolist(),
+           "max_abs_err": (got - want).abs().max().item(),
+           "bitwise_repeat": True, "batch_invariant": True}
+    if dtype == torch.bfloat16:
+        rec["max_abs_err_split_model"] = (
+            got - md.mla_decode_split_plain(*args)).abs().max().item()
+    if (b, s) == MLA_CONT_AT:
+        rec["continuity"] = "at_b8_s512"
     if timed:
-        rec["ms"] = cuda_ms(lambda: md.mla_decode_cuda(*args))
+        run = lambda: md.mla_decode_cuda(*args)
+        rec["ms"] = cuda_ms(run)
         rec["plain_ms"] = cuda_ms(lambda: mla_ref.mla_decode_online_plain(
             *args))
-        rec["library_ms"] = cuda_ms(_mla_sdpa(qa, qr, ckv, kr, lens))
+        sdpa = _mla_sdpa(qa, qr, ckv, kr, kv)
+        rec["library_ms"] = cuda_ms(sdpa)
+        by_kernel = device_ms_by_kernel(run)
+        rec["device_ms_by_launch"] = by_kernel and {
+            next((k for k in ("mla_split_sm90", "mla_merge",
+                              "mla_decode_kernel") if k in n), n[:60]): ms
+            for n, ms in by_kernel.items()}
+        rec["device_ms"] = by_kernel and sum(by_kernel.values())
+        rec["library_device_ms"] = device_ms(sdpa)
         el = qa.element_size()
-        live = int(lens.sum().item())
+        live = int(kv.sum().item())
         nbytes = (live * (MLA_R + MLA_DR) * el + b * MLA_H * (MLA_R + MLA_DR)
                   * el + b * 4 + got.numel() * 4)
         flops = (2.0 * (MLA_R + MLA_DR) + 2.0 * MLA_R) * MLA_H * live
@@ -1790,7 +1873,8 @@ def mla_kernel_phase(fa, md, mla_ref, dev):
     """Both MLA decode kernels and the D=192 prefill against their plain
     versions at deepseek-v2 widths, fp32 (TF32 off) and bf16; timed in
     bf16 at the serve phase's shapes (decode: B=8 over the paged pool;
-    prefill: B=2 at the 512 bucket) and the contiguous kernel at B=8,
+    prefill: B=2 at the 512 bucket) and the contiguous kernel at the
+    generate phase's (B=4, S=1088, every length at S) and at B=8,
     S=512."""
     import torch
     gen = torch.Generator(device=dev).manual_seed(8)
@@ -1803,6 +1887,10 @@ def mla_kernel_phase(fa, md, mla_ref, dev):
         new += [mla_contiguous_case(md, mla_ref, s, gen, dev, dtype,
                                     timed=bf16 and s == 512)
                 for s in (200, 512, 2048)]
+        new += [mla_contiguous_case(md, mla_ref, MLA_GEN_S, gen, dev, dtype,
+                                    timed=bf16 and kind == "full",
+                                    b=MLA_GEN_B, lens=lens)
+                for kind, lens in MLA_GEN_LENS.items()]
         new += [prefill192_case(fa, 2, s, dtype, gen, dev,
                                 timed=bf16 and s == 512)
                 for s in (16, 512, 200)]
@@ -1816,10 +1904,21 @@ def mla_kernel_phase(fa, md, mla_ref, dev):
                      if "ms" in r else "")
                   + (f"; device time {_ms_or_not(r['device_ms'])}, SDPA's "
                      f"{_ms_or_not(r['library_device_ms'])}"
-                     if "device_ms" in r else ""), flush=True)
+                     if "device_ms" in r else "")
+                  + (f" (by launch {r['device_ms_by_launch']})"
+                     if r.get("device_ms_by_launch") else "")
+                  + (f"; split model {r['max_abs_err_split_model']:.3e} "
+                     f"(tol {SPLIT_MODEL_TOL:g})"
+                     if "max_abs_err_split_model" in r else ""), flush=True)
             r["tol"] = tol
+            if "max_abs_err_split_model" in r:
+                r["tol_split_model"] = SPLIT_MODEL_TOL
         bad = [f"{r['kernel']} {r['dtype']}: {r['max_abs_err']}"
                for r in new if not r["max_abs_err"] <= tol]
+        bad += [f"{r['kernel']} {r['dtype']} vs the split model: "
+                f"{r['max_abs_err_split_model']}" for r in new
+                if not r.get("max_abs_err_split_model", 0.0)
+                <= SPLIT_MODEL_TOL]
         check(not bad, "MLA kernels vs plain: " + "; ".join(bad))
         recs += new
     return recs
@@ -1929,14 +2028,18 @@ def _serve_mla(cfg, args, build, counters):
     return result, launches, peak, seconds
 
 
-def mla_path_phase(fa, md, dev, smi):
+def mla_path_phase(fa, md, dev, smi, every):
     """deepseek-v2-236b served through ``serve_config`` at full width, 8
     layers, bf16, attention_impl="kernel" (phase 4's settings): every
     request finishes, launch counts, finite logits; the bf16 kernel vs
     reference difference and the routing choices that differ on the
-    first prefill group and first decode step, for the record. Then the
-    gate: the same at fp32 (TF32 off) on 2 layers, where the kernel and
-    reference paths must agree."""
+    first prefill group and first decode step, for the record. The same
+    weights then generate through the static path (:func:`mla_generate`,
+    with every counter in ``every``). Then the gate: the same serve at
+    fp32 (TF32 off) on 2 layers, where the kernel and reference paths
+    must agree, and on its weights the static path's gate
+    (:func:`mla_generate_gate`)."""
+    import gc
     import torch
     from repro_torch.configs.base import resolve
     from repro_torch.launch import serve as tserve
@@ -1956,7 +2059,8 @@ def mla_path_phase(fa, md, dev, smi):
             log[log["target"]].append(out[1].sort(dim=-1).values)
         return out
 
-    def run(cfg, gate):
+    def run(cfg, gate, then):
+        """The serve, then ``then(model, params)`` on its weights."""
         checks, check_s = {}, [0.0]
         log.update(reference=[], kernel=[])
 
@@ -1992,9 +2096,20 @@ def mla_path_phase(fa, md, dev, smi):
                                         all_finite=True)
         if not gate:
             build = step_timed_build(build, step_s, profiles)
-        result, launches, peak, secs = _serve_mla(cfg, args, build, counters)
+        held = {}
+
+        def capture(model, params, *a, **k):
+            held.update(model=model, params=params)
+            return build(model, params, *a, **k)
+        result, launches, peak, secs = _serve_mla(cfg, args, capture,
+                                                  counters)
         check(len(checks) == 2, f"reference checks ran: {sorted(checks)}")
-        return result, launches, peak, secs, checks, check_s[0]
+        t0 = time.monotonic()
+        then_out = then(held.pop("model"), held.pop("params"))
+        gc.collect()
+        torch.cuda.empty_cache()
+        then_out["seconds"] = time.monotonic() - t0
+        return result, launches, peak, secs, checks, check_s[0], then_out
 
     step_s = {"prefill": [], "decode": [], "prefill_bucket": [],
               "profiler_s": 0.0}
@@ -2007,12 +2122,13 @@ def mla_path_phase(fa, md, dev, smi):
               flush=True)
         cfg = dataclasses.replace(full, num_layers=MLA_LAYERS,
                                   attention_impl="kernel")
-        result, launches, peak, secs, checks, check_s = run(cfg, gate=False)
+        result, launches, peak, secs, checks, check_s, generate = run(
+            cfg, False, lambda m, p: mla_generate(m, p, every, smi))
         gate_cfg = dataclasses.replace(
             full, num_layers=MLA_GATE_LAYERS, compute_dtype="float32",
             attention_impl="kernel")
-        _, gate_launches, gate_peak, gate_secs, gate_checks, _ = run(
-            gate_cfg, gate=True)
+        _, gate_launches, gate_peak, gate_secs, gate_checks, _, gen_gate = \
+            run(gate_cfg, True, lambda m, p: mla_generate_gate(m, p, every))
     finally:
         tblocks._router = orig_router
 
@@ -2051,7 +2167,8 @@ def mla_path_phase(fa, md, dev, smi):
                cfg) / 2**30,
            "gate": {"layers": MLA_GATE_LAYERS, "checks": gate_checks,
                     "launches": gate_launches, "peak_memory_gib": gate_peak,
-                    "seconds": gate_secs}}
+                    "seconds": gate_secs},
+           "generate": {**generate, "gate": gen_gate}}
     print(f"[mla-path] deepseek-v2-236b, {MLA_LAYERS} of 60 layers at full "
           f"width, bf16: {st['requests']} requests, {st['total_tokens']} "
           f"tokens in {wall:.3f} s of wall (reference checks and the "
@@ -2075,6 +2192,156 @@ def mla_path_phase(fa, md, dev, smi):
                   f"{k['name'][:48]} x{k['count']} {k['us'] / 1e3:.3f} ms"
                   for k in prof["kernels"][:10]), flush=True)
     return out
+
+
+# the MLA generate phase on phase 9's weights: batch, prompt, generated
+# tokens (8 layers, bf16); its profiled decode steps [first, last); the
+# fp32 gate's prompt and tokens (phase 9's 2-layer gate weights)
+MLA_GEN_RUN = (MLA_GEN_B, 1024, MLA_GEN_S - 1024)
+MLA_GEN_PROFILE = (10, 13)
+MLA_GEN_GATE = (300, 8)
+
+
+def mla_generate(model, params, counters, smi):
+    """deepseek-v2's 8-layer cut at full width on phase 9's bf16 weights
+    (attention_impl="kernel") generates 64 tokens after a 1024-token
+    prompt for 4 sequences through ``launch.serve.static_generate``: the
+    contiguous MLA decode launches once a layer a decode step, the D=192
+    prefill once a layer, every other kernel never; finite logits;
+    timings; a profile of three decode steps and of a second prefill."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    cfg = model.cfg
+    batch, plen, ngen = MLA_GEN_RUN
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (batch, plen)).astype(np.int32)
+    profiler = lambda: tprofile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA])
+    record = {"prefill": [], "decode": [], "finite": True, "profiles": {},
+              "profiler_s": 0.0, "profiler": profiler,
+              "profile": {"lo": MLA_GEN_PROFILE[0],
+                          "hi": MLA_GEN_PROFILE[1]}}
+    toks, launches, secs, peak = _counted_generate(model, params, prompts,
+                                                 ngen, counters, record)
+    expect = {n: 0 for n in counters}
+    expect.update(mla_decode_cuda=cfg.num_layers * (ngen - 1),
+                  flash_attention_cuda=cfg.num_layers)
+    check(launches == expect, f"MLA generate launches {launches} != "
+          f"{expect}")
+    check(toks.shape == (batch, ngen), f"MLA generate tokens {toks.shape}")
+    check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          "MLA generate: token id out of vocab")
+    check(record["finite"], "MLA generate: non-finite logits")
+    check(len(record["prefill"]) == 1 and len(record["decode"]) == ngen - 1,
+          f"MLA generate steps {len(record['prefill'])} prefill, "
+          f"{len(record['decode'])} decode")
+    lo, hi = MLA_GEN_PROFILE
+    decode_s = record["decode"][:lo] + record["decode"][hi:]
+    wall = secs - record["profiler_s"]
+    with profiler() as prof:              # the prefill once more, traced
+        t0 = time.monotonic()
+        model.prefill(params, torch.as_tensor(prompts, device=model.device),
+                      max_len=plen + ngen)
+        torch.cuda.synchronize()
+        pre_wall = (time.monotonic() - t0) * 1e6
+    record["profiles"]["prefill"] = _profile_rec(prof, pre_wall)
+    out = {"layers": cfg.num_layers, "batch": batch, "prompt": plen,
+           "generated": ngen, "launches": launches,
+           "expected_launches": expect, "seconds_generate": secs,
+           "profiler_seconds": record["profiler_s"],
+           "prefill_ms": record["prefill"][0] * 1e3,
+           "decode_step_ms_median": statistics.median(decode_s) * 1e3,
+           "decode_step_ms": [t * 1e3 for t in record["decode"]],
+           "tokens_per_s_wall": batch * ngen / wall,
+           "peak_memory_gib": peak,
+           "profiles": record["profiles"], "tokens_head": toks[:, :8].tolist()}
+    print(f"[mla-generate] deepseek-v2-236b, {cfg.num_layers} of 60 layers "
+          f"at full width, bf16, static_generate: batch {batch}, prompt "
+          f"{plen}, {ngen} tokens: prefill {out['prefill_ms']:.2f} ms, "
+          f"decode step median {out['decode_step_ms_median']:.2f} ms "
+          f"(profiled steps excluded), {out['tokens_per_s_wall']:.1f} tok/s "
+          f"of wall (the profiler's start and stop excluded), peak memory "
+          f"{peak:.2f} GiB, launches {launches} [{smi}]", flush=True)
+    for kind, prof_rec in record["profiles"].items():
+        busy, win = prof_rec["device_busy_us"], prof_rec["window_us"]
+        print(f"[mla-generate] torch.profiler over {prof_rec['steps']} "
+              f"{kind} step(s): kernels {busy / 1e3:.3f} ms of device time "
+              f"in {win / 1e3:.3f} ms of wall; by kernel: " + "; ".join(
+                  f"{k['name'][:48]} x{k['count']} {k['us'] / 1e3:.3f} ms"
+                  for k in prof_rec["kernels"][:10]), flush=True)
+    return out
+
+
+def mla_generate_gate(kern, params, counters):
+    """The static path's fp32 gate (TF32 off) on phase 9's 2-layer gate
+    weights, prompt 300, 8 tokens: the kernel path and the reference path
+    give identical greedy tokens and every step's logits agree within
+    ``MLA_GATE_TOL`` of the largest reference logit; one sequence through
+    the paged engine gives the static path's tokens."""
+    import numpy as np
+    from repro_torch.launch import serve as tserve
+    from repro_torch.models.kvcache import PagedLayout
+    from repro_torch.models.model import build_model
+    from repro_torch.serve import Request
+    cfg = kern.cfg
+    plen, ngen = MLA_GEN_GATE
+    prompts = np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (MLA_GEN_B, plen)).astype(np.int32)
+    runs = {}
+    for name in ("kernel", "reference"):
+        model = kern if name == "kernel" else build_model(
+            dataclasses.replace(cfg, attention_impl="reference"),
+            kern.device)
+        rec = {"prefill": [], "decode": [], "finite": True, "logits": []}
+        toks, launched, _, peak = _counted_generate(model, params, prompts,
+                                                    ngen, counters, rec)
+        check(rec["finite"], f"MLA generate gate {name}: non-finite logits")
+        runs[name] = (toks, rec["logits"], launched, peak)
+    want = {"kernel": (cfg.num_layers * (ngen - 1), cfg.num_layers),
+            "reference": (0, 0)}
+    got = {n: (r[2]["mla_decode_cuda"], r[2]["flash_attention_cuda"])
+           for n, r in runs.items()}
+    check(got == want and not any(
+        r[2][k] for r in runs.values() for k in r[2]
+        if k not in ("mla_decode_cuda", "flash_attention_cuda")),
+          f"MLA generate gate launches: {[r[2] for r in runs.values()]}")
+    steps = []
+    for i, (g, w) in enumerate(zip(runs["kernel"][1], runs["reference"][1])):
+        err = (g - w).abs().max().item()
+        scale = max(1.0, w.abs().max().item())
+        steps.append({"step": i, "max_abs_err": err, "ref_max_abs": scale,
+                      "tol": MLA_GATE_TOL * scale})
+    same = bool(np.array_equal(runs["kernel"][0], runs["reference"][0]))
+    # one sequence alone: the MoE's eval capacity, and so which tokens
+    # it drops, depends on the batch
+    single = tserve.static_generate(kern, params, prompts[:1], ngen)
+    mbs = -(-(plen + ngen) // 16)
+    eng = tserve.build_engine(
+        kern, params, PagedLayout(block_size=16, num_blocks=mbs,
+                                  max_blocks_per_seq=mbs),
+        slots=1, prefill_batch=1, pod_speeds=[1.0])
+    paged = eng.run([Request(rid=0, prompt=tuple(int(t) for t in prompts[0]),
+                             max_new_tokens=ngen, arrival=0.0)]).tokens[0]
+    same_paged = [int(t) for t in single[0]] == list(paged)
+    worst = max(s_["max_abs_err"] / s_["tol"] for s_ in steps)
+    print(f"[mla-generate] fp32 gate, {cfg.num_layers} layers, prompt "
+          f"{plen}, {ngen} tokens: greedy tokens identical {same}, equal to "
+          f"the paged engine's on one sequence {same_paged}; logits max abs "
+          f"err by step " + ", ".join(f"{s_['max_abs_err']:.3e}"
+                                      for s_ in steps)
+          + f" (largest err/tol {worst:.3f}); peak "
+          f"{runs['kernel'][3]:.2f} GiB", flush=True)
+    check(same, "MLA generate gate: kernel and reference tokens differ")
+    check(same_paged, "MLA generate gate: the static path and the paged "
+          "engine differ on one sequence")
+    check(len(steps) == ngen and all(s_["max_abs_err"] <= s_["tol"]
+                                     for s_ in steps),
+          f"MLA generate gate: logits differ beyond {MLA_GATE_TOL}")
+    return {"layers": cfg.num_layers, "prompt": plen, "generated": ngen,
+            "tokens_identical": same, "paged_engine_identical": same_paged,
+            "steps": steps, "launches": {n: r[2] for n, r in runs.items()},
+            "peak_memory_gib": runs["kernel"][3]}
 
 
 # --------------------------------------------------------------------------
@@ -2814,9 +3081,18 @@ def main(argv=None) -> int:
     t0 = time.monotonic()
     recs += mla_kernel_phase(fa, md, mla_ref, dev)
     phases["mla_kernels"] = time.monotonic() - t0
+    every = {**_counters(fa, ce),
+             "quantize_int8_cuda": qz.quantize_int8_cuda,
+             "dequant_accum_cuda": qz.dequant_accum_cuda,
+             "mla_decode_paged_cuda": md.mla_decode_paged_cuda,
+             "mla_decode_cuda": md.mla_decode_cuda,
+             "ssd_scan_cuda": sk.ssd_scan_cuda,
+             "mlstm_scan_cuda": mk.mlstm_scan_cuda}
     t0 = time.monotonic()
-    mla = mla_path_phase(fa, md, dev, smi)
-    phases["mla_serve_path"] = time.monotonic() - t0
+    mla = mla_path_phase(fa, md, dev, smi, every)
+    gen_s = mla["generate"]["seconds"] + mla["generate"]["gate"]["seconds"]
+    phases["mla_serve_path"] = time.monotonic() - t0 - gen_s
+    phases["mla_generate_path"] = gen_s
     t0 = time.monotonic()
     recs += zamba_kernel_phase(fa, sk, dev, smi)
     phases["zamba_kernels"] = time.monotonic() - t0
@@ -2827,13 +3103,6 @@ def main(argv=None) -> int:
     recs += xlstm_kernel_phase(mk, dev, smi)
     phases["xlstm_kernels"] = time.monotonic() - t0
     t0 = time.monotonic()
-    every = {**_counters(fa, ce),
-             "quantize_int8_cuda": qz.quantize_int8_cuda,
-             "dequant_accum_cuda": qz.dequant_accum_cuda,
-             "mla_decode_paged_cuda": md.mla_decode_paged_cuda,
-             "mla_decode_cuda": md.mla_decode_cuda,
-             "ssd_scan_cuda": sk.ssd_scan_cuda,
-             "mlstm_scan_cuda": mk.mlstm_scan_cuda}
     xlstm = xlstm_path_phase(every, dev, smi)
     phases["xlstm_generate_path"] = time.monotonic() - t0
     print("[phases] seconds: " + ", ".join(
@@ -2874,17 +3143,16 @@ def main(argv=None) -> int:
                "src/repro_torch/csrc/mlstm_scan.cu",
                root + "mlstm_scan/mlstm_scan.py:95")}
     # launches: the path each kernel serves (GQA decode: serve; the MLA
-    # paged decode: the MLA serve path; the exchange kernels: the
-    # multi-rank train path, rank 0's counts; the SSD scan: the zamba2
-    # generate path; the mLSTM scan: the xLSTM generate path; the rest:
-    # the one-rank train path); every path's counts go to the json. The
-    # contiguous MLA kernel lies on no path (none in the JAX package
-    # either): its launches are 0 and it is held to its plain version
-    # only.
+    # paged decode: the MLA serve path; the contiguous MLA decode: the
+    # MLA generate path; the exchange kernels: the multi-rank train path,
+    # rank 0's counts; the SSD scan: the zamba2 generate path; the mLSTM
+    # scan: the xLSTM generate path; the rest: the one-rank train path);
+    # every path's counts go to the json
     by_path = {n: {"serve": path["launches"].get(n, 0),
                    "train": train["launches"].get(n, 0),
                    "multi_rank": multi["launches"].get(n, 0),
                    "mla_serve": mla["launches"].get(n, 0),
+                   "mla_generate": mla["generate"]["launches"].get(n, 0),
                    "zamba_generate": zamba["launches"].get(n, 0),
                    "xlstm_generate": xlstm["launches"].get(n, 0)}
                for n in src}
@@ -2892,7 +3160,7 @@ def main(argv=None) -> int:
                "quantize_int8_cuda": "multi_rank",
                "dequant_accum_cuda": "multi_rank",
                "mla_decode_paged_cuda": "mla_serve",
-               "mla_decode_cuda": None,
+               "mla_decode_cuda": "mla_generate",
                "ssd_scan_cuda": "zamba_generate",
                "mlstm_scan_cuda": "xlstm_generate"}
     at_keys = ("dtype", "B", "Sq", "S", "H", "Hkv", "D", "T", "V", "R",
@@ -2908,12 +3176,13 @@ def main(argv=None) -> int:
         main_rec = [r for r in timed
                     if (r.get("D") not in (64, MLA_DQK, ZAMBA_DH)
                         or name != "flash_attention_cuda")
-                    and r.get("window") != "long"][-1]
+                    and r.get("window") != "long"
+                    and "continuity" not in r][-1]
         path_name = path_of.get(name, "train")
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": by_path[name][path_name] if path_name else 0,
+            "launches": by_path[name][path_name],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"],
             "bound_ms": main_rec["bound_ms"],
@@ -2947,9 +3216,15 @@ def main(argv=None) -> int:
                     "device_ms", "library_device_ms")},
                 "at": {k: long_window[-1][k] for k in long_window[-1]
                        if k in at_keys}}
-        if path_name:
-            check(kernels[-1]["launches"] > 0, f"{name} never launched on "
-                  f"its path")
+        for r in (r for r in timed if "continuity" in r):
+            kernels[-1][r["continuity"]] = {
+                **{k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                     "library_ms", "device_ms",
+                                     "library_device_ms",
+                                     "device_ms_by_launch")},
+                "at": {k: r[k] for k in r if k in at_keys}}
+        check(kernels[-1]["launches"] > 0, f"{name} never launched on its "
+              f"path")
     check(kernels[0]["at_d80"]["launches"] > 0,
           "the D=80 prefill never launched on the zamba2 path")
     check(len(kernels) == 11, f"{len(kernels)} kernels listed")

@@ -32,23 +32,29 @@
 // at the serve shape, where what the kernel pays for is latency and
 // how many SMs have work.
 //
-// Two designs, by dtype of the paged kernel (mla_decode_paged_fwd
-// dispatches; there is no other switch):
+// Two designs, by dtype (mla_decode_fwd and mla_decode_paged_fwd
+// dispatch; there is no other switch):
 //
-// bf16 paged: the tensor cores, positions split across blocks.
+// bf16: the tensor cores, positions split across blocks. One kernel,
+// mla_split_sm90<kPaged>, serves both caches; they differ only in where
+// position pos of sequence b lives (the paged kernel: row blk * bs + pos
+// % bs, blk = tables[b, pos / bs]; the contiguous one: row b * S + pos,
+// read as a pool of B blocks of S rows with no table).
 //   * Grid (splits, ceil(H/64), B), a split kSplit positions long (a
-//     compile-time constant). The grid comes from the shape MB*bs, so the
-//     host never reads kv_len; a split that starts at or past kv_len[b]
-//     exits at once. At the serve shape (B=8, H=128, MB*bs=512) that is
-//     4 x 2 x 8 = 64 blocks; at the longer window (MB*bs=2048) 256.
+//     compile-time constant). The grid comes from the shape (MB*bs, or
+//     S), so the host never reads kv_len; a split that starts at or past
+//     kv_len[b] exits at once. At the paged serve shape (B=8, H=128,
+//     MB*bs=512) that is 4 x 2 x 8 = 64 blocks; at the longer window
+//     (MB*bs=2048) 256; contiguous at the generate shape (B=4, S=1088)
+//     9 x 2 x 4 = 72.
 //   * One block for 64 heads, two warpgroups. The block's [q_abs | q_r]
 //     tile (64 x 576 bf16, heads >= H zero-filled) is copied once into
 //     128-byte-swizzled shared memory (9 column blocks of 64). The
-//     split's pool rows are looked up once through its slice of the table
-//     row; position tiles (kTile x 576) are gathered row by row from the
-//     two pools by 16-byte cp.async into a 2-stage ring, rows of NULL,
-//     out-of-pool and dead positions zero-filled: the copies of tile t+1
-//     run while tile t is computed.
+//     split's rows are looked up once (through its slice of the table
+//     row when paged); position tiles (kTile x 576) are gathered row by
+//     row from the two caches by 16-byte cp.async into a 2-stage ring,
+//     rows of NULL, out-of-pool and dead positions zero-filled: the
+//     copies of tile t+1 run while tile t is computed.
 //   * S = Q K^T (M = 64 heads, N = kTile positions, K = 576) by wgmma
 //     with both operands K-major: fp32 sums of exact bf16 products. Both
 //     warpgroups compute it (the same instructions on the same tiles,
@@ -60,15 +66,15 @@
 //     is the SAME shared-memory tile as the scores, read MN-major through
 //     the transpose bit: each cached row is read from device memory once,
 //     the TPU kernel's point. The accumulator is 128 registers a thread.
-//   * A second small kernel merges the partials (m, l, acc) of the
-//     splits below kv_len[b] in split order and writes acc / max(l,
-//     1e-30). Batch invariance: splits start at position 0 with a fixed
-//     length and the merge reads only the live ones, so a sequence's bits
-//     depend on its own q, table row and kv_len alone; no atomics, so the
-//     bits repeat from run to run.
+//   * A second small kernel (mla_merge) merges the partials (m, l, acc)
+//     of the splits below kv_len[b] in split order and writes acc /
+//     max(l, 1e-30). Batch invariance: splits start at position 0 with a
+//     fixed length and the merge reads only the live ones, so a
+//     sequence's bits depend on its own q, rows and kv_len alone; no
+//     atomics, so the bits repeat from run to run.
 //
-// fp32 paged, and the contiguous kernel in both dtypes: the first,
-// CUDA-core version (wgmma has no fp32 operands).
+// fp32 (both caches): the first, CUDA-core version (wgmma has no fp32
+// operands).
 //   * One block owns one (sequence, group of 16 heads) and loops over
 //     tiles of 16 positions (staged once in shared memory as fp32, used
 //     for the scores and the values); m, l and acc live in registers. A
@@ -77,8 +83,8 @@
 //     tile and half of its columns for the scores; one shuffle joins the
 //     halves. The tile's row stride is 580 floats, so the float4 reads of
 //     8 lanes on 8 rows fall on 32 different banks.
-//   * H/16 x B blocks (64 at B = 8) leave half the SMs idle; the
-//     contiguous kernel is on no path yet.
+//   * H/16 x B blocks (64 at B = 8) leave half the SMs idle; the serving
+//     paths run fp32 only in their gates.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
@@ -101,24 +107,6 @@ constexpr size_t kSmemBytes = sizeof(float) * (kT * kStride + kHB * kW);
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 a =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-// p rounded to the cache dtype (the Pallas kernel's p.astype(ckv.dtype))
-template <typename T> __device__ __forceinline__ float round_to(float x);
-template <> __device__ __forceinline__ float round_to<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ float round_to<__nv_bfloat16>(
-    float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
 
 // max / sum over the 16 lanes of a half warp (each half holds one copy)
 __device__ __forceinline__ float half_max(float x) {
@@ -133,11 +121,12 @@ __device__ __forceinline__ float half_sum(float x) {
   return x;
 }
 
-// rows: S (contiguous: ckv (B, S, 512)) or N (paged: pool blocks)
-template <typename T, bool kPaged>
+// fp32 only. rows: S (contiguous: ckv (B, S, 512)) or N (paged: pool
+// blocks)
+template <bool kPaged>
 __global__ void __launch_bounds__(kWarps * 32)
-mla_decode_kernel(const T* __restrict__ qa, const T* __restrict__ qr,
-                  const T* __restrict__ ckv, const T* __restrict__ kr,
+mla_decode_kernel(const float* __restrict__ qa, const float* __restrict__ qr,
+                  const float* __restrict__ ckv, const float* __restrict__ kr,
                   const int* __restrict__ tables,
                   const int* __restrict__ lens, float* __restrict__ out,
                   int H, int rows, int bs, int MB, float scale) {
@@ -174,8 +163,8 @@ mla_decode_kernel(const T* __restrict__ qa, const T* __restrict__ qr,
     // warp w stages positions w, w + 4, ...; 4 values a lane per load
     for (int rr = warp; rr < kT; rr += kWarps) {
       const int pos = t0 + rr;
-      const T* crow = nullptr;
-      const T* krow = nullptr;
+      const float* crow = nullptr;
+      const float* krow = nullptr;
       if (pos < len) {
         size_t row = 0;
         bool mapped = true;
@@ -222,7 +211,8 @@ mla_decode_kernel(const T* __restrict__ qa, const T* __restrict__ qr,
       }
     }
 
-    // online softmax over the tile; p in the cache dtype for the values
+    // online softmax over the tile (p in the cache dtype, fp32, for the
+    // values)
     const bool live = t0 + t < len;
     float pc[kHW];
 #pragma unroll
@@ -234,7 +224,7 @@ mla_decode_kernel(const T* __restrict__ qa, const T* __restrict__ qr,
       const float corr = expf(m[i] - m_new);
       l[i] = l[i] * corr + half_sum(p);
       m[i] = m_new;
-      pc[i] = round_to<T>(p);
+      pc[i] = p;
 #pragma unroll
       for (int j = 0; j < kAcc; ++j) acc[i][j] *= corr;
     }
@@ -266,28 +256,28 @@ mla_decode_kernel(const T* __restrict__ qa, const T* __restrict__ qr,
   }
 }
 
-template <typename T, bool kPaged>
+template <bool kPaged>
 int launch(const void* qa, const void* qr, const void* ckv, const void* kr,
            const void* tables, const void* lens, void* out, int B, int H,
            int rows, int bs, int MB, float scale, cudaStream_t s) {
   static bool smem_set[64] = {};               // one set per kernel
-  cudaError_t err = sm90::allow_smem(mla_decode_kernel<T, kPaged>,
+  cudaError_t err = sm90::allow_smem(mla_decode_kernel<kPaged>,
                                      (int)kSmemBytes, smem_set);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((H + kHB - 1) / kHB, B);
-  mla_decode_kernel<T, kPaged><<<grid, kWarps * 32, kSmemBytes, s>>>(
-      (const T*)qa, (const T*)qr, (const T*)ckv, (const T*)kr,
+  mla_decode_kernel<kPaged><<<grid, kWarps * 32, kSmemBytes, s>>>(
+      (const float*)qa, (const float*)qr, (const float*)ckv, (const float*)kr,
       (const int*)tables, (const int*)lens, (float*)out, H, rows, bs, MB,
       scale);
   return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------
-// bf16 paged: tensor cores (wgmma), positions split across blocks
+// bf16: tensor cores (wgmma), positions split across blocks
 // ---------------------------------------------------------------------
 
 // positions a split (a block) and a ring stage: the fastest of the
-// (split, stage) pairs timed at the serve and long-window shapes
+// (split, stage) pairs timed at the paged serve and long-window shapes
 // (PERF.md)
 constexpr int kSplit = 128;
 constexpr int kTile = 64;
@@ -299,7 +289,7 @@ constexpr int kRChunks = kR / 8;         // ... of which the latent's
 constexpr int kSm90Threads = 256;        // two warpgroups
 constexpr int kQBytes = kHT * kW * 2;    // the q tile
 constexpr int kTileBytes = kTile * kW * 2;
-// the q tile, a 2-stage ring, the split's pool rows, 1 KB to align
+// the q tile, a 2-stage ring, the split's rows, 1 KB to align
 constexpr int kSm90Smem = kQBytes + 2 * kTileBytes + kSplit * 4 + 1024;
 // a partial of (b, h, split): acc[512], m (log2 units), l, 2 floats of
 // padding (16-byte rows)
@@ -311,14 +301,18 @@ __device__ __forceinline__ size_t part_off(int b, int h, int H, int split,
   return (((size_t)b * H + h) * splits + split) * kPart;
 }
 
+// kPaged: rows through tables (B, MB) into a pool of N blocks of bs
+// rows; otherwise sequence b's rows b * bs + pos of a (B, bs, .) cache
+// (bs = S, MB = 1, no table)
+template <bool kPaged>
 __global__ void __launch_bounds__(kSm90Threads, 1)
-mla_paged_split_sm90(const __nv_bfloat16* __restrict__ qa,
-                     const __nv_bfloat16* __restrict__ qr,
-                     const __nv_bfloat16* __restrict__ ckv,
-                     const __nv_bfloat16* __restrict__ kr,
-                     const int* __restrict__ tables,
-                     const int* __restrict__ lens, float* __restrict__ part,
-                     int H, int N, int bs, int MB, int splits, float scale) {
+mla_split_sm90(const __nv_bfloat16* __restrict__ qa,
+               const __nv_bfloat16* __restrict__ qr,
+               const __nv_bfloat16* __restrict__ ckv,
+               const __nv_bfloat16* __restrict__ kr,
+               const int* __restrict__ tables, const int* __restrict__ lens,
+               float* __restrict__ part, int H, int N, int bs, int MB,
+               int splits, float scale) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = sm90::smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -336,12 +330,16 @@ mla_paged_split_sm90(const __nv_bfloat16* __restrict__ qa,
   const int s1 = min(s0 + kSplit, len);
   const int n_t = (s1 - s0 + kTile - 1) / kTile;
 
-  // the split's pool rows (-1: a NULL or out-of-pool entry) and the q
-  // tile [q_abs | q_r] of heads h0 .. h0 + 63 (past H: zeros)
+  // the split's rows (-1: a NULL or out-of-pool entry) and the q tile
+  // [q_abs | q_r] of heads h0 .. h0 + 63 (past H: zeros)
   for (int i = tid; i < s1 - s0; i += kSm90Threads) {
     const int pos = s0 + i;
-    const int blk = tables[(size_t)b * MB + pos / bs];
-    row_s[i] = blk >= 0 && blk < N ? blk * bs + pos % bs : -1;
+    if (kPaged) {
+      const int blk = tables[(size_t)b * MB + pos / bs];
+      row_s[i] = blk >= 0 && blk < N ? blk * bs + pos % bs : -1;
+    } else {
+      row_s[i] = b * bs + pos;
+    }
   }
   for (int i = tid; i < kHT * kChunks; i += kSm90Threads) {
     const int r = i / kChunks, c = i % kChunks, h = h0 + r;
@@ -354,7 +352,8 @@ mla_paged_split_sm90(const __nv_bfloat16* __restrict__ qa,
   __syncthreads();                       // row_s
 
   // tile t's rows into ring stage t % 2, 72 chunks a row: 64 from the
-  // latent pool, 8 from the RoPE pool; dead and unmapped rows zero-filled
+  // latent cache, 8 from the RoPE cache; dead and unmapped rows
+  // zero-filled
   auto load_tile = [&](int t) {
     const uint32_t st = ring + (t & 1) * kTileBytes;
     const int p0 = t * kTile;
@@ -499,8 +498,8 @@ mla_paged_split_sm90(const __nv_bfloat16* __restrict__ qa,
 // One block per (head, sequence), 4 latent columns a thread: the live
 // splits' partials merged in split order, then acc / max(l, 1e-30).
 __global__ void __launch_bounds__(kR / 4)
-mla_paged_merge(const float* __restrict__ part, const int* __restrict__ lens,
-                float* __restrict__ out, int H, int window, int splits) {
+mla_merge(const float* __restrict__ part, const int* __restrict__ lens,
+          float* __restrict__ out, int H, int window, int splits) {
   const int h = blockIdx.x, b = blockIdx.y, c = threadIdx.x * 4;
   const int len = min(lens[b], window);
   const int n = len > 0 ? (len + kSplit - 1) / kSplit : 0;
@@ -530,25 +529,25 @@ mla_paged_merge(const float* __restrict__ part, const int* __restrict__ lens,
       make_float4(acc.x / lc, acc.y / lc, acc.z / lc, acc.w / lc);
 }
 
-int launch_paged_sm90(const void* qa, const void* qr, const void* ckv,
-                      const void* kr, const void* tables, const void* lens,
-                      void* out, float* part, int B, int H, int N, int bs,
-                      int MB, int splits, float scale, cudaStream_t s) {
+template <bool kPaged>
+int launch_sm90(const void* qa, const void* qr, const void* ckv,
+                const void* kr, const void* tables, const void* lens,
+                void* out, float* part, int B, int H, int N, int bs, int MB,
+                int splits, float scale, cudaStream_t s) {
   static bool smem_set[64] = {};
-  cudaError_t err = sm90::allow_smem(mla_paged_split_sm90, kSm90Smem,
+  cudaError_t err = sm90::allow_smem(mla_split_sm90<kPaged>, kSm90Smem,
                                      smem_set);
   if (err != cudaSuccess) return (int)err;
   using bf = __nv_bfloat16;
-  mla_paged_split_sm90<<<dim3(splits, (H + kHT - 1) / kHT, B), kSm90Threads,
-                         kSm90Smem, s>>>(
+  mla_split_sm90<kPaged><<<dim3(splits, (H + kHT - 1) / kHT, B),
+                           kSm90Threads, kSm90Smem, s>>>(
       (const bf*)qa, (const bf*)qr, (const bf*)ckv, (const bf*)kr,
       (const int*)tables, (const int*)lens, part, H, N, bs, MB, splits,
       scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  mla_paged_merge<<<dim3(H, B), kR / 4, 0, s>>>(part, (const int*)lens,
-                                                (float*)out, H, MB * bs,
-                                                splits);
+  mla_merge<<<dim3(H, B), kR / 4, 0, s>>>(part, (const int*)lens,
+                                          (float*)out, H, MB * bs, splits);
   return (int)cudaGetLastError();
 }
 
@@ -557,21 +556,29 @@ int launch_paged_sm90(const void* qa, const void* qr, const void* ckv,
 // dtype: 0 = float32, 1 = bfloat16. Each returns cudaGetLastError()
 // after its launches (0 = cudaSuccess); a configuration the kernels do
 // not take returns cudaErrorInvalidValue without launching.
+//
+// part: fp32 scratch of (B, H, splits, mla_decode_paged_part_len())
+// for the bf16 kernel's partials, splits = ceil(S / split length)
+// (mla_decode_paged_split_len); unused (may be null) in fp32. A bf16
+// call with another number of splits, or no scratch, returns
+// cudaErrorInvalidValue without launching.
 extern "C" int mla_decode_fwd(const void* q_abs, const void* q_r,
                               const void* ckv, const void* kr,
-                              const void* kv_len, void* out, int B, int H,
-                              int R, int DR, int S, float scale, int dtype,
-                              void* stream) {
+                              const void* kv_len, void* out, void* part,
+                              int B, int H, int R, int DR, int S, int splits,
+                              float scale, int dtype, void* stream) {
   if (R != kR || DR != kDR || B <= 0 || H <= 0 || S <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return launch<float, false>(q_abs, q_r, ckv, kr, nullptr, kv_len, out,
-                                B, H, S, 0, 0, scale, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16, false>(q_abs, q_r, ckv, kr, nullptr,
-                                        kv_len, out, B, H, S, 0, 0, scale,
-                                        s);
+    return launch<false>(q_abs, q_r, ckv, kr, nullptr, kv_len, out, B, H,
+                         S, 0, 0, scale, s);
+  if (dtype == 1) {
+    if (part == nullptr || splits != (S + kSplit - 1) / kSplit)
+      return (int)cudaErrorInvalidValue;
+    return launch_sm90<false>(q_abs, q_r, ckv, kr, nullptr, kv_len, out,
+                              (float*)part, B, H, B, S, 1, splits, scale, s);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
@@ -592,24 +599,24 @@ extern "C" int mla_decode_paged_fwd(const void* q_abs, const void* q_r,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return launch<float, true>(q_abs, q_r, ckv_pool, kr_pool, tables,
-                               kv_lens, out, B, H, N, bs, MB, scale, s);
+    return launch<true>(q_abs, q_r, ckv_pool, kr_pool, tables, kv_lens,
+                        out, B, H, N, bs, MB, scale, s);
   if (dtype == 1) {
     if (part == nullptr || splits != (MB * bs + kSplit - 1) / kSplit)
       return (int)cudaErrorInvalidValue;
-    return launch_paged_sm90(q_abs, q_r, ckv_pool, kr_pool, tables, kv_lens,
+    return launch_sm90<true>(q_abs, q_r, ckv_pool, kr_pool, tables, kv_lens,
                              out, (float*)part, B, H, N, bs, MB, splits,
                              scale, s);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-// Positions a split and a tile of the bf16 paged kernel: what
-// mla_decode_paged_split_plain models (SPLIT and TILE in
-// kernels/mla_decode/mla_decode.py).
+// Positions a split and a tile of the bf16 kernels (both caches): what
+// mla_decode_split_plain and mla_decode_paged_split_plain model (SPLIT
+// and TILE in kernels/mla_decode/mla_decode.py).
 extern "C" int mla_decode_paged_split_len() { return kSplit; }
 extern "C" int mla_decode_paged_tile() { return kTile; }
-// Floats a partial of the bf16 paged kernel takes in its scratch, and
-// the dynamic shared memory its split kernel asks for (bytes).
+// Floats a partial of the bf16 kernels takes in their scratch, and the
+// dynamic shared memory their split kernel asks for (bytes).
 extern "C" int mla_decode_paged_part_len() { return kPart; }
 extern "C" int mla_decode_paged_sm90_smem() { return kSm90Smem; }

@@ -175,9 +175,10 @@ def load() -> ctypes.CDLL:
             lib.flash_attention_bwd_sm90_smem.argtypes = [ci, ci]  # D, pass
             lib.flash_attention_bwd_sm90_smem.restype = ci
             lib.mla_decode_fwd.argtypes = [
-                vp, vp, vp, vp, vp, vp,         # q_abs, q_r, ckv, kr,
-                                                # kv_len, out
-                ci, ci, ci, ci, ci,             # B, H, R, DR, S
+                vp, vp, vp, vp, vp, vp, vp,     # q_abs, q_r, ckv, kr,
+                                                # kv_len, out, partials
+                                                # (bf16)
+                ci, ci, ci, ci, ci, ci,         # B, H, R, DR, S, splits
                 cf, ci, vp]                     # scale, dtype, stream
             lib.mla_decode_fwd.restype = ci
             lib.mla_decode_paged_fwd.argtypes = [

@@ -30,10 +30,10 @@ the pairs); here the stacks are Python loops, each uniform layer under
 Serving runs two cache families: the paged pool (:func:`prefill`, then
 :func:`decode_step_paged`; the uniform plan only, as in the JAX
 package) and the contiguous cache of static-batch serving
-(:func:`prefill`, :func:`init_cache`, :func:`decode_step`; the uniform
-GQA, mamba, zamba and xlstm plans). MoE, MLA, Mamba2, zamba and xLSTM
-stacks are ported for serving only; :func:`check_supported` names what a config
-may not use yet, :func:`check_servable` what serving may not.
+(:func:`prefill`, :func:`init_cache`, :func:`decode_step`; every
+plan). MoE, MLA, Mamba2, zamba and xLSTM stacks are ported for serving
+only; :func:`check_supported` names what a config may not use yet,
+:func:`check_servable` what serving may not.
 """
 from __future__ import annotations
 
@@ -58,8 +58,8 @@ from repro_torch.models.blocks import (_cast, apply_norm, attention_block,
 from repro_torch.models.kvcache import (PagedLayout, attention_decode,
                                         attention_decode_paged,
                                         decode_write_index, init_gqa_cache,
-                                        init_gqa_paged_cache,
-                                        init_mla_paged_cache,
+                                        init_gqa_paged_cache, init_mla_cache,
+                                        init_mla_paged_cache, mla_decode,
                                         mla_decode_paged)
 from repro_torch.models.ssm import (init_mamba, mamba_block,
                                     mamba_decode_step, mamba_dims)
@@ -124,12 +124,13 @@ def check_paged(cfg: ModelConfig) -> None:
 def check_servable(cfg: ModelConfig, device, paged: bool = True) -> None:
     """``check_supported(serving=True)`` plus what the serving kernels
     cannot take on the card: the GQA paged-decode kernel (``paged``) is
-    built for head_dim 64, the MLA decode kernels for latent rank 512
-    and RoPE width 64, the prefill kernel for head dims 64, 80, 128 and
-    192, the SSD kernel for state dim 64, a head dim that is a multiple
-    of 32 and chunks of at most 256, the mLSTM kernel for a head dim
-    (d_inner / heads) that is a multiple of 64 and at most 512 (on the
-    CPU the kernels' plain versions take any width)."""
+    built for head_dim 64, the MLA decode kernels (the paged one, and
+    with ``paged=False`` the contiguous one) for latent rank 512 and RoPE
+    width 64, the prefill kernel for head dims 64, 80, 128 and 192, the
+    SSD kernel for state dim 64, a head dim that is a multiple of 32 and
+    chunks of at most 256, the mLSTM kernel for a head dim (d_inner /
+    heads) that is a multiple of 64 and at most 512 (on the CPU the
+    kernels' plain versions take any width)."""
     check_supported(cfg, serving=True)
     if (cfg.attention_impl != "kernel"
             or torch.device(device).type != "cuda"):
@@ -537,10 +538,9 @@ def prefill(params, embeds: torch.Tensor, cfg: ModelConfig,
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device
                ) -> Dict[str, torch.Tensor]:
-    """Zero contiguous cache with :func:`prefill`'s structure (uniform
-    GQA, mamba, zamba and xlstm plans; the contiguous MLA cache is not
-    ported yet). The xlstm plan's stabilizers m start at -1e30, as in the
-    JAX package."""
+    """Zero contiguous cache with :func:`prefill`'s structure (every
+    plan; MLA keeps the latent and RoPE key). The xlstm plan's
+    stabilizers m start at -1e30, as in the JAX package."""
     plan = stack_plan(cfg)
     cdt = dtype_of(cfg.compute_dtype)
     L = cfg.num_layers
@@ -552,11 +552,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device
             **_xlstm_leaves("slstm",
                             [init_slstm_state(cfg, batch, device)] * pairs)}
     if plan == "uniform":
-        if cfg.mla.enabled:
-            raise ValueError(f"{cfg.name}: the contiguous MLA cache "
-                             f"(mla_decode) is not ported yet; serve MLA "
-                             f"through the paged engine")
-        return init_gqa_cache(cfg, L, batch, max_len, device)
+        init = init_mla_cache if cfg.mla.enabled else init_gqa_cache
+        return init(cfg, L, batch, max_len, device)
     if plan not in ("mamba", "zamba"):
         raise ValueError(f"stack plan {plan!r} is not ported yet")
     _, nheads, conv_ch, _ = mamba_dims(cfg)
@@ -574,9 +571,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device
     return cache
 
 
-def apply_uniform_layer_decode(p, x, cfg, k_cache, v_cache, pos):
+def apply_uniform_layer_decode(p, x, cfg, first, second, pos, kv_len):
+    """One layer's decode over its two contiguous cache tensors
+    (:func:`cache_names`), attending ``kv_len`` = pos + 1 positions."""
     h = apply_norm(p["ln1"], x, cfg)
-    a, kv = attention_decode(p["attn"], h, cfg, k_cache, v_cache, pos)
+    decode = mla_decode if cfg.mla.enabled else attention_decode
+    a, kv = decode(p["attn"], h, cfg, first, second, pos, kv_len)
     x = x + a
     return x + _ffn_serving(p, apply_norm(p["ln2"], x, cfg), cfg), kv
 
@@ -590,12 +590,12 @@ def decode_step(params, embeds: torch.Tensor, cfg: ModelConfig,
     plan = stack_plan(cfg)
     x = embeds
     if plan == "uniform":
-        if cfg.mla.enabled:
-            raise ValueError(f"{cfg.name}: contiguous MLA decode "
-                             f"(mla_decode) is not ported yet")
+        first, second = cache_names(cfg)
+        kv_len = torch.full((x.shape[0],), int(pos) + 1, dtype=torch.int32,
+                            device=x.device)
         for i, lp in enumerate(params["layers"]):
-            x, _ = apply_uniform_layer_decode(lp, x, cfg, cache["k"][i],
-                                              cache["v"][i], pos)
+            x, _ = apply_uniform_layer_decode(lp, x, cfg, cache[first][i],
+                                              cache[second][i], pos, kv_len)
     elif plan in ("mamba", "zamba"):
         every = cfg.hybrid.attn_every if plan == "zamba" else 0
         for i, lp in enumerate(params["layers"]):

@@ -30,7 +30,11 @@ shapes, and must give bitwise-equal outputs on a second run. So is the
 bf16 attention backward (tensor cores) at head dims 64 and 128. The
 split paged decode must repeat its bits and give a sequence the same
 bits alone as inside a wider batch; so must the bf16 paged MLA decode
-(tensor cores, positions split across blocks), at 128 heads and at 16.
+(tensor cores, positions split across blocks), at 128 heads and at 16,
+and the bf16 contiguous MLA decode (the same kernel), which is also held
+to its split model (2e-3) at the generate shape, and whose static path
+(``static_generate``), kernel route against reference route at fp32,
+is held by ``MLA_PATH_TOL`` with identical greedy tokens.
 The bf16 SSD scan (tensor cores, three kernels) must repeat its bits,
 also where the chunk is not a multiple of its 64-row tile.
 """
@@ -615,6 +619,42 @@ def test_mla_paged_decode_kernel_repeats_and_is_batch_invariant(dev, dtype,
     assert torch.equal(alone[0], got[seq])
 
 
+@pytest.mark.parametrize("lens", [[1088] * 4, [1088, 1, 513, 700]])
+def test_mla_contiguous_bf16_kernel_matches_split_model_and_repeats(dev,
+                                                                    lens):
+    """The bf16 contiguous kernel (tensor cores, positions split across
+    blocks) at the generate shape (B=4, H=128, S=1088): within 2e-3 of
+    the split model (which follows its tiles, splits and rounding) and
+    2e-2 of the online plain version, one launch a call,
+    equal bits on a second run, and a sequence alone over a shorter cache
+    (fewer splits) gets the bits it gets inside a batch of 8."""
+    rng = np.random.default_rng(len(set(lens)))
+    b, h, s = len(lens), 128, 1088
+    qa = _randn(rng, (b, h, md.RANK), dev, torch.bfloat16)
+    qr = _randn(rng, (b, h, md.ROPE_DIM), dev, torch.bfloat16)
+    ckv = _randn(rng, (b, s, md.RANK), dev, torch.bfloat16)
+    kr = _randn(rng, (b, s, md.ROPE_DIM), dev, torch.bfloat16)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    args = (qa, qr, ckv, kr, kv_len, 192 ** -0.5)
+    n0 = md.mla_decode_cuda.launches
+    got = md.mla_decode_cuda(*args)
+    assert md.mla_decode_cuda.launches == n0 + 1
+    assert _err(got, md.mla_decode_split_plain(*args)) <= 2e-3
+    assert _err(got, mla_ref.mla_decode_online_plain(*args)) <= 2e-2
+    assert torch.equal(md.mla_decode_cuda(*args), got)
+    seq = 2
+    wide = [torch.cat([t] * 2) for t in args[:5]]
+    batched = md.mla_decode_cuda(*wide, 192 ** -0.5)
+    alone = md.mla_decode_cuda(
+        qa[seq:seq + 1].contiguous(), qr[seq:seq + 1].contiguous(),
+        ckv[seq:seq + 1, :lens[seq]].contiguous(),
+        kr[seq:seq + 1, :lens[seq]].contiguous(), kv_len[seq:seq + 1],
+        192 ** -0.5)
+    assert md.mla_splits(1, lens[seq]) <= md.mla_splits(1, s)
+    assert torch.equal(batched[seq], got[seq])
+    assert torch.equal(alone[0], batched[b + seq])
+
+
 def test_mla_and_ssd_take_the_tiles_the_cpu_models_follow(dev):
     """The split, tile and partial length of mla_decode_paged_split_plain
     and the row tile of ssd_scan_tiled_plain
@@ -696,6 +736,48 @@ def test_mla_serving_kernel_path_matches_reference(dev):
         assert _err(got, want) <= MLA_PATH_TOL * scale
     for key in ("c_kv", "k_rope"):
         assert _err(caches["kernel"][key], caches["reference"][key]) <= 1e-4
+
+
+def test_mla_static_kernel_path_matches_reference(dev):
+    """deepseek-v2's MLA widths (r=512, Dr=64, head dim 192) and a narrow
+    residual stream through ``static_generate`` at fp32 (TF32 off): the
+    kernel route (the D=192 prefill once a layer, the contiguous MLA
+    decode once a layer a step) and the reference route give identical
+    greedy tokens; a prefill and one decode step agree within
+    ``MLA_PATH_TOL``, and so do their caches."""
+    import dataclasses
+    from repro_torch.configs.base import resolve
+    from repro_torch.launch.serve import static_generate
+    from repro_torch.models.model import build_model
+    full = resolve("deepseek-v2-236b")
+    cfg = dataclasses.replace(
+        full, num_layers=2, d_model=256, vocab_size=512, num_heads=20,
+        num_kv_heads=20, compute_dtype="float32", param_dtype="float32",
+        moe=dataclasses.replace(full.moe, num_experts=8, expert_d_ff=128,
+                                shared_d_ff=128), attention_impl="kernel")
+    kern = build_model(cfg, dev)
+    ref = build_model(dataclasses.replace(cfg, attention_impl="reference"),
+                      dev)
+    params = kern.init_params(0)
+    prompts = np.random.default_rng(0).integers(0, 512, (2, 150)).astype(
+        np.int32)
+    x = torch.from_numpy(prompts).to(dev)
+    outs, toks = {}, {}
+    for name, model in (("kernel", kern), ("reference", ref)):
+        n0 = (fa.flash_attention_cuda.launches, md.mla_decode_cuda.launches)
+        logits, cache = model.prefill(params, x, max_len=152)
+        dec, cache = model.decode(params, x[:, -1], cache, 150)
+        outs[name] = (logits, dec, cache)
+        toks[name] = static_generate(model, params, prompts, 6)
+        launched = (fa.flash_attention_cuda.launches - n0[0],
+                    md.mla_decode_cuda.launches - n0[1])
+        assert launched == ((4, 12) if name == "kernel" else (0, 0))
+    for got, want in zip(outs["kernel"][:2], outs["reference"][:2]):
+        scale = max(1.0, want.abs().max().item())
+        assert _err(got, want) <= MLA_PATH_TOL * scale
+    for key in ("c_kv", "k_rope"):
+        assert _err(outs["kernel"][2][key], outs["reference"][2][key]) <= 1e-4
+    assert np.array_equal(toks["kernel"], toks["reference"])
 
 
 # --------------------------------------------------------------------------

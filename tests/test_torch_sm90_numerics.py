@@ -23,9 +23,12 @@ path (splits of ``SPLIT`` positions in tiles of ``TILE``, p rounded to
 the cache dtype once a tile, merged in order) and is held against
 ``mla_decode_paged_pallas`` in interpret mode and
 ``mla_decode_paged_online_plain``, and against itself for batch
-invariance. ``ssd_scan_tiled_plain`` follows ``csrc/ssd_scan.cu``'s bf16
-path (chunk states, the state passing, the chunk scan in 64-row tiles,
-the weighted B, the carried state and the decay-weighted scores fed as
+invariance; ``mla_decode_split_plain``, the same arithmetic over the
+contiguous cache, against ``mla_decode_pallas`` in interpret mode and
+the dense oracle ``ref.mla_decode_dense``, and for batch invariance.
+``ssd_scan_tiled_plain`` follows ``csrc/ssd_scan.cu``'s bf16 path
+(chunk states, the state passing, the chunk scan in 64-row tiles, the
+weighted B, the carried state and the decay-weighted scores fed as
 bf16 hi/lo pairs) and is held against ``ssd_scan_pallas`` in interpret
 mode and JAX's ``ref.ssd_chunked``.
 
@@ -60,7 +63,8 @@ from repro.kernels.cross_entropy.cross_entropy import cross_entropy_pallas
 from repro.kernels.flash_attention import ref as fa_jref
 from repro.kernels.flash_attention.flash_attention import (
     flash_attention_pallas, flash_decode_paged_pallas)
-from repro.kernels.mla_decode.mla_decode import mla_decode_paged_pallas
+from repro.kernels.mla_decode.mla_decode import (mla_decode_paged_pallas,
+                                                 mla_decode_pallas)
 from repro.kernels.ssd_scan import ref as ssd_jref
 from repro.kernels.ssd_scan.ssd_scan import ssd_scan_pallas
 from repro_torch.kernels import _build
@@ -358,6 +362,71 @@ def test_mla_split_model_is_batch_invariant(dtype):
                                                0.1)
     assert tmd.mla_splits(20, 16) < tmd.mla_splits(40, 16)
     assert torch.equal(alone[0], batched[seq])
+
+
+def _mla_contiguous(rng, dtype, h, s, lens):
+    """deepseek-v2 latent widths over a contiguous cache (B, S, .)."""
+    b = len(lens)
+    f = lambda *shape: torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32)).to(dtype)
+    return (f(b, h, tmd.RANK), f(b, h, tmd.ROPE_DIM), f(b, s, tmd.RANK),
+            f(b, s, tmd.ROPE_DIM), torch.tensor(lens, dtype=torch.int32))
+
+
+# (h, s, lens): the generate path's heads with S not a multiple of the
+# split, a length of exactly S and one of 1; heads under 64; heads over
+# 64 and not a multiple of it, S a multiple of the split
+MLA_CONTIGUOUS_CASES = [
+    (128, 300, [300, 1, 129, 77]),
+    (20, 200, [1, 200, 64, 128]),
+    (72, 256, [256, 5, 130]),
+]
+
+
+@pytest.mark.pallas_interpret
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,s,lens", MLA_CONTIGUOUS_CASES)
+def test_mla_contiguous_split_model_matches_pallas_and_dense(
+        pallas_interpret, dtype, h, s, lens):
+    rng = np.random.default_rng(h + s)
+    args = _mla_contiguous(rng, dtype, h, s, lens)
+    scale = 192 ** -0.5
+    got = tmd.mla_decode_split_plain(*args, scale)
+    want = tmla_ref.mla_decode_dense(*args, scale)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    pallas = torch.from_numpy(np.array(mla_decode_pallas(
+        *(jnp.asarray(x.float().numpy()).astype(jdt) for x in args[:4]),
+        jnp.asarray(args[4].numpy()), scale, chunk=128,
+        interpret=pallas_interpret)))
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    errs = {"vs dense": (got - want).abs().max().item(),
+            "vs pallas": (got - pallas).abs().max().item()}
+    print(f"[mla-split contiguous] {dtype} {(h, s, lens)}: "
+          + ", ".join(f"{k_} {v_:.2e}" for k_, v_ in errs.items()))
+    for what, e in errs.items():
+        assert e <= DECODE_TOL[dtype], (what, e)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mla_contiguous_split_model_is_batch_invariant(dtype):
+    """One sequence alone over a shorter cache (fewer splits of the
+    window) and the same sequence inside a batch of 8 give equal bits;
+    the contiguous model equals the paged one on the same rows."""
+    rng = np.random.default_rng(9)
+    lens = [700, 1, 37, 300, 16, 455, 129, 640]
+    qa, qr, ckv, kr, kv_len = _mla_contiguous(rng, dtype, 20, 700, lens)
+    seq = 3
+    alone = tmd.mla_decode_split_plain(
+        qa[seq:seq + 1], qr[seq:seq + 1], ckv[seq:seq + 1, :320],
+        kr[seq:seq + 1, :320], kv_len[seq:seq + 1], 0.1)
+    batched = tmd.mla_decode_split_plain(qa, qr, ckv, kr, kv_len, 0.1)
+    assert tmd.mla_splits(1, 320) < tmd.mla_splits(1, 700)
+    assert torch.equal(alone[0], batched[seq])
+    # the contiguous cache as a pool of B blocks of S rows
+    tables = torch.arange(len(lens), dtype=torch.int32)[:, None]
+    paged = tmd.mla_decode_paged_split_plain(qa, qr, ckv, kr, tables,
+                                             kv_len, 0.1)
+    assert torch.equal(paged, batched)
 
 
 def test_mla_splits_come_from_the_window_shape():
