@@ -14,9 +14,9 @@ Phases (any failure exits non-zero; no phase swallows an error):
    bf16 tensor-core kernels (the prefill forward at head dims 64, 80,
    128 and 192, the backward's dq and dk/dv passes at 64 and 128, the
    CE forward for both head layouts, the MLA decode's split kernel for
-   the paged and the contiguous cache, the SSD scan's chunk-state and
-   chunk-scan kernels, and their
-   helpers: the CE and MLA merges, the SSD state passing): ptxas's
+   the paged and the contiguous cache, the SSD and mLSTM scans'
+   chunk-state and chunk-scan kernels, and their helpers: the CE and MLA
+   merges, the SSD and mLSTM state passings): ptxas's
    registers and spills, the dynamic shared memory of each launch, and
    the count of ``wgmma.mma_async`` and ``cp.async`` in their PTX
    (``nvcc -ptx``) and of HGMMA in their SASS (cuobjdump, where the
@@ -24,7 +24,8 @@ Phases (any failure exits non-zero; no phase swallows an error):
    and no spill. The tiles the library reports (forward kv tiles, the
    backward's four tiles, the CE tiles, the decode's split length, the
    MLA decode's split, tile and partial length, the SSD scan's row
-   tile) must be those the CPU models of the tests follow.
+   tile, the mLSTM scan's row tile and dv slice) must be those the CPU
+   models of the tests follow.
 2. Serving kernel phase: the prefill and paged-decode kernels against
    their plain PyTorch versions on the card, in fp32 (tolerance 1e-4)
    and bf16 (tolerance 2e-2), at tinyllama-1.1b widths (H=32, Hkv=4,
@@ -207,10 +208,12 @@ Phases (any failure exits non-zero; no phase swallows an error):
    ``parity.RTOL``; every case is printed before any is checked:
    xlstm-125m's prefill shape (B=4, S=1024, H=4, dk=dv=384, chunk 256),
    a ragged tail (S=1000), S shorter than the chunk (S=100), the Pallas
-   wrapper's chunk of 128, and the smoke widths (dk=dv=64). Timed in
-   bf16 at the path's shape, with the bound, the plain version's time
-   and library none (no PyTorch call computes the scan), beside the
-   card's name and power limit.
+   wrapper's chunk of 128, and the smoke widths (dk=dv=64); every case
+   of both runs twice and must be bitwise equal. Timed in bf16 at the
+   path's shape, with the bound, the plain version's time and library
+   none (no PyTorch call computes the scan), beside the card's name and
+   power limit; also by the device time of each of its three launches
+   (chunk states, state passing, chunk scan) under torch.profiler.
 13. xLSTM generate path phase: ``launch.serve.static_generate`` on
    xlstm-125m at full width and depth (12 layers: 6 mLSTM blocks with 4
    heads of 384 and 6 sLSTM blocks, d 768, vocab 50304; random bf16
@@ -351,19 +354,25 @@ def _ms_or_not(x) -> str:
 # --------------------------------------------------------------------------
 
 SM90_SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu",
-                "cross_entropy.cu", "mla_decode.cu", "ssd_scan.cu")
+                "cross_entropy.cu", "mla_decode.cu", "ssd_scan.cu",
+                "mlstm_scan.cu")
 # the bf16 kernels' entry points that run no product: merges and the
-# SSD state passing
-SM90_HELPERS = ("ce_merge", "mla_merge", "ssd_state_pass")
+# SSD and mLSTM state passings
+SM90_HELPERS = ("ce_merge", "mla_merge", "ssd_state_pass",
+                "mlstm_state_pass")
+# the mLSTM scan's bf16 kernels, by their order in one call
+MLSTM_LAUNCHES = ("mlstm_chunk_state_sm90", "mlstm_state_pass",
+                  "mlstm_chunk_scan_sm90")
 
 
 def _sm90_name(mangled: str):
     """A short name for the bf16 tensor-core kernels' entry points (the
     product kernels and their helpers: the CE and MLA merges, the SSD
-    state passing), None for any other."""
+    and mLSTM state passings), None for any other."""
     import re
-    for name in ("ssd_chunk_state_sm90",
-                 "ssd_chunk_scan_sm90") + SM90_HELPERS[1:]:
+    for name in ("ssd_chunk_state_sm90", "ssd_chunk_scan_sm90",
+                 "mlstm_chunk_state_sm90",
+                 "mlstm_chunk_scan_sm90") + SM90_HELPERS[1:]:
         if name in mangled:
             return name
     m = re.search(r"mla_split_sm90ILb([01])E", mangled)
@@ -397,13 +406,14 @@ def _by_entry(text: str, start_re: str):
     return out
 
 
-def sm90_report(build, lib, fa, ce, md, sk):
+def sm90_report(build, lib, fa, ce, md, sk, mk):
     """ptxas's registers and spills of the bf16 tensor-core kernels, the
     dynamic shared memory each launch asks for, the tiles each takes
     (held equal to those the CPU models of the tests follow: ``KV_TILES``,
     ``BWD_TILES``, ``TOKEN_TILE``, ``VOCAB_TILE``, the decode's
     ``DECODE_SPLIT``, the MLA decode's ``SPLIT``, ``TILE`` and ``PART``,
-    the SSD scan's ``ROW_TILE``), and the instructions
+    the SSD scan's ``ROW_TILE``, the mLSTM scan's ``ROW_TILE`` and
+    ``DV_SLICE``), and the instructions
     their PTX (``nvcc -ptx``) and, where the toolkit has cuobjdump, their
     SASS hold: every product kernel must issue ``wgmma.mma_async``
     (HGMMA) on operands that ``cp.async`` brought to shared memory."""
@@ -446,13 +456,17 @@ def sm90_report(build, lib, fa, ce, md, sk):
     ssd = lib.ssd_scan_sm90_tile()
     check(ssd == sk.ROW_TILE, f"the SSD scan's row tile is {ssd}, the "
           f"wrapper says {sk.ROW_TILE}")
+    mlstm = (lib.mlstm_scan_sm90_tile(0), lib.mlstm_scan_sm90_tile(1))
+    check(mlstm == (mk.ROW_TILE, mk.DV_SLICE), f"the mLSTM scan's row tile "
+          f"and dv slice are {mlstm}, the wrapper says "
+          f"{(mk.ROW_TILE, mk.DV_SLICE)}")
     print(f"[sm90] tiles as the CPU models take them: kv {fa.KV_TILES}, "
           f"backward (dq rows, kv, dk/dv keys, q) {fa.BWD_TILES}, "
           f"CE {ce_tiles[0]} tokens x {ce_tiles[1]} vocab columns, "
           f"decode split {split} positions, MLA decode split {mla[0]} "
           f"positions in tiles of {mla[1]} (partials of {mla[2]} floats), "
-          f"SSD chunk scan tiles of {ssd} rows",
-          flush=True)
+          f"SSD chunk scan tiles of {ssd} rows, mLSTM chunk scan tiles of "
+          f"{mlstm[0]} rows x {mlstm[1]} dv columns", flush=True)
     for name in rows:
         if name.startswith("ce_fwd_sm90"):
             rows[name]["dynamic_smem"] = lib.ce_fwd_sm90_smem()
@@ -461,6 +475,10 @@ def sm90_report(build, lib, fa, ce, md, sk):
             lib.mla_decode_paged_sm90_smem()
     rows["ssd_chunk_state_sm90"]["dynamic_smem"] = lib.ssd_scan_sm90_smem(0)
     rows["ssd_chunk_scan_sm90"]["dynamic_smem"] = lib.ssd_scan_sm90_smem(1)
+    for kernel, name in enumerate(("mlstm_chunk_state_sm90",
+                                   "mlstm_chunk_scan_sm90")):
+        rows[name]["dynamic_smem"] = lib.mlstm_scan_sm90_smem(
+            kernel, MLSTM_CASES[0][3])
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     have_sass = Path(cuobjdump).exists()
     objs = {o.stem.rsplit("_", 1)[0]: o for o in build.objects()}
@@ -485,7 +503,7 @@ def sm90_report(build, lib, fa, ce, md, sk):
               + (f"; SASS {r.get('sass_hgmma', 0)} HGMMA" if have_sass
                  else "; no cuobjdump: SASS not read"), flush=True)
     products = [n for n in rows if n not in SM90_HELPERS]
-    check(len(products) == 14, f"bf16 tensor-core kernels found: {products}")
+    check(len(products) == 16, f"bf16 tensor-core kernels found: {products}")
     for n in products:
         r = rows[n]
         check(r["spill_bytes"] == 0, f"{n}: ptxas spilled")
@@ -2770,14 +2788,27 @@ def mlstm_case(mk, b, s, h, dk, dv, chunk, dtype, gen, dev, timed):
           f"{[(x.dtype, tuple(x.shape)) for x in state]}")
     outs = list(zip(("h", "C", "n", "m"), (hout,) + state, (hw,) + state_w))
     errs = {name: rel_l2(g, w) for name, g, w in outs}
+    h2, state2 = mk.mlstm_scan_cuda(*args, chunk_size=chunk)
+    check(all(torch.equal(a, b_) for a, b_ in zip((h2,) + state2,
+                                                  (hout,) + state)),
+          f"mLSTM kernel {dtype} at {(b, s, h, dk, dv, chunk)}: two runs "
+          f"differ")
     rec = {"kernel": "mlstm_scan_cuda", "dtype": str(dtype), "B": b, "S": s,
            "H": h, "dk": dk, "dv": dv, "chunk": chunk,
            "rel_l2": max(errs.values()), "rel_l2_by_output": errs,
            "max_abs_err": max((g.float() - w.float()).abs().max().item()
-                              for _, g, w in outs)}
+                              for _, g, w in outs),
+           "bitwise_repeat": True}
     if timed:
-        rec["ms"] = cuda_ms(lambda: mk.mlstm_scan_cuda(*args,
-                                                       chunk_size=chunk))
+        run = lambda: mk.mlstm_scan_cuda(*args, chunk_size=chunk)
+        rec["ms"] = cuda_ms(run)
+        # the device time of each launch of a call (bf16: chunk states,
+        # state passing, chunk scan), and their sum
+        by_kernel = device_ms_by_kernel(run)
+        rec["device_ms_by_launch"] = by_kernel and {
+            next((k for k in MLSTM_LAUNCHES + ("mlstm_scan_kernel",)
+                  if k in n), n[:60]): ms for n, ms in by_kernel.items()}
+        rec["device_ms"] = by_kernel and sum(by_kernel.values())
         rec["plain_ms"] = cuda_ms(lambda: mk.mlstm_scan_plain(
             *args, chunk_size=chunk))
         rec["library_ms"] = None        # no PyTorch call computes it
@@ -2790,8 +2821,9 @@ def mlstm_case(mk, b, s, h, dk, dv, chunk, dtype, gen, dev, timed):
 def xlstm_kernel_phase(mk, dev, smi):
     """The mLSTM kernel against its plain version, fp32 (TF32 off) and
     bf16, by relative L2 (``parity.RTOL``; the largest over h, C, n and
-    m); every case printed before any is checked; timed in bf16 at the
-    generate phase's shape (B=4, S=1024)."""
+    m), two runs of every case bitwise equal; every case printed before
+    any is checked; timed in bf16 at the generate phase's shape (B=4,
+    S=1024), also by the device time of each launch."""
     import torch
     from repro_torch.kernels.parity import RTOL
     gen = torch.Generator(device=dev).manual_seed(12)
@@ -2812,7 +2844,9 @@ def xlstm_kernel_phase(mk, dev, smi):
               + f"), max abs err {r['max_abs_err']:.3e}"
               + (f", {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
                  f"library none, bound {r['bound_ms']:.6f} ms "
-                 f"({r['bound_by']}) [{smi}]" if "ms" in r else ""),
+                 f"({r['bound_by']}) [{smi}]; device time "
+                 f"{_ms_or_not(r['device_ms'])} by launch "
+                 f"{r['device_ms_by_launch']}" if "ms" in r else ""),
               flush=True)
     bad = [f"{r['kernel']} {r['dtype']} S={r['S']}: {r['rel_l2']}"
            for r in recs if not r["rel_l2"] <= r["tol"]]
@@ -3056,7 +3090,7 @@ def main(argv=None) -> int:
           f"{[s.name for s in _build.headers()]} in {build_s:.1f} s",
           flush=True)
     t0 = time.monotonic()
-    sm90 = sm90_report(_build, _build.load(), fa, ce, md, sk)
+    sm90 = sm90_report(_build, _build.load(), fa, ce, md, sk, mk)
 
     phases = {"build": build_s, "sm90_report": time.monotonic() - t0}
     t0 = time.monotonic()

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the bf16 tensor-core
 // kernels (flash_attention.cu, flash_attention_bwd.cu, cross_entropy.cu,
-// mla_decode.cu, ssd_scan.cu) and the paged decode (paged_decode.cu):
+// mla_decode.cu, ssd_scan.cu, mlstm_scan.cu) and the paged decode
+// (paged_decode.cu):
 // cp.async copies into
 // 128-byte-swizzled shared-memory tiles, the wgmma matrix descriptor for
 // those tiles, the wgmma fences, and the wgmma.mma_async shapes the
@@ -204,6 +205,44 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate), "n"(kTransB), "n"(kTransA));
+}
+
+// D (64 x 128 fp32, 64 registers a thread) (+)= A (64 x 16) B (16 x 128),
+// both from shared memory by descriptor; kTransB = 1 reads B MN-major,
+// kTransA = 1 reads A MN-major.
+template <int kTransB, int kTransA = 0>
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, %68, %67;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(a), "l"(b), "r"(accumulate), "n"(kTransB), "n"(kTransA));
 }
 
@@ -479,14 +518,17 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
 }
 
 // the shapes above by N
-// (kTransA = 1, A read MN-major, is built at N = 64)
+// (kTransA = 1, A read MN-major, is built at N = 64 and 128)
 template <int N, int kTransB, int kTransA = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
                                          uint64_t b, int accumulate) {
-  static_assert(N == 32 || N == 64 || N == 256, "wgmma_ss N");
-  static_assert(kTransA == 0 || N == 64, "wgmma_ss: MN-major A at N=64");
+  static_assert(N == 32 || N == 64 || N == 128 || N == 256, "wgmma_ss N");
+  static_assert(kTransA == 0 || N == 64 || N == 128,
+                "wgmma_ss: MN-major A at N=64 or 128");
   if constexpr (N == 32) wgmma_ss_n32<kTransB>(d, a, b, accumulate);
   if constexpr (N == 64) wgmma_ss_n64<kTransB, kTransA>(d, a, b, accumulate);
+  if constexpr (N == 128)
+    wgmma_ss_n128<kTransB, kTransA>(d, a, b, accumulate);
   if constexpr (N == 256) wgmma_ss_n256<kTransB>(d, a, b, accumulate);
 }
 template <int N, int kTransB>

@@ -204,10 +204,15 @@ def load() -> ctypes.CDLL:
             lib.ssd_scan_fwd.restype = ci
             lib.mlstm_scan_fwd.argtypes = [
                 vp, vp, vp, vp, vp,             # q, k, v, i_pre, f_pre
-                vp, vp, vp, vp,                 # h, C, n, m
+                vp, vp, vp, vp, vp,             # h, C, n, m, scratch
+                                                # (bf16)
                 ci, ci, ci, ci, ci, ci,         # B, S, H, dk, dv, Q
                 cf, ci, vp]                     # scale, dtype, stream
             lib.mlstm_scan_fwd.restype = ci
+            lib.mlstm_scan_sm90_tile.argtypes = [ci]        # axis
+            lib.mlstm_scan_sm90_tile.restype = ci
+            lib.mlstm_scan_sm90_smem.argtypes = [ci, ci]    # kernel, dk
+            lib.mlstm_scan_sm90_smem.restype = ci
             cll = ctypes.c_longlong
             lib.quantize_int8_fwd.argtypes = [
                 vp, vp, vp, vp, cll, vp]        # x, noise (or 0), q, s,

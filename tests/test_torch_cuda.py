@@ -327,9 +327,10 @@ def test_bf16_kernels_refuse_what_they_do_not_take(dev):
 
 
 def test_bf16_kernels_take_the_tiles_the_cpu_models_follow(dev):
-    """The tiles of flash_attention_tiled_plain and
-    cross_entropy_split_plain (tests/test_torch_sm90_numerics.py) are the
-    ones the built kernels launch with."""
+    """The tiles of flash_attention_tiled_plain,
+    cross_entropy_split_plain and mlstm_scan_tiled_plain
+    (tests/test_torch_sm90_numerics.py) are the ones the built kernels
+    launch with."""
     from repro_torch.kernels import _build
     lib = _build.load()
     for d in fa.PREFILL_HEAD_DIMS:
@@ -337,6 +338,8 @@ def test_bf16_kernels_take_the_tiles_the_cpu_models_follow(dev):
     assert lib.flash_attention_fwd_sm90_kv_tile(96) == -1
     assert (lib.ce_fwd_sm90_tile(0), lib.ce_fwd_sm90_tile(1)) == \
         (ce.TOKEN_TILE, ce.VOCAB_TILE)
+    assert (lib.mlstm_scan_sm90_tile(0), lib.mlstm_scan_sm90_tile(1)) == \
+        (mk.ROW_TILE, mk.DV_SLICE)
 
 
 # the bf16 backward (tensor cores): the forward's cases and a group of 16
@@ -954,6 +957,10 @@ def test_mlstm_scan_kernel_matches_plain(dev, dtype, b, s, h, dk, dv, chunk):
     for what, got, want in (("h", hout, hw), ("C", C, Cw), ("n", n, nw),
                             ("m", m, mw)):
         assert _close(f"mlstm {what}", got, want, tol)
+    # determinism: no float atomics, every sum in a fixed order
+    h2, state2 = mk.mlstm_scan_cuda(*args, chunk_size=chunk)
+    for got, again in zip((hout, C, n, m), (h2,) + state2):
+        assert torch.equal(got, again)
 
 
 def test_mlstm_kernel_refuses_what_it_does_not_take(dev):
@@ -976,6 +983,19 @@ def test_mlstm_kernel_refuses_what_it_does_not_take(dev):
         mk.mlstm_scan_cuda(q.transpose(1, 2), k, v, i, f)
     with pytest.raises(ValueError, match="disagree"):
         mk.mlstm_scan_cuda(q, k, v, i[:, :4].contiguous(), f)
+    # bf16 only: 16-byte copies, and B * H in the grid's third dimension
+    qb, kb, vb = (t.bfloat16() for t in (q, k, v))
+    off = torch.empty(qb.numel() + 1, dtype=torch.bfloat16, device=dev)
+    off = off[1:].view(qb.shape).copy_(qb)
+    assert off.is_contiguous() and off.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte"):
+        mk.mlstm_scan_cuda(off, kb, vb, i, f)
+    with pytest.raises(ValueError, match="16-byte"):
+        mk.mlstm_scan_cuda(qb, kb, off, i, f)
+    many = torch.zeros((65536, 1, 1, 64), dtype=torch.bfloat16, device=dev)
+    gate = torch.zeros((65536, 1, 1), device=dev)
+    with pytest.raises(ValueError, match=r"B \* H <= 65535"):
+        mk.mlstm_scan_cuda(many, many, many, gate, gate)
 
 
 # kernel route vs reference route of xLSTM's static path at fp32 (TF32

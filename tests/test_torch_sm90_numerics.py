@@ -30,7 +30,12 @@ the dense oracle ``ref.mla_decode_dense``, and for batch invariance.
 (chunk states, the state passing, the chunk scan in 64-row tiles, the
 weighted B, the carried state and the decay-weighted scores fed as
 bf16 hi/lo pairs) and is held against ``ssd_scan_pallas`` in interpret
-mode and JAX's ``ref.ssd_chunked``.
+mode and JAX's ``ref.ssd_chunked``. ``mlstm_scan_tiled_plain`` follows
+``csrc/mlstm_scan.cu``'s bf16 path (chunk states under the chunk's own
+stabiliser, the state passing, the chunk scan in 64-row tiles; the
+weighted keys, the carried state and the decay-weighted scores fed as
+bf16 hi/lo pairs) and is held against ``mlstm_scan_pallas`` in
+interpret mode and JAX's ``ref.mlstm_chunked``.
 
 Tolerances are the card's limits for the kernels
 (``repro_torch.kernels.parity.RTOL``, relative L2): 5e-4 for the bf16
@@ -47,7 +52,10 @@ model likewise (1e-4 fp32, 2e-2 bf16, equal bits); the SSD model to the
 bf16 scan's limit, ``RTOL[("ssd_scan_cuda", bf16)]`` = 4e-4, on y and on
 the final state. The readings of one bf16 rounding of the SSD scan's
 made operands and of TF32 (both above the limit: why the kernel takes
-pairs) are printed, not asserted.
+pairs) are printed, not asserted. The mLSTM model is held to the bf16
+mLSTM scan's limit, ``RTOL[("mlstm_scan_cuda", bf16)]`` = 6e-4, on h, C,
+n and m; the readings of one bf16 rounding of each of its made operands
+are printed, not asserted.
 """
 import re
 
@@ -65,6 +73,8 @@ from repro.kernels.flash_attention.flash_attention import (
     flash_attention_pallas, flash_decode_paged_pallas)
 from repro.kernels.mla_decode.mla_decode import (mla_decode_paged_pallas,
                                                  mla_decode_pallas)
+from repro.kernels.mlstm_scan import ref as mlstm_jref
+from repro.kernels.mlstm_scan.mlstm_scan import mlstm_scan_pallas
 from repro.kernels.ssd_scan import ref as ssd_jref
 from repro.kernels.ssd_scan.ssd_scan import ssd_scan_pallas
 from repro_torch.kernels import _build
@@ -72,6 +82,7 @@ from repro_torch.kernels.cross_entropy import cross_entropy as tce
 from repro_torch.kernels.flash_attention import flash_attention as tfa
 from repro_torch.kernels.mla_decode import mla_decode as tmd
 from repro_torch.kernels.mla_decode import ref as tmla_ref
+from repro_torch.kernels.mlstm_scan import mlstm_scan as tmk
 from repro_torch.kernels.parity import RTOL, rel_l2
 from repro_torch.kernels.ssd_scan import ssd_scan as tsk
 
@@ -80,6 +91,7 @@ BWD_TOL = RTOL[("flash_attention_bwd_cuda", torch.bfloat16)]
 DECODE_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 CE_TOL = RTOL[("cross_entropy_cuda", torch.bfloat16)]
 SSD_TOL = RTOL[("ssd_scan_cuda", torch.bfloat16)]
+MLSTM_TOL = RTOL[("mlstm_scan_cuda", torch.bfloat16)]
 
 # (b, sq, skv, h, hkv, causal, q_offset): ragged Sq = Skv over several q
 # and kv tiles (group 2), chunked prefill (q_offset > 0, Skv > Sq, group
@@ -504,6 +516,72 @@ def test_ssd_tile_model_matches_pallas_and_jax_ref(pallas_interpret, b, s, h,
             assert r <= SSD_TOL, (what, r)
 
 
+def _mlstm_inputs(rng, b, s, h, dk, dv):
+    """bf16 q, k and v (the kernel's path dtype), fp32 gates as
+    xlstm-125m's init sets them up (f~ shifted by its bias)."""
+    f = lambda *shape: torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32))
+    return (f(b, s, h, dk).bfloat16(), f(b, s, h, dk).bfloat16(),
+            f(b, s, h, dv).bfloat16(), f(b, s, h), f(b, s, h) + 3.0)
+
+
+# (b, s, h, dk, dv, chunk): a full chunk and a ragged tail (S = 300);
+# S shorter than the chunk and not a multiple of the 64-row tile; chunk
+# 128 over three chunks with a ragged tail; dk != dv, a dv slice part
+# empty; the smoke widths dk = dv = 64 over four chunks
+MLSTM_CASES = [
+    (1, 300, 2, 128, 128, 256),
+    (2, 100, 2, 128, 128, 256),
+    (1, 300, 2, 128, 128, 128),
+    (1, 150, 2, 192, 64, 128),
+    (2, 250, 2, 64, 64, 64),
+]
+
+
+@pytest.mark.pallas_interpret
+@pytest.mark.parametrize("b,s,h,dk,dv,chunk", MLSTM_CASES)
+def test_mlstm_tile_model_matches_pallas_and_jax_ref(pallas_interpret, b, s,
+                                                     h, dk, dv, chunk):
+    rng = np.random.default_rng(s + h + dk + dv)
+    args = _mlstm_inputs(rng, b, s, h, dk, dv)
+    hout, state = tmk.mlstm_scan_tiled_plain(*args, chunk_size=chunk)
+    assert hout.dtype == torch.bfloat16 and hout.shape == (b, s, h, dv)
+    assert [tuple(x.shape) for x in state] == [(b, h, dk, dv), (b, h, dk),
+                                               (b, h)]
+    assert all(x.dtype == torch.float32 for x in state)
+
+    def jax_of(t):
+        a = jnp.asarray(t.float().numpy())
+        return a.astype(jnp.bfloat16) if t.dtype == torch.bfloat16 else a
+
+    def torch_of(outs):
+        jh, jst = outs
+        return [torch.from_numpy(np.array(x.astype(jnp.float32)))
+                for x in (jh,) + tuple(jst)]
+
+    jargs = [jax_of(t) for t in args]
+    names = ("h", "C", "n", "m")
+    readings = {}
+    for name, want in (
+            ("pallas", torch_of(mlstm_scan_pallas(
+                *jargs, chunk_size=chunk, interpret=pallas_interpret))),
+            ("jax ref", torch_of(mlstm_jref.mlstm_chunked(
+                *jargs, chunk_size=chunk)))):
+        for what, got, w in zip(names, (hout,) + state, want):
+            readings[f"{what} vs {name}"] = rel_l2(got, w)
+        if name == "jax ref":
+            for op in tmk.MADE_OPERANDS:
+                oh, ost = tmk.mlstm_scan_tiled_plain(*args, chunk_size=chunk,
+                                                     single=(op,))
+                readings[f"bf16 {op} h"] = rel_l2(oh, want[0])
+                readings[f"bf16 {op} C"] = rel_l2(ost[0], want[1])
+    print(f"[sm90-mlstm] {(b, s, h, dk, dv, chunk)}: "
+          + ", ".join(f"{k_} {v_:.2e}" for k_, v_ in readings.items()))
+    for what, r in readings.items():
+        if what.split()[0] in names:
+            assert r <= MLSTM_TOL, (what, r)
+
+
 def _constexpr(src, name):
     return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
 
@@ -512,8 +590,8 @@ def test_tile_constants_match_the_sources_build_hashes():
     """The tiles the CPU models follow are the ones written in the
     sources that ``_build`` compiles and hashes: the decode split and
     stage, the backward's tiles (BwdTiles), the forward's kv tiles
-    (Sm90Tiles), the MLA decode's split and tile, and the SSD chunk
-    scan's row tile."""
+    (Sm90Tiles), the MLA decode's split and tile, the SSD chunk scan's
+    row tile, and the mLSTM chunk scan's row tile and dv slice."""
     srcs = {p.name: p for p in _build.sources()}
     decode = srcs["paged_decode.cu"].read_text()
     assert _constexpr(decode, "kSplit") == tfa.DECODE_SPLIT
@@ -534,6 +612,9 @@ def test_tile_constants_match_the_sources_build_hashes():
     assert _constexpr(mla, "kTile") == tmd.TILE
     ssd = srcs["ssd_scan.cu"].read_text()
     assert _constexpr(ssd, "kRowTile") == tsk.ROW_TILE
+    mlstm = srcs["mlstm_scan.cu"].read_text()
+    assert _constexpr(mlstm, "kRowTile") == tmk.ROW_TILE
+    assert _constexpr(mlstm, "kDvSlice") == tmk.DV_SLICE
 
 
 # (t, d, v, eps, softcap, tied, splits): T and V not tile multiples; the
