@@ -231,7 +231,35 @@ Phases (any failure exits non-zero; no phase swallows an error):
    300 (a full chunk and a ragged tail), 8 tokens: the kernel path and
    the reference path give identical greedy tokens and every step's
    logits agree within 1e-3 of the largest reference logit.
-14. Prints the seconds of each phase, then one ``{"kernels": [...]}``
+14. Checkpoint and re-mesh path phase: ``repro_torch.launch.train``,
+   each run a fresh process under a temporary ``--ckpt-dir`` removed
+   after. First the disk: the free bytes there must hold the phase's
+   checkpoints (two full-width ones, ~14.2 GB each: fp32 parameters, m
+   and v), or the phase fails. Then phase 5's settings (full olmo-1b,
+   8 rows of 1024, accum 2): 24 steps with a checkpoint every 12 (steps
+   2-12 run with no write in flight, steps 13-24 while step 12's write
+   is), then ``--resume`` to step 26, then 26 uninterrupted steps; the
+   resumed run restores step 24 (its manifest verified), its losses of
+   steps 25-26 and its parameter checksum are bitwise the uninterrupted
+   run's, and each run's kernel
+   counters are phase 5's per step. Then phase 7's settings with
+   capacities 1,1, ``--ckpt-every 4 --kill-pod 1@3``, 6 steps, at full
+   width with the depth cut to 4 layers (a two-pod checkpoint holds the
+   residual of both pods, about twice the bytes; run through the
+   driver's ``main`` with the cut registered, as the CLI has no depth
+   flag): both ranks raise ``RemeshRequired`` at step 5 with the same
+   replans, the run prints ``remesh:``, ``re-meshed to`` and ``accum_steps
+   scaled x2``, restarts on one pod from step 4 and finishes step 6 with
+   finite losses; kernels 4 and 5 launch as phase 7 expects per step on
+   the two-pod mesh; the saved two-pod residual's sum over the ranks is
+   conserved bitwise through the restore's repack into 1 and 3 ranks.
+   Prints the bytes of a checkpoint, the loop's wait for the host
+   snapshot and for the previous write, the writer thread's seconds
+   (write and fsync, sha256), the restore's (manifest check, loading,
+   repack), and the median step while a save is in flight against the
+   same run's steps with no write in flight, the uninterrupted run's and
+   phase 5's, each with the card's name and power limit.
+15. Prints the seconds of each phase, then one ``{"kernels": [...]}``
    line (eleven kernels, each with its launches on its path, which must
    be above 0; the prefill kernel's D=64 (phase 2's S=512 bucket), D=192
    and D=80 cases ride in its entry as ``at_d64``, ``at_d192`` and
@@ -1546,7 +1574,6 @@ def multi_rank_train(dev, argv, smi):
     import torch
     from repro_torch.configs import base as cfgbase
     from repro_torch.core import buckets as bkt
-    from repro_torch.kernels.cross_entropy.cross_entropy import BWD_CHUNK
     from repro_torch.launch import train as ttrain
     gc.collect()
     torch.cuda.empty_cache()
@@ -1566,16 +1593,8 @@ def multi_rank_train(dev, argv, smi):
     lo = exchange_layout(cfg)
     chunks = bkt.exchange_chunks(lo)
     plan = result["plan"]
-    rows_mb = plan["buffer_rows"] // args.accum
-    ce_chunks = -(-rows_mb * args.seq_len // BWD_CHUNK)
-    L = cfg.num_layers
-    fwd_per_layer = 2 if cfg.remat == "full" else 1
-    expect = {"flash_attention_cuda": fwd_per_layer * L * args.accum * n,
-              "flash_attention_bwd_cuda": L * args.accum * n,
-              "cross_entropy_cuda": args.accum * n,
-              "ce_dlogits_cuda": ce_chunks * args.accum * n,
-              "quantize_int8_cuda": 2 * chunks * n,
-              "dequant_accum_cuda": chunks * n}
+    expect = train_launches(cfg, plan["buffer_rows"], args.accum,
+                            args.seq_len, n, chunks)
     modeled = bkt.modeled_link_bytes(lo, 2, compress=True)
     for r in ranks:
         check(r["launches"] == expect,
@@ -3030,6 +3049,298 @@ def xlstm_path_phase(counters, dev, smi):
     return out
 
 
+# --------------------------------------------------------------------------
+# checkpoint and re-mesh path phase
+# --------------------------------------------------------------------------
+
+# phase 14's re-mesh run: phase 7's settings at full width, the depth cut
+# to 4 layers (a two-pod checkpoint holds the residual of both pods, about
+# twice the bytes), capacities 1,1, a checkpoint every 4 steps and pod 1
+# lost at step 3: three missed reports later (step 5) the replan cannot
+# fit the global batch in pod 0's buffer, and the run restarts on one pod
+# from the step-4 checkpoint, accum x2, to step 6
+REMESH_LAYERS = 4
+REMESH_ARGV = [a for a in MULTI_ARGV]
+for _flag, _value in (("--capacities", "1,1"), ("--steps", "6")):
+    REMESH_ARGV[REMESH_ARGV.index(_flag) + 1] = _value
+REMESH_ARGV += ["--ckpt-every", "4", "--kill-pod", "1@3"]
+# the resume runs: phase 5's settings (full olmo-1b, 8 rows of 1024,
+# accum 2). The first takes RESUME_FIRST steps with checkpoints at steps
+# 12 and 24: its steps 2-12 run with no write in flight and its steps
+# 13-24 while step 12's write is (a write outlasts 12 steps), the two
+# medians of one process. The second resumes from step 24 to
+# RESUME_STEPS, against that many uninterrupted steps.
+RESUME_CKPT_EVERY = 12
+RESUME_FIRST = 24
+RESUME_STEPS = 26
+# a checkpoint's fp32 arrays: parameters, AdamW m and v
+CKPT_ARRAYS = 3
+SUMMARY = "[train] summary "
+
+
+def train_launches(cfg, buffer_rows, accum, seq_len, steps,
+                   exchange_chunks=0):
+    """The driver's six counters after ``steps`` steps of one rank."""
+    from repro_torch.kernels.cross_entropy.cross_entropy import BWD_CHUNK
+    ce_chunks = -(-(buffer_rows // accum) * seq_len // BWD_CHUNK)
+    fwd = 2 if cfg.remat == "full" else 1          # remat: once more
+    L = cfg.num_layers
+    return {"flash_attention_cuda": fwd * L * accum * steps,
+            "flash_attention_bwd_cuda": L * accum * steps,
+            "cross_entropy_cuda": accum * steps,
+            "ce_dlogits_cuda": ce_chunks * accum * steps,
+            "quantize_int8_cuda": 2 * exchange_chunks * steps,
+            "dequant_accum_cuda": exchange_chunks * steps}
+
+
+def run_driver(argv, tag, layers=None, timeout=900):
+    """``repro_torch.launch.train`` in a fresh process (``python -m``;
+    with ``layers``, the same ``main`` with olmo-1b's depth cut, since
+    the CLI has no depth flag): its ``[train]`` and ``[ckpt]`` lines
+    echoed, and its summary."""
+    import os
+    if layers is None:
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", *argv]
+    else:
+        prog = ("import dataclasses, sys\n"
+                "from repro_torch.configs import base\n"
+                "from repro_torch.launch import train\n"
+                "base.register('olmo-1b-cut', *(lambda get=get: "
+                f"dataclasses.replace(get('olmo-1b'), num_layers={layers})"
+                " for get in (base.resolve, base.smoke_config)))\n"
+                "train.main(sys.argv[1:])\n")
+        argv = list(argv)
+        argv[argv.index("--arch") + 1] = "olmo-1b-cut"
+        cmd = [sys.executable, "-c", prog, *argv]
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.monotonic()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=timeout)
+    wall = time.monotonic() - t0
+    lines = proc.stdout.splitlines()
+    for line in lines:
+        if line.startswith(("[train]", "[ckpt]")) and \
+                not line.startswith(SUMMARY):
+            print(f"[{tag}] {line}", flush=True)
+    check(proc.returncode == 0, f"{tag}: the driver exited "
+          f"{proc.returncode}: {proc.stderr[-3000:]}")
+    found = [ln for ln in lines if ln.startswith(SUMMARY)]
+    check(len(found) == 1, f"{tag}: no summary line")
+    return proc.stdout, json.loads(found[0][len(SUMMARY):]), wall
+
+
+def ckpt_phase(smi, train_rec):
+    """Phase 14: checkpoints, resume and the elastic re-mesh through the
+    driver, each run a fresh process under a temporary ``--ckpt-dir``
+    (removed after): the disk check, the one-rank resume at full width
+    (bitwise against an uninterrupted run) and the two-pod run that
+    loses a pod and re-meshes (4 layers: ``REMESH_LAYERS``)."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from repro_torch.checkpoint import repack
+    from repro_torch.checkpoint.checkpoint import CheckpointManager
+    from repro_torch.core import buckets as bkt
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.launch import train as ttrain
+    from repro_torch.models.model import build_model
+
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[ckpt-phase] this process holds "
+          f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB on the card "
+          f"before the drivers start", flush=True)
+    root = Path(tempfile.mkdtemp(prefix="hetseq_ckpt_phase_"))
+    out = {}
+    try:
+        # 1. disk: the resume runs keep two full-width checkpoints, the
+        # re-mesh run two of its own (one two-pod, one one-pod)
+        args = ttrain.parser().parse_args(TRAIN_ARGV)
+        margs = ttrain.parser().parse_args(REMESH_ARGV)
+        cfg = ttrain.build_config(args)[0]
+        cut = dataclasses.replace(ttrain.build_config(margs)[0],
+                                  num_layers=REMESH_LAYERS)
+        ckpt_bytes = CKPT_ARRAYS * 4 * cfg.param_count()
+        cut_bytes = (CKPT_ARRAYS + EXCHANGE_RANKS) * 4 * cut.param_count()
+        need = max(2 * ckpt_bytes, 2 * cut_bytes)
+        free = shutil.disk_usage(root).free
+        print(f"[ckpt-phase] {root}: {free / 1e9:.1f} GB free, a "
+              f"checkpoint of olmo-1b {ckpt_bytes / 1e9:.2f} GB (fp32 "
+              f"parameters, m, v), of the {REMESH_LAYERS}-layer two-pod run "
+              f"{cut_bytes / 1e9:.2f} GB; the phase needs "
+              f"{need / 1e9:.1f} GB", flush=True)
+        check(free >= need, f"checkpoint phase: {free} bytes free at "
+              f"{root}, the phase needs {need}")
+
+        # 2. resume on one rank, full olmo-1b: RESUME_FIRST steps with
+        # checkpoints, then --resume to RESUME_STEPS, against
+        # RESUME_STEPS uninterrupted steps
+        data = ["--data-dir", str(root / "data")]
+        ck = ["--ckpt-dir", str(root / "resume")]
+        base = [a for a in TRAIN_ARGV]
+        steps_at = base.index("--steps") + 1
+        base[steps_at] = str(RESUME_STEPS)
+        first = list(base)
+        first[steps_at] = str(RESUME_FIRST)
+        _, a, a_s = run_driver(first + data + ck + [
+            "--ckpt-every", str(RESUME_CKPT_EVERY)], "resume-1")
+        _, b, b_s = run_driver(base + data + ck + ["--resume"], "resume-2")
+        _, c, c_s = run_driver(base + data, "uninterrupted")
+        ra, rb, rc = (x["worlds"][0]["ranks"][0] for x in (a, b, c))
+        plan = ttrain.make_plan(ttrain.build_config(args)[1])
+        n_b = RESUME_STEPS - RESUME_FIRST
+        per = {n: train_launches(cfg, plan.buffer_rows, args.accum,
+                                 args.seq_len, n)
+               for n in (RESUME_FIRST, n_b, RESUME_STEPS)}
+        check(ra["launches"] == per[RESUME_FIRST]
+              and rb["launches"] == per[n_b]
+              and rc["launches"] == per[RESUME_STEPS],
+              f"checkpoint phase launches {ra['launches']}, "
+              f"{rb['launches']}, {rc['launches']} != "
+              f"{per[RESUME_FIRST]}, {per[n_b]}, {per[RESUME_STEPS]}")
+        check(rb["restore"] is not None
+              and rb["restore"]["step"] == RESUME_FIRST
+              and rb["start_step"] == RESUME_FIRST,
+              f"resume: {rb['restore']}")
+        check(b["losses"] == c["losses"][RESUME_FIRST:] and a["losses"] ==
+              c["losses"][:RESUME_FIRST] and all(map(_finite, c["losses"])),
+              f"resume: losses {a['losses']} + {b['losses']} vs "
+              f"{c['losses']}")
+        check(b["end_checksums"] == c["end_checksums"],
+              f"resume: parameter checksums {b['end_checksums']} vs "
+              f"{c['end_checksums']}")
+        writes, saves = ra["writes"], ra["saves"]
+        check(ckpt_bytes <= writes[0]["bytes"] <= 1.01 * ckpt_bytes,
+              f"resume: a checkpoint of {writes[0]['bytes']} bytes, "
+              f"{ckpt_bytes} predicted")
+        check([w["step"] for w in writes] == list(range(
+            RESUME_CKPT_EVERY, RESUME_FIRST + 1, RESUME_CKPT_EVERY))
+              and all(w["attempts"] == 1 for w in writes),
+              f"resume: writes {writes}")
+        # steps 2.. of the first run, split by whether a write was in
+        # flight when the step began
+        timed = list(zip(ra["step_s"], ra["during_save"]))[1:]
+        in_flight = [t for t, busy in timed if busy]
+        no_write = [t for t, busy in timed if not busy]
+        check(in_flight and no_write, f"resume: steps with a write in "
+              f"flight {ra['during_save']}")
+        ms_save = statistics.median(in_flight) * 1e3
+        ms_idle = statistics.median(no_write) * 1e3
+        ms_c = statistics.median(rc["step_s"][1:]) * 1e3
+        ms_p5 = train_rec["ms_per_step_median_2_to_n"]
+        rest = rb["restore"]
+        print(f"[ckpt-phase] olmo-1b resume: bitwise equal to the "
+              f"uninterrupted run (losses of steps {RESUME_FIRST + 1}-"
+              f"{RESUME_STEPS} {b['losses']}, "
+              f"parameter checksum {b['end_checksums'][0]}) [{smi}]",
+              flush=True)
+        for w, sv in zip(writes, saves):
+            print(f"[ckpt-phase] checkpoint at step {w['step']}: "
+                  f"{w['bytes']} bytes; the loop waited "
+                  f"{sv['snapshot_s']:.2f} s for the host snapshot and "
+                  f"{sv['wait_s']:.2f} s for the previous write; the "
+                  f"writer thread {w['seconds']:.2f} s (write and fsync "
+                  f"{w['write_s']:.2f} s, sha256 {w['sha256_s']:.2f} s) "
+                  f"[{smi}]", flush=True)
+        print(f"[ckpt-phase] restore of step {RESUME_FIRST}: "
+              f"{rest['seconds']:.2f} s (manifest check "
+              f"{rest['verify_s']:.2f} s, loading {rest['load_s']:.2f} s, "
+              f"repack {rest['adapt_s']:.2f} s, the rest onto the card); "
+              f"median step while a save is in flight {ms_save:.1f} ms "
+              f"({len(in_flight)} steps) against {ms_idle:.1f} ms with no "
+              f"write in flight ({len(no_write)} steps of the same run), "
+              f"{ms_c:.1f} ms (the uninterrupted run, steps 2-"
+              f"{RESUME_STEPS}) and phase 5's {ms_p5:.1f} ms [{smi}]",
+              flush=True)
+        out["resume"] = {
+            "checkpoint_bytes": writes[0]["bytes"],
+            "predicted_checkpoint_bytes": ckpt_bytes,
+            "writes": writes, "saves": saves, "restore": rest,
+            "ms_step_during_save": ms_save, "in_flight_step_s": in_flight,
+            "ms_step_no_write": ms_idle, "no_write_step_s": no_write,
+            "ms_step_uninterrupted": ms_c, "ms_step_phase5": ms_p5,
+            "losses": c["losses"], "end_checksum": c["end_checksums"][0],
+            "launches": {"resume-1": ra["launches"],
+                         "resume-2": rb["launches"],
+                         "uninterrupted": rc["launches"]},
+            "process_seconds": [a_s, b_s, c_s]}
+        shutil.rmtree(root / "resume")
+
+        # 3. the re-mesh on two ranks sharing the card
+        rdir = root / "remesh"
+        text, r, r_s = run_driver(REMESH_ARGV + data + [
+            "--ckpt-dir", str(rdir)], "remesh", layers=REMESH_LAYERS)
+        for needle in ("remesh:", "re-meshed to", "accum_steps scaled x2"):
+            check(needle in text, f"re-mesh: no '{needle}' line")
+        check(len(r["worlds"]) == 2, f"re-mesh: {len(r['worlds'])} worlds")
+        w0, w1 = (w["ranks"] for w in r["worlds"])
+        rec = w0[0]["remesh"]
+        check(len(w0) == 2 and len(w1) == 1 and all(
+            x["remesh"] == rec and x["replans"] == w0[0]["replans"]
+            for x in w0), f"re-mesh: ranks disagree: "
+            f"{[(x['remesh'], x['replans']) for x in w0]}")
+        check(rec is not None and rec["dead"] == [1]
+              and rec["checkpoint"] == 4, f"re-mesh: {rec}")
+        check(r["steps"] == margs.steps and len(r["losses"]) == margs.steps
+              and all(map(_finite, r["losses"])),
+              f"re-mesh: losses {r['losses']}")
+        mplan = ttrain.make_plan(ttrain.build_config(margs)[1], 2)
+        chunks = bkt.exchange_chunks(exchange_layout(cut))
+        want = train_launches(cut, mplan.buffer_rows, margs.accum,
+                              margs.seq_len, rec["step"], chunks)
+        for x in w0:
+            check(x["launches"] == want, f"re-mesh: rank {x['rank']} "
+                  f"launches {x['launches']} != {want}")
+        check(w1[0]["launches"]["quantize_int8_cuda"] == 0
+              and w1[0]["start_step"] == 4, f"re-mesh: the one-pod world "
+              f"{w1[0]['launches']} from step {w1[0]['start_step']}")
+        # the two-pod residual through the restore: its sum over the
+        # ranks conserved bitwise into 1 and 3 ranks
+        rcfg = dataclasses.replace(
+            ttrain.build_config(margs)[1], model=cut)
+        model = build_model(cut, "cpu")
+        tpl = tsteps.state_shapes(model, rcfg, mesh_mod.unjoined(
+            (2, 1, 1), ("pod", "data", "model")))
+        mgr = CheckpointManager(str(rdir))
+        saved, meta = mgr.restore(tpl, step=4)
+        check(meta["format"]["hosts"] == 2, "re-mesh: step 4 not two-pod")
+        total = saved.err.reshape(2, -1).sum(axis=0)
+        check(bool(np.any(total)) and bool(np.all(np.isfinite(total))),
+              "re-mesh: the saved residual is zero or not finite")
+        sums = {}
+        for ranks in (1, 3):           # the restore's own repack of err
+            got = repack.adapt_arrays({"err": saved.err}, {
+                "err": repack.ShapeDtype((ranks, *tpl.err.shape[1:]),
+                                         np.dtype(np.float32))})["err"]
+            sums[ranks] = bool(np.array_equal(
+                got.reshape(ranks, -1).sum(axis=0), total))
+        check(all(sums.values()), f"re-mesh: residual sum not conserved "
+              f"{sums}")
+        print(f"[ckpt-phase] re-mesh ({REMESH_LAYERS} layers): pod 1 lost "
+              f"at step {margs.kill_pod.split('@')[1]}, RemeshRequired at "
+              f"step {rec['step']} on both ranks (replans "
+              f"{w0[0]['replans']}), restart on one pod from step 4 with "
+              f"accum x2 to step {r['steps']}, losses {r['losses']}; "
+              f"kernels 4 and 5 launched {w0[0]['launches']['quantize_int8_cuda']}"
+              f" and {w0[0]['launches']['dequant_accum_cuda']} times a rank "
+              f"on the two-pod mesh; the residual's sum conserved bitwise "
+              f"into 1 and 3 ranks; {r_s:.1f} s [{smi}]", flush=True)
+        out["remesh"] = {
+            "layers": REMESH_LAYERS, "record": rec,
+            "replans": w0[0]["replans"], "losses": r["losses"],
+            "launches_two_pod": [x["launches"] for x in w0],
+            "launches_one_pod": w1[0]["launches"],
+            "expected_two_pod": want, "residual_sum_conserved": sums,
+            "writes": w0[0]["writes"] + w1[0]["writes"],
+            "restore": w1[0]["restore"], "process_seconds": r_s}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def _finite(x):
     return x == x and abs(x) != float("inf")
 
@@ -3139,6 +3450,9 @@ def main(argv=None) -> int:
     t0 = time.monotonic()
     xlstm = xlstm_path_phase(every, dev, smi)
     phases["xlstm_generate_path"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    ckpt = ckpt_phase(smi, train)
+    phases["ckpt_remesh_path"] = time.monotonic() - t0
     print("[phases] seconds: " + ", ".join(
         f"{k} {v:.1f}" for k, v in phases.items()), flush=True)
 
@@ -3188,7 +3502,11 @@ def main(argv=None) -> int:
                    "mla_serve": mla["launches"].get(n, 0),
                    "mla_generate": mla["generate"]["launches"].get(n, 0),
                    "zamba_generate": zamba["launches"].get(n, 0),
-                   "xlstm_generate": xlstm["launches"].get(n, 0)}
+                   "xlstm_generate": xlstm["launches"].get(n, 0),
+                   "ckpt_resume": ckpt["resume"]["launches"]["resume-2"]
+                   .get(n, 0),
+                   "ckpt_remesh_two_pod": ckpt["remesh"]["launches_two_pod"]
+                   [0].get(n, 0)}
                for n in src}
     path_of = {"flash_decode_paged_cuda": "serve",
                "quantize_int8_cuda": "multi_rank",
@@ -3269,7 +3587,7 @@ def main(argv=None) -> int:
          "kernel_cases": recs,
          "path": path, "train": train, "multi_rank": multi,
          "mla_path": mla, "zamba_path": zamba, "xlstm_path": xlstm,
-         "kernels": kernels},
+         "ckpt_path": ckpt, "kernels": kernels},
         indent=1,
         default=str))
     print(json.dumps({"kernels": kernels}))

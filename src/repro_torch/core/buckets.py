@@ -34,18 +34,24 @@ ragged and the broadcast leg is an ``all_to_all`` whose input repeats
 this rank's shard payload once per peer (``all_gather_into_tensor``
 takes equal sizes only).
 
-The checkpoint layout record, the decay mask, the segment ids and the
-overlapped pipelines come with later slices.
+:func:`layout_record` / :func:`layout_fingerprint` describe a grid in
+checkpoint ``meta.json`` exactly as the JAX package does (the same
+fields, the same sha1 over the same JSON), so a checkpoint's packed
+state is recognised across the two packages. The decay mask, the
+segment ids and the overlapped pipelines come with later slices.
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import json
 import math
-from typing import Any, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.core import compression
+from repro_torch.core.capacity import host_shard_extents
 from repro_torch.core.comm import Comm
 from repro_torch.kernels.quantize import ops as q_ops
 
@@ -53,22 +59,6 @@ from repro_torch.kernels.quantize import ops as q_ops
 # buckets, at least one): bounds a rank's temporaries to a few times
 # this, whatever the model's size. Read at each call.
 EXCHANGE_CHUNK_BYTES = 1 << 30
-
-
-def host_shard_extents(n: int, hosts: int) -> Tuple[Tuple[int, int], ...]:
-    """Balanced contiguous ``[lo, hi)`` extents splitting ``n`` rows
-    over ``hosts`` owners. Empty extents (``hi == lo``) appear when
-    ``hosts > n``."""
-    if hosts <= 0:
-        raise ValueError(f"hosts must be positive, got {hosts}")
-    base, rem = divmod(int(n), hosts)
-    out = []
-    lo = 0
-    for h in range(hosts):
-        hi = lo + base + (1 if h < rem else 0)
-        out.append((lo, hi))
-        lo = hi
-    return tuple(out)
 
 
 # --------------------------------------------------------------------------
@@ -149,6 +139,75 @@ def build_layout(tree: Any, *, bucket_mb: float = 4.0,
     return BucketLayout(shapes=shapes, dtypes=dtypes, offsets=tuple(offsets),
                         sizes=sizes, total=total, bucket_elems=bucket_elems,
                         num_buckets=num_buckets)
+
+
+# Bump when the serialized layout record changes incompatibly
+# (checkpoint/repack.py validates it on restore).
+LAYOUT_VERSION = 1
+
+_FINGERPRINT_FIELDS = ("bucket_elems", "num_buckets", "total", "offsets",
+                       "sizes", "shapes", "dtypes")
+
+
+def dtype_name(dtype: torch.dtype) -> str:
+    """numpy's name of a torch dtype (``float32``, ``bfloat16``): the
+    name the JAX package writes into a layout record."""
+    return str(dtype).removeprefix("torch.")
+
+
+def layout_fingerprint(record: Dict) -> str:
+    """Stable short hash of the grid-defining fields of a layout record
+    (``leaf_paths``, ``version`` and the host split are provenance, not
+    the grid)."""
+    body = {k: record[k] for k in _FINGERPRINT_FIELDS if k in record}
+    return hashlib.sha1(
+        json.dumps(body, sort_keys=True).encode()).hexdigest()[:16]
+
+
+def layout_record(layout: BucketLayout,
+                  leaf_paths: Optional[Sequence[str]] = None,
+                  hosts: Optional[int] = None) -> Dict:
+    """JSON-able versioned description of a :class:`BucketLayout`, as
+    the JAX package saves it into checkpoint ``meta.json``: the grid,
+    optionally the checkpoint key of every leaf and the v3 per-host
+    split (``host_extents[k]``: the bucket rows host ``k`` writes)."""
+    rec: Dict[str, Any] = {
+        "version": LAYOUT_VERSION,
+        "bucket_elems": int(layout.bucket_elems),
+        "num_buckets": int(layout.num_buckets),
+        "total": int(layout.total),
+        "offsets": [int(o) for o in layout.offsets],
+        "sizes": [int(s) for s in layout.sizes],
+        "shapes": [list(s) for s in layout.shapes],
+        "dtypes": [dtype_name(d) for d in layout.dtypes],
+    }
+    if leaf_paths is not None:
+        rec["leaf_paths"] = [str(p) for p in leaf_paths]
+    if hosts is not None:
+        rec["hosts"] = int(hosts)
+        rec["host_extents"] = [
+            [lo, hi]
+            for lo, hi in host_shard_extents(layout.num_buckets, hosts)]
+    rec["fingerprint"] = layout_fingerprint(rec)
+    return rec
+
+
+def layout_from_record(record: Dict) -> BucketLayout:
+    """Rebuild a :class:`BucketLayout` from its record; raises on a
+    record version newer than this build reads."""
+    version = int(record.get("version", 0))
+    if version > LAYOUT_VERSION:
+        raise ValueError(
+            f"bucket layout record version {version} is newer than this "
+            f"build supports ({LAYOUT_VERSION})")
+    return BucketLayout(
+        shapes=tuple(tuple(int(d) for d in s) for s in record["shapes"]),
+        dtypes=tuple(getattr(torch, d) for d in record["dtypes"]),
+        offsets=tuple(int(o) for o in record["offsets"]),
+        sizes=tuple(int(s) for s in record["sizes"]),
+        total=int(record["total"]),
+        bucket_elems=int(record["bucket_elems"]),
+        num_buckets=int(record["num_buckets"]))
 
 
 def _pieces(tree: Any, layout: BucketLayout):

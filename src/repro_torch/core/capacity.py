@@ -2,15 +2,15 @@
 
 :class:`CapacityPlan`, :func:`plan_capacities` (the largest-remainder
 allocation of rows to ranks in proportion to their capacity scores;
-remaining buffer rows become weight-0 dummies), :func:`homogeneous_plan`
-and the plan record of checkpoints. Host-side numpy, copied so that the
-port does not import the JAX package. ``replan_from_step_times`` comes
-with the straggler monitor.
+remaining buffer rows become weight-0 dummies), :func:`homogeneous_plan`,
+the plan record of checkpoints and :func:`replan_from_step_times` (the
+straggler feedback). Host-side numpy, copied so that the port does not
+import the JAX package.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -137,3 +137,52 @@ def homogeneous_plan(global_rows: int, num_ranks: int,
                      headroom: float = 1.0) -> CapacityPlan:
     return plan_capacities(global_rows, np.ones(num_ranks),
                            headroom=headroom)
+
+
+def host_shard_extents(n: int, hosts: int) -> Tuple[Tuple[int, int], ...]:
+    """Balanced contiguous ``[lo, hi)`` extents splitting ``n`` rows
+    over ``hosts`` owners: the v3 checkpoint's per-host shards, the
+    residual's split over a new rank count, the serve pool's per-pod
+    blocks. Empty extents (``hi == lo``) appear when ``hosts > n``."""
+    if hosts <= 0:
+        raise ValueError(f"hosts must be positive, got {hosts}")
+    base, rem = divmod(int(n), hosts)
+    out = []
+    lo = 0
+    for h in range(hosts):
+        hi = lo + base + (1 if h < rem else 0)
+        out.append((lo, hi))
+        lo = hi
+    return tuple(out)
+
+
+def replan_from_step_times(plan: CapacityPlan,
+                           step_time_ema: np.ndarray) -> CapacityPlan:
+    """Straggler feedback: capacity ∝ measured throughput (rows/sec).
+
+    A rank processing its rows slowly gets proportionally fewer next
+    window. Dead ranks (ema = inf) get capacity 0 (all-dummy) — inf is
+    the ONLY sanctioned dead-rank marker. A finite measurement <= 0 or
+    a NaN is not a slow rank, it is a broken monitor feeding the
+    planner garbage; silently zeroing it would quietly starve a healthy
+    rank, so those raise loudly naming the offending ranks.
+    """
+    ema = np.asarray(step_time_ema, np.float64)
+    if ema.shape != (plan.num_ranks,):
+        raise ValueError(
+            f"step_time_ema has shape {ema.shape}, plan has "
+            f"{plan.num_ranks} ranks")
+    bad = np.nonzero(np.isnan(ema) | (np.isfinite(ema) & (ema <= 0)))[0]
+    if bad.size:
+        raise ValueError(
+            f"measured step times must be positive (inf = dead rank); "
+            f"ranks {bad.tolist()} reported "
+            f"{ema[bad].tolist()} — a zero/negative/NaN step time is a "
+            "broken measurement, not a fast rank")
+    rows = np.maximum(plan.rows_per_rank.astype(np.float64), 1.0)
+    with np.errstate(divide="ignore"):
+        throughput = np.where(np.isfinite(ema), rows / ema, 0.0)
+    if throughput.sum() <= 0:
+        raise ValueError("all ranks dead")
+    return plan_capacities(plan.global_rows, throughput,
+                           buffer_rows=plan.buffer_rows)

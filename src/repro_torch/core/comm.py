@@ -9,7 +9,7 @@ reduction needs, always on tensors whose rows are the unit of a split:
     tail of the bucket stack);
   * :meth:`Comm.all_gather` — ``all_gather`` into the rows of one
     tensor, equal sizes;
-  * :meth:`Comm.all_reduce` — a sum, in place.
+  * :meth:`Comm.all_reduce` — a sum (or another reduction), in place.
 
 ``sent_bytes`` counts the bytes this rank hands to the first two for
 other ranks (its own row of a message and its own piece of a gather
@@ -83,8 +83,11 @@ class Comm:
                         group=self.group)
         return out
 
-    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
-        """Sum over the group, written into ``x``; returns ``x``."""
+    def all_reduce(self, x: torch.Tensor,
+                   op: dist.ReduceOp.RedOpType = dist.ReduceOp.SUM
+                   ) -> torch.Tensor:
+        """Sum (or ``op``) over the group, written into ``x``; returns
+        ``x``."""
         if self.size > 1:
-            dist.all_reduce(x, group=self.group)
+            dist.all_reduce(x, op=op, group=self.group)
         return x

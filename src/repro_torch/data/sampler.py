@@ -149,6 +149,10 @@ class HetSampler:
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         return self.iter_epoch(0)
 
-    def iter_epoch(self, epoch: int) -> Iterator[Dict[str, np.ndarray]]:
-        for entry in self.epoch_batches(epoch):
+    def iter_epoch(self, epoch: int, start: int = 0
+                   ) -> Iterator[Dict[str, np.ndarray]]:
+        """The epoch's batches from batch ``start`` on (a resume skips
+        the consumed ones without reading them), each packed under the
+        plan set when it is packed."""
+        for entry in self.epoch_batches(epoch)[start:]:
             yield self.pack(entry)

@@ -37,6 +37,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from repro_torch.core import elastic
 from repro_torch.core.comm import Comm
 
 DP_AXES = ("pod", "data")
@@ -60,6 +61,23 @@ def parse_devices(spec: str) -> Tuple[Tuple[int, ...], Tuple[str, ...]]:
             f"--devices {spec}: a model axis of {shape[-1]} (tensor "
             f"parallelism) is not ported yet")
     return shape, axes
+
+
+def topology_from_devices(spec: str) -> elastic.MeshTopology:
+    """The topology a ``--devices`` value describes (the JAX driver's
+    ``topology_from_mesh``)."""
+    shape, axes = parse_devices(spec)
+    sizes = dict(zip(axes, shape))
+    return elastic.MeshTopology(pods=sizes.get("pod", 1),
+                                data_per_pod=sizes["data"],
+                                model=sizes["model"])
+
+
+def devices_for_topology(topo: elastic.MeshTopology) -> str:
+    """The ``--devices`` value of a topology, for a fresh spawn of its
+    ranks (the JAX driver's ``mesh_for_topology``: ``pod,data,model``
+    with more than one pod, else ``data,model``)."""
+    return ",".join(str(n) for n in topo.mesh_shape())
 
 
 def choose_backend(device_type: str, world: int,
@@ -132,6 +150,17 @@ def local(shape: Sequence[int] = (1, 1),
     return ProcessMesh(shape, axis_names, 0, dev,
                        "gloo" if dev.type == "cpu" else "nccl", "local",
                        comm, comm, comm)
+
+
+def unjoined(shape: Sequence[int], axis_names: Sequence[str],
+             device: torch.device | str = "cpu") -> ProcessMesh:
+    """The mesh as the driver sees it before its ranks start: the axes
+    and their sizes, no process group (every collective a one-rank
+    stand-in). For the config checks, which read only the axes."""
+    comm = Comm((0,), 0, "local")
+    return ProcessMesh(tuple(shape), tuple(axis_names), 0,
+                       torch.device(device), "none", "local", comm, comm,
+                       comm)
 
 
 def init(shape: Sequence[int], axis_names: Sequence[str], rank: int,

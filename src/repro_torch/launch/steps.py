@@ -35,16 +35,25 @@ Gradient reductions (``HetConfig.grad_reduction``), over the ranks:
     on the same pod sum, so they hold the same error state.
 
 Every rank applies the same update to the same reduced gradient, so the
-parameters stay bitwise identical across ranks. ``overlap``,
-``pipeline_stages > 1``, ``weighting="canonical"`` and LAMB raise "not
-ported yet".
+parameters stay bitwise identical across ranks.
+
+Checkpoints hold the state in the JAX package's layout (the layer stack
+stacked, every pod's residual in one ``(pods, ...)`` array):
+:func:`state_shapes` and :func:`checkpoint_format` are the JAX package's
+template and format block, :func:`state_to_host` and
+:func:`state_from_host` move a rank's ``TrainState`` there and back.
+
+``overlap``, ``pipeline_stages > 1``, ``weighting="canonical"`` and
+LAMB raise "not ported yet".
 """
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
+from repro_torch.checkpoint import repack
 from repro_torch.configs.base import ShapeConfig, TrainConfig
 from repro_torch.core import buckets as bkt
 from repro_torch.core import weighting
@@ -55,7 +64,9 @@ from repro_torch.kernels.quantize import ops as q_ops
 from repro_torch.kernels.quantize import ref as q_ref
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.launch.mesh import ProcessMesh
+from repro_torch.models import convert
 from repro_torch.models import transformer as tr
+from repro_torch.models.blocks import dtype_of
 from repro_torch.models.model import Model
 from repro_torch.models.transformer import tree_leaves, tree_map
 from repro_torch.optim import adam, schedules
@@ -167,6 +178,135 @@ def init_error_state(tcfg: TrainConfig, mesh: ProcessMesh,
         return bkt.init_error_buckets(layout, dev)
     return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                           device=dev), params)
+
+
+# --------------------------------------------------------------------------
+# checkpoints: the state in the JAX package's layout
+# --------------------------------------------------------------------------
+
+
+def _param_shapes(model: Model) -> Any:
+    """The port's parameter tree as shapes and dtypes only (fake tensors:
+    nothing is drawn or allocated)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        return tr.init_params(model.cfg, 0, "cpu")
+
+
+def _spec(shape, dtype: torch.dtype) -> repack.ShapeDtype:
+    return repack.ShapeDtype(tuple(int(d) for d in shape),
+                             np.dtype(bkt.dtype_name(dtype)))
+
+
+def checkpoint_format(model: Model, tcfg: TrainConfig,
+                      mesh: ProcessMesh) -> Dict[str, Any]:
+    """The checkpoint ``"format"`` meta block, as the JAX package writes
+    it for a config without overlap or pipeline stages: pytree moments,
+    no layout record, one writer file a pod (``hosts``)."""
+    del model                       # the layout record needs overlap
+    return {"version": repack.FORMAT_VERSION, "state": "pytree",
+            "packed_fields": [], "layout": None,
+            "hosts": mesh.sizes.get("pod", 1),
+            "overlap": tcfg.het.overlap, "pipeline": None}
+
+
+def state_shapes(model: Model, tcfg: TrainConfig,
+                 mesh: ProcessMesh) -> TrainState:
+    """The restore template: the JAX package's ``state_shapes`` for this
+    config, leaves as ``repack.ShapeDtype`` (the layer stack stacked,
+    the residual as every pod's: ``(pods, nb, be)`` bucketed or a
+    ``(pods, *leaf)`` mirror)."""
+    fake = _param_shapes(model)
+    ocfg = tcfg.optimizer
+
+    def specs(dtype=None):
+        return convert.to_jax_layout(
+            fake, lambda t: _spec(t.shape, dtype or t.dtype),
+            lambda ts: _spec((len(ts), *ts[0].shape), dtype or ts[0].dtype))
+
+    err: Any = ()
+    if _err_enabled(tcfg, mesh):
+        pods = mesh.sizes["pod"]
+        layout = bucket_layout(tcfg, mesh, fake)
+        if layout is not None:
+            err = _spec(layout.error_shape(pods), torch.float32)
+        else:
+            err = convert.to_jax_layout(
+                fake, lambda t: _spec((pods, *t.shape), torch.float32),
+                lambda ts: _spec((pods, len(ts), *ts[0].shape),
+                                 torch.float32))
+    return TrainState(
+        params=specs(),
+        opt=adam.AdamState(step=_spec((), torch.int32),
+                           m=specs(dtype_of(ocfg.m_dtype)),
+                           v=specs(dtype_of(ocfg.v_dtype))),
+        err=err)
+
+
+def state_to_host(state: TrainState, tcfg: TrainConfig,
+                  mesh: ProcessMesh) -> Optional[TrainState]:
+    """This rank's state in the JAX layout as fresh numpy copies, each
+    leaf in its own dtype, for ``CheckpointManager.save``: the residual
+    of every pod gathered over the pod group (a collective when the
+    config keeps one: every rank calls this at the same step). Rank 0
+    gets the state (the parameters and moments are the same on every
+    rank), the other ranks None."""
+    err: Any = ()
+    if _err_enabled(tcfg, mesh):
+        comm = mesh.pod
+
+        def gather(t):
+            return comm.all_gather(t).to("cpu", copy=True).numpy()
+
+        if isinstance(state.err, torch.Tensor):
+            err = gather(state.err)
+        else:
+            err = convert.to_jax_layout(
+                state.err, gather,
+                lambda ts: np.stack([gather(t) for t in ts], axis=1))
+    if mesh.rank != 0:
+        return None
+    return TrainState(
+        params=convert.params_to_host(state.params),
+        opt=adam.AdamState(
+            step=state.opt.step.to("cpu", copy=True).numpy(),
+            m=convert.params_to_host(state.opt.m),
+            v=convert.params_to_host(state.opt.v)),
+        err=err)
+
+
+def state_from_host(host: TrainState, model: Model, tcfg: TrainConfig,
+                    mesh: ProcessMesh) -> TrainState:
+    """A restored host state (``state_shapes``' layout) on this rank's
+    device: the per-layer lists split back out, this pod's row of the
+    residual."""
+    cfg, dev = model.cfg, model.device
+
+    def tree(t):
+        return convert.params_from_jax(t, cfg, dev)
+
+    err: Any = ()
+    if _err_enabled(tcfg, mesh):
+        pod = mesh.pod_index
+        if isinstance(host.err, np.ndarray):
+            err = torch.from_numpy(np.ascontiguousarray(
+                host.err[pod])).to(dev, copy=True)
+        else:
+            err = tree(_map_leaves(host.err, lambda a: a[pod]))
+    return TrainState(
+        params=tree(host.params),
+        opt=adam.AdamState(
+            step=torch.tensor(int(host.opt.step), dtype=torch.int32,
+                              device=dev),
+            m=tree(host.opt.m), v=tree(host.opt.v)),
+        err=err)
+
+
+def _map_leaves(tree: Any, fn) -> Any:
+    if isinstance(tree, dict):
+        return {k: _map_leaves(v, fn) for k, v in tree.items()}
+    return fn(tree)
 
 
 def loss_and_grads(model: Model, tcfg: TrainConfig, params: Any,

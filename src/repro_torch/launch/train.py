@@ -3,10 +3,11 @@
 
 Wires: synthetic corpus -> sharded dataset -> capacity plan -> het
 sampler + prefetch loader -> train step (weighted objective sum and
-weight sum, reduced over the ranks, divided once; clip; AdamW) -> log.
-The plan's headroom leaves weight-0 dummy rows in every batch, and they
-run forward and backward on the device like real rows (the paper's
-dummy-batch path); a rank of capacity 0 runs only dummy rows.
+weight sum, reduced over the ranks, divided once; clip; AdamW) ->
+straggler monitor -> checkpoints -> elastic restart. The plan's headroom
+leaves weight-0 dummy rows in every batch, and they run forward and
+backward on the device like real rows (the paper's dummy-batch path); a
+rank of capacity 0 runs only dummy rows.
 
 ``--devices`` is read as the JAX driver reads it: ``data,model`` or
 ``pod,data,model``. With more than one data-parallel rank the driver
@@ -21,13 +22,35 @@ parallelism is not ported yet).
 Attention, cross entropy and the int8 exchange go through the kernels
 (``attention_impl="kernel"``, ``ce_impl="kernel"``,
 ``quantize_impl="pallas"``): the CUDA kernels on the card, their plain
-versions on the CPU. Checkpointing (``--ckpt-every``, ``--resume``,
-``--ckpt-dir``), fault injection (``--chaos``, ``--kill-pod``),
-``--dry-run``, the straggler replans (``--replan-interval``) and
-``--no-scan-layers`` are not ported yet: each raises when set away from
-its default. The driver writes no checkpoint. The synthetic corpus goes
-to ``--data-dir``, or to a temporary directory (under ``$TMPDIR``) that
-is removed at the end.
+versions on the CPU. The synthetic corpus goes to ``--data-dir``, or to a
+temporary directory (under ``$TMPDIR``) that is removed at the end.
+
+Fault tolerance, as the JAX driver has it:
+
+  * ``--ckpt-every N`` writes a checkpoint every N steps and at the end,
+    to ``--ckpt-dir`` (default ``$TMPDIR/hetseq_ckpt``), in the JAX
+    package's on-disk format (``checkpoint/checkpoint.py``: per-pod
+    shard files behind a sha256 manifest, written by rank 0 on a
+    background thread; the residual of every pod gathered first);
+    ``--resume`` restores the latest one that verifies and continues at
+    its data-stream position. Without ``--ckpt-every`` nothing is
+    written.
+  * ``--chaos <preset|schedule.json>`` and ``--kill-pod P@S`` (a pod
+    stops reporting from step S; needs two pods or more) feed the chaos
+    engine's modelled per-rank step times, built from the slowest rank's
+    wall (a MAX over the ranks, so every rank makes the same decisions),
+    to the straggler monitor, which replans every ``--replan-interval``
+    steps or when a rank dies. A replan that no longer fits the buffers
+    raises ``RemeshRequired``: every rank joins its writer and returns;
+    the driver plans the surviving pods' mesh (``core/elastic.py``),
+    scales ``accum_steps``, spawns the new world, and its ranks restore
+    the latest checkpoint through the repack. The losses of the steps
+    after that checkpoint are dropped from the run's record.
+  * ``--dry-run`` checks the configuration and exits.
+
+Still raising "not ported yet": ``--no-scan-layers``, ``--overlap``,
+``--pipeline-stages`` above 1, ``--weighting canonical`` and
+``--optimizer lamb``.
 
 Example (H100, one rank):
   PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b \
@@ -43,23 +66,40 @@ Example (CPU, smoke config, two ranks over gloo):
       --smoke --device cpu --devices 2,1,1 --grad-reduction hierarchical \
       --compression int8 --bucket-mb 0.05 --steps 10 --global-batch 8 \
       --seq-len 32
+Example (CPU, checkpoint then resume):
+  PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b \
+      --smoke --device cpu --steps 4 --ckpt-every 2 \
+      --ckpt-dir "${TMPDIR:-.}/ck" --global-batch 8 --seq-len 32
+  (the same command with --resume --steps 6 continues at step 5)
+Example (CPU, pod 1 lost at step 3: re-mesh to one pod, accum x2):
+  PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b \
+      --smoke --device cpu --devices 2,1,1 --grad-reduction hierarchical \
+      --compression int8 --bucket-mb 0.05 --steps 8 --ckpt-every 2 \
+      --kill-pod 1@3 --ckpt-dir "${TMPDIR:-.}/ck2" --global-batch 8 \
+      --seq-len 32
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
 import dataclasses
+import json
+import os
 import tempfile
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch.checkpoint.checkpoint import CheckpointManager
 from repro_torch.configs import base as cfgbase
 from repro_torch.configs.base import (HetConfig, ModelConfig, OptimizerConfig,
                                       ShapeConfig, TrainConfig)
 from repro_torch.core import capacity as cap
+from repro_torch.core import chaos, elastic
+from repro_torch.core.straggler import RemeshRequired, StragglerMonitor
 from repro_torch.data.dataset import ShardedDataset
 from repro_torch.data.loader import PrefetchLoader
 from repro_torch.data.sampler import HetSampler
@@ -68,23 +108,15 @@ from repro_torch.launch import mesh as mesh_mod
 from repro_torch.launch import steps as steps_mod
 from repro_torch.models.model import build_model
 
+CKPT_DIR = os.path.join(tempfile.gettempdir(), "hetseq_ckpt")
+
 
 def _check_flags(args) -> None:
-    """Flags this port would accept and then ignore raise instead."""
-    defaults = parser().parse_args([])
-    unported = [flag for flag, on in (
-        ("--ckpt-every", args.ckpt_every > 0), ("--resume", args.resume),
-        ("--ckpt-dir", args.ckpt_dir != defaults.ckpt_dir),
-        ("--chaos", bool(args.chaos)), ("--kill-pod", bool(args.kill_pod)),
-        ("--dry-run", args.dry_run),
-        ("--no-scan-layers", args.no_scan_layers),
-        ("--replan-interval",
-         args.replan_interval != defaults.replan_interval)) if on]
-    if unported:
+    """A flag this port would accept and then ignore raises instead."""
+    if args.no_scan_layers:
         raise NotImplementedError(
-            f"{', '.join(unported)}: not ported yet (checkpoints, fault "
-            f"injection, elastic restart and straggler replans come with "
-            f"later slices; the layer stack is always a Python loop)")
+            "--no-scan-layers: not ported yet (the port's layer stack is "
+            "always a Python loop)")
 
 
 def build_config(args) -> Tuple[ModelConfig, TrainConfig]:
@@ -127,6 +159,45 @@ def make_plan(tcfg: TrainConfig, n_dp: int = 1) -> cap.CapacityPlan:
                                round_buffer_to=max(tcfg.het.accum_steps, 1))
 
 
+def _parse_kill(spec: str) -> Optional[Tuple[int, int]]:
+    """'P@S' -> (pod P, from global step S): a one-entry
+    ``chaos.kill(pod=P, step=S)`` schedule."""
+    if not spec:
+        return None
+    pod, at = spec.split("@")
+    return int(pod), int(at)
+
+
+def build_chaos_engine(args, tcfg: TrainConfig,
+                       topo: elastic.MeshTopology) -> chaos.ChaosEngine:
+    """Resolve --chaos (+ the --kill-pod alias) into one engine."""
+    schedule = chaos.ChaosSchedule(seed=tcfg.seed)
+    if args.chaos:
+        try:
+            schedule = chaos.load_schedule(
+                args.chaos, num_ranks=topo.dp_size,
+                data_per_pod=topo.data_per_pod,
+                total_steps=args.steps, seed=tcfg.seed)
+        except (ValueError, OSError) as e:
+            raise SystemExit(f"[train] --chaos: {e}") from e
+    kill = _parse_kill(args.kill_pod)
+    if kill is not None:
+        if topo.pods < 2:
+            raise SystemExit(
+                f"[train] --kill-pod {args.kill_pod}: losing a pod needs "
+                f"a mesh of two pods or more (--devices pod,data,model); "
+                f"this one has {topo.pods}")
+        schedule = schedule.with_events(
+            chaos.kill(pod=kill[0], step=kill[1]))
+    try:
+        return chaos.ChaosEngine(
+            schedule, num_ranks=topo.dp_size,
+            data_per_pod=topo.data_per_pod,
+            speeds=tcfg.het.capacities or None)
+    except ValueError as e:
+        raise SystemExit(f"[train] {e}") from e
+
+
 def _rank_rows(raw: Dict[str, np.ndarray], seq_len: int, rank: int,
                rows: int, device: torch.device) -> Dict[str, torch.Tensor]:
     """This rank's rows of the packed global batch, on its device (the
@@ -158,10 +229,53 @@ def _checksums(mesh: mesh_mod.ProcessMesh, params) -> List[int]:
     return [int(x) for x in mesh.world.all_gather(mine).reshape(-1)]
 
 
-def run_rank(args, mesh: mesh_mod.ProcessMesh, data_dir: str,
-             plan: cap.CapacityPlan) -> Dict[str, Any]:
-    """One rank's training loop; the whole run on one rank."""
-    cfg, tcfg = build_config(args)
+def _slowest(mesh: mesh_mod.ProcessMesh, seconds: float) -> float:
+    """The largest of every rank's ``seconds`` (the step's wall): one
+    number, the same on every rank, for the straggler monitor."""
+    t = torch.tensor([seconds], dtype=torch.float64, device=mesh.device)
+    return float(mesh.world.all_reduce(t, op=dist.ReduceOp.MAX)[0])
+
+
+def restore_state(mgr: CheckpointManager, model, tcfg: TrainConfig,
+                  mesh: mesh_mod.ProcessMesh, plan: cap.CapacityPlan,
+                  fmt: Dict) -> Tuple[steps_mod.TrainState,
+                                      Tuple[int, int, int]]:
+    """The latest checkpoint that verifies, repacked into this config's
+    layout and put on this rank's device, with its (step, epoch, batch
+    in epoch). Refuses a checkpoint whose plan consumes another global
+    record stream than ``plan``."""
+    template = steps_mod.state_shapes(model, tcfg, mesh)
+    host, meta = mgr.restore(template, expected_overlap=tcfg.het.overlap)
+    saved_plan = meta.get("plan")
+    if saved_plan is not None and not \
+            elastic.validate_resume_equivalence(saved_plan, plan):
+        raise SystemExit(
+            f"[train] resume refused: checkpoint plan (rows "
+            f"{list(saved_plan.rows_per_rank)}, global "
+            f"{saved_plan.global_rows}) and the current plan (rows "
+            f"{plan.rows_per_rank.tolist()}, global {plan.global_rows}) "
+            f"consume different global record streams")
+    saved_pipe = (meta.get("format") or {}).get("pipeline")
+    if saved_pipe != fmt.get("pipeline") and mesh.rank == 0:
+        # parameters are stored per leaf: the restore is exact under any
+        # stage plan, so the change is logged, never adapted
+        print(f"[train] restore: pipeline stage plan changed: "
+              f"{saved_pipe} -> {fmt.get('pipeline')}")
+    state = steps_mod.state_from_host(host, model, tcfg, mesh)
+    stream = meta.get("stream") or {}
+    return state, (int(meta["step"]),
+                   int(stream.get("epoch", meta.get("epoch", 0))),
+                   int(stream.get("batch_in_epoch", 0)))
+
+
+def run_rank(args, tcfg: TrainConfig, mesh: mesh_mod.ProcessMesh,
+             data_dir: str, plan: cap.CapacityPlan,
+             engine: chaos.ChaosEngine, resume: bool) -> Dict[str, Any]:
+    """One rank's training loop (the whole run on one rank), from a
+    fresh state or, with ``resume``, from the latest checkpoint. Ends at
+    ``args.steps`` or at a ``RemeshRequired``, which every rank meets at
+    the same step and reports under ``"remesh"``."""
+    cfg = tcfg.model
     model = build_model(cfg, mesh.device)
     lead = mesh.rank == 0
     step_fn = steps_mod.build_train_step(model, tcfg, mesh)
@@ -171,48 +285,150 @@ def run_rank(args, mesh: mesh_mod.ProcessMesh, data_dir: str,
         seed=tcfg.seed)
     sampler = HetSampler(ShardedDataset(corpus), plan, seed=tcfg.seed)
     loader = PrefetchLoader(sampler, depth=args.prefetch)
-    state = steps_mod.init_train_state(model, tcfg, mesh=mesh)
+    mgr = (CheckpointManager(tcfg.ckpt_dir, keep=tcfg.ckpt_keep,
+                             fault_hook=engine.ckpt_fault_hook())
+           if tcfg.ckpt_every > 0 or resume else None)
+    fmt = steps_mod.checkpoint_format(model, tcfg, mesh)
+    step = epoch = batch_in_epoch = 0
+    restored = None
+    if resume and mgr.latest_step() is not None:
+        t0 = time.perf_counter()
+        state, (step, epoch, batch_in_epoch) = restore_state(
+            mgr, model, tcfg, mesh, plan, fmt)
+        restored = {**mgr.last_restore, "seconds": time.perf_counter() - t0}
+        if lead:
+            print(f"[train] resumed from step {step} (epoch {epoch}, batch "
+                  f"{batch_in_epoch}) in {restored['seconds']:.1f} s "
+                  f"(manifest check {restored['verify_s']:.1f} s)",
+                  flush=True)
+    else:
+        state = steps_mod.init_train_state(model, tcfg, mesh=mesh)
+    start_step = step
     start_sums = _checksums(mesh, state.params)
     if len(set(start_sums)) != 1:
         raise RuntimeError(f"ranks start from different parameters: "
                            f"checksums {start_sums}")
+    monitor = StragglerMonitor(num_ranks=mesh.dp_size,
+                               ema_decay=tcfg.het.straggler_ema,
+                               replan_interval=tcfg.het.replan_interval)
+
+    def save_meta():
+        return {"epoch": epoch, "seed": tcfg.seed, "plan": plan,
+                "format": fmt,
+                "stream": {"epoch": epoch,
+                           "batch_in_epoch": batch_in_epoch}}
+
+    saves: List[Dict[str, Any]] = []
+
+    def save():
+        t0 = time.perf_counter()
+        host = steps_mod.state_to_host(state, tcfg, mesh)  # collective
+        rec = {"step": step, "snapshot_s": time.perf_counter() - t0}
+        if host is not None:
+            mgr.save(step, host, meta=save_meta())
+            rec["wait_s"] = mgr.last_save["wait_s"]
+            print(f"[ckpt] step {step}: host snapshot {rec['snapshot_s']:.2f}"
+                  f" s, the loop waited {rec['wait_s']:.2f} s for the "
+                  f"previous write", flush=True)
+        saves.append(rec)
+
     if model.device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(model.device)
     launches0 = _launch_counts()
-    step, epoch = 0, 0
-    losses, step_s, records, link = [], [], [], []
+    losses, step_s, records, link, during_save = [], [], [], [], []
+    replans: List[Dict[str, Any]] = []
+    remesh = None
     t_start = time.time()
-    while step < args.steps:
-        for raw in loader.iter_epoch(epoch):
-            if step >= args.steps:
-                break
-            batch = _rank_rows(raw, args.seq_len, mesh.rank,
-                               plan.buffer_rows, model.device)
-            t0 = time.time()
-            sent0 = _sent(mesh)
-            state, metrics = step_fn(state, batch)
-            rec = {k: float(v) for k, v in metrics.items()}
-            dt = time.time() - t0          # float() synchronized
-            step += 1
-            losses.append(rec["loss"])
-            step_s.append(dt)
-            records.append(rec)
-            link.append(_sent(mesh) - sent0)
-            if lead and (step % args.log_every == 0 or step == args.steps):
-                print(f"[train] step {step:5d} loss {rec['loss']:.4f} "
-                      f"grad_norm {rec['grad_norm']:.4f} weight "
-                      f"{rec['weight']:.0f} lr {rec['lr']:.3g} "
-                      f"({dt * 1e3:.0f} ms)", flush=True)
-        epoch += 1
+    body_raised = False
+    try:
+        try:
+            while step < args.steps:
+                replanned = False
+                consumed = batch_in_epoch
+                for raw in loader.iter_epoch(epoch, start=batch_in_epoch):
+                    if step >= args.steps:
+                        break
+                    consumed += 1
+                    batch = _rank_rows(raw, args.seq_len, mesh.rank,
+                                       plan.buffer_rows, model.device)
+                    during_save.append(mgr is not None and mgr.busy())
+                    t0 = time.time()
+                    sent0 = _sent(mesh)
+                    state, metrics = step_fn(state, batch)
+                    rec = {k: float(v) for k, v in metrics.items()}
+                    dt = time.time() - t0          # float() synchronized
+                    step += 1
+                    batch_in_epoch = consumed
+                    losses.append(rec["loss"])
+                    step_s.append(dt)
+                    records.append(rec)
+                    link.append(_sent(mesh) - sent0)
+                    if lead and (step % args.log_every == 0
+                                 or step == args.steps):
+                        print(f"[train] step {step:5d} loss "
+                              f"{rec['loss']:.4f} grad_norm "
+                              f"{rec['grad_norm']:.4f} weight "
+                              f"{rec['weight']:.0f} lr {rec['lr']:.3g} "
+                              f"({dt * 1e3:.0f} ms)", flush=True)
+                    # modelled per-rank times from the slowest rank's
+                    # wall: killed ranks and flaky drops report None
+                    monitor.observe(engine.step_times(
+                        step, plan.rows_per_rank, _slowest(mesh, dt)))
+                    if monitor.should_replan():
+                        new_plan = monitor.replan(plan)
+                        rows = new_plan.rows_per_rank.tolist()
+                        if rows != plan.rows_per_rank.tolist():
+                            if lead:
+                                print(f"[train] replan at step {step}: "
+                                      f"rows {plan.rows_per_rank.tolist()}"
+                                      f" -> {rows}", flush=True)
+                            replans.append({"step": step, "rows": rows})
+                            replanned = True
+                        plan = new_plan
+                        sampler.set_plan(plan)
+                    if tcfg.ckpt_every and step % tcfg.ckpt_every == 0:
+                        save()
+                    if replanned:
+                        break    # re-open the epoch here under the plan
+                if replanned:
+                    continue
+                if step >= args.steps:
+                    break
+                epoch += 1
+                batch_in_epoch = 0
+            if tcfg.ckpt_every and step > start_step and (
+                    not saves or saves[-1]["step"] != step):
+                save()
+        except RemeshRequired as e:
+            remesh = {"step": step, "dead": monitor.dead_ranks().tolist(),
+                      "reason": str(e), "plan": cap.plan_record(plan)}
+    except BaseException:
+        body_raised = True
+        raise
+    finally:
+        # join the writer on every exit path, or the run's last
+        # checkpoint dies with the thread; a write error propagates on
+        # a clean exit and is printed while another error unwinds
+        if mgr is not None:
+            try:
+                mgr.wait()
+            except BaseException as werr:
+                if not body_raised:
+                    raise
+                print(f"[train] WARNING: checkpoint writer failed during "
+                      f"shutdown: {werr!r}")
     wall = time.time() - t_start
     launches = {k: v - launches0[k] for k, v in _launch_counts().items()}
     end_sums = _checksums(mesh, state.params)
     peak = (torch.cuda.max_memory_allocated(model.device)
             if model.device.type == "cuda" else None)
-    return {"rank": mesh.rank, "steps": step, "wall_s": wall,
-            "first_loss": losses[0], "last_loss": losses[-1],
-            "losses": losses, "step_s": step_s, "metrics": records,
-            "link_bytes": link, "launches": launches,
+    return {"rank": mesh.rank, "start_step": start_step, "steps": step,
+            "wall_s": wall, "losses": losses, "step_s": step_s,
+            "metrics": records, "link_bytes": link, "launches": launches,
+            "during_save": during_save, "replans": replans,
+            "remesh": remesh, "saves": saves,
+            "writes": list(mgr.writes) if mgr is not None and lead else [],
+            "restore": restored, "plan": cap.plan_record(plan),
             "start_checksums": start_sums, "end_checksums": end_sums,
             "peak_memory_bytes": peak, "backend": mesh.backend,
             "transport": mesh.transport, "device": str(model.device),
@@ -220,76 +436,229 @@ def run_rank(args, mesh: mesh_mod.ProcessMesh, data_dir: str,
 
 
 def _rank_main(rank: int, world: int, init_method: str, args,
-               data_dir: str, plan: cap.CapacityPlan) -> Dict[str, Any]:
+               tcfg: TrainConfig, devices: str, data_dir: str,
+               plan: cap.CapacityPlan, engine: chaos.ChaosEngine,
+               resume: bool) -> Dict[str, Any]:
     mesh_mod.share_cpu(world)
-    shape, axes = mesh_mod.parse_devices(args.devices)
+    shape, axes = mesh_mod.parse_devices(devices)
     mesh = mesh_mod.init(shape, axes, rank, init_method,
                          torch.device(args.device).type)
     try:
         if rank == 0:
             print(f"[train] rank 0 of {world}: {mesh.describe()}",
                   flush=True)
-        out = run_rank(args, mesh, data_dir, plan)
+        out = run_rank(args, tcfg, mesh, data_dir, plan, engine, resume)
     finally:
         mesh_mod.destroy(mesh)
     del out["state"]                    # stays in the rank's process
     return out
 
 
-def train(args) -> Dict[str, object]:
-    _check_flags(args)
-    shape, axes = mesh_mod.parse_devices(args.devices)
+def _run_world(args, tcfg: TrainConfig, devices: str,
+               plan: cap.CapacityPlan, engine: chaos.ChaosEngine,
+               resume: bool, data_dir: str) -> List[Dict[str, Any]]:
+    """Every rank of the mesh ``devices`` from start to end: one rank
+    in this process, several spawned."""
+    shape, axes = mesh_mod.parse_devices(devices)
     sizes = dict(zip(axes, shape))
-    n_dp = sizes.get("pod", 1) * sizes.get("data", 1)
-    cfg, tcfg = build_config(args)
-    plan = make_plan(tcfg, n_dp)
+    n_dp = sizes.get("pod", 1) * sizes["data"]
     dev = torch.device(args.device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {args.device!r} requested but CUDA is "
-                           f"not available; pass --device cpu to run on "
-                           f"the CPU")
+    if n_dp == 1:
+        mesh = mesh_mod.local(shape, axes, dev)
+        print(f"[train] {mesh.describe()}")
+        return [run_rank(args, tcfg, mesh, data_dir, plan, engine, resume)]
+    if dev.type == "cuda":
+        # every rank loads the library; build it once, here
+        from repro_torch.kernels import _build
+        _build.build()
+    ranks = mesh_mod.spawn(_rank_main, n_dp, (args, tcfg, devices, data_dir,
+                                              plan, engine, resume))
+    for key in ("replans", "remesh"):
+        if any(r[key] != ranks[0][key] for r in ranks):
+            raise RuntimeError(f"ranks disagree on {key}: "
+                               f"{[r[key] for r in ranks]}")
+    return ranks
+
+
+def _remesh(rec: Dict[str, Any], topo: elastic.MeshTopology,
+            tcfg: TrainConfig, latest: Optional[int]
+            ) -> Tuple[elastic.RemeshDecision, List[int]]:
+    """The surviving pods' mesh and plan after ``RemeshRequired``, and
+    the surviving pods: a pod is lost when every one of its ranks is
+    dead (re-mesh granularity is whole pods). ``latest``: the newest
+    committed checkpoint, which the new world restores."""
+    if latest is None:
+        raise SystemExit(
+            f"[train] remesh required ({rec['reason']}) but no checkpoint "
+            f"exists to restart from — set --ckpt-every")
+    dead = set(rec["dead"])
+    dpp = topo.data_per_pod
+    alive = [p for p in range(topo.pods)
+             if not all(r in dead for r in range(p * dpp, (p + 1) * dpp))]
+    caps = tcfg.het.capacities
+    caps_per_pod = ([float(np.mean(caps[p * dpp:(p + 1) * dpp]))
+                     for p in range(topo.pods)] if caps else None)
+    plan = cap.plan_from_record(rec["plan"])
+    decision = elastic.plan_remesh(
+        topo, alive, plan.global_rows, caps_per_pod,
+        round_buffer_to=max(tcfg.het.accum_steps, 1))
+    print(f"[train] remesh: {decision.reason}")
+    if not decision.restart_required:
+        raise SystemExit(
+            f"[train] ranks {sorted(dead)} are dead but no whole pod is "
+            f"lost, and soft replanning cannot absorb them "
+            f"({rec['reason']}); shrink the global batch or drain the "
+            f"affected pod")
+    if not elastic.validate_resume_equivalence(plan, decision.plan):
+        raise SystemExit("[train] remesh produced a plan that consumes a "
+                         "different global record stream")
+    return decision, alive
+
+
+def train(args) -> Dict[str, Any]:
+    _check_flags(args)
+    topo = mesh_mod.topology_from_devices(args.devices)
+    cfg, tcfg = build_config(args)
+    plan = make_plan(tcfg, topo.dp_size)
     print(f"[train] {cfg.name}: {cfg.param_count():,} params on "
-          f"{args.device}, {n_dp} rank(s) (mesh {sizes}), plan rows "
+          f"{args.device}, {topo.dp_size} rank(s) (mesh "
+          f"{dict(zip(topo.mesh_axes(), topo.mesh_shape()))}), plan rows "
           f"{plan.rows_per_rank.tolist()} buffer {plan.buffer_rows} "
           f"(efficiency {plan.efficiency():.2f}), reduction "
           f"{args.grad_reduction} compression {args.compression} "
           f"bucket_mb {args.bucket_mb}; attention, cross entropy and the "
           f"int8 exchange through the kernels")
-    print("[train] no checkpoints are written (not ported yet); no "
-          "straggler replans")
+    engine = build_chaos_engine(args, tcfg, topo)
+    if engine.schedule.events:
+        kinds = sorted({ev.kind for ev in engine.schedule.events})
+        print(f"[train] chaos: {len(engine.schedule.events)} event(s) "
+              f"{kinds} (seed {engine.schedule.seed})")
+    shape, axes = mesh_mod.parse_devices(args.devices)
+    steps_mod.validate_train_config(build_model(cfg, "cpu"), tcfg,
+                                    mesh_mod.unjoined(shape, axes))
+    if args.dry_run:
+        print(f"[train] dry-run ok: grad_reduction="
+              f"{tcfg.het.grad_reduction} overlap={tcfg.het.overlap} "
+              f"bucket_mb={tcfg.het.bucket_mb} "
+              f"compression={tcfg.het.compression} "
+              f"accum={tcfg.het.accum_steps} "
+              f"optimizer={tcfg.optimizer.name} "
+              f"scan_layers={cfg.scan_layers} "
+              f"pipeline_stages={tcfg.het.pipeline_stages}")
+        return {"steps": 0, "wall_s": 0.0}
+    dev = torch.device(args.device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {args.device!r} requested but CUDA is "
+                           f"not available; pass --device cpu to run on "
+                           f"the CPU")
+    print(f"[train] checkpoints: "
+          + (f"every {args.ckpt_every} steps and at the end to "
+             f"{args.ckpt_dir} (keep {tcfg.ckpt_keep})"
+             if args.ckpt_every > 0 else "none (--ckpt-every 0)")
+          + f"; straggler replans every {args.replan_interval} steps or "
+            f"when a rank dies")
+    devices = args.devices
+    resume = args.resume
+    worlds: List[Tuple[str, List[Dict[str, Any]]]] = []
     with contextlib.ExitStack() as stack:
         data_dir = args.data_dir or stack.enter_context(
             tempfile.TemporaryDirectory(prefix="hetseq_data_"))
-        if n_dp == 1:
-            mesh = mesh_mod.local(shape, axes, dev)
-            print(f"[train] {mesh.describe()}")
-            ranks = [run_rank(args, mesh, data_dir, plan)]
-        else:
-            if dev.type == "cuda":
-                # every rank loads the library; build it once, here
-                from repro_torch.kernels import _build
-                _build.build()
-            # the ranks read one corpus: write it before they start
-            build_synthetic_corpus(
-                data_dir, num_seqs=max(4 * plan.global_rows, 256),
-                seq_len=args.seq_len + 1, vocab=cfg.vocab_size,
-                rows_per_shard=64, seed=tcfg.seed)
-            ranks = mesh_mod.spawn(_rank_main, n_dp,
-                                   (args, data_dir, plan))
-    out = dict(ranks[0])
-    if len(set(out["end_checksums"])) != 1:
-        raise RuntimeError(f"ranks end with different parameters: "
-                           f"checksums {out['end_checksums']}")
-    print(f"[train] done: {out['steps']} steps in {out['wall_s']:.1f}s, "
-          f"loss {out['first_loss']:.4f} -> {out['last_loss']:.4f}; "
-          f"{n_dp} rank(s), backend {out['backend']}, transport "
-          f"{out['transport']}; parameters identical on every rank")
+        # every world's ranks read one corpus: write it before they start
+        build_synthetic_corpus(
+            data_dir, num_seqs=max(4 * plan.global_rows, 256),
+            seq_len=args.seq_len + 1, vocab=cfg.vocab_size,
+            rows_per_shard=64, seed=tcfg.seed)
+        while True:
+            ranks = _run_world(args, tcfg, devices, plan, engine, resume,
+                               data_dir)
+            worlds.append((devices, ranks))
+            if len(set(ranks[0]["end_checksums"])) != 1:
+                raise RuntimeError(f"ranks end with different parameters: "
+                                   f"checksums {ranks[0]['end_checksums']}")
+            rec = ranks[0]["remesh"]
+            if rec is None:
+                break
+            # read once every rank has returned: rank 0 joined its writer
+            latest = (CheckpointManager(tcfg.ckpt_dir).latest_step()
+                      if os.path.isdir(tcfg.ckpt_dir) else None)
+            for r in ranks:
+                r["remesh"]["checkpoint"] = latest
+            decision, alive = _remesh(rec, topo, tcfg, latest)
+            topo, plan = decision.topology, decision.plan
+            # capacities were indexed by the old rank numbering, and the
+            # plan from plan_remesh is the new one; accum_steps scales
+            # with the lost width to keep the microbatch count
+            tcfg = dataclasses.replace(tcfg, het=dataclasses.replace(
+                tcfg.het, capacities=(),
+                accum_steps=tcfg.het.accum_steps * decision.accum_scale))
+            if decision.accum_scale > 1:
+                print(f"[train] accum_steps scaled x{decision.accum_scale}"
+                      f" to preserve the microbatch grid")
+            engine = engine.after_remesh(alive)
+            devices = mesh_mod.devices_for_topology(topo)
+            print(f"[train] re-meshed to "
+                  f"{dict(zip(topo.mesh_axes(), topo.mesh_shape()))}: "
+                  f"{topo.dp_size} rank(s) restart from the checkpoint at "
+                  f"step {rec['checkpoint']} (lost at step {rec['step']})")
+            resume = True
+    return _report(args, worlds, dev)
+
+
+def _report(args, worlds, dev) -> Dict[str, Any]:
+    """The run's record from its worlds: the steps that count (a world's
+    restore drops what the one before trained past its checkpoint), the
+    last world's ranks, and one ``[train] summary`` JSON line."""
+    by_step: Dict[int, Tuple[float, Dict, float]] = {}
+    for _, ranks in worlds:
+        r0 = ranks[0]
+        for k in [k for k in by_step if k > r0["start_step"]]:
+            del by_step[k]
+        for i, item in enumerate(zip(r0["losses"], r0["metrics"],
+                                     r0["step_s"])):
+            by_step[r0["start_step"] + 1 + i] = item
+    kept = [by_step[k] for k in sorted(by_step)]
+    last = worlds[-1][1]
+    out = dict(last[0])
+    out.update(losses=[k[0] for k in kept], metrics=[k[1] for k in kept],
+               step_s=[k[2] for k in kept],
+               wall_s=sum(ranks[0]["wall_s"] for _, ranks in worlds),
+               plan=last[0]["plan"],
+               ranks=[{k: v for k, v in r.items() if k != "state"}
+                      for r in last],
+               worlds=[{"devices": d, "ranks": [
+                   {k: v for k, v in r.items() if k != "state"}
+                   for r in ranks]} for d, ranks in worlds])
+    first = worlds[0][1][0]["start_step"]
+    summary = {"steps": out["steps"], "start_step": first,
+               "losses": out["losses"], "end_checksums": out["end_checksums"],
+               "worlds": [{"devices": w["devices"], "ranks": [
+                   {k: r[k] for k in ("rank", "start_step", "steps",
+                                      "losses", "step_s", "launches",
+                                      "during_save", "replans", "remesh",
+                                      "saves", "writes", "restore",
+                                      "end_checksums", "peak_memory_bytes")}
+                   for r in w["ranks"]]} for w in out["worlds"]]}
+    if not out["losses"]:
+        print(f"[train] nothing to do: checkpoint already at step "
+              f"{out['steps']} >= --steps {args.steps}")
+    else:
+        out["first_loss"], out["last_loss"] = out["losses"][0], \
+            out["losses"][-1]
+        print(f"[train] done: {out['steps'] - first} steps in "
+              f"{out['wall_s']:.1f}s, loss {out['first_loss']:.4f} -> "
+              f"{out['last_loss']:.4f}; {len(last)} rank(s), backend "
+              f"{out['backend']}, transport {out['transport']}; parameters "
+              f"identical on every rank")
+    for w in out["worlds"]:
+        for rec in w["ranks"][0]["writes"]:
+            print(f"[ckpt] step {rec['step']} written: {rec['bytes']} bytes "
+                  f"in {rec['seconds']:.2f} s (write and fsync "
+                  f"{rec['write_s']:.2f} s, sha256 {rec['sha256_s']:.2f} s, "
+                  f"attempt {rec['attempts']})")
     if dev.type == "cuda":
         print("[train] peak memory per rank (GiB): " + ", ".join(
-            f"{r['peak_memory_bytes'] / 2**30:.2f}" for r in ranks))
-    out["plan"] = cap.plan_record(plan)
-    out["ranks"] = [{k: v for k, v in r.items() if k != "state"}
-                    for r in ranks]
+            f"{r['peak_memory_bytes'] / 2**30:.2f}" for r in last))
+    print("[train] summary " + json.dumps(summary), flush=True)
     return out
 
 
@@ -323,7 +692,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--pipeline-stages", type=int, default=1)
     ap.add_argument("--pipeline-schedule", default="1f1b",
                     choices=list(cfgbase.PIPELINE_MODES))
-    ap.add_argument("--dry-run", action="store_true")
+    ap.add_argument("--dry-run", action="store_true",
+                    help="check the configuration, print the summary and "
+                         "exit without training")
     ap.add_argument("--accum", type=int, default=1)
     ap.add_argument("--optimizer", default="adamw",
                     choices=["adamw", "lamb"])
@@ -333,16 +704,26 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--prefetch", type=int, default=2)
     ap.add_argument("--log-every", type=int, default=10)
-    ap.add_argument("--replan-interval", type=int, default=100)
-    ap.add_argument("--ckpt-every", type=int, default=0)
-    ap.add_argument("--ckpt-dir", default="/tmp/hetseq_ckpt",
-                    help="not ported yet: no checkpoint is written")
+    ap.add_argument("--replan-interval", type=int, default=100,
+                    help="steps between straggler capacity replans")
+    ap.add_argument("--ckpt-every", type=int, default=0,
+                    help="write a checkpoint every N steps and at the end "
+                         "(0: none)")
+    ap.add_argument("--ckpt-dir", default=CKPT_DIR)
     ap.add_argument("--data-dir", default="",
                     help="where the synthetic corpus is written (default: "
                          "a temporary directory, removed at the end)")
-    ap.add_argument("--resume", action="store_true")
-    ap.add_argument("--chaos", default="")
-    ap.add_argument("--kill-pod", default="")
+    ap.add_argument("--resume", action="store_true",
+                    help="continue from the latest checkpoint in "
+                         "--ckpt-dir that verifies (a fresh start if there "
+                         "is none)")
+    ap.add_argument("--chaos", default="",
+                    help="fault injection: a schedule.json path or a "
+                         f"preset ({', '.join(sorted(chaos.PRESETS))})")
+    ap.add_argument("--kill-pod", default="",
+                    help="'P@S': pod P stops reporting from step S (a "
+                         "one-entry --chaos kill schedule; two pods or "
+                         "more)")
     return ap
 
 

@@ -18,7 +18,10 @@ one dict, not stacked, on both sides. An xLSTM tree has no ``layers``
 but two stacks, ``mlstm_layers`` and ``slstm_layers`` (``ln`` and
 ``blk``), whose leading axis is the num_layers // 2 pairs.
 :func:`params_to_numpy` is the inverse, for comparing a port tree with
-a JAX tree leaf by leaf.
+a JAX tree leaf by leaf (bf16 leaves upcast to fp32);
+:func:`params_to_host` is the inverse that keeps every leaf's dtype,
+for checkpoints, copying each layer straight into its stacked host
+array.
 """
 from __future__ import annotations
 
@@ -32,7 +35,12 @@ from repro_torch.models.transformer import check_supported, stack_plan
 
 
 def _tensor(x, device) -> torch.Tensor:
-    return torch.as_tensor(np.array(x, copy=True), device=device)
+    """A copy of ``x`` on ``device``: one host copy on the CPU, one
+    host-to-device copy on a card."""
+    a = np.ascontiguousarray(x)
+    if not a.flags.writeable:
+        a = a.copy()
+    return torch.from_numpy(a).to(device, copy=True)
 
 
 def _tree(tree: Any, fn) -> Any:
@@ -83,6 +91,25 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
     return out
 
 
+def to_jax_layout(params: Dict[str, Any], host, stack) -> Dict[str, Any]:
+    """The port's tree in the JAX layout: ``host(t)`` of each leaf
+    outside the per-layer lists, ``stack(ts)`` of each leaf's L layer
+    tensors inside them (dict keys as the port's)."""
+    out = {k: _tree(v, host) for k, v in params.items()
+           if not isinstance(v, list)}
+
+    def zip_tree(trees):
+        first = trees[0]
+        if isinstance(first, dict):
+            return {k: zip_tree([t[k] for t in trees]) for k in first}
+        return stack(trees)
+
+    for k, v in params.items():
+        if isinstance(v, list):
+            out[k] = zip_tree(v)
+    return out
+
+
 def params_to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:
     """The port's tree in the JAX layout, leaves as numpy arrays: each
     per-layer list (``layers``, or xLSTM's ``mlstm_layers`` and
@@ -92,19 +119,31 @@ def params_to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:
         return t.detach().float().cpu().numpy() if t.dtype == torch.bfloat16 \
             else t.detach().cpu().numpy()
 
-    out = {k: _tree(v, host) for k, v in params.items()
-           if not isinstance(v, list)}
+    return to_jax_layout(params, host,
+                          lambda ts: np.stack([host(t) for t in ts]))
 
-    def stack(*leaves):
-        return np.stack(leaves)
 
-    def zip_tree(trees):
-        first = trees[0]
-        if isinstance(first, dict):
-            return {k: zip_tree([t[k] for t in trees]) for k in first}
-        return stack(*trees)
+def _host_dtype(t: torch.Tensor) -> torch.dtype:
+    if t.dtype == torch.bfloat16:
+        raise ValueError(
+            "a bfloat16 leaf has no numpy dtype, and the npz format of "
+            "checkpoints stores none: keep param_dtype, m_dtype and "
+            "v_dtype float32 to checkpoint")
+    return t.dtype
 
-    for k, v in params.items():
-        if isinstance(v, list):
-            out[k] = zip_tree([_tree(lp, host) for lp in v])
-    return out
+
+def params_to_host(params: Dict[str, Any]) -> Dict[str, Any]:
+    """:func:`params_to_numpy` for checkpoints: every leaf a fresh host
+    copy in its own dtype (a bfloat16 leaf raises), each layer copied
+    straight into its slice of the stacked array."""
+    def host(t):
+        return t.detach().to("cpu", dtype=_host_dtype(t),
+                             copy=True).numpy()
+
+    def stack(ts):
+        out = torch.empty((len(ts), *ts[0].shape), dtype=_host_dtype(ts[0]))
+        for i, t in enumerate(ts):
+            out[i].copy_(t.detach())
+        return out.numpy()
+
+    return to_jax_layout(params, host, stack)

@@ -25,7 +25,9 @@ in another order on another backend, so 1e-5 relative on losses,
 largest magnitude (a leaf of the embedding sums ~B*S rank-one terms).
 """
 import dataclasses
+import os
 import sys
+import tempfile
 
 import jax
 import jax.numpy as jnp
@@ -439,8 +441,8 @@ def test_olmo_configs_match_jax(which):
 
 def test_train_cli_flags_match_jax():
     """The JAX driver's flags with the same defaults, plus --device;
-    --data-dir defaults to a temporary directory instead of a fixed
-    path."""
+    --data-dir defaults to a temporary directory and --ckpt-dir to one
+    under $TMPDIR instead of a fixed path."""
     import argparse
     seen = {}
     orig = argparse.ArgumentParser.parse_args
@@ -462,10 +464,12 @@ def test_train_cli_flags_match_jax():
     jf, tf = grab(jtrain.main), grab(ttrain.main)
     assert set(tf) == set(jf) | {"--device"}
     for flag in jf:
-        if flag != "--data-dir":
+        if flag not in ("--data-dir", "--ckpt-dir"):
             assert tf[flag].default == jf[flag].default, flag
     assert tf["--device"].default == "cuda"
     assert tf["--data-dir"].default == ""
+    assert tf["--ckpt-dir"].default == os.path.join(tempfile.gettempdir(),
+                                                    "hetseq_ckpt")
 
 
 def test_cpu_smoke_run_trains_with_dummy_rows():
@@ -488,11 +492,10 @@ def test_train_without_cpu_device_raises_when_cuda_is_absent():
         ttrain.main(["--smoke", "--steps", "1"])
     with pytest.raises(NotImplementedError, match="model axis"):
         ttrain.main(["--smoke", "--device", "cpu", "--devices", "2,2"])
-    for flag in (["--ckpt-every", "5"], ["--resume"], ["--dry-run"],
-                 ["--chaos", "flaky"], ["--kill-pod", "0@3"],
-                 ["--ckpt-dir", "ck"], ["--no-scan-layers"],
+    for flag in (["--no-scan-layers"],
                  ["--overlap", "buckets", "--grad-reduction",
                   "bucketed_allreduce", "--bucket-mb", "1"],
-                 ["--replan-interval", "5"]):
+                 ["--weighting", "canonical"], ["--optimizer", "lamb"],
+                 ["--pipeline-stages", "2", "--accum", "2"]):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             ttrain.main(["--smoke", "--device", "cpu", *flag])
