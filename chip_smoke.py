@@ -96,7 +96,9 @@ Phases (any failure exits non-zero; no phase swallows an error):
    ranks (4.6 M rows; 2 x 2.3 M for the accumulate). Timed (CUDA-event
    medians) at the multi-rank path's per-launch shapes, one exchange
    chunk of 40 buckets: the send-side quantize of 1,024,000 rows, the
-   re-quantize and the accumulate of a shard of 512,000 rows. Bound by
+   re-quantize and the accumulate of a shard of 512,000 rows; and at
+   the overlap pipelines' (phase 15), one bucket: 25,600 rows, a shard
+   of 12,800. Bound by
    bytes at 3.35 TB/s. No single PyTorch call computes either function
    (library: none); ``q.float()`` + ``einsum`` is timed for
    information.
@@ -234,9 +236,11 @@ Phases (any failure exits non-zero; no phase swallows an error):
 14. Checkpoint and re-mesh path phase: ``repro_torch.launch.train``,
    each run a fresh process under a temporary ``--ckpt-dir`` removed
    after. First the disk: the free bytes there must hold the phase's
-   checkpoints (two full-width ones, ~14.2 GB each: fp32 parameters, m
-   and v), or the phase fails. Then phase 5's settings (full olmo-1b,
-   8 rows of 1024, accum 2): 24 steps with a checkpoint every 12 (steps
+   checkpoints (two of olmo-1b at 4 layers, ~4.5 GB each: fp32
+   parameters, m and v), or the phase fails. Then phase 5's settings
+   (olmo-1b at full width, the depth cut to 4 layers, which keeps the
+   script inside its time limit; 8 rows of 1024, accum 2): 24
+   steps with a checkpoint every 12 (steps
    2-12 run with no write in flight, steps 13-24 while step 12's write
    is), then ``--resume`` to step 26, then 26 uninterrupted steps; the
    resumed run restores step 24 (its manifest verified), its losses of
@@ -259,20 +263,47 @@ Phases (any failure exits non-zero; no phase swallows an error):
    repack), and the median step while a save is in flight against the
    same run's steps with no write in flight, the uninterrupted run's and
    phase 5's, each with the card's name and power limit.
-15. Prints the seconds of each phase, then one ``{"kernels": [...]}``
+15. Overlap and canonical path phase: phase 7's command three more
+   times, with ``--overlap buckets``, ``--overlap backward
+   --no-scan-layers`` and that with ``--optimizer lamb``: every loss
+   finite, both ranks end bitwise equal, per rank kernel 4 twice and
+   kernel 5 once a bucket a step (180 buckets of 25 MiB) and kernels 1,
+   1b, 3, 3b as phase 7, the wire bytes of each step the buckets'
+   ``modeled_bucket_link_bytes`` summed; ms per step, real tokens/s and
+   peak memory printed beside phase 7's (for information). Then the
+   exactness probe: two ranks at full width, depth cut to 2 layers,
+   fp32 (TF32 off), ``grad_clip=0``, accum 2, 3 steps: with
+   ``bucketed_allreduce`` and with hierarchical int8 and error
+   feedback, ``buckets`` and ``backward`` must give losses, parameters
+   and (int8) the error state bitwise those of ``none``, and the error
+   state must be non-zero (the loss and leaf differences are printed
+   only). Then
+   ``--weighting canonical`` at full width on one rank (phase 5's
+   settings, accum 1, 4 steps): finite losses, and per row of every
+   step the attention forward twice a layer, its backward once, the CE
+   forward and one dlogits chunk; and two ranks at depth 2, fp32, on
+   the canonical batches of a 6-row plan under plans (2,1) x4 and
+   (1,1) x2 then (3,1) x2: bitwise-equal losses and parameter
+   checksums.
+16. Prints the seconds of each phase, then one ``{"kernels": [...]}``
    line (eleven kernels, each with its launches on its path, which must
    be above 0; the prefill kernel's D=64 (phase 2's S=512 bucket), D=192
    and D=80 cases ride in its entry as ``at_d64``, ``at_d192`` and
    ``at_d80``, the GQA and MLA paged decodes' longer windows as
    ``at_long_window``, the contiguous MLA decode's B=8, S=512 case as
-   ``at_b8_s512``), then, last, ``{"ok": true, "device": {...}}``.
+   ``at_b8_s512``, the exchange kernels' one-bucket launches (phase 6,
+   the shapes of phase 15's pipelines, with phase 15's launches) as
+   ``at_one_bucket``), then, last, ``{"ok": true, "device": {...}}``.
    Details go to ``chiprun_out/chip_smoke.json``.
 
 ``python3 chip_smoke.py --cards 4`` (a machine with four cards) runs
 only the multi-rank path with one card per rank over NCCL: the phase-7
 command on ``--devices 2,1,1`` and on ``--devices 2,2,1`` with
-capacities 2,1,1,0 (a dead rank), each with phase 7's checks, then the
-invariant and exchange probe on two cards. Details go to
+capacities 2,1,1,0 (a dead rank), each with phase 7's checks; on
+``--devices 2,2,1`` also with ``--overlap buckets`` and ``--overlap
+backward --no-scan-layers``, each with phase 15's per-bucket checks
+(launches and wire bytes a bucket, both ranks' parameters equal); then
+the invariant and exchange probe on two cards. Details go to
 ``chiprun_out/chip_smoke_cards.json``; the last line is the same.
 """
 from __future__ import annotations
@@ -1358,16 +1389,19 @@ def exchange_layout(cfg):
 def exchange_shapes(cfg):
     """Rows (blocks of 256) of each kernel launch on the multi-rank path:
     the first chunk's send-side quantize, its dequant-accumulate (R, rows
-    of one shard) and the re-quantize of its shard sum; and the whole
-    stack's, as one unchunked exchange would give them."""
+    of one shard) and the re-quantize of its shard sum; the same of one
+    bucket (the overlap pipelines' launches); and the whole stack's, as
+    one unchunked exchange would give them."""
     from repro_torch.core import buckets as bkt
     lo = exchange_layout(cfg)
     rows = bkt.chunk_buckets(lo) * lo.bucket_elems // 256
     total_rows = -(-lo.total // 256)
     return {"chunk_send": rows, "chunk_shard": rows // EXCHANGE_RANKS,
-                "stack_send": total_rows,
-                "stack_shard": lo.num_buckets * lo.bucket_elems // 256
-                // EXCHANGE_RANKS}
+            "bucket_send": lo.bucket_elems // 256,
+            "bucket_shard": lo.bucket_elems // 256 // EXCHANGE_RANKS,
+            "stack_send": total_rows,
+            "stack_shard": lo.num_buckets * lo.bucket_elems // 256
+            // EXCHANGE_RANKS}
 
 
 def quantize_case(qz, q_ref, rows, gen, dev, *, noise, timed):
@@ -1451,9 +1485,20 @@ def exchange_kernel_phase(dev):
                               noise=False, timed=True))
     recs.append(dequant_case(qz, q_ref, EXCHANGE_RANKS,
                              shapes["chunk_shard"], gen, dev, timed=True))
+    # the overlap pipelines' launches: one bucket (phase 15), the
+    # re-quantize of its shard, the send side, the receive
+    for rec in (quantize_case(qz, q_ref, shapes["bucket_shard"], gen, dev,
+                              noise=False, timed=True),
+                quantize_case(qz, q_ref, shapes["bucket_send"], gen, dev,
+                              noise=False, timed=True),
+                dequant_case(qz, q_ref, EXCHANGE_RANKS,
+                             shapes["bucket_shard"], gen, dev, timed=True)):
+        recs.append({**rec, "bucket": True})
     for r in recs:
         shape = {k: r[k] for k in ("R", "rows", "noise") if k in r}
-        print(f"[exchange-kernels] {r['kernel']} {shape}: bitwise equal "
+        print(f"[exchange-kernels] {r['kernel']} {shape}"
+              + (" (one bucket)" if r.get("bucket") else "")
+              + f": bitwise equal "
               f"{r['bitwise_equal']}, max abs err {r['max_abs_err']:.3e}"
               + (f", {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
                  f"{r['bound_ms']:.6f} ms ({r['bound_by']})"
@@ -1567,9 +1612,12 @@ def probe_rank(rank, world, init_method, seq_len):
     return out
 
 
-def multi_rank_train(dev, argv, smi):
+def multi_rank_train(dev, argv, smi, per_bucket=False, tag="multi"):
     """The driver's multi-rank run with its checks: finite losses, equal
-    parameters on every rank, each rank's launches and wire bytes."""
+    parameters on every rank, each rank's launches and wire bytes (of
+    the monolithic exchange's chunks, or with ``per_bucket`` of the
+    overlap pipelines' buckets: kernel 4 twice and kernel 5 once a
+    bucket, ``modeled_bucket_link_bytes`` summed)."""
     import gc
     import torch
     from repro_torch.configs import base as cfgbase
@@ -1579,49 +1627,62 @@ def multi_rank_train(dev, argv, smi):
     torch.cuda.empty_cache()
     args = ttrain.parser().parse_args(argv)
     cfg = cfgbase.resolve(args.arch)
-    print(f"[multi] parent holds {torch.cuda.memory_reserved(dev) / 2**30:.2f}"
-          f" GiB on the card before the ranks start", flush=True)
+    print(f"[{tag}] parent holds "
+          f"{torch.cuda.memory_reserved(dev) / 2**30:.2f} GiB on the card "
+          f"before the ranks start", flush=True)
     result = ttrain.main(argv)
     ranks = result["ranks"]
     n = result["steps"]
     losses = result["losses"]
     check(n == args.steps and all(map(_finite, losses)),
-          f"multi-rank: losses {losses}")
+          f"{tag}: losses {losses}")
     sums = result["end_checksums"]
     check(len(sums) == len(ranks) > 1 and len(set(sums)) == 1,
-          f"multi-rank: parameters differ across ranks: {sums}")
+          f"{tag}: parameters differ across ranks: {sums}")
     lo = exchange_layout(cfg)
     chunks = bkt.exchange_chunks(lo)
+    units = lo.num_buckets if per_bucket else chunks
     plan = result["plan"]
     expect = train_launches(cfg, plan["buffer_rows"], args.accum,
-                            args.seq_len, n, chunks)
-    modeled = bkt.modeled_link_bytes(lo, 2, compress=True)
+                            args.seq_len, n, units)
+    modeled = (sum(bkt.modeled_bucket_link_bytes(lo, 2, k, compress=True)
+                   for k in range(lo.num_buckets)) if per_bucket
+               else bkt.modeled_link_bytes(lo, 2, compress=True))
     for r in ranks:
         check(r["launches"] == expect,
-              f"multi-rank: rank {r['rank']} launches {r['launches']} != "
+              f"{tag}: rank {r['rank']} launches {r['launches']} != "
               f"{expect}")
         check(r["link_bytes"] == [modeled] * n,
-              f"multi-rank: rank {r['rank']} wire bytes {r['link_bytes']} "
+              f"{tag}: rank {r['rank']} wire bytes {r['link_bytes']} "
               f"!= modeled {modeled} a step")
     ms = statistics.median(result["step_s"][1:]) * 1e3
     tokens = args.global_batch * args.seq_len
     peaks = [r["peak_memory_bytes"] / 2**30 for r in ranks]
-    print(f"[multi] {cfg.name}, {len(ranks)} ranks (--devices "
-          f"{args.devices}, capacities {args.capacities}) on "
+    trust = [m["trust_ratio"] for m in result["metrics"]
+             if "trust_ratio" in m]
+    print(f"[{tag}] {cfg.name}, {len(ranks)} ranks (--devices "
+          f"{args.devices}, capacities {args.capacities}, overlap "
+          f"{args.overlap}, optimizer {args.optimizer}) on "
           f"{torch.cuda.device_count()} card(s), backend "
           f"{result['backend']}, transport {result['transport']}: "
           f"{ms:.1f} ms/step (median of steps 2..{n}), "
           f"{tokens / (ms / 1e3):.0f} real tokens/s, peak memory per rank "
-          f"{', '.join(f'{p:.2f}' for p in peaks)} GiB, {chunks} exchange "
-          f"chunks, {modeled} wire bytes a step per rank (modeled "
-          f"{modeled}), launches per rank {ranks[0]['launches']} [{smi}]",
+          f"{', '.join(f'{p:.2f}' for p in peaks)} GiB, "
+          + (f"{lo.num_buckets} buckets" if per_bucket
+             else f"{chunks} exchange chunks")
+          + f", {modeled} wire bytes a step per rank (modeled {modeled}), "
+          f"launches per rank {ranks[0]['launches']}"
+          + (f", trust ratio {trust}" if trust else "") + f" [{smi}]",
           flush=True)
-    return {"devices": args.devices, "losses": losses,
+    return {"devices": args.devices, "overlap": args.overlap,
+            "optimizer": args.optimizer, "losses": losses,
             "metrics": result["metrics"], "plan": plan,
             "launches": ranks[0]["launches"], "expected_launches": expect,
             "launches_by_rank": [r["launches"] for r in ranks],
-            "exchange_chunks": chunks, "link_bytes_per_step": modeled,
+            "exchange_chunks": chunks, "buckets": lo.num_buckets,
+            "link_bytes_per_step": modeled,
             "ms_per_step_median_2_to_n": ms,
+            "step_s": result["step_s"],
             "tokens_per_s": tokens / (ms / 1e3),
             "peak_memory_gib_by_rank": peaks,
             "backend": result["backend"], "transport": result["transport"],
@@ -1666,6 +1727,7 @@ def multi_rank_phase(dev, smi):
 # the multi-card run (``--cards 4``): the same path with one card per
 # rank (NCCL), on two ranks and on four with a dead rank
 CARDS_DEVICES = (("2,1,1", "2,1"), ("2,2,1", "2,1,1,0"))
+CARDS_OVERLAP = "2,2,1"
 
 
 def cards_main(dev, smi, cards):
@@ -1681,11 +1743,20 @@ def cards_main(dev, smi, cards):
         argv = [a for a in MULTI_ARGV]
         argv[argv.index("--devices") + 1] = devices
         argv[argv.index("--capacities") + 1] = caps
-        t0 = time.monotonic()
-        runs[devices] = multi_rank_train(dev, argv, smi)
-        check(runs[devices]["backend"] == "nccl",
-              f"{devices}: backend {runs[devices]['backend']}, not nccl")
-        phases[devices] = time.monotonic() - t0
+        # the overlap pipelines over NCCL (async collectives, and in
+        # "backward" collectives issued from autograd's hooks) on the
+        # mesh with an in-pod leg
+        overlaps = [(None, [])] + (list(OVERLAP_RUNS[:2])
+                                   if devices == CARDS_OVERLAP else [])
+        for name, flags in overlaps:
+            key = devices if name is None else f"{devices}/{name}"
+            t0 = time.monotonic()
+            runs[key] = multi_rank_train(
+                dev, argv + flags, smi, per_bucket=name is not None,
+                tag="cards" if name is None else f"cards-{name}")
+            check(runs[key]["backend"] == "nccl",
+                  f"{key}: backend {runs[key]['backend']}, not nccl")
+            phases[key] = time.monotonic() - t0
     t0 = time.monotonic()
     probe = multi_rank_probe(1024, smi)
     phases["probe"] = time.monotonic() - t0
@@ -3064,12 +3135,16 @@ REMESH_ARGV = [a for a in MULTI_ARGV]
 for _flag, _value in (("--capacities", "1,1"), ("--steps", "6")):
     REMESH_ARGV[REMESH_ARGV.index(_flag) + 1] = _value
 REMESH_ARGV += ["--ckpt-every", "4", "--kill-pod", "1@3"]
-# the resume runs: phase 5's settings (full olmo-1b, 8 rows of 1024,
-# accum 2). The first takes RESUME_FIRST steps with checkpoints at steps
+# the resume runs: phase 5's settings (olmo-1b at full width, 8 rows of
+# 1024, accum 2) with the depth cut to RESUME_LAYERS (the checks do not
+# grow with depth, and at full depth the script's run neared its time
+# limit once phase 15 was added). The first takes RESUME_FIRST steps
+# with checkpoints at steps
 # 12 and 24: its steps 2-12 run with no write in flight and its steps
 # 13-24 while step 12's write is (a write outlasts 12 steps), the two
 # medians of one process. The second resumes from step 24 to
 # RESUME_STEPS, against that many uninterrupted steps.
+RESUME_LAYERS = 4
 RESUME_CKPT_EVERY = 12
 RESUME_FIRST = 24
 RESUME_STEPS = 26
@@ -3133,8 +3208,9 @@ def ckpt_phase(smi, train_rec):
     """Phase 14: checkpoints, resume and the elastic re-mesh through the
     driver, each run a fresh process under a temporary ``--ckpt-dir``
     (removed after): the disk check, the one-rank resume at full width
-    (bitwise against an uninterrupted run) and the two-pod run that
-    loses a pod and re-meshes (4 layers: ``REMESH_LAYERS``)."""
+    and RESUME_LAYERS of depth (bitwise against an uninterrupted run)
+    and the two-pod run that loses a pod and re-meshes (4 layers:
+    ``REMESH_LAYERS``)."""
     import shutil
     import tempfile
     import numpy as np
@@ -3156,11 +3232,12 @@ def ckpt_phase(smi, train_rec):
     root = Path(tempfile.mkdtemp(prefix="hetseq_ckpt_phase_"))
     out = {}
     try:
-        # 1. disk: the resume runs keep two full-width checkpoints, the
-        # re-mesh run two of its own (one two-pod, one one-pod)
+        # 1. disk: the resume runs keep two checkpoints, the re-mesh run
+        # two of its own (one two-pod, one one-pod)
         args = ttrain.parser().parse_args(TRAIN_ARGV)
         margs = ttrain.parser().parse_args(REMESH_ARGV)
-        cfg = ttrain.build_config(args)[0]
+        cfg = dataclasses.replace(ttrain.build_config(args)[0],
+                                  num_layers=RESUME_LAYERS)
         cut = dataclasses.replace(ttrain.build_config(margs)[0],
                                   num_layers=REMESH_LAYERS)
         ckpt_bytes = CKPT_ARRAYS * 4 * cfg.param_count()
@@ -3168,15 +3245,16 @@ def ckpt_phase(smi, train_rec):
         need = max(2 * ckpt_bytes, 2 * cut_bytes)
         free = shutil.disk_usage(root).free
         print(f"[ckpt-phase] {root}: {free / 1e9:.1f} GB free, a "
-              f"checkpoint of olmo-1b {ckpt_bytes / 1e9:.2f} GB (fp32 "
-              f"parameters, m, v), of the {REMESH_LAYERS}-layer two-pod run "
+              f"checkpoint of olmo-1b at {RESUME_LAYERS} layers "
+              f"{ckpt_bytes / 1e9:.2f} GB (fp32 parameters, m, v), of the "
+              f"{REMESH_LAYERS}-layer two-pod run "
               f"{cut_bytes / 1e9:.2f} GB; the phase needs "
               f"{need / 1e9:.1f} GB", flush=True)
         check(free >= need, f"checkpoint phase: {free} bytes free at "
               f"{root}, the phase needs {need}")
 
-        # 2. resume on one rank, full olmo-1b: RESUME_FIRST steps with
-        # checkpoints, then --resume to RESUME_STEPS, against
+        # 2. resume on one rank, olmo-1b at RESUME_LAYERS: RESUME_FIRST
+        # steps with checkpoints, then --resume to RESUME_STEPS, against
         # RESUME_STEPS uninterrupted steps
         data = ["--data-dir", str(root / "data")]
         ck = ["--ckpt-dir", str(root / "resume")]
@@ -3186,9 +3264,12 @@ def ckpt_phase(smi, train_rec):
         first = list(base)
         first[steps_at] = str(RESUME_FIRST)
         _, a, a_s = run_driver(first + data + ck + [
-            "--ckpt-every", str(RESUME_CKPT_EVERY)], "resume-1")
-        _, b, b_s = run_driver(base + data + ck + ["--resume"], "resume-2")
-        _, c, c_s = run_driver(base + data, "uninterrupted")
+            "--ckpt-every", str(RESUME_CKPT_EVERY)], "resume-1",
+            layers=RESUME_LAYERS)
+        _, b, b_s = run_driver(base + data + ck + ["--resume"], "resume-2",
+                               layers=RESUME_LAYERS)
+        _, c, c_s = run_driver(base + data, "uninterrupted",
+                               layers=RESUME_LAYERS)
         ra, rb, rc = (x["worlds"][0]["ranks"][0] for x in (a, b, c))
         plan = ttrain.make_plan(ttrain.build_config(args)[1])
         n_b = RESUME_STEPS - RESUME_FIRST
@@ -3232,7 +3313,8 @@ def ckpt_phase(smi, train_rec):
         ms_c = statistics.median(rc["step_s"][1:]) * 1e3
         ms_p5 = train_rec["ms_per_step_median_2_to_n"]
         rest = rb["restore"]
-        print(f"[ckpt-phase] olmo-1b resume: bitwise equal to the "
+        print(f"[ckpt-phase] olmo-1b ({RESUME_LAYERS} layers) resume: "
+              f"bitwise equal to the "
               f"uninterrupted run (losses of steps {RESUME_FIRST + 1}-"
               f"{RESUME_STEPS} {b['losses']}, "
               f"parameter checksum {b['end_checksums'][0]}) [{smi}]",
@@ -3338,6 +3420,328 @@ def ckpt_phase(smi, train_rec):
             "restore": w1[0]["restore"], "process_seconds": r_s}
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+# --------------------------------------------------------------------------
+# overlap and canonical path phase
+# --------------------------------------------------------------------------
+
+# phase 7's command three more times: the per-bucket pipeline after the
+# backward, buckets flushed during the backward, and that with LAMB
+OVERLAP_RUNS = (("buckets", ["--overlap", "buckets"]),
+                ("backward", ["--overlap", "backward", "--no-scan-layers"]),
+                ("backward_lamb", ["--overlap", "backward",
+                                   "--no-scan-layers", "--optimizer",
+                                   "lamb"]))
+# the exactness probe: two ranks at full width, depth cut to 2 layers,
+# fp32 (TF32 off), grad_clip 0, accum 2, 3 steps of 8 rows x 1024
+OVERLAP_LAYERS = 2
+OVERLAP_STEPS = 3
+# canonical at full width: phase 5's settings with --weighting canonical
+# (accum 1, which canonical requires), 4 steps; then two ranks at depth
+# 2, fp32, 6 rows of 1024 a batch (the last batch partial), under two
+# plan sequences
+CANONICAL_ARGV = [a for a in TRAIN_ARGV] + ["--weighting", "canonical"]
+for _flag, _value in (("--accum", "1"), ("--steps", "4")):
+    CANONICAL_ARGV[CANONICAL_ARGV.index(_flag) + 1] = _value
+CANONICAL_ROWS = 6
+CANONICAL_PLANS = {"fixed": ((2.0, 1.0),) * 4,
+                   "replanned": ((1.0, 1.0),) * 2 + ((3.0, 1.0),) * 2}
+
+
+def _flat_params(params):
+    import torch
+    from repro_torch.models.transformer import tree_leaves
+    return torch.cat([t.detach().reshape(-1).float()
+                      for t in tree_leaves(params)])
+
+
+def overlap_probes_rank(rank, world, init_method, seq_len, corpus):
+    """One rank of phase 15's two probes, in one process group: the
+    exactness probe on a (pod, data, model) mesh, then the canonical
+    replan probe on (data, model); fp32 with TF32 off."""
+    import torch
+    from repro_torch.launch import mesh as mesh_mod
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = mesh_mod.init((world, 1, 1), ("pod", "data", "model"), rank,
+                         init_method, "cuda")
+    try:
+        exact = overlap_probe(mesh, seq_len)
+        canon = canonical_probe(mesh_mod.init(
+            (world, 1), ("data", "model"), rank, init_method, "cuda"),
+            seq_len, corpus)
+    finally:
+        mesh_mod.destroy(mesh)
+    return {"exactness": exact, "canonical": canon}
+
+
+def overlap_probe(mesh, seq_len):
+    """The exactness probe: OVERLAP_STEPS steps of a 2-layer full-width
+    olmo-1b at fp32 under overlap none, buckets and backward, with
+    ``bucketed_allreduce`` (fp32) and with hierarchical int8 and error
+    feedback, from the same parameters and batches. Returns each mode's
+    losses, parameter and error differences against ``none``, and the
+    error state's norm."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.core import capacity as cap
+    from repro_torch.core import dummy
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.models.model import build_model
+    rank = mesh.rank
+    out = {}
+    cfg = dataclasses.replace(
+        cfgbase.resolve("olmo-1b"), num_layers=OVERLAP_LAYERS,
+        compute_dtype="float32", attention_impl="kernel",
+        scan_layers=False)
+    model = build_model(cfg, mesh.device)
+    plan = cap.plan_capacities(8, (2.0, 1.0), headroom=1.25,
+                               round_buffer_to=2)
+    rng = np.random.default_rng(5)
+    b = plan.buffer_rows
+    batches = []
+    for _ in range(OVERLAP_STEPS):
+        packed = dummy.pack_global_batch(
+            {k: rng.integers(0, cfg.vocab_size, (8, seq_len)).astype(
+                np.int32) for k in ("inputs", "labels")}, plan)
+        batches.append({k: torch.from_numpy(v[rank * b:(rank + 1) * b])
+                        .to(mesh.device) for k, v in packed.items()})
+    for name, het in (("bucketed_allreduce",
+                       dict(grad_reduction="bucketed_allreduce")),
+                      ("hierarchical_int8",
+                       dict(grad_reduction="hierarchical",
+                            compression="int8"))):
+        base = None
+        for ov in ("none", "buckets", "backward"):
+            tcfg = cfgbase.TrainConfig(
+                model=cfg, shape=cfgbase.ShapeConfig("t", seq_len, 8,
+                                                     "train"),
+                het=cfgbase.HetConfig(bucket_mb=EXCHANGE_BUCKET_MB,
+                                      quantize_impl="pallas",
+                                      overlap=ov, accum_steps=2, **het),
+                optimizer=cfgbase.OptimizerConfig(
+                    lr=3e-4, warmup_steps=1, schedule="constant",
+                    grad_clip=0.0))
+            state = tsteps.init_train_state(model, tcfg, mesh=mesh)
+            step = tsteps.build_train_step(model, tcfg, mesh)
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            losses = []
+            for bt in batches:
+                state, met = step(state, bt)
+                losses.append(float(met["loss"]))
+            secs = time.monotonic() - t0
+            flat = _flat_params(state.params)
+            err = state.err if isinstance(state.err, torch.Tensor) \
+                else None
+            rec = {"losses": losses, "seconds": secs,
+                   "checksum": tsteps.params_checksum(state.params),
+                   "err_norm": None if err is None
+                   else float(err.norm())}
+            if base is None:                # overlap "none"
+                base = {"losses": losses, "flat": flat,
+                        "params": state.params, "err": err}
+            else:
+                rec["params_bitwise"] = bool(torch.equal(flat,
+                                                         base["flat"]))
+                rec["losses_bitwise"] = losses == base["losses"]
+                rec["loss_rel"] = max(abs(x - y) / abs(y) for x, y in
+                                      zip(losses, base["losses"]))
+                rec["leaf_rel"] = _worst_leaf_rel(state.params,
+                                                  base["params"])
+                if err is not None:
+                    rec["err_bitwise"] = bool(torch.equal(err,
+                                                          base["err"]))
+            out[f"{name}/{ov}"] = rec
+            del state, step, flat, err
+    return out
+
+
+def _worst_leaf_rel(got, want):
+    """The largest difference of any parameter leaf, relative to that
+    leaf's largest magnitude."""
+    from repro_torch.models.transformer import tree_leaves
+    return max(float((a.float() - b.float()).abs().max()
+                     / b.float().abs().max().clamp(min=1e-30))
+               for a, b in zip(tree_leaves(got), tree_leaves(want)))
+
+
+def canonical_probe(mesh, seq_len, corpus):
+    """The canonical bit-identity probe: a 2-layer full-width olmo-1b at
+    fp32 trained on the canonical batches of ``corpus`` under each plan
+    sequence of CANONICAL_PLANS (the plan set before each step, as a
+    replan would); returns each run's losses and parameter checksum."""
+    import torch
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.core import capacity as cap
+    from repro_torch.data.dataset import ShardedDataset
+    from repro_torch.data.sampler import HetSampler
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.models.model import build_model
+    out = {}
+    cfg = dataclasses.replace(
+        cfgbase.resolve("olmo-1b"), num_layers=OVERLAP_LAYERS,
+        compute_dtype="float32", attention_impl="kernel")
+    model = build_model(cfg, mesh.device)
+    ds = ShardedDataset(corpus)
+    tcfg = cfgbase.TrainConfig(
+        model=cfg, shape=cfgbase.ShapeConfig("t", seq_len,
+                                             CANONICAL_ROWS, "train"),
+        het=cfgbase.HetConfig(weighting="canonical"),
+        optimizer=cfgbase.OptimizerConfig(lr=1e-3, warmup_steps=2))
+    for name, caps in CANONICAL_PLANS.items():
+        plans = [cap.plan_capacities(CANONICAL_ROWS, c) for c in caps]
+        smp = HetSampler(ds, plans[0], seed=3, canonical_order=True)
+        state = tsteps.init_train_state(model, tcfg, mesh=mesh)
+        step = tsteps.build_train_step(model, tcfg, mesh)
+        losses, rows = [], []
+        t0 = time.monotonic()
+        for plan, entry in zip(plans, smp.epoch_batches(0)):
+            smp.set_plan(plan)
+            raw = smp.pack(entry)
+            batch = {k: torch.from_numpy(raw[k][:, :seq_len].copy()).to(
+                mesh.device) for k in ("inputs", "labels", "weights")}
+            rows.append(int((raw["weights"].sum(axis=1) > 0).sum()))
+            state, met = step(state, batch)
+            losses.append(float(met["loss"]))
+        out[name] = {"losses": losses, "real_rows": rows,
+                     "rows_per_rank": [p.rows_per_rank.tolist()
+                                       for p in plans],
+                     "checksum": tsteps.params_checksum(state.params),
+                     "seconds": time.monotonic() - t0}
+        del state, step
+    return out
+
+
+def canonical_train(dev, fa, ce, smi):
+    """The driver's one-rank canonical run at full width, counters
+    zeroed just before and read just after: per row of every step, the
+    attention forward twice a layer (remat) and its backward once, the
+    CE forward and one dlogits chunk."""
+    import gc
+    import torch
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.kernels.cross_entropy.cross_entropy import BWD_CHUNK
+    from repro_torch.launch import train as ttrain
+    gc.collect()
+    torch.cuda.empty_cache()
+    fns = _counters(fa, ce)
+    args = ttrain.parser().parse_args(CANONICAL_ARGV)
+    cfg = cfgbase.resolve(args.arch)
+    for f in fns.values():
+        f.launches = 0
+    result = ttrain.main(CANONICAL_ARGV)
+    launches = {n: f.launches for n, f in fns.items()}
+    n = result["steps"]
+    losses = result["losses"]
+    check(n == args.steps and all(map(_finite, losses)),
+          f"canonical: losses {losses}")
+    rows = result["plan"]["global_rows"] * n
+    L = cfg.num_layers
+    expect = {"flash_attention_cuda": (2 if cfg.remat == "full" else 1)
+              * L * rows,
+              "flash_attention_bwd_cuda": L * rows,
+              "cross_entropy_cuda": rows,
+              "ce_dlogits_cuda": -(-args.seq_len // BWD_CHUNK) * rows,
+              "flash_decode_paged_cuda": 0}
+    check(launches == expect, f"canonical launches {launches} != {expect}")
+    ms = statistics.median(result["step_s"][1:]) * 1e3
+    tokens = args.global_batch * args.seq_len
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    print(f"[canonical] {cfg.name}, one rank, weighting canonical: "
+          f"{result['plan']['global_rows']} rows of {args.seq_len} a step, "
+          f"each its own backward: {ms:.1f} ms/step (median of steps "
+          f"2..{n}), {tokens / (ms / 1e3):.0f} real tokens/s, peak memory "
+          f"{peak:.2f} GiB, losses {losses}, launches {launches} [{smi}]",
+          flush=True)
+    return {"losses": losses, "launches": launches,
+            "expected_launches": expect, "rows_per_step":
+            result["plan"]["global_rows"], "ms_per_step_median_2_to_n": ms,
+            "step_s": result["step_s"], "tokens_per_s": tokens / (ms / 1e3),
+            "peak_memory_gib": peak, "wall_s": result["wall_s"]}
+
+
+def overlap_phase(dev, fa, ce, smi, multi):
+    """Phase 15: the overlap modes at full width through the driver,
+    their exactness on the card at depth 2, and canonical weighting."""
+    import shutil
+    import tempfile
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.data.synthetic import build_synthetic_corpus
+    from repro_torch.launch import mesh as mesh_mod
+    out = {"runs": {}}
+    for name, flags in OVERLAP_RUNS:
+        t0 = time.monotonic()
+        rec = multi_rank_train(dev, MULTI_ARGV + flags, smi,
+                               per_bucket=True, tag=f"overlap-{name}")
+        rec["process_seconds"] = time.monotonic() - t0
+        out["runs"][name] = rec
+    ms7 = multi["ms_per_step_median_2_to_n"]
+    print("[overlap] ms/step, real tokens/s, peak GiB per rank (phase 7's "
+          f"run first, for information): none {ms7:.1f}, "
+          f"{multi['tokens_per_s']:.0f}, {multi['peak_memory_gib_by_rank']}; "
+          + "; ".join(f"{k} {r['ms_per_step_median_2_to_n']:.1f}, "
+                      f"{r['tokens_per_s']:.0f}, "
+                      f"{r['peak_memory_gib_by_rank']}"
+                      for k, r in out["runs"].items()) + f" [{smi}]",
+          flush=True)
+
+    out["canonical"] = canonical_train(dev, fa, ce, smi)
+    root = tempfile.mkdtemp(prefix="hetseq_canonical_")
+    try:
+        corpus = build_synthetic_corpus(
+            root + "/c", num_seqs=20, seq_len=1025,
+            vocab=cfgbase.resolve("olmo-1b").vocab_size, rows_per_shard=8,
+            seed=0)
+        t0 = time.monotonic()
+        probes = mesh_mod.spawn(overlap_probes_rank, 2, (1024, corpus),
+                                timeout_s=900)[0]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["probes_seconds"] = time.monotonic() - t0
+    probe, runs = probes["exactness"], probes["canonical"]
+    out["exactness"] = probe
+    for key, rec in probe.items():
+        print(f"[overlap] exactness {key} ({OVERLAP_LAYERS} layers, fp32, "
+              f"{OVERLAP_STEPS} steps, {rec['seconds']:.1f} s): losses "
+              f"{rec['losses']}"
+              + (f", params bitwise {rec['params_bitwise']}, losses "
+                 f"bitwise {rec['losses_bitwise']}, loss rel "
+                 f"{rec['loss_rel']:.2e}, worst leaf rel "
+                 f"{rec['leaf_rel']:.2e}" if "params_bitwise" in rec
+                 else "")
+              + (f", error state norm {rec['err_norm']:.4e}"
+                 + (f" bitwise {rec['err_bitwise']}"
+                    if "err_bitwise" in rec else "")
+                 if rec["err_norm"] is not None else ""), flush=True)
+    # every mode bitwise the monolithic step, as the CPU test
+    # (test_overlap_steps_bitwise_monolithic) asserts: the int8 case's
+    # error state too, and it must be non-zero
+    for ov in ("buckets", "backward"):
+        fp = probe[f"bucketed_allreduce/{ov}"]
+        check(fp["params_bitwise"] and fp["losses_bitwise"],
+              f"overlap {ov}: fp32 bucketed_allreduce not bitwise the "
+              f"monolithic step")
+        q = probe[f"hierarchical_int8/{ov}"]
+        check(q["params_bitwise"] and q["losses_bitwise"]
+              and q["err_bitwise"] and q["err_norm"] > 0,
+              f"overlap {ov}: int8 with error feedback not bitwise the "
+              f"monolithic step: {q}")
+    fixed, replanned = runs["fixed"], runs["replanned"]
+    same = (fixed["losses"] == replanned["losses"]
+            and fixed["checksum"] == replanned["checksum"])
+    out["canonical_replans"] = {**runs, "bitwise": same}
+    print(f"[canonical] two ranks, {OVERLAP_LAYERS} layers, fp32, "
+          f"{CANONICAL_ROWS} rows of 1024 a batch: plans "
+          f"{fixed['rows_per_rank']} vs {replanned['rows_per_rank']}: "
+          f"losses {fixed['losses']} vs {replanned['losses']}, checksums "
+          f"{fixed['checksum']} vs {replanned['checksum']}: bitwise equal "
+          f"{same} [{smi}]", flush=True)
+    check(same, "canonical: a replanned run differs from the fixed plan's")
+    check(all(map(_finite, fixed["losses"])), "canonical: losses")
     return out
 
 
@@ -3453,6 +3857,9 @@ def main(argv=None) -> int:
     t0 = time.monotonic()
     ckpt = ckpt_phase(smi, train)
     phases["ckpt_remesh_path"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    overlap = overlap_phase(dev, fa, ce, smi, multi)
+    phases["overlap_canonical_path"] = time.monotonic() - t0
     print("[phases] seconds: " + ", ".join(
         f"{k} {v:.1f}" for k, v in phases.items()), flush=True)
 
@@ -3506,7 +3913,10 @@ def main(argv=None) -> int:
                    "ckpt_resume": ckpt["resume"]["launches"]["resume-2"]
                    .get(n, 0),
                    "ckpt_remesh_two_pod": ckpt["remesh"]["launches_two_pod"]
-                   [0].get(n, 0)}
+                   [0].get(n, 0),
+                   **{f"overlap_{k}": r["launches"].get(n, 0)
+                      for k, r in overlap["runs"].items()},
+                   "canonical": overlap["canonical"]["launches"].get(n, 0)}
                for n in src}
     path_of = {"flash_decode_paged_cuda": "serve",
                "quantize_int8_cuda": "multi_rank",
@@ -3529,7 +3939,7 @@ def main(argv=None) -> int:
                     if (r.get("D") not in (64, MLA_DQK, ZAMBA_DH)
                         or name != "flash_attention_cuda")
                     and r.get("window") != "long"
-                    and "continuity" not in r][-1]
+                    and "continuity" not in r and not r.get("bucket")][-1]
         path_name = path_of.get(name, "train")
         kernels.append({
             "name": name, "route": "cuda", "source": source,
@@ -3560,6 +3970,21 @@ def main(argv=None) -> int:
                         "library_ms")},
                     "at": {k: at_d[-1][k] for k in at_d[-1]
                            if k in at_keys}}
+        bucket = [r for r in timed if r.get("bucket")]
+        if bucket:
+            # the overlap pipelines' launch: one 25-MiB bucket (the
+            # send side's quantize; the re-quantize and the accumulate
+            # of its shard ride in "launches" of the same path)
+            kernels[-1]["at_one_bucket"] = {
+                "launches": by_path[name]["overlap_buckets"],
+                **{k: bucket[-1][k] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+                "at": {k: bucket[-1][k] for k in bucket[-1] if k in at_keys},
+                "cases": [{**{k: r[k] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms")}, "at": {k: r[k] for k in r
+                                           if k in at_keys}}
+                          for r in bucket]}
         long_window = [r for r in timed if r.get("window") == "long"]
         if long_window:
             kernels[-1]["at_long_window"] = {
@@ -3580,6 +4005,10 @@ def main(argv=None) -> int:
     check(kernels[0]["at_d80"]["launches"] > 0,
           "the D=80 prefill never launched on the zamba2 path")
     check(len(kernels) == 11, f"{len(kernels)} kernels listed")
+    for k in kernels:
+        if k["name"] in ("quantize_int8_cuda", "dequant_accum_cuda"):
+            check(k["at_one_bucket"]["launches"] > 0,
+                  f"{k['name']} never launched on the overlap path")
 
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
@@ -3587,7 +4016,7 @@ def main(argv=None) -> int:
          "kernel_cases": recs,
          "path": path, "train": train, "multi_rank": multi,
          "mla_path": mla, "zamba_path": zamba, "xlstm_path": xlstm,
-         "ckpt_path": ckpt, "kernels": kernels},
+         "ckpt_path": ckpt, "overlap_path": overlap, "kernels": kernels},
         indent=1,
         default=str))
     print(json.dumps({"kernels": kernels}))

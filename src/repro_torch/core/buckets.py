@@ -37,8 +37,23 @@ takes equal sizes only).
 :func:`layout_record` / :func:`layout_fingerprint` describe a grid in
 checkpoint ``meta.json`` exactly as the JAX package does (the same
 fields, the same sha1 over the same JSON), so a checkpoint's packed
-state is recognised across the two packages. The decay mask, the
-segment ids and the overlapped pipelines come with later slices.
+state is recognised across the two packages.
+
+The packed optimizer path (``HetConfig.overlap``) reads per-leaf
+structure through the grid a bucket at a time: :func:`bucket_runs` (the
+JAX package's ``segment_ids`` row, run-length coded),
+:func:`bucket_decay_mask` (its ``decay_mask`` row) and
+:func:`bucket_pieces` (views of a tree's tensors at a bucket's
+positions). One double-buffered driver, :class:`BucketFlushPipeline`,
+runs the per-bucket exchange: bucket *k+1*'s send side (error
+correction, kernel 4, payload fusion) and its first collective are
+issued before bucket *k*'s is waited on (``Comm``'s ``async_op``), and
+each landed bucket goes to a hook. ``overlap="backward"`` feeds it in
+the order :func:`bucket_readiness` gives as the backward lands the
+gradients; ``overlap="buckets"`` (:func:`exchange_buckets_overlapped`,
+after the backward) feeds it every bucket at once. It reuses the
+monolithic exchange's legs on one bucket, so each bucket's result is
+bitwise the same rows of :func:`exchange_buckets`.
 """
 from __future__ import annotations
 
@@ -46,13 +61,13 @@ import dataclasses
 import hashlib
 import json
 import math
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.core import compression
 from repro_torch.core.capacity import host_shard_extents
-from repro_torch.core.comm import Comm
+from repro_torch.core.comm import Comm, Pending
 from repro_torch.kernels.quantize import ops as q_ops
 
 # fp32 bytes of the bucket stack one exchange chunk covers (whole
@@ -210,7 +225,7 @@ def layout_from_record(record: Dict) -> BucketLayout:
         num_buckets=int(record["num_buckets"]))
 
 
-def _pieces(tree: Any, layout: BucketLayout):
+def tree_pieces(tree: Any, layout: BucketLayout):
     """(stream offset, tensor) of every piece of every leaf."""
     leaves = stream_leaves(tree)
     if len(leaves) != len(layout.sizes):
@@ -230,7 +245,7 @@ def _pieces(tree: Any, layout: BucketLayout):
 def pack_buckets(tree: Any, layout: BucketLayout) -> torch.Tensor:
     """Tree -> (num_buckets, bucket_elems) fp32 stack (a new tensor on the
     tree's device; the padding tail is zero)."""
-    pieces = _pieces(tree, layout)
+    pieces = tree_pieces(tree, layout)
     flat = torch.zeros(layout.padded_total, dtype=torch.float32,
                        device=pieces[0][1].device)
     for off, t in pieces:
@@ -245,7 +260,7 @@ def unpack_buckets(buckets: torch.Tensor, layout: BucketLayout,
     dtype is fp32 (no copy), a cast copy otherwise."""
     flat = buckets.reshape(-1)
     views = {}
-    for off, t in _pieces(like, layout):
+    for off, t in tree_pieces(like, layout):
         v = flat[off:off + t.numel()].view(t.shape)
         views[id(t)] = v if t.dtype == torch.float32 else v.to(t.dtype)
 
@@ -264,6 +279,84 @@ def init_error_buckets(layout: BucketLayout,
     """This rank's flat error-feedback state."""
     return torch.zeros((layout.num_buckets, layout.bucket_elems),
                        dtype=torch.float32, device=device)
+
+
+# --------------------------------------------------------------------------
+# flat views of per-leaf structure (for the packed optimizer path)
+# --------------------------------------------------------------------------
+
+
+def bucket_runs(layout: BucketLayout, k: int
+                ) -> List[Tuple[int, int, int]]:
+    """Bucket ``k`` as ``(lo, hi, leaf)`` runs of bucket positions, in
+    order, one per stream leaf it holds (a leaf is contiguous in the
+    stream), the padding as leaf ``len(layout.sizes)``: the segment ids
+    of the bucket, run-length coded, so a per-leaf reduction is one
+    deterministic sum a run."""
+    be = layout.bucket_elems
+    lo_k, hi_k = k * be, (k + 1) * be
+    runs = []
+    for i, (off, n) in enumerate(zip(layout.offsets, layout.sizes)):
+        lo, hi = max(off, lo_k), min(off + n, hi_k)
+        if lo < hi:
+            runs.append((lo - lo_k, hi - lo_k, i))
+    end = min(layout.total, hi_k) - lo_k
+    if end < be:
+        runs.append((max(end, 0), be, len(layout.sizes)))
+    return runs
+
+
+def bucket_decay_mask(layout: BucketLayout, k: int,
+                      device: torch.device | str = "cpu") -> torch.Tensor:
+    """Bucket ``k``'s (bucket_elems,) int8 weight-decay mask, the JAX
+    package's ``decay_mask`` row k: 1 where the element's stream leaf
+    is a matrix (``ndim >= 2`` of the stacked shape, the AdamW rule), 0
+    for vector and scalar leaves and for the padding."""
+    mask = torch.zeros(layout.bucket_elems, dtype=torch.int8, device=device)
+    for lo, hi, i in bucket_runs(layout, k):
+        if i < len(layout.shapes) and len(layout.shapes[i]) >= 2:
+            mask[lo:hi] = 1
+    return mask
+
+
+def bucket_pieces(tree: Any, layout: BucketLayout
+                  ) -> List[List[Tuple[int, int, torch.Tensor]]]:
+    """For every bucket, ``(lo, hi, view)`` of each piece of ``tree``
+    it holds: ``view`` is the piece's elements at bucket positions
+    ``[lo, hi)``, a flat view into the tree's tensor (so writing it
+    writes the tree)."""
+    be = layout.bucket_elems
+    out: List[List[Tuple[int, int, torch.Tensor]]] = [
+        [] for _ in range(layout.num_buckets)]
+    for off, t in tree_pieces(tree, layout):
+        flat = t.view(-1)
+        start, stop = off, off + flat.numel()
+        while start < stop:
+            k = start // be
+            end = min(stop, (k + 1) * be)
+            out[k].append((start - k * be, end - k * be,
+                           flat[start - off:end - off]))
+            start = end
+    return out
+
+
+def gather_bucket(pieces: Sequence[Tuple[int, int, torch.Tensor]],
+                  bucket_elems: int, device: torch.device | str
+                  ) -> torch.Tensor:
+    """One bucket of a tree as a new fp32 (bucket_elems,) tensor (zero
+    padding), from its :func:`bucket_pieces` entry."""
+    out = torch.zeros(bucket_elems, dtype=torch.float32, device=device)
+    for lo, hi, view in pieces:
+        out[lo:hi].copy_(view)
+    return out
+
+
+def scatter_bucket(pieces: Sequence[Tuple[int, int, torch.Tensor]],
+                   values: torch.Tensor) -> None:
+    """Write a (bucket_elems,) bucket back into the tree's tensors, each
+    piece cast to its tensor's dtype."""
+    for lo, hi, view in pieces:
+        view.copy_(values[lo:hi])
 
 
 # --------------------------------------------------------------------------
@@ -304,11 +397,27 @@ def _write_slot(slot: torch.Tensor, rows: torch.Tensor) -> None:
     slot.copy_(full.view(nbc, ns, b))
 
 
-def _exchange_fp32(x: torch.Tensor, comm: Comm) -> None:
+def _issue(comm: Comm, wire: torch.Tensor, send: List[int],
+           recv: List[int], async_op: bool) -> Pending:
+    """A leg's ``all_to_all``, in flight with ``async_op``, else done."""
+    if async_op:
+        return comm.all_to_all(wire, send, recv, async_op=True)
+    return Pending(comm.all_to_all(wire, send, recv))
+
+
+def _send_fp32(x: torch.Tensor, comm: Comm, async_op: bool) -> Pending:
+    """The reduce-scatter's message leg of an fp32 chunk (nbc, p, shard):
+    slot j of every bucket to rank j."""
     nbc, p, shard = x.shape
     wire = x.transpose(0, 1).reshape(p * nbc, shard)
-    rx = comm.all_to_all(wire, [nbc] * p, [nbc] * p).view(p, nbc, shard)
-    del wire
+    return _issue(comm, wire, [nbc] * p, [nbc] * p, async_op)
+
+
+def _finish_fp32(x: torch.Tensor, sent: Pending, comm: Comm) -> None:
+    """The rest of an fp32 chunk: my shard summed in rank order, then
+    the all-gather, written into ``x``."""
+    nbc, p, shard = x.shape
+    rx = sent.wait().view(p, nbc, shard)
     sh = rx[0].clone()
     for r in range(1, p):                       # fixed rank order
         sh += rx[r]
@@ -317,12 +426,15 @@ def _exchange_fp32(x: torch.Tensor, comm: Comm) -> None:
     x.copy_(full.transpose(0, 1))
 
 
-def _exchange_int8(x: torch.Tensor, e: Optional[torch.Tensor], comm: Comm,
-                   d_rows: int, block_size: int, impl: str) -> None:
+def _send_int8(x: torch.Tensor, e: Optional[torch.Tensor], comm: Comm,
+               d_rows: int, block_size: int, impl: str, async_op: bool
+               ) -> Tuple[Pending, List[int]]:
+    """The send side of an int8 chunk (nbc, p, shard): error-correct in
+    place, quantize the data rows (kernel 4), keep the stage-1 residual
+    in ``e``, fuse the payload and issue its ``all_to_all``."""
     nbc, p, shard = x.shape
     bs = block_size
     ns = shard // bs
-    me = comm.index
     if e is not None:
         x.add_(e)                               # corrected, in place
     rows = x.view(nbc * p * ns, bs)
@@ -341,8 +453,22 @@ def _exchange_int8(x: torch.Tensor, e: Optional[torch.Tensor], comm: Comm,
     wire = torch.cat([msgs[:, j * ns:(j + 1) * ns].reshape(-1, bs + 4)
                       [:lens[j]] for j in range(p)])
     del payload, msgs
-    rx = comm.all_to_all(wire, lens, [lens[me]] * p)
-    del wire
+    return _issue(comm, wire, lens, [lens[comm.index]] * p, async_op), lens
+
+
+def _finish_int8(x: torch.Tensor, e: Optional[torch.Tensor], comm: Comm,
+                 sent: Tuple[Pending, List[int]], block_size: int,
+                 impl: str) -> None:
+    """The receive side of an int8 chunk: dequantize and sum my shard
+    over the ranks (kernel 5), re-quantize it (kernel 4), keep the
+    stage-2 residual in my slot of ``e``, and gather every rank's shard
+    payload, decoded into ``x``."""
+    nbc, p, shard = x.shape
+    bs = block_size
+    ns = shard // bs
+    me = comm.index
+    pending, lens = sent
+    rx = pending.wait()
     q_x, s_x = compression.split_payload(rx.view(p, lens[me], bs + 4), bs)
     shard_sum = q_ops.dequant_accum(q_x, s_x, impl=impl)   # (lens[me], bs)
     del rx, q_x, s_x
@@ -366,6 +492,36 @@ def _exchange_int8(x: torch.Tensor, e: Optional[torch.Tensor], comm: Comm,
         off += lens[j]
 
 
+def _check_stack(buckets: torch.Tensor, err: Optional[torch.Tensor],
+                 p: int, compress: bool, block_size: int) -> bool:
+    """The exchange's shape rules; returns whether ``err`` is kept."""
+    nb, be = buckets.shape
+    if be % p:
+        raise ValueError(f"bucket_elems {be} not divisible by {p} ranks; "
+                         f"build the layout with multiple_of={p}")
+    shard = be // p
+    if compress and shard % block_size:
+        raise ValueError(
+            f"shard {shard} not divisible by block_size {block_size}; "
+            f"build the layout with multiple_of={p * block_size}")
+    if not buckets.is_contiguous() or buckets.dtype != torch.float32:
+        raise ValueError("exchange_buckets: a contiguous fp32 stack")
+    want_err = compress and err is not None
+    if want_err and (err.shape != buckets.shape or not err.is_contiguous()):
+        raise ValueError(f"err {tuple(err.shape)} must be a contiguous "
+                         f"{tuple(buckets.shape)} stack")
+    return want_err
+
+
+def _data_rows(nb: int, be: int, compress: bool, block_size: int,
+               total: Optional[int]) -> int:
+    """Blocks of the stack that hold data (all of them without
+    ``total``)."""
+    n_rows = nb * (be // block_size if compress else 0)
+    return (n_rows if total is None
+            else max(1, min(n_rows, -(-total // block_size))))
+
+
 def exchange_buckets(
     buckets: torch.Tensor,
     err: Optional[torch.Tensor] = None,
@@ -386,36 +542,214 @@ def exchange_buckets(
     the JAX package's ``exchange_buckets`` does."""
     nb, be = buckets.shape
     p = comm.size
-    if be % p:
-        raise ValueError(f"bucket_elems {be} not divisible by {p} ranks; "
-                         f"build the layout with multiple_of={p}")
+    want_err = _check_stack(buckets, err, p, compress, block_size)
     shard = be // p
-    if compress and shard % block_size:
-        raise ValueError(
-            f"shard {shard} not divisible by block_size {block_size}; "
-            f"build the layout with multiple_of={p * block_size}")
-    if not buckets.is_contiguous() or buckets.dtype != torch.float32:
-        raise ValueError("exchange_buckets: a contiguous fp32 stack")
-    want_err = compress and err is not None
-    if want_err and (err.shape != buckets.shape or not err.is_contiguous()):
-        raise ValueError(f"err {tuple(err.shape)} must be a contiguous "
-                         f"{tuple(buckets.shape)} stack")
     step = _chunk(nb, be)
     rows_per_bucket = be // block_size if compress else 0
-    n_rows = nb * rows_per_bucket
-    d_rows = (n_rows if total is None
-              else max(1, min(n_rows, -(-total // block_size))))
+    d_rows = _data_rows(nb, be, compress, block_size, total)
     for k0 in range(0, nb, step):
         k1 = min(nb, k0 + step)
         x = buckets[k0:k1].view(k1 - k0, p, shard)
         if not compress:
-            _exchange_fp32(x, comm)
+            _finish_fp32(x, _send_fp32(x, comm, False), comm)
             continue
         e = err[k0:k1].view(k1 - k0, p, shard) if want_err else None
         d_c = min((k1 - k0) * rows_per_bucket,
                   max(0, d_rows - k0 * rows_per_bucket))
-        _exchange_int8(x, e, comm, d_c, block_size, impl)
+        _finish_int8(x, e, comm, _send_int8(x, e, comm, d_c, block_size,
+                                            impl, False), block_size, impl)
     return buckets, (err if want_err else None)
+
+
+# --------------------------------------------------------------------------
+# the overlapped (double-buffered per-bucket) exchange pipeline
+# --------------------------------------------------------------------------
+
+
+def prepare_bucket(x_k: torch.Tensor, err_k: Optional[torch.Tensor], *,
+                   comm: Comm, compress: bool, d_rows: int,
+                   block_size: int, impl: str):
+    """Send-side leg for ONE bucket, ``x_k`` its (1, p, shard) view:
+    error correction, quantize (kernel 4) and payload fusion in int8,
+    then the first collective, issued asynchronously and returned in
+    flight. ``d_rows``: the bucket's data blocks."""
+    if not compress:
+        return _send_fp32(x_k, comm, True)
+    return _send_int8(x_k, err_k, comm, d_rows, block_size, impl, True)
+
+
+def exchange_prepared_bucket(x_k: torch.Tensor,
+                             err_k: Optional[torch.Tensor], prepared, *,
+                             comm: Comm, compress: bool, block_size: int,
+                             impl: str) -> torch.Tensor:
+    """Link and receive legs for ONE prepared bucket: waits on its first
+    collective, then (int8) dequant-accumulate (kernel 5), re-quantize
+    (kernel 4) and the gather leg. ``x_k`` ends holding the global sum
+    and ``err_k`` its new error slice: bitwise the same rows of
+    :func:`exchange_buckets` (the same legs on one bucket: quantization
+    is per block of 256, the sums elementwise). Returns ``x_k``."""
+    if not compress:
+        _finish_fp32(x_k, prepared, comm)
+    else:
+        _finish_int8(x_k, err_k, comm, prepared, block_size, impl)
+    return x_k
+
+
+def bucket_legs(buckets: torch.Tensor, err: Optional[torch.Tensor], *,
+                comm: Comm, compress: bool, block_size: int, impl: str,
+                total: Optional[int] = None) -> Tuple[Callable, Callable]:
+    """The per-bucket legs over a (num_buckets, bucket_elems) stack, in
+    place: ``prep(k)`` issues bucket *k*'s send side
+    (:func:`prepare_bucket`, only its data blocks in int8);
+    ``exchange(k, prepared)`` completes it (``err[k]`` then holds the
+    bucket's new error slice) and returns ``buckets[k]``, the reduced
+    bucket."""
+    nb, be = buckets.shape
+    p = comm.size
+    want_err = _check_stack(buckets, err, p, compress, block_size)
+    x = buckets.view(nb, 1, p, be // p)
+    e = err.view(nb, 1, p, be // p) if want_err else None
+    rpb = be // block_size if compress else 0
+    d_rows = _data_rows(nb, be, compress, block_size, total)
+
+    def prep(k):
+        return prepare_bucket(
+            x[k], e[k] if want_err else None, comm=comm, compress=compress,
+            d_rows=min(rpb, max(0, d_rows - k * rpb)),
+            block_size=block_size, impl=impl)
+
+    def exchange(k, prepared):
+        exchange_prepared_bucket(x[k], e[k] if want_err else None,
+                                 prepared, comm=comm, compress=compress,
+                                 block_size=block_size, impl=impl)
+        return buckets[k]
+
+    return prep, exchange
+
+
+def exchange_buckets_overlapped(
+    buckets: torch.Tensor,
+    err: Optional[torch.Tensor] = None,
+    *,
+    comm: Comm,
+    compress: bool = False,
+    block_size: int = 256,
+    impl: str = "reference",
+    total: Optional[int] = None,
+    bucket_fn: Optional[Callable] = None,
+) -> Tuple[List[Any], Optional[torch.Tensor]]:
+    """:func:`exchange_buckets` as the per-bucket pipeline, in place:
+    :class:`BucketFlushPipeline` with every bucket ready at once, so two
+    collectives a bucket, bucket *k+1*'s send side issued before bucket
+    *k*'s first collective is waited on, and each reduced bucket handed
+    to ``bucket_fn(k, reduced_k)`` (a (bucket_elems,) view of
+    ``buckets``) the moment it lands (the train step fuses the flat
+    optimizer update there). The result is bitwise
+    :func:`exchange_buckets`'s. Returns (the ``bucket_fn`` outputs in
+    bucket order, ``err``)."""
+    prep, exchange = bucket_legs(buckets, err, comm=comm, compress=compress,
+                                 block_size=block_size, impl=impl,
+                                 total=total)
+    pipe = BucketFlushPipeline((0,) * buckets.shape[0],
+                               lambda k, _raw: prep(k), exchange,
+                               bucket_fn=bucket_fn)
+    pipe.flush_ready_buckets(0, lambda k: None)
+    return pipe.finish(), (err if compress else None)
+
+
+# --------------------------------------------------------------------------
+# backward-overlap readiness schedule (HetConfig.overlap="backward")
+#
+# Each leaf (or per-layer slice of a stacked leaf) occupies a contiguous
+# range of the stream and is annotated with the backward stage at which
+# its gradient is final (0 = head, s = layer L-s, L+1 = embedding); a
+# bucket is ready at the LATEST stage of any element it holds.
+# --------------------------------------------------------------------------
+
+
+def bucket_readiness(layout: BucketLayout,
+                     leaf_pieces: Sequence[Sequence[Tuple[int, int, int]]]
+                     ) -> Tuple[int, ...]:
+    """Per-bucket backward stage at which the bucket is flushable.
+    ``leaf_pieces[i]``: stream leaf *i* as ``(offset_within_leaf,
+    n_elems, stage)`` ranges, which must tile the leaf; padding never
+    delays a flush."""
+    if len(leaf_pieces) != len(layout.sizes):
+        raise ValueError(
+            f"leaf_pieces has {len(leaf_pieces)} entries, layout has "
+            f"{len(layout.sizes)} leaves")
+    ready = [0] * layout.num_buckets
+    be = layout.bucket_elems
+    for i, (off, size) in enumerate(zip(layout.offsets, layout.sizes)):
+        covered = 0
+        for p_off, n, stage in leaf_pieces[i]:
+            if p_off != covered:
+                raise ValueError(
+                    f"leaf {i}: pieces must tile the leaf contiguously "
+                    f"(expected offset {covered}, got {p_off})")
+            covered += n
+            start = off + p_off
+            for k in range(start // be, (start + n - 1) // be + 1):
+                if stage > ready[k]:
+                    ready[k] = stage
+        if covered != size:
+            raise ValueError(
+                f"leaf {i}: pieces cover {covered} of {size} elements")
+    return tuple(ready)
+
+
+class BucketFlushPipeline:
+    """THE double-buffered per-bucket exchange driver, fed buckets in
+    READINESS order (``overlap="backward"``: as the backward lands their
+    gradients; ``"buckets"``: all at stage 0). For each ready bucket it
+    runs ``prep(k, raw_k)`` (its send side, whose first collective it
+    issues) FIRST, then ``exchange(k, prepared) -> reduced_k`` of the
+    bucket prepped before (the double buffer), and hands each landed
+    bucket to ``bucket_fn(k, reduced_k) -> out_k`` (the reduced bucket
+    by default). Per-bucket results do not depend on the issue order."""
+
+    def __init__(self, readiness: Sequence[int], prep: Callable,
+                 exchange: Callable, *, bucket_fn: Optional[Callable] = None):
+        self.readiness = tuple(int(s) for s in readiness)
+        self.num_buckets = len(self.readiness)
+        self._prep = prep
+        self._exchange = exchange
+        self._bucket_fn = bucket_fn or (lambda k, red: red)
+        self._by_stage: Dict[int, List[int]] = {}
+        for k, s in enumerate(self.readiness):
+            self._by_stage.setdefault(s, []).append(k)
+        self._pending: Optional[Tuple[int, Any]] = None
+        self._outs: Dict[int, Any] = {}
+        self._flushed: set = set()
+
+    def _exchange_pending(self) -> None:
+        k, prepared = self._pending
+        self._pending = None
+        self._outs[k] = self._bucket_fn(k, self._exchange(k, prepared))
+
+    def flush_ready_buckets(self, stage: int, raw_of: Callable) -> None:
+        """Feed every bucket whose readiness is ``stage``; ``raw_of(k)``
+        gives bucket *k*'s raw payload at flush time."""
+        for k in self._by_stage.get(int(stage), ()):
+            if k in self._flushed:
+                raise ValueError(f"bucket {k} flushed twice")
+            self._flushed.add(k)
+            nxt = (k, self._prep(k, raw_of(k)))
+            if self._pending is not None:
+                self._exchange_pending()
+            self._pending = nxt
+
+    def finish(self) -> List[Any]:
+        """Exchange the last prepped bucket; returns the ``bucket_fn``
+        outputs in BUCKET-INDEX order."""
+        if self._pending is not None:
+            self._exchange_pending()
+        if len(self._flushed) != self.num_buckets:
+            missing = sorted(set(range(self.num_buckets)) - self._flushed)
+            raise ValueError(
+                f"finish() before buckets {missing} were flushed: the "
+                f"backward must visit every readiness stage")
+        return [self._outs[k] for k in range(self.num_buckets)]
 
 
 # --------------------------------------------------------------------------
@@ -439,6 +773,21 @@ def modeled_link_bytes(layout: BucketLayout, ranks: int, *,
     a2a = (p - 1) / p * payload
     ag = (p - 1) / p * payload
     return int(a2a + ag)
+
+
+def modeled_bucket_link_bytes(layout: BucketLayout, ranks: int, k: int, *,
+                              compress: bool = False,
+                              block_size: int = 256) -> int:
+    """Per-rank link bytes of bucket ``k`` in the per-bucket pipeline
+    (the JAX package's model): :func:`modeled_link_bytes` on one
+    bucket, only its data blocks in int8."""
+    p = ranks
+    if not compress:
+        return int(2 * (p - 1) / p * layout.bucket_elems * 4)
+    start = k * layout.bucket_elems
+    data = max(0, min(layout.total - start, layout.bucket_elems))
+    blocks = -(-data // block_size)
+    return int(2 * (p - 1) / p * blocks * (block_size + 4))
 
 
 def modeled_per_leaf_bytes(shapes: Sequence[Sequence[int]], ranks: int, *,

@@ -15,6 +15,14 @@ reduction needs, always on tensors whose rows are the unit of a split:
 other ranks (its own row of a message and its own piece of a gather
 stay local), the number ``core/buckets.py::modeled_link_bytes`` models.
 
+With ``async_op=True`` the first two issue their collective and return
+a :class:`Pending` at once (the overlapped bucket pipelines keep one
+bucket's collective in flight while they prepare the next); its
+:meth:`Pending.wait` returns the output. The bytes are counted when the
+collective is issued, exactly as for the blocking call, and the Pending
+holds the input until the wait, so a buffer in flight is never freed
+under the backend.
+
 Transports (``TRANSPORTS``), chosen once by ``launch/mesh.py`` and
 printed by the driver:
 
@@ -32,6 +40,23 @@ import torch
 import torch.distributed as dist
 
 TRANSPORTS = ("local", "direct")
+
+
+class Pending:
+    """A collective in flight: :meth:`wait` blocks until it is done (on
+    CUDA tensors, orders the current stream after it) and returns its
+    output; the input it holds is released then."""
+
+    def __init__(self, out: torch.Tensor, work=None,
+                 keep: Tuple[torch.Tensor, ...] = ()):
+        self._out, self._work, self._keep = out, work, keep
+
+    def wait(self) -> torch.Tensor:
+        if self._work is not None:
+            self._work.wait()
+            self._work = None
+        self._keep = ()
+        return self._out
 
 
 class Comm:
@@ -52,10 +77,11 @@ class Comm:
         self.sent_bytes = 0
 
     def all_to_all(self, x: torch.Tensor, send_rows: Sequence[int],
-                   recv_rows: Sequence[int]) -> torch.Tensor:
+                   recv_rows: Sequence[int], async_op: bool = False):
         """``x``: the messages to each rank of the group in order,
         ``send_rows[j]`` rows for rank j. Returns the messages from each
-        rank in order, ``recv_rows[j]`` rows from rank j."""
+        rank in order, ``recv_rows[j]`` rows from rank j (a
+        :class:`Pending` of them with ``async_op``)."""
         send_rows, recv_rows = list(send_rows), list(recv_rows)
         if x.shape[0] != sum(send_rows) or len(send_rows) != self.size \
                 or len(recv_rows) != self.size:
@@ -65,23 +91,25 @@ class Comm:
         row = x[0].numel() * x.element_size() if x.shape[0] else 0
         self.sent_bytes += (sum(send_rows) - send_rows[self.index]) * row
         if self.size == 1:
-            return x
+            return Pending(x) if async_op else x
         out = x.new_empty((sum(recv_rows), *x.shape[1:]))
-        dist.all_to_all_single(out, x.contiguous(),
-                               output_split_sizes=recv_rows,
-                               input_split_sizes=send_rows,
-                               group=self.group)
-        return out
+        x = x.contiguous()
+        work = dist.all_to_all_single(out, x, output_split_sizes=recv_rows,
+                                      input_split_sizes=send_rows,
+                                      group=self.group, async_op=async_op)
+        return Pending(out, work, (x,)) if async_op else out
 
-    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
-        """(…) -> (size, …), rank j's tensor at row j."""
+    def all_gather(self, x: torch.Tensor, async_op: bool = False):
+        """(…) -> (size, …), rank j's tensor at row j (a
+        :class:`Pending` of it with ``async_op``)."""
         self.sent_bytes += (self.size - 1) * x.numel() * x.element_size()
         if self.size == 1:
-            return x[None]
+            return Pending(x[None]) if async_op else x[None]
         out = x.new_empty((self.size, *x.shape))
-        dist.all_gather(list(out.unbind(0)), x.contiguous(),
-                        group=self.group)
-        return out
+        x = x.contiguous()
+        work = dist.all_gather(list(out.unbind(0)), x, group=self.group,
+                               async_op=async_op)
+        return Pending(out, work, (x,)) if async_op else out
 
     def all_reduce(self, x: torch.Tensor,
                    op: dist.ReduceOp.RedOpType = dist.ReduceOp.SUM

@@ -7,8 +7,15 @@ ANY split of a global batch across R workers with arbitrary per-worker
 counts (including zero => dummy rows, weight 0), the aggregate equals
 the gradient of the single-process loss over the union of real rows.
 :func:`psum_weighted` and :func:`weighted_grad_psum` aggregate across
-the ranks of a process group (``core/comm.py``). The canonical executor
-is not ported yet.
+the ranks of a process group (``core/comm.py``).
+
+The order-canonical aggregation (``HetConfig.weighting="canonical"``,
+``launch/steps.py::canonical_backward``) evaluates every row as its own
+one-row batch and sums the per-row values in global-row order with one
+fixed left :func:`fold`, so the result does not depend on which rank
+held a row. It folds one row at a time into one fp32 accumulator (the
+JAX package's ``per_row_values`` holds every row's gradient, which a
+full-width model cannot: 4.7 GB a row at olmo-1b).
 """
 from __future__ import annotations
 
@@ -31,6 +38,14 @@ def scale_grads(grads: Any, weight_sum: torch.Tensor) -> Any:
     """Divide a gradient-of-sums tree by the total weight, once."""
     inv = 1.0 / torch.clamp(weight_sum, min=1e-9)
     return tree_map(lambda g: g * inv.to(g.dtype), grads)
+
+
+def fold(rows: Sequence[Any]) -> Any:
+    """``rows[0] + rows[1] + ...`` left to right: the canonical fold."""
+    total = rows[0]
+    for r in rows[1:]:
+        total = total + r
+    return total
 
 
 def simulate_workers(loss_fn, params, worker_batches: Sequence[Dict]

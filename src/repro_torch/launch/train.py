@@ -48,9 +48,17 @@ Fault tolerance, as the JAX driver has it:
     after that checkpoint are dropped from the run's record.
   * ``--dry-run`` checks the configuration and exits.
 
-Still raising "not ported yet": ``--no-scan-layers``, ``--overlap``,
-``--pipeline-stages`` above 1, ``--weighting canonical`` and
-``--optimizer lamb``.
+Training modes, as the JAX driver has them: ``--optimizer lamb``
+(the per-leaf trust ratio; the ``[train]`` lines and the summary show
+its mean); ``--overlap buckets`` (the per-bucket exchange pipeline
+after the backward, each landed bucket's update fused in) and
+``--overlap backward --no-scan-layers`` (buckets flushed as the
+backward lands them), both with ``--grad-reduction bucketed_allreduce``
+or ``hierarchical`` and ``--bucket-mb``; ``--weighting canonical`` (the
+sampler's plan-independent row order; every rank is given the whole
+global batch and runs an equal share of its rows one at a time, so a
+replan changes no bit). Still raising "not ported yet":
+``--pipeline-stages`` above 1.
 
 Example (H100, one rank):
   PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b \
@@ -66,6 +74,16 @@ Example (CPU, smoke config, two ranks over gloo):
       --smoke --device cpu --devices 2,1,1 --grad-reduction hierarchical \
       --compression int8 --bucket-mb 0.05 --steps 10 --global-batch 8 \
       --seq-len 32
+Example (CPU, two ranks, buckets flushed during the backward, LAMB):
+  PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b \
+      --smoke --device cpu --devices 2,1,1 --grad-reduction hierarchical \
+      --compression int8 --bucket-mb 0.05 --overlap backward \
+      --no-scan-layers --optimizer lamb --steps 4 --global-batch 8 \
+      --seq-len 32
+Example (CPU, two ranks, order-canonical weighting):
+  PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b \
+      --smoke --device cpu --devices 2,1 --weighting canonical \
+      --steps 4 --global-batch 8 --seq-len 32
 Example (CPU, checkpoint then resume):
   PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b \
       --smoke --device cpu --steps 4 --ckpt-every 2 \
@@ -111,18 +129,14 @@ from repro_torch.models.model import build_model
 CKPT_DIR = os.path.join(tempfile.gettempdir(), "hetseq_ckpt")
 
 
-def _check_flags(args) -> None:
-    """A flag this port would accept and then ignore raises instead."""
-    if args.no_scan_layers:
-        raise NotImplementedError(
-            "--no-scan-layers: not ported yet (the port's layer stack is "
-            "always a Python loop)")
-
-
 def build_config(args) -> Tuple[ModelConfig, TrainConfig]:
     cfg = (cfgbase.smoke_config(args.arch) if args.smoke
            else cfgbase.resolve(args.arch))
     cfg = dataclasses.replace(cfg, attention_impl="kernel")
+    if args.no_scan_layers:
+        # the unrolled stack --overlap backward asks for (the port's
+        # stack is a Python loop either way)
+        cfg = dataclasses.replace(cfg, scan_layers=False)
     shape = ShapeConfig("cli", args.seq_len, args.global_batch, "train")
     tcfg = TrainConfig(
         model=cfg, shape=shape,
@@ -283,7 +297,9 @@ def run_rank(args, tcfg: TrainConfig, mesh: mesh_mod.ProcessMesh,
         data_dir, num_seqs=max(4 * plan.global_rows, 256),
         seq_len=args.seq_len + 1, vocab=cfg.vocab_size, rows_per_shard=64,
         seed=tcfg.seed)
-    sampler = HetSampler(ShardedDataset(corpus), plan, seed=tcfg.seed)
+    canonical = tcfg.het.weighting == "canonical"
+    sampler = HetSampler(ShardedDataset(corpus), plan, seed=tcfg.seed,
+                         canonical_order=canonical)
     loader = PrefetchLoader(sampler, depth=args.prefetch)
     mgr = (CheckpointManager(tcfg.ckpt_dir, keep=tcfg.ckpt_keep,
                              fault_hook=engine.ckpt_fault_hook())
@@ -349,8 +365,13 @@ def run_rank(args, tcfg: TrainConfig, mesh: mesh_mod.ProcessMesh,
                     if step >= args.steps:
                         break
                     consumed += 1
-                    batch = _rank_rows(raw, args.seq_len, mesh.rank,
-                                       plan.buffer_rows, model.device)
+                    # canonical: the whole global batch on every rank,
+                    # which runs its own share of the rows
+                    batch = (_rank_rows(raw, args.seq_len, 0,
+                                        plan.global_rows, model.device)
+                             if canonical else
+                             _rank_rows(raw, args.seq_len, mesh.rank,
+                                        plan.buffer_rows, model.device))
                     during_save.append(mgr is not None and mgr.busy())
                     t0 = time.time()
                     sent0 = _sent(mesh)
@@ -369,7 +390,9 @@ def run_rank(args, tcfg: TrainConfig, mesh: mesh_mod.ProcessMesh,
                               f"{rec['loss']:.4f} grad_norm "
                               f"{rec['grad_norm']:.4f} weight "
                               f"{rec['weight']:.0f} lr {rec['lr']:.3g} "
-                              f"({dt * 1e3:.0f} ms)", flush=True)
+                              + (f"trust {rec['trust_ratio']:.4f} "
+                                 if "trust_ratio" in rec else "")
+                              + f"({dt * 1e3:.0f} ms)", flush=True)
                     # modelled per-rank times from the slowest rank's
                     # wall: killed ranks and flaky drops report None
                     monitor.observe(engine.step_times(
@@ -516,7 +539,6 @@ def _remesh(rec: Dict[str, Any], topo: elastic.MeshTopology,
 
 
 def train(args) -> Dict[str, Any]:
-    _check_flags(args)
     topo = mesh_mod.topology_from_devices(args.devices)
     cfg, tcfg = build_config(args)
     plan = make_plan(tcfg, topo.dp_size)
@@ -526,7 +548,8 @@ def train(args) -> Dict[str, Any]:
           f"{plan.rows_per_rank.tolist()} buffer {plan.buffer_rows} "
           f"(efficiency {plan.efficiency():.2f}), reduction "
           f"{args.grad_reduction} compression {args.compression} "
-          f"bucket_mb {args.bucket_mb}; attention, cross entropy and the "
+          f"bucket_mb {args.bucket_mb} overlap {args.overlap} optimizer "
+          f"{args.optimizer} weighting {args.weighting}; attention, cross entropy and the "
           f"int8 exchange through the kernels")
     engine = build_chaos_engine(args, tcfg, topo)
     if engine.schedule.events:
@@ -631,6 +654,9 @@ def _report(args, worlds, dev) -> Dict[str, Any]:
     first = worlds[0][1][0]["start_step"]
     summary = {"steps": out["steps"], "start_step": first,
                "losses": out["losses"], "end_checksums": out["end_checksums"],
+               **({"trust_ratio": [m["trust_ratio"] for m in out["metrics"]]}
+                  if out["metrics"] and "trust_ratio" in out["metrics"][0]
+                  else {}),
                "worlds": [{"devices": w["devices"], "ranks": [
                    {k: r[k] for k in ("rank", "start_step", "steps",
                                       "losses", "step_s", "launches",
@@ -687,8 +713,8 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--overlap", default="none",
                     choices=list(cfgbase.OVERLAP_MODES))
     ap.add_argument("--no-scan-layers", action="store_true",
-                    help="not ported yet: the port's layer stack is always "
-                         "a Python loop")
+                    help="unrolled layer stack (ModelConfig.scan_layers="
+                         "False), which --overlap backward requires")
     ap.add_argument("--pipeline-stages", type=int, default=1)
     ap.add_argument("--pipeline-schedule", default="1f1b",
                     choices=list(cfgbase.PIPELINE_MODES))

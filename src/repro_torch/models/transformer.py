@@ -110,6 +110,24 @@ def check_supported(cfg: ModelConfig, serving: bool = False) -> None:
                          f"Mamba2, zamba and xLSTM stacks for serving)")
 
 
+def supports_staged_backward(cfg: ModelConfig) -> bool:
+    """``overlap="backward"`` flushes gradient buckets as the backward
+    lands them over the uniform stack (dense, MoE, MLA), as in the JAX
+    package; the stack is a Python loop here, so ``scan_layers=False``
+    needs nothing more."""
+    return stack_plan(cfg) == "uniform"
+
+
+def head_param_keys(cfg: ModelConfig) -> Tuple[str, ...]:
+    """Top-level parameter keys whose gradients land at backward stage
+    0 (the head): stage 0 is the head, stage s layer L-s, stage L+1 the
+    embedding table (a tied table also takes a head-stage contribution,
+    so it is final only at L+1)."""
+    if cfg.tie_embeddings and cfg.frontend == "token":
+        return ("final_norm", "embed")
+    return ("final_norm", "lm_head")
+
+
 def check_paged(cfg: ModelConfig) -> None:
     """The paged pool holds the uniform attention stack only (recurrent
     plans keep O(1) state per sequence: nothing to page), as in the

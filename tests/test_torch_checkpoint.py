@@ -8,12 +8,14 @@ format, both ways.
       (``launch/steps.py::state_shapes``) has JAX's ``state_shapes``
       keys, order, shapes and dtypes and ``checkpoint_format`` JAX's
       block, under allreduce, bucketed hierarchical int8 (a flat
-      residual) and per-leaf hierarchical int8; ``adapt_arrays`` gives
+      residual), per-leaf hierarchical int8 and ``overlap="buckets"``
+      (packed moments and the grid's layout record); ``adapt_arrays`` gives
       bitwise-equal dicts on the same inputs: the residual 2 -> 1 and
       2 -> 3 ranks (its sum conserved bitwise) and packed moments into
       pytree moments;
   (c) the format both ways: a state written by JAX's
-      ``CheckpointManager`` (v3, two hosts) restores in the port bitwise,
+      ``CheckpointManager`` (v3, two hosts; packed moments too)
+      restores in the port bitwise,
       one written by the port restores in JAX's with JAX's template
       bitwise, and a version-2 checkpoint written by JAX restores in
       the port bitwise; both managers behave alike on a tampered shard (fall
@@ -80,6 +82,10 @@ CONFIGS = {
     "hier_int8_flat_2x2": ((2, 2, 1), dict(grad_reduction="hierarchical",
                                            compression="int8",
                                            bucket_mb=0.02)),
+    # overlap="buckets": the moments packed, (num_buckets, bucket_elems)
+    "hier_int8_overlap": ((2, 1, 1), dict(grad_reduction="hierarchical",
+                                          compression="int8", bucket_mb=0.05,
+                                          overlap="buckets")),
 }
 
 
@@ -333,7 +339,8 @@ def _flat_equal(got, want):
 
 
 @pytest.mark.parametrize("name", ["hier_int8_flat", "hier_int8_per_leaf",
-                                  "hier_int8_flat_2x2"])
+                                  "hier_int8_flat_2x2",
+                                  "hier_int8_overlap"])
 def test_jax_checkpoint_restores_in_the_port_and_back_bitwise(name,
                                                               tmp_path):
     devices, het = CONFIGS[name]
@@ -354,6 +361,11 @@ def test_jax_checkpoint_restores_in_the_port_and_back_bitwise(name,
     back = tsteps.state_to_host(dev_state, ttc, tmesh)
     _flat_equal(back.params, jstate.params)
     _flat_equal(back.opt.m, jstate.opt.m)
+    _flat_equal(back.opt.v, jstate.opt.v)
+    if het.get("overlap", "none") != "none":    # packed on both sides
+        assert fmt["packed_fields"] == ["opt/m", "opt/v"]
+        assert isinstance(dev_state.opt.m, torch.Tensor) and \
+            dev_state.opt.m.shape == jstate.opt.m.shape
     err0 = trepack.flatten_with_paths(back.err)
     for k, v in jrepack.flatten_with_paths(jstate.err).items():
         np.testing.assert_array_equal(err0[k][0], np.asarray(v)[0])

@@ -26,8 +26,8 @@ spreads into the update.
 
 Also the HetSeq invariant across processes: the dead-rank trajectory
 equals a single process trained on the union of the real rows; the
-driver's CPU multi-rank run; ``--devices`` parsing; and the modes that
-still raise.
+driver's CPU multi-rank run; ``--devices`` parsing; pipeline stages,
+which still raise, and the modes ported since, which take a step.
 """
 import dataclasses
 import os
@@ -405,17 +405,33 @@ def test_devices_parsing_and_unported_modes():
     assert mesh_mod.choose_backend("cpu", 2, 0) == ("gloo", "direct")
     assert mesh_mod.choose_backend("cuda", 2, 1) == ("gloo", "direct")
     assert mesh_mod.choose_backend("cuda", 2, 2) == ("nccl", "direct")
-    mc = tcfgs.smoke_config("olmo-1b")
+    mc = dataclasses.replace(tcfgs.smoke_config("olmo-1b"),
+                             scan_layers=False)
     model = tbuild(mc, "cpu")
+    tcfg = tcfgs.TrainConfig(model=mc, het=tcfgs.HetConfig(
+        accum_steps=2, pipeline_stages=2))
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        tsteps.build_train_step(model, tcfg)
+    # the ported modes build and take a step on a one-rank (pod, data,
+    # model) mesh (the overlap pipelines over a pod group of one)
+    mesh = mesh_mod.local((1, 1, 1), ("pod", "data", "model"))
+    rng = np.random.default_rng(2)
+    batch = {k: torch.from_numpy(rng.integers(0, mc.vocab_size, (4, 8))
+                                 .astype(np.int32)) for k in ("inputs",
+                                                              "labels")}
+    batch["weights"] = torch.ones((4, 8))
     for het, opt in ((dict(overlap="buckets", bucket_mb=1.0,
                            grad_reduction="hierarchical"), {}),
+                     (dict(overlap="backward", bucket_mb=1.0,
+                           grad_reduction="hierarchical"), {}),
                      (dict(weighting="canonical"), {}),
-                     (dict(accum_steps=2, pipeline_stages=2), {}),
                      ({}, dict(name="lamb"))):
         tcfg = tcfgs.TrainConfig(model=mc, het=tcfgs.HetConfig(**het),
                                  optimizer=tcfgs.OptimizerConfig(**opt))
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            tsteps.build_train_step(model, tcfg)
+        state = tsteps.init_train_state(model, tcfg, mesh=mesh)
+        state, met = tsteps.build_train_step(model, tcfg, mesh)(state,
+                                                                 batch)
+        assert np.isfinite(float(met["loss"]))
 
 
 def test_cpu_driver_trains_two_ranks_with_the_int8_exchange():
