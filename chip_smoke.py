@@ -285,7 +285,26 @@ Phases (any failure exits non-zero; no phase swallows an error):
    the canonical batches of a 6-row plan under plans (2,1) x4 and
    (1,1) x2 then (3,1) x2: bitwise-equal losses and parameter
    checksums.
-16. Prints the seconds of each phase, then one ``{"kernels": [...]}``
+16. Pipeline path phase: ``repro_torch.launch.train --pipeline-stages
+   2 --no-scan-layers`` with phase 5's settings but 4 steps and accum 4
+   (the plan's 12 buffer rows in 4 microbatches of 3, so 1F1B has a
+   steady state), on one rank, so the uniform cut [8, 8]: every loss
+   finite, and per step kernel 1 twice a layer a microbatch (remat),
+   1b once, 3 once a microbatch, 3b once a 4096-token chunk, kernels 4
+   and 5 never. Then the same run with ``--pipe-axis``, two stage ranks
+   sharing the card over gloo: losses and the model's checksum bitwise
+   the one-process run's, each stage rank's launches those of its own
+   layers and (the last) its head, and each rank's pipe bytes a step
+   the driver's ``modeled_pipe_bytes`` of that step's batch. Each run
+   prints the stage plan, ms per step (median of steps 2..N), real
+   tokens/s and peak memory by rank, beside phase 5's. Then the fp32
+   exactness probe (TF32 off, ``grad_clip=0``, olmo-1b at full width
+   cut to 4 layers, 2 rows of 1024 in 2 microbatches, 3 steps):
+   ``pipeline_stages=2`` against ``1`` for allreduce and
+   bucketed_allreduce, AdamW and LAMB, 1F1B on the uniform cut [2, 2]
+   and GPipe on capacities 3,1's [3, 1]: losses and every parameter
+   bitwise equal.
+17. Prints the seconds of each phase, then one ``{"kernels": [...]}``
    line (eleven kernels, each with its launches on its path, which must
    be above 0; the prefill kernel's D=64 (phase 2's S=512 bucket), D=192
    and D=80 cases ride in its entry as ``at_d64``, ``at_d192`` and
@@ -303,8 +322,14 @@ capacities 2,1,1,0 (a dead rank), each with phase 7's checks; on
 ``--devices 2,2,1`` also with ``--overlap buckets`` and ``--overlap
 backward --no-scan-layers``, each with phase 15's per-bucket checks
 (launches and wire bytes a bucket, both ranks' parameters equal); then
-the invariant and exchange probe on two cards. Details go to
-``chiprun_out/chip_smoke_cards.json``; the last line is the same.
+the invariant and exchange probe on two cards; then phase 16's pipeline
+run on ``--devices 2,1 --capacities 3,1`` (two data-parallel ranks,
+whose capacities also cut the stages: [12, 4]) and the same with
+``--pipe-axis`` on four ranks: the cut, each stage's two ranks equal,
+the model's checksum and losses bitwise the two-rank run's, each rank's
+launches and pipe bytes as phase 16 checks them, NCCL throughout.
+Details go to ``chiprun_out/chip_smoke_cards.json``; the last line is
+the same.
 """
 from __future__ import annotations
 
@@ -1760,12 +1785,15 @@ def cards_main(dev, smi, cards):
     t0 = time.monotonic()
     probe = multi_rank_probe(1024, smi)
     phases["probe"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    pipeline = pipeline_cards(smi)
+    phases["pipeline"] = time.monotonic() - t0
     print("[phases] seconds: " + ", ".join(
         f"{k} {v:.1f}" for k, v in phases.items()), flush=True)
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke_cards.json").write_text(json.dumps(
         {"nvidia_smi": smi, "phase_seconds": phases, "runs": runs,
-         "probe": probe}, indent=1, default=str))
+         "probe": probe, "pipeline": pipeline}, indent=1, default=str))
 
 
 
@@ -3745,6 +3773,243 @@ def overlap_phase(dev, fa, ce, smi, multi):
     return out
 
 
+# --------------------------------------------------------------------------
+# pipeline path phase
+# --------------------------------------------------------------------------
+
+# phase 5's settings with two pipeline stages: 4 steps, accum 4 (the
+# plan's 12 buffer rows divide by it: 4 microbatches of 3 rows, so 1F1B
+# has a steady state), the uniform cut on one rank
+PIPE_STEPS, PIPE_ACCUM = 4, 4
+PIPE_ARGV = [a for a in TRAIN_ARGV]
+for _flag, _value in (("--steps", str(PIPE_STEPS)),
+                      ("--accum", str(PIPE_ACCUM))):
+    PIPE_ARGV[PIPE_ARGV.index(_flag) + 1] = _value
+PIPE_ARGV += ["--pipeline-stages", "2", "--no-scan-layers"]
+# the fp32 exactness probe: olmo-1b at full width cut to 4 layers, 2 rows
+# of 1024 a step in 2 microbatches, 3 steps, grad_clip 0; each
+# pipelined run (one a reduction x optimizer x schedule, the 1f1b runs
+# on the uniform cut [2, 2], the gpipe runs on capacities 3,1's [3, 1])
+# against the pipeline_stages=1 run of its reduction and optimizer
+PIPE_EXACT_LAYERS, PIPE_EXACT_STEPS, PIPE_EXACT_ROWS = 4, 3, 2
+PIPE_EXACT_CUTS = {"1f1b": (), "gpipe": (3.0, 1.0)}
+# --cards 4: two data-parallel ranks of capacities 3,1, whose two
+# entries also size the stages: layers [12, 4]
+PIPE_CARDS_ARGV = PIPE_ARGV + ["--devices", "2,1", "--capacities", "3,1"]
+
+
+def stage_launches(cfg, layers, head, buffer_rows, accum, seq_len, steps):
+    """The driver's counters of one rank that runs ``layers`` layers and
+    (``head``) the cross entropy."""
+    n = train_launches(dataclasses.replace(cfg, num_layers=layers),
+                       buffer_rows, accum, seq_len, steps)
+    if not head:
+        n["cross_entropy_cuda"] = n["ce_dlogits_cuda"] = 0
+    return n
+
+
+def _pipe_run(argv, tag, smi):
+    """The driver's pipelined run with the checks both forms share:
+    finite losses, the stage plan, every stage's ranks equal, each
+    rank's launches of its own layers and head, kernels 4 and 5 idle,
+    and (a pipe axis) each rank's pipe bytes a step the modeled count."""
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.launch import train as ttrain
+    from repro_torch.models.model import build_model
+    args = ttrain.parser().parse_args(argv)
+    cfg, tcfg = ttrain.build_config(args)
+    n_dp = ttrain.mesh_mod.topology_from_devices(args.devices).dp_size
+    plan = ttrain.make_plan(tcfg, n_dp)
+    splan = tsteps.stage_plan_for(build_model(cfg, "cpu"), tcfg)
+    text, summary, wall = run_driver(argv, tag)
+    backend = [ln.split("backend ")[1].split(",")[0]
+               for ln in text.splitlines() if "backend " in ln][0]
+    losses = summary["losses"]
+    check(summary["steps"] == args.steps and all(map(_finite, losses)),
+          f"{tag}: losses {losses}")
+    check(summary["stage_plan"] == splan.layers_per_stage.tolist(),
+          f"{tag}: stage plan {summary['stage_plan']}")
+    ranks = summary["worlds"][-1]["ranks"]
+    S = splan.num_stages if args.pipe_axis else 1
+    sums = summary["end_checksums"]
+    groups = ttrain.stage_groups(sums, S)
+    check(all(len(set(g)) == 1 for g in groups),
+          f"{tag}: a stage's ranks differ: {sums}")
+    ranges = splan.stage_ranges()
+    for r in ranks:
+        if args.pipe_axis:
+            s = r["stage"]
+            expect = stage_launches(cfgbase.resolve(args.arch),
+                                    ranges[s][1] - ranges[s][0], s == S - 1,
+                                    plan.buffer_rows, args.accum,
+                                    args.seq_len, args.steps)
+            check(r["pipe_bytes"] == r["pipe_bytes_modeled"],
+                  f"{tag}: rank {r['rank']} pipe bytes {r['pipe_bytes']} "
+                  f"!= modeled {r['pipe_bytes_modeled']}")
+        else:
+            expect = train_launches(cfgbase.resolve(args.arch),
+                                    plan.buffer_rows, args.accum,
+                                    args.seq_len, args.steps)
+        check(r["launches"] == expect, f"{tag}: rank {r['rank']} launches "
+              f"{r['launches']} != {expect}")
+    ms = [statistics.median(r["step_s"][1:]) * 1e3 for r in ranks]
+    tokens = args.global_batch * args.seq_len
+    rec = {"argv": argv, "losses": losses, "stage_plan": summary[
+               "stage_plan"], "schedule": summary["schedule"],
+           "end_checksums": sums, "model_checksum": summary[
+               "model_checksum"],
+           "launches_by_rank": [r["launches"] for r in ranks],
+           "stage_by_rank": [r.get("stage") for r in ranks],
+           "pipe_bytes_by_rank": [r["pipe_bytes"] for r in ranks],
+           "ms_per_step_median_2_to_n_by_rank": ms,
+           "ms_per_step_median_2_to_n": ms[0],
+           "tokens_per_s": tokens / (ms[0] / 1e3),
+           "peak_memory_gib_by_rank": [(r["peak_memory_bytes"] or 0) / 2**30
+                                       for r in ranks],
+           "process_seconds": wall, "backend": backend}
+    print(f"[pipeline] {tag}: {cfg.name}, --devices {args.devices}"
+          + (" --pipe-axis" if args.pipe_axis else "")
+          + f", stages {rec['stage_plan']} ({rec['schedule']}), accum "
+          f"{args.accum}: {ms[0]:.1f} ms/step (median of steps 2..{args.steps}"
+          f"; by rank {', '.join(f'{x:.1f}' for x in ms)}), "
+          f"{rec['tokens_per_s']:.0f} real tokens/s, peak memory by rank "
+          f"{', '.join(f'{p:.2f}' for p in rec['peak_memory_gib_by_rank'])}"
+          f" GiB, model checksum {rec['model_checksum']}"
+          + (f", pipe bytes a step by rank "
+             f"{[b[0] for b in rec['pipe_bytes_by_rank']]} (modeled)"
+             if args.pipe_axis else "")
+          + f", launches by rank {rec['launches_by_rank']} [{smi}]",
+          flush=True)
+    return rec
+
+
+def pipeline_exactness(dev):
+    """(c): fp32, TF32 off, grad_clip 0, one rank on the card: each
+    two-stage run's losses and parameters against its one-stage run's."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import tree_leaves
+    cfg = dataclasses.replace(
+        cfgbase.resolve("olmo-1b"), num_layers=PIPE_EXACT_LAYERS,
+        compute_dtype="float32", scan_layers=False, attention_impl="kernel")
+    model = build_model(cfg, dev)
+    rng = np.random.default_rng(5)
+    batches = []
+    for _ in range(PIPE_EXACT_STEPS):
+        b = {k: torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (PIPE_EXACT_ROWS, 1024)).astype(np.int32)).to(
+            dev) for k in ("inputs", "labels")}
+        b["weights"] = torch.from_numpy(
+            (rng.random((PIPE_EXACT_ROWS, 1024)) > 0.1).astype(
+                np.float32)).to(dev)
+        batches.append(b)
+
+    def run(stages, red, opt, sched="1f1b", caps=()):
+        tcfg = cfgbase.TrainConfig(
+            model=cfg, shape=cfgbase.ShapeConfig("t", 1024, PIPE_EXACT_ROWS,
+                                                 "train"),
+            het=cfgbase.HetConfig(
+                grad_reduction=red, bucket_mb=25.0 if red != "allreduce"
+                else 0.0, accum_steps=2, pipeline_stages=stages,
+                pipeline_schedule=sched, capacities=caps),
+            optimizer=cfgbase.OptimizerConfig(
+                name=opt, lr=1e-3, warmup_steps=1, schedule="constant",
+                grad_clip=0.0))
+        mesh = mesh_mod.local(device=dev)
+        state = tsteps.init_train_state(model, tcfg, mesh=mesh)
+        step = tsteps.build_train_step(model, tcfg, mesh)
+        losses = []
+        for b in batches:
+            state, met = step(state, b)
+            losses.append(float(met["loss"]))
+        return losses, tree_leaves(state.params)
+
+    out = {}
+    for red in ("allreduce", "bucketed_allreduce"):
+        for opt in ("adamw", "lamb"):
+            t0 = time.monotonic()
+            base_losses, base = run(1, red, opt)
+            for sched, caps in PIPE_EXACT_CUTS.items():
+                losses, params = run(2, red, opt, sched, caps)
+                same = all(torch.equal(a, b) for a, b in zip(base, params))
+                out[f"{red}/{opt}/{sched}"] = {
+                    "cut": tsteps.stage_plan_for(model, cfgbase.TrainConfig(
+                        model=cfg, het=cfgbase.HetConfig(
+                            pipeline_stages=2, accum_steps=2,
+                            capacities=caps))).layers_per_stage.tolist(),
+                    "losses": losses, "losses_one_stage": base_losses,
+                    "losses_bitwise": losses == base_losses,
+                    "params_bitwise": same,
+                    "seconds": time.monotonic() - t0}
+                del params
+            del base
+            gc.collect()
+            torch.cuda.empty_cache()
+    return out
+
+
+def pipeline_phase(dev, smi, train):
+    """Phase 16: pipeline stages through the driver at full width, in one
+    process and on two stage ranks sharing the card, and their
+    exactness in fp32."""
+    import torch
+    t0 = time.monotonic()
+    one = _pipe_run(PIPE_ARGV, "one-process", smi)
+    staged = _pipe_run(PIPE_ARGV + ["--pipe-axis"], "pipe-axis", smi)
+    check(staged["model_checksum"] == one["model_checksum"]
+          == one["end_checksums"][0],
+          f"pipe axis: checksum {staged['model_checksum']} != the one-"
+          f"process run's {one['model_checksum']}")
+    check(staged["losses"] == one["losses"],
+          f"pipe axis: losses {staged['losses']} != {one['losses']}")
+    runs_s = time.monotonic() - t0
+    print(f"[pipeline] against phase 5 (8 rows of 1024, accum 2, no "
+          f"stages): {train['ms_per_step_median_2_to_n']:.1f} ms/step, "
+          f"{train['tokens_per_s']:.0f} real tokens/s, peak "
+          f"{train['peak_memory_gib']:.2f} GiB; the pipe-axis run's "
+          f"checksum and losses bitwise the one-process run's [{smi}]",
+          flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.monotonic()
+    exact = pipeline_exactness(dev)
+    for key, rec in exact.items():
+        print(f"[pipeline] exactness {key} (cut {rec['cut']}, "
+              f"{PIPE_EXACT_LAYERS} layers, fp32, {PIPE_EXACT_STEPS} steps):"
+              f" losses {rec['losses']}, losses bitwise "
+              f"{rec['losses_bitwise']}, params bitwise "
+              f"{rec['params_bitwise']}", flush=True)
+        check(rec["losses_bitwise"] and rec["params_bitwise"],
+              f"pipeline exactness {key}: not bitwise the one-stage step")
+    return {"one_process": one, "pipe_axis": staged, "exactness": exact,
+            "runs_seconds": runs_s,
+            "exactness_seconds": time.monotonic() - t0,
+            "launches": one["launches_by_rank"][0]}
+
+
+def pipeline_cards(smi):
+    """``--cards 4``: Part A on two data-parallel ranks (NCCL), then the
+    same run with a pipe axis on four (a card a rank)."""
+    one = _pipe_run(PIPE_CARDS_ARGV, "cards-one-process", smi)
+    staged = _pipe_run(PIPE_CARDS_ARGV + ["--pipe-axis"], "cards-pipe-axis",
+                       smi)
+    check(staged["stage_plan"] == [12, 4],
+          f"cards: the cut {staged['stage_plan']}, not [12, 4]")
+    check(one["backend"] == staged["backend"] == "nccl",
+          f"cards: backends {one['backend']}, {staged['backend']}")
+    check(staged["model_checksum"] == one["model_checksum"],
+          f"cards pipe axis: checksum {staged['model_checksum']} != "
+          f"{one['model_checksum']}")
+    check(staged["losses"] == one["losses"],
+          f"cards pipe axis: losses {staged['losses']} != {one['losses']}")
+    return {"one_process": one, "pipe_axis": staged}
+
+
 def _finite(x):
     return x == x and abs(x) != float("inf")
 
@@ -3860,6 +4125,9 @@ def main(argv=None) -> int:
     t0 = time.monotonic()
     overlap = overlap_phase(dev, fa, ce, smi, multi)
     phases["overlap_canonical_path"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    pipeline = pipeline_phase(dev, smi, train)
+    phases["pipeline_path"] = time.monotonic() - t0
     print("[phases] seconds: " + ", ".join(
         f"{k} {v:.1f}" for k, v in phases.items()), flush=True)
 
@@ -3916,7 +4184,10 @@ def main(argv=None) -> int:
                    [0].get(n, 0),
                    **{f"overlap_{k}": r["launches"].get(n, 0)
                       for k, r in overlap["runs"].items()},
-                   "canonical": overlap["canonical"]["launches"].get(n, 0)}
+                   "canonical": overlap["canonical"]["launches"].get(n, 0),
+                   "pipeline": pipeline["launches"].get(n, 0),
+                   "pipe_axis": sum(r.get(n, 0) for r in pipeline[
+                       "pipe_axis"]["launches_by_rank"])}
                for n in src}
     path_of = {"flash_decode_paged_cuda": "serve",
                "quantize_int8_cuda": "multi_rank",
@@ -4016,7 +4287,8 @@ def main(argv=None) -> int:
          "kernel_cases": recs,
          "path": path, "train": train, "multi_rank": multi,
          "mla_path": mla, "zamba_path": zamba, "xlstm_path": xlstm,
-         "ckpt_path": ckpt, "overlap_path": overlap, "kernels": kernels},
+         "ckpt_path": ckpt, "overlap_path": overlap,
+         "pipeline_path": pipeline, "kernels": kernels},
         indent=1,
         default=str))
     print(json.dumps({"kernels": kernels}))

@@ -269,6 +269,10 @@ class ChaosEngine:
             # infinitely slow — model it at unit speed
             sp = np.where(sp > 0, sp, 1.0)
         self.speeds = sp
+        # the checkpoint fault hook's write attempts so far, keyed
+        # (ordinal of the ckpt_io_fail event, step): one count for the
+        # whole run, carried into the engine of every later world
+        self.ckpt_attempts: Dict[Tuple[int, int], int] = {}
         for ev in schedule.events:
             if ev.rank is not None and not 0 <= ev.rank < self.num_ranks:
                 raise ValueError(f"fault rank {ev.rank} out of range: "
@@ -369,13 +373,16 @@ class ChaosEngine:
         """A ``CheckpointManager.fault_hook``: raises ``OSError`` for
         scheduled ``ckpt_io_fail`` events. Transient events fail the
         first ``fails`` write attempts of a matching step, then let the
-        retry succeed; persistent events fail every attempt."""
-        attempts: Dict[Tuple[int, int], int] = {}
+        retry succeed; persistent events fail every attempt. The attempts
+        count in :attr:`ckpt_attempts`, which :meth:`after_remesh` hands
+        on, so a re-meshed run's new manager fails a transient event's
+        step as often in all as the JAX driver's one manager does."""
+        attempts = self.ckpt_attempts
 
         def hook(step: int, path: str) -> None:
-            for i, ev in enumerate(self.schedule.events):
-                if ev.kind != "ckpt_io_fail":
-                    continue
+            faults = [ev for ev in self.schedule.events
+                      if ev.kind == "ckpt_io_fail"]
+            for i, ev in enumerate(faults):
                 if ev.step is not None and ev.step != step:
                     continue
                 n = attempts.get((i, step), 0)
@@ -389,7 +396,8 @@ class ChaosEngine:
     def after_remesh(self, alive_pods: Sequence[int]) -> "ChaosEngine":
         """The engine for the surviving topology: ranks renumbered to
         the new (smaller) mesh, faults on dead pods dropped, global
-        faults (``ckpt_io_fail``) kept. The seed is unchanged — the
+        faults (``ckpt_io_fail``) kept with their write attempts so far
+        (:attr:`ckpt_attempts`). The seed is unchanged — the
         surviving ranks' flaky draws change with their new rank ids,
         which mirrors reality (the re-meshed fleet is a new run)."""
         alive = sorted(set(alive_pods))
@@ -418,7 +426,10 @@ class ChaosEngine:
         speeds = np.concatenate([
             self.speeds[p * self.data_per_pod:(p + 1) * self.data_per_pod]
             for p in alive])
-        return ChaosEngine(
+        engine = ChaosEngine(
             dataclasses.replace(self.schedule, events=tuple(events)),
             num_ranks=len(alive) * self.data_per_pod,
             data_per_pod=self.data_per_pod, speeds=speeds)
+        # ckpt_io_fail events are kept in order: their ordinals hold
+        engine.ckpt_attempts.update(self.ckpt_attempts)
+        return engine

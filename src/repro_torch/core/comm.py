@@ -11,9 +11,18 @@ reduction needs, always on tensors whose rows are the unit of a split:
     tensor, equal sizes;
   * :meth:`Comm.all_reduce` — a sum (or another reduction), in place.
 
+and one point-to-point hop, the pipelined step's stage boundary (the
+JAX package's ``_pipe_send``):
+
+  * :meth:`Comm.send` / :meth:`Comm.recv` — one tensor to / from one
+    other rank of the group, both posted at once and returned as a
+    :class:`Pending` (the caller posts every hop of a pair of ranks in
+    one order on both sides, ``launch/steps.py::PipeHop``).
+
 ``sent_bytes`` counts the bytes this rank hands to the first two for
 other ranks (its own row of a message and its own piece of a gather
-stay local), the number ``core/buckets.py::modeled_link_bytes`` models.
+stay local), the number ``core/buckets.py::modeled_link_bytes`` models,
+and every byte it sends point to point.
 
 With ``async_op=True`` the first two issue their collective and return
 a :class:`Pending` at once (the overlapped bucket pipelines keep one
@@ -30,7 +39,12 @@ printed by the driver:
   * ``direct`` — the backend takes the tensors where they lie: NCCL with
     a card per rank, gloo on the CPU, and gloo with CUDA tensors where
     several ranks share one card (PyTorch 2.11's gloo takes CUDA tensors
-    for all three collectives).
+    for all three collectives). The point-to-point hop is NCCL's
+    ``isend``/``irecv`` with a card a rank and gloo's on the CPU; gloo's
+    ``send`` reads a CUDA tensor's pointer as host memory (PyTorch
+    2.11's gloo aborts the process: ``writev ... Bad address``), so with
+    CUDA tensors over gloo the hop goes through a host copy on each side
+    (:data:`P2P_VIA_HOST`).
 """
 from __future__ import annotations
 
@@ -40,6 +54,9 @@ import torch
 import torch.distributed as dist
 
 TRANSPORTS = ("local", "direct")
+# backends whose point-to-point ops take host memory only: a CUDA
+# tensor's hop is staged through a host copy
+P2P_VIA_HOST = ("gloo",)
 
 
 class Pending:
@@ -48,20 +65,24 @@ class Pending:
     output; the input it holds is released then."""
 
     def __init__(self, out: torch.Tensor, work=None,
-                 keep: Tuple[torch.Tensor, ...] = ()):
+                 keep: Tuple[torch.Tensor, ...] = (), then=None):
         self._out, self._work, self._keep = out, work, keep
+        self._then = then
 
     def wait(self) -> torch.Tensor:
         if self._work is not None:
             self._work.wait()
             self._work = None
+        if self._then is not None:
+            self._then()
+            self._then = None
         self._keep = ()
         return self._out
 
 
 class Comm:
     def __init__(self, ranks: Sequence[int], rank: int, transport: str,
-                 group: Optional[object] = None):
+                 group: Optional[object] = None, backend: str = "gloo"):
         if transport not in TRANSPORTS:
             raise ValueError(f"unknown transport '{transport}'")
         self.ranks: Tuple[int, ...] = tuple(ranks)
@@ -74,6 +95,7 @@ class Comm:
         self.index = self.ranks.index(rank)      # my position in the group
         self.transport = transport
         self.group = group
+        self.backend = backend
         self.sent_bytes = 0
 
     def all_to_all(self, x: torch.Tensor, send_rows: Sequence[int],
@@ -119,3 +141,35 @@ class Comm:
         if self.size > 1:
             dist.all_reduce(x, op=op, group=self.group)
         return x
+
+    def _via_host(self, x: torch.Tensor) -> bool:
+        return x.device.type != "cpu" and self.backend in P2P_VIA_HOST
+
+    def send(self, x: torch.Tensor, peer: int, tag: int = 0) -> Pending:
+        """Post ``x`` to the group's rank ``peer`` (an index into the
+        group); the :class:`Pending` holds ``x`` until its wait."""
+        if peer == self.index or not 0 <= peer < self.size:
+            raise ValueError(f"send to {peer} from {self.index} of "
+                             f"{self.size}")
+        x = x.contiguous()
+        self.sent_bytes += x.numel() * x.element_size()
+        wire = x.to("cpu") if self._via_host(x) else x
+        work = dist.isend(wire, self.ranks[peer], group=self.group, tag=tag)
+        return Pending(x, work, (x, wire))
+
+    def recv(self, shape: Sequence[int], dtype: torch.dtype,
+             device: torch.device, peer: int, tag: int = 0) -> Pending:
+        """Post a receive of a ``shape``/``dtype`` tensor from the
+        group's rank ``peer``; the :class:`Pending`'s wait returns it on
+        ``device``."""
+        if peer == self.index or not 0 <= peer < self.size:
+            raise ValueError(f"recv from {peer} at {self.index} of "
+                             f"{self.size}")
+        out = torch.empty(tuple(shape), dtype=dtype, device=device)
+        if not self._via_host(out):
+            work = dist.irecv(out, self.ranks[peer], group=self.group,
+                              tag=tag)
+            return Pending(out, work, (out,))
+        wire = torch.empty(tuple(shape), dtype=dtype)
+        work = dist.irecv(wire, self.ranks[peer], group=self.group, tag=tag)
+        return Pending(out, work, (wire,), then=lambda: out.copy_(wire))

@@ -1,18 +1,29 @@
-"""The process mesh: one process per data-parallel rank
-(port of ``repro/launch/mesh.py`` for the ``(pod, data)`` axes).
+"""The process mesh: one process per data-parallel rank and pipeline
+stage (port of ``repro/launch/mesh.py`` for the ``(pipe, pod, data)``
+axes).
 
-The JAX package lays its devices out as a ``(pod, data, model)`` mesh
-and names axes in collectives. Here every data-parallel rank is a
-process of one ``torch.distributed`` process group, rank ``r = pod *
-data_size + data`` (the row order of the JAX batch sharding
-``P(("pod", "data"))``), and each named axis becomes a group:
+The JAX package lays its devices out as a ``(pipe, pod, data, model)``
+mesh and names axes in collectives. Here every rank is a process of one
+``torch.distributed`` process group, rank ``r = pipe * dp_size + pod *
+data_size + data`` (within a stage, the row order of the JAX batch
+sharding ``P(("pod", "data"))``), and each named axis becomes a group:
 
-  * ``world`` — every rank (the ``("pod", "data")`` axes together);
-  * ``pod``   — the ranks with my data index, one per pod (the cross-pod
-    leg of the hierarchical reduction);
-  * ``data``  — the ranks of my pod (its in-pod leg).
+  * ``world`` — every rank;
+  * ``dp``    — the data-parallel ranks of my pipeline stage (the
+    ``("pod", "data")`` axes together): every gradient and loss
+    reduction runs over it, and without a ``pipe`` axis it is ``world``;
+  * ``pod``   — the ranks of my stage with my data index, one per pod
+    (the cross-pod leg of the hierarchical reduction);
+  * ``data``  — the ranks of my stage and pod (its in-pod leg);
+  * ``pipe``  — the ranks with my data-parallel index, one per stage
+    (the stage-boundary hops and the per-step gathers of the pipelined
+    step, ``launch/steps.py``). Without a ``pipe`` axis it is my rank
+    alone.
 
-A ``model`` axis larger than 1 (tensor parallelism) is not ported yet.
+A leading ``pipe`` axis (:func:`with_pipe`) puts each pipeline stage on
+its own processes, the counterpart of the JAX package's
+``make_local_mesh(pipe=S)``. A ``model`` axis larger than 1 (tensor
+parallelism) is not ported yet.
 
 Backends, chosen once by :func:`choose_backend`: NCCL where each rank
 has its own card; gloo on the CPU; gloo with CUDA tensors where several
@@ -41,6 +52,7 @@ from repro_torch.core import elastic
 from repro_torch.core.comm import Comm
 
 DP_AXES = ("pod", "data")
+PIPE_AXIS = "pipe"
 
 
 def parse_devices(spec: str) -> Tuple[Tuple[int, ...], Tuple[str, ...]]:
@@ -61,6 +73,16 @@ def parse_devices(spec: str) -> Tuple[Tuple[int, ...], Tuple[str, ...]]:
             f"--devices {spec}: a model axis of {shape[-1]} (tensor "
             f"parallelism) is not ported yet")
     return shape, axes
+
+
+def with_pipe(shape: Sequence[int], axis_names: Sequence[str],
+              stages: int) -> Tuple[Tuple[int, ...], Tuple[str, ...]]:
+    """The mesh with a leading ``pipe`` axis of ``stages`` (the driver's
+    ``--pipe-axis``): ``stages`` times the ranks of ``shape``."""
+    if stages < 2:
+        raise ValueError(f"a pipe axis needs pipeline_stages >= 2, got "
+                         f"{stages}")
+    return (int(stages), *shape), (PIPE_AXIS, *axis_names)
 
 
 def topology_from_devices(spec: str) -> elastic.MeshTopology:
@@ -103,6 +125,8 @@ class ProcessMesh:
     world: Comm
     pod: Comm
     data: Comm
+    dp: Comm
+    pipe: Comm
 
     @property
     def sizes(self) -> Dict[str, int]:
@@ -114,27 +138,51 @@ class ProcessMesh:
 
     @property
     def dp_size(self) -> int:
+        """Data-parallel ranks of one pipeline stage."""
         return math.prod(self.sizes[a] for a in self.dp_axes)
 
     @property
+    def pipe_size(self) -> int:
+        return self.sizes.get(PIPE_AXIS, 1)
+
+    @property
+    def dp_rank(self) -> int:
+        """My index among my stage's data-parallel ranks: the rows of
+        the packed global batch I load."""
+        return self.rank % self.dp_size
+
+    @property
+    def pipe_index(self) -> int:
+        """My pipeline stage (0 without a ``pipe`` axis)."""
+        return self.rank // self.dp_size
+
+    @property
     def pod_index(self) -> int:
-        return self.rank // self.sizes.get("data", 1)
+        return self.dp_rank // self.sizes.get("data", 1)
 
     @property
     def data_index(self) -> int:
-        return self.rank % self.sizes.get("data", 1)
+        return self.dp_rank % self.sizes.get("data", 1)
 
     def describe(self) -> str:
-        return (f"mesh {dict(self.sizes)}: {self.dp_size} rank(s), backend "
-                f"{self.backend}, transport {self.transport}")
+        return (f"mesh {dict(self.sizes)}: {self.pipe_size * self.dp_size} "
+                f"rank(s), backend {self.backend}, transport "
+                f"{self.transport}")
 
 
-def _groups(shape: Dict[str, int]) -> Tuple[List[List[int]],
-                                            List[List[int]]]:
+def _groups(shape: Dict[str, int]) -> Dict[str, List[List[int]]]:
+    """Every axis group of the mesh, each a list of global ranks, in the
+    order every rank creates them."""
+    stages = shape.get(PIPE_AXIS, 1)
     pods, data = shape.get("pod", 1), shape.get("data", 1)
-    pod_groups = [[p * data + d for p in range(pods)] for d in range(data)]
-    data_groups = [[p * data + d for d in range(data)] for p in range(pods)]
-    return pod_groups, data_groups
+    n = pods * data
+    return {
+        "pod": [[s * n + p * data + d for p in range(pods)]
+                for s in range(stages) for d in range(data)],
+        "data": [[s * n + p * data + d for d in range(data)]
+                 for s in range(stages) for p in range(pods)],
+        "dp": [[s * n + r for r in range(n)] for s in range(stages)],
+        "pipe": [[s * n + r for s in range(stages)] for r in range(n)]}
 
 
 def local(shape: Sequence[int] = (1, 1),
@@ -143,13 +191,13 @@ def local(shape: Sequence[int] = (1, 1),
     """The one-rank mesh: no process group, every collective the
     identity."""
     shape, axis_names = tuple(shape), tuple(axis_names)
-    if math.prod(s for s, a in zip(shape, axis_names) if a in DP_AXES) != 1:
+    if _world(dict(zip(axis_names, shape))) != 1:
         raise ValueError(f"mesh {shape} has more than one rank")
     comm = Comm((0,), 0, "local")
     dev = torch.device(device)
     return ProcessMesh(shape, axis_names, 0, dev,
                        "gloo" if dev.type == "cpu" else "nccl", "local",
-                       comm, comm, comm)
+                       comm, comm, comm, comm, comm)
 
 
 def unjoined(shape: Sequence[int], axis_names: Sequence[str],
@@ -160,7 +208,12 @@ def unjoined(shape: Sequence[int], axis_names: Sequence[str],
     comm = Comm((0,), 0, "local")
     return ProcessMesh(tuple(shape), tuple(axis_names), 0,
                        torch.device(device), "none", "local", comm, comm,
-                       comm)
+                       comm, comm, comm)
+
+
+def _world(sizes: Dict[str, int]) -> int:
+    return math.prod(n for a, n in sizes.items()
+                     if a in DP_AXES or a == PIPE_AXIS)
 
 
 def init(shape: Sequence[int], axis_names: Sequence[str], rank: int,
@@ -170,7 +223,7 @@ def init(shape: Sequence[int], axis_names: Sequence[str], rank: int,
     groups (every rank creates every group, in the same order)."""
     shape, axis_names = tuple(shape), tuple(axis_names)
     sizes = dict(zip(axis_names, shape))
-    world = math.prod(sizes[a] for a in axis_names if a in DP_AXES)
+    world = _world(sizes)
     if world == 1:
         dev = torch.device("cuda", 0) if device_type == "cuda" else \
             torch.device("cpu")
@@ -192,22 +245,28 @@ def init(shape: Sequence[int], axis_names: Sequence[str], rank: int,
         raise RuntimeError(f"process group of {dist.get_world_size()} "
                            f"ranks joined as {dist.get_rank()}; mesh "
                            f"{shape} needs {world}, rank {rank}")
-    pod_groups, data_groups = _groups(sizes)
+    groups = _groups(sizes)
+    world_comm = Comm(range(world), rank, transport, dist.group.WORLD,
+                      backend=backend)
 
-    def comm_of(groups):
+    def comm_of(axis):
         mine = None
-        for ranks in groups:
+        for ranks in groups[axis]:
             g = dist.new_group(ranks) if len(ranks) > 1 else None
             if rank in ranks:
                 mine = Comm(ranks, rank,
-                            transport if len(ranks) > 1 else "local", g)
+                            transport if len(ranks) > 1 else "local", g,
+                            backend=backend)
         return mine
 
-    pod = comm_of(pod_groups)
-    data = comm_of(data_groups)
-    world_comm = Comm(range(world), rank, transport, dist.group.WORLD)
+    # every rank creates every group, in this order; without a pipe axis
+    # the dp group is the world and the pipe group my rank alone
+    pod, data = comm_of("pod"), comm_of("data")
+    staged = sizes.get(PIPE_AXIS, 1) > 1
+    dp = comm_of("dp") if staged else world_comm
+    pipe = comm_of("pipe") if staged else Comm((rank,), rank, "local")
     return ProcessMesh(shape, axis_names, rank, dev, backend, transport,
-                       world_comm, pod, data)
+                       world_comm, pod, data, dp, pipe)
 
 
 def destroy(mesh: ProcessMesh) -> None:

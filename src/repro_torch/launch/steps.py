@@ -17,11 +17,13 @@ once, then global-norm clip and AdamW. Dummy rows carry weight 0 and
 run forward and backward like real ones; a rank of capacity 0 holds
 only dummy rows and still takes part in every collective.
 
-Gradient reductions (``HetConfig.grad_reduction``), over the ranks:
+Gradient reductions (``HetConfig.grad_reduction``), over the
+data-parallel ranks (``ProcessMesh.dp``; every rank without a ``pipe``
+axis):
 
-  * "allreduce" — one fp32 all-reduce per leaf over every rank (the
+  * "allreduce" — one fp32 all-reduce per leaf over those ranks (the
     JAX package leaves it to XLA);
-  * "bucketed_allreduce" — the fp32 bucket exchange over every rank
+  * "bucketed_allreduce" — the fp32 bucket exchange over them
     (``core/buckets.py::exchange_buckets``);
   * "hierarchical" (a mesh with a ``pod`` axis) — an fp32 all-reduce
     over the ranks of my pod, then the cross-pod leg over the ranks with
@@ -69,13 +71,29 @@ their gradients in row order into one fp32 stream, and the ranks' sums
 are added in rank order (the fp32 bucket exchange), so the step is
 bitwise the same under any capacity plan.
 
+Pipeline stages (``HetConfig.pipeline_stages > 1``, the uniform stack
+unrolled; :func:`_build_pipeline_step`): the layer stack is cut into
+contiguous stages (:func:`stage_plan_for`: sized by the capacities when
+there is one positive entry a stage, else uniform) and the accumulation
+microbatches stream through them in the 1F1B or GPipe program order of
+``core/pipeline.py``, each stage's forward and backward a segment of
+``transformer.pipeline_stage_fns``. The gradients are summed in the
+monolithic step's order (a tied table's head and gather parts added
+once a microbatch), reduced over the data-parallel ranks (per leaf, or
+the bucket stream flushed a stage at a time) and applied by the tree
+AdamW or LAMB, so in fp32 with ``grad_clip=0`` the step is bitwise the
+one-stage step. Without a ``pipe`` mesh axis every data-parallel rank
+runs all the stages in its process; with one, each stage runs on its own
+ranks (:func:`stage_params`, :func:`owned_params`), the boundary values
+cross between them point to point (:class:`PipeHop`) and the update's
+sums over the stages come from one gather (:class:`StageIndex`).
+
 Checkpoints hold the state in the JAX package's layout (the layer stack
 stacked, every pod's residual in one ``(pods, ...)`` array):
 :func:`state_shapes` and :func:`checkpoint_format` are the JAX package's
-template and format block, :func:`state_to_host` and
-:func:`state_from_host` move a rank's ``TrainState`` there and back.
-
-``pipeline_stages > 1`` raises "not ported yet".
+template and format block (with the stage plan's record),
+:func:`state_to_host` and :func:`state_from_host` move a rank's
+``TrainState`` there and back (not on a ``pipe`` axis yet).
 """
 from __future__ import annotations
 
@@ -87,10 +105,11 @@ import torch
 from repro_torch.checkpoint import repack
 from repro_torch.configs.base import ShapeConfig, TrainConfig
 from repro_torch.core import buckets as bkt
+from repro_torch.core import pipeline as pipe
 from repro_torch.core import weighting
 from repro_torch.core.accumulate import (accumulate_grads, accumulate_sums,
                                          split_microbatches, value_and_grad)
-from repro_torch.core.comm import Comm
+from repro_torch.core.comm import Comm, Pending
 from repro_torch.kernels.quantize import ops as q_ops
 from repro_torch.kernels.quantize import ref as q_ref
 from repro_torch.launch import mesh as mesh_mod
@@ -149,6 +168,60 @@ def _overlap_enabled(tcfg: TrainConfig, mesh: ProcessMesh) -> bool:
     the monolithic step runs, as in the JAX package)."""
     tcfg.het.validate()
     return tcfg.het.overlap != "none" and bool(_reduce_axes(tcfg, mesh))
+
+
+def stage_plan_for(model: Model,
+                   tcfg: TrainConfig) -> Optional[pipe.StagePlan]:
+    """The pipeline StagePlan for this config (None when off), the JAX
+    package's rule: when ``HetConfig.capacities`` has exactly
+    ``pipeline_stages`` entries, all positive, they double as the stage
+    speeds that size the layer cut; anything else (empty, one entry a
+    data-parallel rank, or zeros, which mark dead ranks but cannot mark
+    a stage) gets the uniform cut."""
+    S = tcfg.het.pipeline_stages
+    if S <= 1:
+        return None
+    caps = tcfg.het.capacities
+    if len(caps) == S and all(c > 0 for c in caps):
+        return pipe.plan_stages(model.cfg.num_layers, caps)
+    return pipe.uniform_stages(model.cfg.num_layers, S)
+
+
+def _staged(tcfg: TrainConfig, mesh: ProcessMesh) -> bool:
+    """Whether each pipeline stage runs on its own ranks (a ``pipe``
+    axis on the mesh)."""
+    return tcfg.het.pipeline_stages > 1 and mesh.pipe_size > 1
+
+
+def stage_params(params: Any, cfg, splan: pipe.StagePlan,
+                 stage: int) -> Dict[str, Any]:
+    """What pipeline stage ``stage`` holds of the parameter tree (its
+    keys in the tree's order): its layer slice, the embedding table on
+    stage 0 and the head's keys on the last stage (a tied table is held
+    by both)."""
+    S = splan.num_stages
+    r0, r1 = splan.stage_ranges()[stage]
+    head = set(tr.head_param_keys(cfg))
+    out: Dict[str, Any] = {}
+    for key, sub in params.items():
+        if key == "layers":
+            out[key] = sub[r0:r1]
+        elif (key == "embed" and stage == 0) or \
+                (key in head and stage == S - 1):
+            out[key] = sub
+    return out
+
+
+def owned_params(held: Dict[str, Any], cfg, splan: pipe.StagePlan,
+                 stage: int) -> Dict[str, Any]:
+    """What stage ``stage`` updates of what it holds (``stage_params``'
+    keys; any tree with them): all of it, but for a tied table on stage
+    0, whose gradient and update belong to the last stage (stage 0
+    holds a copy for its gather, refreshed after every update)."""
+    tied = "embed" in tr.head_param_keys(cfg)
+    if stage == 0 and tied and splan.num_stages > 1:
+        return {k: v for k, v in held.items() if k != "embed"}
+    return held
 
 
 def bucket_layout(tcfg: TrainConfig, mesh: ProcessMesh,
@@ -217,10 +290,13 @@ def validate_train_config(model: Model, tcfg: TrainConfig,
                 f"pipeline_stages={het.pipeline_stages} exceeds the "
                 f"{cfg.num_layers}-layer stack of '{cfg.name}' (every "
                 "stage needs >= 1 layer)")
-        raise NotImplementedError(
-            f"pipeline_stages={het.pipeline_stages}: not ported yet "
-            f"(repro_torch trains every data-parallel mode without "
-            f"pipeline stages)")
+    if mesh_mod.PIPE_AXIS in mesh.axis_names \
+            and mesh.pipe_size != het.pipeline_stages:
+        raise ValueError(
+            f"mesh 'pipe' axis has size {mesh.pipe_size} but "
+            f"HetConfig.pipeline_stages={het.pipeline_stages} — "
+            "build the mesh with pipe=pipeline_stages "
+            "(launch/mesh.py::with_pipe)")
     tr.check_supported(cfg)
 
 
@@ -230,9 +306,17 @@ def init_train_state(model: Model, tcfg: TrainConfig,
     """Parameters from ``seed`` (default ``tcfg.seed``) on the model's
     device (the same on every rank), zero moments (packed with an
     overlap mode) and a zero error-feedback state where the config
-    keeps one."""
+    keeps one. On a mesh with a ``pipe`` axis, the stage's part of the
+    parameters (:func:`stage_params`) and the moments of what it owns
+    (:func:`owned_params`)."""
     mesh = _mesh(mesh, model)
     params = model.init_params(tcfg.seed if seed is None else seed)
+    if _staged(tcfg, mesh):
+        splan = stage_plan_for(model, tcfg)
+        params = stage_params(params, model.cfg, splan, mesh.pipe_index)
+        return TrainState(params=params, opt=adam.init_state(
+            owned_params(params, model.cfg, splan, mesh.pipe_index),
+            tcfg.optimizer), err=())
     if _overlap_enabled(tcfg, mesh):
         lo = bucket_layout(tcfg, mesh, params)
         opt = adam.init_state_flat(lo.num_buckets, lo.bucket_elems,
@@ -260,13 +344,13 @@ def init_error_state(tcfg: TrainConfig, mesh: ProcessMesh,
 # --------------------------------------------------------------------------
 
 
-def _param_shapes(model: Model) -> Any:
-    """The port's parameter tree as shapes and dtypes only (fake tensors:
-    nothing is drawn or allocated)."""
+def _param_shapes(cfg) -> Any:
+    """The port's parameter tree of a model config as shapes and dtypes
+    only (fake tensors: nothing is drawn or allocated)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     with FakeTensorMode():
-        return tr.init_params(model.cfg, 0, "cpu")
+        return tr.init_params(cfg, 0, "cpu")
 
 
 def _spec(shape, dtype: torch.dtype) -> repack.ShapeDtype:
@@ -285,16 +369,23 @@ def _jax_specs(fake: Any, dtype: Optional[torch.dtype] = None) -> Any:
 def checkpoint_format(model: Model, tcfg: TrainConfig,
                       mesh: ProcessMesh) -> Dict[str, Any]:
     """The checkpoint ``"format"`` meta block, as the JAX package writes
-    it (no pipeline stages): one writer file a pod (``hosts``); with an
-    overlap mode the moments are packed, recorded as ``packed_fields``
-    beside the grid's layout record and fingerprint."""
+    it: one writer file a pod (``hosts``); the stage plan under
+    ``"pipeline"`` (``core/pipeline.py::stage_record``, None without
+    pipeline stages: parameters are stored per leaf, so a checkpoint
+    restores bit-exactly under any stage plan and the record only lets
+    the restore log the change); with an overlap mode the moments are
+    packed, recorded as ``packed_fields`` beside the grid's layout
+    record and fingerprint."""
     hosts = mesh.sizes.get("pod", 1)
+    splan = stage_plan_for(model, tcfg)
     fmt: Dict[str, Any] = {"version": repack.FORMAT_VERSION,
                            "state": "pytree", "packed_fields": [],
                            "layout": None, "hosts": hosts,
-                           "overlap": tcfg.het.overlap, "pipeline": None}
+                           "overlap": tcfg.het.overlap,
+                           "pipeline": (pipe.stage_record(splan)
+                                        if splan is not None else None)}
     if _overlap_enabled(tcfg, mesh):
-        fake = _param_shapes(model)
+        fake = _param_shapes(model.cfg)
         paths = list(repack.flatten_with_paths(_jax_specs(fake)))
         rec = bkt.layout_record(bucket_layout(tcfg, mesh, fake),
                                 leaf_paths=paths, hosts=hosts)
@@ -310,7 +401,7 @@ def state_shapes(model: Model, tcfg: TrainConfig,
     the residual as every pod's: ``(pods, nb, be)`` bucketed or a
     ``(pods, *leaf)`` mirror; packed ``(nb, be)`` moments with an
     overlap mode)."""
-    fake = _param_shapes(model)
+    fake = _param_shapes(model.cfg)
     ocfg = tcfg.optimizer
 
     def specs(dtype=None):
@@ -535,17 +626,17 @@ def reduce_grads(model: Model, tcfg: TrainConfig, mesh: ProcessMesh,
 
     g, o, w_local = accumulate_sums(grad_fn, state.params,
                                     split_microbatches(batch, accum))
-    loss, w = weighting.psum_weighted(o, w_local, mesh.world)
+    loss, w = weighting.psum_weighted(o, w_local, mesh.dp)
     err = state.err
     if _hier(tcfg, mesh):
         if mesh.data.size > 1:                  # in-pod leg, fp32
             g = tree_map(mesh.data.all_reduce, g)
         comm, compress = mesh.pod, het.compression
     elif het.grad_reduction == "bucketed_allreduce":
-        comm, compress = mesh.world, "none"
+        comm, compress = mesh.dp, "none"
     else:
         return loss, w, weighting.weighted_grad_psum(g, w_local,
-                                                     mesh.world), err
+                                                     mesh.dp), err
     use_err = _err_enabled(tcfg, mesh)
     if layout is not None:
         g, new_err = _reduce_bucketed(
@@ -578,6 +669,10 @@ def build_train_step(model: Model, tcfg: TrainConfig,
     is the state returned."""
     mesh = _mesh(mesh, model)
     validate_train_config(model, tcfg, mesh)
+    if tcfg.het.pipeline_stages > 1:
+        # HetConfig.validate pinned overlap="none", weighting="tokens" and
+        # a flat reduction, so the moments stay a tree
+        return _build_pipeline_step(model, tcfg, mesh)
     if tcfg.het.weighting == "canonical":
         return _build_canonical_step(model, tcfg, mesh)
     if _overlap_enabled(tcfg, mesh):
@@ -838,7 +933,7 @@ def _build_overlap_step(model: Model, tcfg: TrainConfig, mesh: ProcessMesh):
     accum = max(1, het.accum_steps)
     q_impl = q_ops.impl_of(het.quantize_impl)
     hier = _hier(tcfg, mesh)
-    comm = mesh.pod if hier else mesh.world
+    comm = mesh.pod if hier else mesh.dp
     compress = hier and het.compression != "none"
     use_err = _err_enabled(tcfg, mesh)
     backward = het.overlap == "backward"
@@ -862,7 +957,7 @@ def _build_overlap_step(model: Model, tcfg: TrainConfig, mesh: ProcessMesh):
         per-bucket pipeline."""
         g, o, w_local = accumulate_sums(grad_fn, state.params,
                                         split_microbatches(batch, accum))
-        loss, w = weighting.psum_weighted(o, w_local, mesh.world)
+        loss, w = weighting.psum_weighted(o, w_local, mesh.dp)
         flat.inv_w = 1.0 / torch.clamp(w, min=1e-9)
         if hier and mesh.data.size > 1:         # in-pod leg, fp32
             g = tree_map(mesh.data.all_reduce, g)
@@ -906,7 +1001,7 @@ def _build_overlap_step(model: Model, tcfg: TrainConfig, mesh: ProcessMesh):
             def on_forward(o, w, o_acc=o_acc, w_acc=w_acc):
                 cell["loss"], cell["w"] = weighting.psum_weighted(
                     o if o_acc is None else o_acc + o,
-                    w if w_acc is None else w_acc + w, mesh.world)
+                    w if w_acc is None else w_acc + w, mesh.dp)
                 flat.inv_w = 1.0 / torch.clamp(cell["w"], min=1e-9)
 
             o, w = _backward_into_stream(
@@ -981,7 +1076,7 @@ def canonical_backward(model: Model, tcfg: TrainConfig, params: Any,
 def _build_canonical_step(model: Model, tcfg: TrainConfig,
                           mesh: ProcessMesh):
     ocfg = tcfg.optimizer
-    comm = mesh.world
+    comm = mesh.dp
     cache: Dict[str, bkt.BucketLayout] = {}
 
     def step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
@@ -1015,6 +1110,577 @@ def _build_canonical_step(model: Model, tcfg: TrainConfig,
         return (TrainState(params=params, opt=opt, err=state.err),
                 {"loss": weighting.finalize(o_sum, w_sum), "weight": w_sum,
                  **met})
+
+    return step
+
+
+# --------------------------------------------------------------------------
+# the pipelined step (HetConfig.pipeline_stages > 1)
+# --------------------------------------------------------------------------
+
+
+def _pipeline_leaf_pieces(params: Any, cfg, splan: pipe.StagePlan,
+                          first_layer: int = 0
+                          ) -> List[List[Tuple[int, int, int]]]:
+    """Per stream leaf ``(offset_within_leaf, n, flush_stage)`` pieces
+    for the pipelined step's bucket flushes (the JAX package's
+    ``_pipeline_leaf_pieces``), in the order of the LAST microbatch's
+    backward: the head at flush stage 0, layer ``l`` at ``S - 1 -
+    stage_of_layer(l)``, the embedding table last (``S``: a tied table
+    also takes the head's gradient, so it is final only then). ``params``
+    may be a stage's part of the tree, its layer list starting at layer
+    ``first_layer``. Feeds ``core/buckets.py::bucket_readiness``."""
+    S = splan.num_stages
+    head = set(tr.head_param_keys(cfg))
+    pieces = []
+    for key in sorted(params):
+        for shape, _ in bkt.stream_leaves(params[key]):
+            n = int(np.prod(shape))
+            if key == "layers":
+                per = n // shape[0]
+                pieces.append([(i * per, per, S - 1 - splan.stage_of_layer(
+                    first_layer + i)) for i in range(shape[0])])
+            elif key == "embed":
+                pieces.append([(0, n, S)])
+            elif key in head:
+                pieces.append([(0, n, 0)])
+            else:
+                raise ValueError(
+                    f"pipeline_stages > 1: unexpected param subtree "
+                    f"'{key}' (uniform stack expects embed / final_norm / "
+                    f"lm_head / layers)")
+    return pieces
+
+
+def _paths(tree: Any, prefix: Tuple = ()):
+    """(path, tensor) of every tensor, in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _paths(v, prefix + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _paths(v, prefix + (i,))
+    else:
+        yield prefix, tree
+
+
+def _global_path(path: Tuple, first_layer: int) -> Tuple:
+    """A path of a stage's part of the tree as the full tree's (its
+    layer list starts at ``first_layer``)."""
+    if path[0] == "layers":
+        return ("layers", path[1] + first_layer) + path[2:]
+    return path
+
+
+class StageIndex:
+    """Where each parameter of the full tree lives across the stages of
+    a ``pipe`` axis, for the sums the update needs over all of them: the
+    grad norm's per-leaf terms in ``tree_leaves`` order, LAMB's per-piece
+    norm terms grouped by the JAX leaf (``adam.leaf_groups``, a stacked
+    leaf's pieces in layer order). Each stage fills the slots of what it
+    owns, one ``all_gather`` over the pipe group brings every stage's
+    row, and every stage reads each slot from its owner's row and sums
+    in the one-process update's order, so the sums are bitwise the
+    same."""
+
+    def __init__(self, full: Any, cfg, splan: pipe.StagePlan):
+        S = splan.num_stages
+        tied = "embed" in tr.head_param_keys(cfg)
+        head = set(tr.head_param_keys(cfg))
+
+        def owner(path):
+            if path[0] == "layers":
+                return splan.stage_of_layer(path[1])
+            if path[0] == "embed":
+                return S - 1 if tied else 0
+            if path[0] in head:
+                return S - 1
+            raise ValueError(f"unexpected param subtree '{path[0]}'")
+
+        paths = [p for p, _ in _paths(full)]
+        self.leaf_slot = {p: i for i, p in enumerate(paths)}
+        self.leaf_owner = torch.tensor([owner(p) for p in paths])
+        by_id = {id(t): p for p, t in _paths(full)}
+        self.groups: List[List[Tuple]] = [
+            [by_id[id(t)] for t in pieces]
+            for _, pieces in bkt.stream_leaves(full)]
+        flat = [p for g in self.groups for p in g]
+        self.piece_slot = {p: i for i, p in enumerate(flat)}
+        self.piece_owner = torch.tensor([owner(p) for p in flat])
+
+    def _gather(self, terms: Dict[Tuple, torch.Tensor], slot, owner,
+                comm: Comm, width: int = 1) -> torch.Tensor:
+        """(n, width) fp32: each slot's terms from its owner stage."""
+        dev = next(iter(terms.values()))[0].device if terms else "cpu"
+        mine = torch.zeros((len(slot), width), dtype=torch.float32,
+                           device=dev)
+        for path, vals in terms.items():
+            for j, v in enumerate(vals):
+                mine[slot[path], j] = v
+        rows = comm.all_gather(mine)                    # (S, n, width)
+        return rows[owner.to(rows.device),
+                    torch.arange(len(slot), device=rows.device)]
+
+    def grad_norm_sq(self, terms: Dict[Tuple, torch.Tensor],
+                     comm: Comm) -> torch.Tensor:
+        """``adam.global_norm``'s sum over the full tree from this
+        stage's per-leaf terms (path -> squared sum)."""
+        vals = self._gather({p: (t,) for p, t in terms.items()},
+                            self.leaf_slot, self.leaf_owner, comm)
+        return sum(vals[i, 0] for i in range(len(self.leaf_slot)))
+
+    def lamb_trusts(self, psq: Dict[Tuple, torch.Tensor],
+                    usq: Dict[Tuple, torch.Tensor], comm: Comm
+                    ) -> Tuple[Dict[Tuple, torch.Tensor], torch.Tensor]:
+        """``lamb.apply_update``'s trust ratio of every JAX leaf from
+        this stage's per-piece terms: (path -> its leaf's ratio, the
+        mean ratio over the leaves)."""
+        vals = self._gather({p: (psq[p], usq[p]) for p in psq},
+                            self.piece_slot, self.piece_owner, comm, 2)
+        trust_of, trusts = {}, []
+        for group in self.groups:
+            idx = [self.piece_slot[p] for p in group]
+            trust = lamb.trust_from_norms(sum(vals[i, 0] for i in idx),
+                                          sum(vals[i, 1] for i in idx))
+            trust_of.update({p: trust for p in group})
+            trusts.append(trust)
+        return trust_of, torch.mean(torch.stack(trusts))
+
+
+@torch.no_grad()
+def stage_update(own: Any, grads: Any, opt: adam.AdamState, ocfg,
+                 lr: torch.Tensor, index: StageIndex, comm: Comm,
+                 first_layer: int
+                 ) -> Tuple[Any, adam.AdamState, Dict[str, torch.Tensor]]:
+    """One stage rank's AdamW or LAMB update of what it owns, in place:
+    the elementwise math of ``adam.apply_update`` / ``lamb.apply_update``
+    on its leaves, the grad norm (for the metric and the clip) and
+    LAMB's per-leaf norms summed over every stage through ``index``."""
+    path_of = {id(t): _global_path(p, first_layer) for p, t in _paths(own)}
+    gnorm = torch.sqrt(index.grad_norm_sq(
+        {path_of[id(p)]: torch.sum(torch.square(g.float()))
+         for p, g in zip(tree_leaves(own), tree_leaves(grads))}, comm))
+    if ocfg.grad_clip > 0:
+        scale = adam.clip_scale(gnorm, ocfg.grad_clip)
+        grads = tree_map(lambda g: g * scale.to(g.dtype), grads)
+    step = opt.step + 1
+    bc1, bc2 = adam.bias_corrections(ocfg, step)
+    is_lamb = ocfg.name == "lamb"
+    terms, psq, usq = [], {}, {}
+    for shape, (ps, gs, ms, vs) in adam.leaf_groups(own, grads, opt.m,
+                                                    opt.v):
+        for p, g, m, v in zip(ps, gs, ms, vs):
+            pf, update, mf, vf = adam.moments(g, m, v, p, ocfg, bc1, bc2,
+                                              len(shape) >= 2)
+            if not is_lamb:
+                p.copy_(pf - lr * update)
+            else:
+                key = path_of[id(p)]
+                psq[key] = torch.sum(torch.square(pf))
+                usq[key] = torch.sum(torch.square(update))
+                terms.append((p, pf, update, key))
+            m.copy_(mf)
+            v.copy_(vf)
+    metrics = {"grad_norm": gnorm, "lr": lr}
+    if is_lamb:
+        trust_of, metrics["trust_ratio"] = index.lamb_trusts(psq, usq, comm)
+        for p, pf, update, key in terms:
+            p.copy_(pf - lr * trust_of[key] * update)
+    return own, adam.AdamState(step=step, m=opt.m, v=opt.v), metrics
+
+
+class PipeHop:
+    """A stage rank's boundary traffic with the other stages of its
+    ``pipe`` group (the JAX package's ``_pipe_send``), one message per
+    event that crosses a stage boundary:
+
+      * ``("F", m)`` stage s -> s+1: the activation and the aux carry of
+        microbatch m (F(s, m));
+      * ``("B", m)`` stage s -> s-1: their cotangents (B(s, m));
+      * ``("T", m)`` stage 0 -> the last stage (a tied table): the rows
+        of the gather's gradient that microbatch m's tokens touched
+        (B(0, m));
+      * ``("E", 0)`` the last stage -> stage 0 (a tied table): the table
+        after the update.
+
+    The messages between two stages are numbered in the order
+    ``core/pipeline.py::program_order`` produces them, and both stages
+    post them in that order: before a send, every earlier receive of the
+    pair is posted; a receive posts everything up to it. No rank then
+    waits on a message its peer can only send after a message it has
+    not posted, so 1F1B's steady state, where a stage sends forward and
+    receives backward in one slot, cannot deadlock on NCCL's in-order
+    point-to-point streams. Each tensor of a message is one hop with its
+    own tag. ``shapes(msg)`` gives a received message's (shape, dtype)
+    list."""
+
+    def __init__(self, comm: Comm, order, num_stages: int, stage: int,
+                 tied: bool, device: torch.device):
+        S = num_stages
+        msgs = []
+        for s, kind, m in order:
+            if kind == pipe.FWD and s < S - 1:
+                msgs.append(("F", m, s, s + 1))
+            elif kind == pipe.BWD and s > 0:
+                msgs.append(("B", m, s, s - 1))
+            if kind == pipe.BWD and s == 0 and tied:
+                msgs.append(("T", m, 0, S - 1))
+        if tied:
+            msgs.append(("E", 0, S - 1, 0))
+        self.comm, self.stage, self.device = comm, stage, device
+        self.lines: Dict[int, List[Tuple]] = {}
+        for msg in msgs:
+            src, dst = msg[2], msg[3]
+            if stage in (src, dst):
+                self.lines.setdefault(dst if src == stage else src,
+                                      []).append(msg)
+        # (kind, m) -> (peer, number): a stage sends and receives at
+        # most one message of each kind and microbatch
+        self.outgoing: Dict[Tuple[str, int], Tuple[int, int]] = {}
+        self.incoming: Dict[Tuple[str, int], Tuple[int, int]] = {}
+        for peer, line in self.lines.items():
+            for i, (kind, m, src, _) in enumerate(line):
+                side = self.outgoing if src == stage else self.incoming
+                side[(kind, m)] = (peer, i)
+        self.shapes: Callable = lambda msg: []
+        self.pos: Dict[int, int] = {}
+        self.recvs: Dict[Tuple, List[Pending]] = {}
+        self.sends: List[Pending] = []
+
+    def begin(self, shapes: Callable) -> None:
+        """Start a step's traffic; ``shapes(kind, m)`` gives a message's
+        received (shape, dtype) list."""
+        self.shapes = shapes
+        self.pos = {peer: 0 for peer in self.lines}
+
+    def _post_until(self, peer: int, upto: int,
+                    send: Optional[Sequence[torch.Tensor]] = None) -> None:
+        line = self.lines[peer]
+        while self.pos[peer] <= upto:
+            i = self.pos[peer]
+            kind, m, src, _ = line[i]
+            if src == self.stage:
+                if i != upto or send is None:
+                    raise RuntimeError(
+                        f"stage {self.stage}: message {line[i][:2]} must "
+                        f"be sent before {line[upto][:2]}")
+                self.sends += [self.comm.send(t, peer, tag=2 * i + j)
+                               for j, t in enumerate(send)]
+            else:
+                self.recvs[(kind, m)] = [
+                    self.comm.recv(shape, dtype, self.device, peer,
+                                   tag=2 * i + j)
+                    for j, (shape, dtype) in enumerate(
+                        self.shapes(kind, m))]
+            self.pos[peer] += 1
+
+    def send(self, kind: str, m: int,
+             tensors: Sequence[torch.Tensor]) -> None:
+        self._post_until(*self.outgoing[(kind, m)], tensors)
+
+    def recv(self, kind: str, m: int) -> List[torch.Tensor]:
+        self._post_until(*self.incoming[(kind, m)])
+        return [p.wait() for p in self.recvs.pop((kind, m))]
+
+    def wait_sends(self) -> None:
+        for p in self.sends:
+            p.wait()
+        self.sends = []
+
+    def finish(self) -> None:
+        """Wait on every send of the step; every message must have been
+        posted."""
+        self.wait_sends()
+        left = {peer: line[self.pos[peer]:]
+                for peer, line in self.lines.items()
+                if self.pos[peer] < len(line)}
+        if left or self.recvs:
+            raise RuntimeError(f"stage {self.stage}: messages never posted "
+                               f"{left} or never read {list(self.recvs)}")
+
+
+def modeled_pipe_bytes(cfg, splan: pipe.StagePlan, ocfg, *,
+                       microbatches: int, mb_rows: int, seq_len: int,
+                       stage: int, touched_rows: Sequence[int] = ()) -> int:
+    """The bytes stage rank ``stage`` sends over its pipe group in one
+    step: M activations (compute dtype) and M aux carries (fp32) to the
+    next stage, M cotangents and aux cotangents to the previous one;
+    with a tied table, from stage 0 the touched rows of each
+    microbatch's gather gradient (``touched_rows[m]`` rows of d_model
+    in the parameter dtype) and from the last stage the table after the
+    update; and its row of each all-gather: the metrics (3 fp32), the
+    grad norm's per-leaf terms and under LAMB the per-piece norm terms
+    (2 each)."""
+    from repro_torch.models.blocks import dtype_of as _dt
+    S, M, d = splan.num_stages, microbatches, cfg.d_model
+    act = mb_rows * seq_len * d * _dt(cfg.compute_dtype).itemsize + 4
+    pbytes = _dt(cfg.param_dtype).itemsize
+    tied = "embed" in tr.head_param_keys(cfg)
+    total = M * act * ((stage < S - 1) + (stage > 0))
+    if tied and stage == 0:
+        total += sum(int(n) for n in touched_rows) * d * pbytes
+    if tied and stage == S - 1:
+        total += cfg.vocab_size * d * pbytes
+    leaves = len(tree_leaves(_param_shapes(cfg)))
+    total += (S - 1) * 4 * (3 + leaves + (2 * leaves if ocfg.name == "lamb"
+                                          else 0))
+    return total
+
+
+def _build_pipeline_step(model: Model, tcfg: TrainConfig, mesh: ProcessMesh):
+    """The pipelined train step (the JAX package's
+    ``_build_pipeline_step``): capacity-sized contiguous stages, the
+    accumulation microbatches streamed through them in 1F1B (or GPipe)
+    program order (``core/pipeline.py::program_order``).
+
+    An F event runs one stage's forward on its boundary input (detached,
+    requiring grad) and keeps the graph; the last stage adds ``ce + aux
+    * w`` and ``w`` into the fp32 sums. A B event takes the gradient of
+    that graph with the cotangent from the next stage
+    (``torch.autograd.grad``): the stage slice's gradients are added
+    into the fp32 accumulator (microbatch order, the monolithic step's
+    add order) and the input cotangent goes back a stage. A tied table's
+    head gradient is added to the gather's once per microbatch at the
+    stage-0 B event, the monolithic backward's association. Then the
+    reduction over the data-parallel ranks: "allreduce" a per-leaf fp32
+    all-reduce after the drain; "bucketed_allreduce" the fp32 bucket
+    stream, each stage's buckets flushed through ``BucketFlushPipeline``
+    the moment the last microbatch's B event for that stage lands. Then
+    the weight division once and the tree AdamW or LAMB. In fp32 with
+    ``grad_clip=0`` it is bitwise the ``pipeline_stages=1`` step.
+
+    Without a ``pipe`` axis one process runs every stage (the JAX
+    driver's path: its ``_pipe_send`` is the identity there). With one,
+    stage rank s runs only its own events, ``stage_schedule(S, M)[s]`` in
+    order, on what it holds (:func:`stage_params`), and the boundary
+    values cross ranks through :class:`PipeHop`; the metrics come from
+    the last stage, the update's sums over every stage through
+    :class:`StageIndex`, and a tied table's gradient meets its head part
+    on the last stage, which sends the updated table back to stage 0."""
+    cfg, het, ocfg = model.cfg, tcfg.het, tcfg.optimizer
+    splan = stage_plan_for(model, tcfg)
+    S, M = splan.num_stages, max(1, het.accum_steps)
+    ranges = splan.stage_ranges()
+    seg = tr.pipeline_stage_fns(cfg, ranges,
+                                label_smoothing=tcfg.label_smoothing)
+    embed_fn, head_fn = seg["embed_fn"], seg["head_fn"]
+    stage_fwd, head_keys = seg["stage_fwd"], seg["head_keys"]
+    tied = "embed" in head_keys
+    order = pipe.program_order(S, M, het.pipeline_schedule)
+    staged = _staged(tcfg, mesh)
+    me = mesh.pipe_index
+    mine = (me,) if staged else tuple(range(S))
+    events = [e for e in order if e[0] in mine]
+    first = ranges[mine[0]][0]
+    bucketed = het.grad_reduction == "bucketed_allreduce"
+    q_impl = q_ops.impl_of(het.quantize_impl)
+    dev = model.device
+    cdt = dtype_of(cfg.compute_dtype)
+    pdt = dtype_of(cfg.param_dtype)
+    index = StageIndex(_param_shapes(cfg), cfg, splan) if staged else None
+    hop = (PipeHop(mesh.pipe, order, S, me, tied, dev) if staged else None)
+    owns_embed = (not staged) or me == (S - 1 if tied else 0)
+    cache: Dict[str, Any] = {}
+
+    def layers_of(tree, s):
+        r0, r1 = ranges[s]
+        return tree["layers"][r0 - first:r1 - first]
+
+    def owned(tree):
+        return owned_params(tree, cfg, splan, me) if staged else tree
+
+    def step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
+        params = state.params
+        own = owned(params)
+        lr = schedules.learning_rate(ocfg, state.opt.step + 1)
+        leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        mbs = split_microbatches(batch, M)
+        # where each owned leaf's gradient accumulates: a tree of fp32
+        # sums (bf16 params keep a bf16 carry, as accumulate_sums does),
+        # or views of the fp32 bucket stream
+        if bucketed:
+            if "layout" not in cache:
+                lo = bucket_layout(tcfg, mesh, own)
+                cache["layout"] = lo
+                cache["readiness"] = bkt.bucket_readiness(
+                    lo, _pipeline_leaf_pieces(own, cfg, splan, first))
+            layout = cache["layout"]
+            stream = torch.zeros((layout.num_buckets, layout.bucket_elems),
+                                 dtype=torch.float32, device=dev)
+            flat = stream.view(-1)
+            acc_of = {id(t): flat[off:off + t.numel()].view(t.shape)
+                      for off, t in bkt.tree_pieces(owned(leaves), layout)}
+            prep_k, exchange_k = bkt.bucket_legs(
+                stream, None, comm=mesh.dp, compress=False,
+                block_size=_BLOCK, impl=q_impl, total=layout.total)
+            flusher = bkt.BucketFlushPipeline(
+                cache["readiness"], lambda k, _raw: prep_k(k), exchange_k)
+
+            def flush(stage):
+                flusher.flush_ready_buckets(stage, lambda k: None)
+        else:
+            g_acc = tree_map(
+                lambda p: torch.zeros(p.shape, device=p.device,
+                                      dtype=p.dtype if p.dtype ==
+                                      torch.bfloat16 else torch.float32),
+                own)
+            acc_of = {id(t): a for t, a in zip(tree_leaves(owned(leaves)),
+                                               tree_leaves(g_acc))}
+
+            def flush(stage):
+                pass
+
+        def add(t, g):
+            a = acc_of[id(t)]
+            a.add_(g.to(a.dtype))
+
+        o_acc = torch.zeros((), dtype=torch.float32, device=dev)
+        w_acc = torch.zeros_like(o_acc)
+        touched = {}
+        if staged and tied and me in (0, S - 1):
+            touched = {m: torch.unique(mbs["inputs"][m]).long()
+                       for m in range(M)}
+        if staged:
+            rows_mb, seq = mbs["inputs"].shape[1:3]
+            act = ((rows_mb, seq, cfg.d_model), cdt)
+            scalar = ((), torch.float32)
+            hop.begin(lambda kind, m: {
+                "F": [act, scalar], "B": [act, scalar],
+                "T": [((len(touched.get(m, ())), cfg.d_model), pdt)],
+                "E": [((cfg.vocab_size, cfg.d_model), pdt)]}[kind])
+        boundary: Dict[Tuple[int, int], Tuple] = {}   # in-process hops
+        saved: Dict[Tuple[int, int], Tuple] = {}
+        head_emb: Dict[int, torch.Tensor] = {}
+
+        def send(kind, s, m, tensors):
+            if staged:
+                hop.send(kind, m, tensors)
+            else:
+                boundary[(kind, s, m)] = tensors
+
+        def recv(kind, s, m):
+            if staged:
+                return hop.recv(kind, m)
+            return boundary.pop((kind, s, m))
+
+        for s, kind, m in events:
+            mb = {k: v[m] for k, v in mbs.items()}
+            if kind == pipe.FWD:
+                with torch.enable_grad():
+                    if s == 0:
+                        x_in = None
+                        x = embed_fn({"embed": leaves["embed"]},
+                                     mb["inputs"])
+                        aux = torch.zeros((), dtype=torch.float32,
+                                          device=dev)
+                    else:
+                        x_recv, aux = recv("F", s - 1, m)
+                        x = x_in = x_recv.detach().requires_grad_(True)
+                    positions = torch.arange(x.shape[1], device=dev)
+                    x_out, a_out = stage_fwd[s](layers_of(leaves, s), x, aux,
+                                                positions)
+                    if s == S - 1:
+                        ce, w = head_fn({k: leaves[k] for k in head_keys},
+                                        x_out, mb["labels"], mb["weights"])
+                if s < S - 1:
+                    send("F", s, m, (x_out.detach(), a_out.detach()))
+                    saved[(s, m)] = (x_in, x_out)
+                else:
+                    w_sg = w.detach()
+                    o_acc = o_acc + (ce.detach() + a_out.detach() * w_sg)
+                    w_acc = w_acc + w_sg
+                    saved[(s, m)] = (x_in, ce, w_sg)
+                continue
+            # a B event
+            if s == S - 1:
+                x_in, out, a_cot = saved.pop((s, m))
+                cot = None
+            else:
+                x_in, out = saved.pop((s, m))
+                cot, a_cot = recv("B", s + 1, m)
+            inputs = tree_leaves(layers_of(leaves, s))
+            n_slice = len(inputs)
+            if s == S - 1:
+                inputs += [t for k in head_keys for t in tree_leaves(leaves[k])]
+            if s == 0:
+                inputs.append(leaves["embed"])
+            else:
+                inputs.append(x_in)
+            grads = list(torch.autograd.grad(out, inputs, grad_outputs=cot))
+            del out, cot
+            for t, g in zip(inputs[:n_slice], grads[:n_slice]):
+                add(t, g)
+            if s == S - 1:
+                it = iter(grads[n_slice:])
+                for k in head_keys:
+                    for t in tree_leaves(leaves[k]):
+                        g = next(it)
+                        if k == "embed":    # tied: held for the stage-0 B
+                            head_emb[m] = g
+                        else:
+                            add(t, g)
+            if m == M - 1:
+                flush(S - 1 - s)
+            if s > 0:
+                send("B", s, m, (grads[-1], a_cot))
+                continue
+            g_emb = grads[-1]
+            if not tied:
+                add(leaves["embed"], g_emb)
+            elif staged:
+                hop.send("T", m, (g_emb.index_select(0, touched[m]),))
+            else:
+                add(leaves["embed"], g_emb + head_emb.pop(m))
+            if m == M - 1 and owns_embed:
+                flush(S)
+        if staged and tied and me == S - 1:
+            # the gather's gradient rows from stage 0 meet the head's,
+            # one add a microbatch in microbatch order
+            emb = leaves["embed"]
+            for m in range(M):
+                rows, = hop.recv("T", m)
+                dense = torch.zeros(emb.shape, dtype=rows.dtype, device=dev)
+                dense.index_copy_(0, touched[m], rows)
+                add(emb, dense + head_emb.pop(m))
+                del dense
+            flush(S)
+        del saved, leaves
+        if staged:
+            hop.wait_sends()
+        # the metrics: the last stage's sums over the data-parallel ranks
+        # (as the monolithic step reduces them), given to every stage
+        holder = (not staged) or me == S - 1
+        if holder:
+            loss, w = weighting.psum_weighted(o_acc, w_acc, mesh.dp)
+            w_grad = (w if bucketed
+                      else mesh.dp.all_reduce(w_acc.float().clone()))
+            met = torch.stack([loss, w, w_grad])
+        else:
+            met = torch.zeros(3, dtype=torch.float32, device=dev)
+        if staged:
+            met = mesh.pipe.all_gather(met)[S - 1]
+        loss, w, w_grad = met[0], met[1], met[2]
+        inv = 1.0 / torch.clamp(w_grad, min=1e-9)
+        if bucketed:
+            flusher.finish()
+            grads_t = tree_map(lambda t: t.mul_(inv.to(t.dtype)),
+                               bkt.unpack_buckets(stream, layout, own))
+        else:
+            grads_t = tree_map(
+                lambda g: mesh.dp.all_reduce(g).mul_(inv.to(g.dtype)), g_acc)
+        if staged:
+            _, opt, out_met = stage_update(own, grads_t, state.opt, ocfg, lr,
+                                           index, mesh.pipe, first)
+            if tied and me == S - 1:            # the table to stage 0
+                hop.send("E", 0, (params["embed"],))
+            elif tied and me == 0:
+                params["embed"].copy_(hop.recv("E", 0)[0])
+            hop.finish()
+        else:
+            _, opt, out_met = _opt_apply(ocfg)(params, grads_t, state.opt,
+                                               ocfg, lr)
+        return (TrainState(params=params, opt=opt, err=state.err),
+                {"loss": loss, "weight": w, **out_met})
 
     return step
 

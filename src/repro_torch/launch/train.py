@@ -57,8 +57,23 @@ backward lands them), both with ``--grad-reduction bucketed_allreduce``
 or ``hierarchical`` and ``--bucket-mb``; ``--weighting canonical`` (the
 sampler's plan-independent row order; every rank is given the whole
 global batch and runs an equal share of its rows one at a time, so a
-replan changes no bit). Still raising "not ported yet":
-``--pipeline-stages`` above 1.
+replan changes no bit).
+
+Pipeline parallelism, as the JAX driver has it: ``--pipeline-stages S
+--pipeline-schedule {1f1b,gpipe} --no-scan-layers`` cuts the layer stack
+into S contiguous stages (sized by ``--capacities`` when it has S
+positive entries, else uniform) and streams the ``--accum``
+microbatches through them in program order; every data-parallel rank
+runs all the stages in its own process, and checkpoints, ``--resume``
+and the stage-plan restore log work as without stages. ``--pipe-axis``
+puts each stage on its own processes instead (a leading ``pipe`` axis
+of size S on ``--devices``: S times the data-parallel ranks; stage rank
+``s`` of data-parallel rank ``r`` is rank ``s * dp + r`` and loads rank
+``r``'s rows), the boundary values crossing between them point to
+point; checkpoints, ``--resume``, ``--chaos`` and ``--kill-pod`` with a
+``pipe`` axis raise "not ported yet". The ``[train] summary`` line
+records the stage plan (layers per stage), the schedule and, with a
+``pipe`` axis, each rank's stage and pipe bytes per step.
 
 Example (H100, one rank):
   PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b \
@@ -84,6 +99,14 @@ Example (CPU, two ranks, order-canonical weighting):
   PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b \
       --smoke --device cpu --devices 2,1 --weighting canonical \
       --steps 4 --global-batch 8 --seq-len 32
+Example (H100, two pipeline stages in one process, the uniform cut):
+  PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b \
+      --pipeline-stages 2 --no-scan-layers --steps 4 --global-batch 8 \
+      --seq-len 1024 --accum 4
+Example (CPU, two stages on their own ranks, two data-parallel ranks):
+  PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b \
+      --smoke --device cpu --devices 2,1 --pipeline-stages 2 --pipe-axis \
+      --no-scan-layers --accum 2 --steps 4 --global-batch 8 --seq-len 32
 Example (CPU, checkpoint then resume):
   PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b \
       --smoke --device cpu --steps 4 --ckpt-every 2 \
@@ -233,14 +256,28 @@ def _launch_counts() -> Dict[str, int]:
 
 def _sent(mesh: mesh_mod.ProcessMesh) -> int:
     return sum(c.sent_bytes for c in {id(c): c for c in (
-        mesh.world, mesh.pod, mesh.data)}.values())
+        mesh.world, mesh.pod, mesh.data, mesh.dp, mesh.pipe)}.values())
 
 
 def _checksums(mesh: mesh_mod.ProcessMesh, params) -> List[int]:
-    """Every rank's parameter checksum, gathered over the world."""
+    """Every rank's parameter checksum, gathered over the world (with a
+    ``pipe`` axis, of what the rank's stage owns)."""
     mine = torch.tensor([steps_mod.params_checksum(params)],
                         dtype=torch.int64, device=mesh.device)
     return [int(x) for x in mesh.world.all_gather(mine).reshape(-1)]
+
+
+def stage_groups(sums: Sequence[int], pipe_size: int) -> List[List[int]]:
+    """The ranks' checksums by pipeline stage (every stage's
+    data-parallel ranks must agree)."""
+    n = len(sums) // pipe_size
+    return [list(sums[s * n:(s + 1) * n]) for s in range(pipe_size)]
+
+
+def model_checksum(sums: Sequence[int], pipe_size: int) -> int:
+    """The whole model's checksum from the ranks' (each stage owns its
+    part of the parameters once: the checksum is a sum over leaves)."""
+    return sum(g[0] for g in stage_groups(sums, pipe_size))
 
 
 def _slowest(mesh: mesh_mod.ProcessMesh, seconds: float) -> float:
@@ -248,6 +285,19 @@ def _slowest(mesh: mesh_mod.ProcessMesh, seconds: float) -> float:
     number, the same on every rank, for the straggler monitor."""
     t = torch.tensor([seconds], dtype=torch.float64, device=mesh.device)
     return float(mesh.world.all_reduce(t, op=dist.ReduceOp.MAX)[0])
+
+
+def _modeled_pipe(cfg, tcfg: TrainConfig, splan, stage: int,
+                  batch: Dict[str, torch.Tensor]) -> int:
+    """``steps.modeled_pipe_bytes`` of one step on this batch: the
+    tokens each microbatch touches counted from the batch itself."""
+    M = max(1, tcfg.het.accum_steps)
+    rows, seq = batch["inputs"].shape
+    touched = [int(torch.unique(x).numel())
+               for x in batch["inputs"].reshape(M, -1)]
+    return steps_mod.modeled_pipe_bytes(
+        cfg, splan, tcfg.optimizer, microbatches=M, mb_rows=rows // M,
+        seq_len=seq, stage=stage, touched_rows=touched)
 
 
 def restore_state(mgr: CheckpointManager, model, tcfg: TrainConfig,
@@ -293,6 +343,14 @@ def run_rank(args, tcfg: TrainConfig, mesh: mesh_mod.ProcessMesh,
     model = build_model(cfg, mesh.device)
     lead = mesh.rank == 0
     step_fn = steps_mod.build_train_step(model, tcfg, mesh)
+    splan = steps_mod.stage_plan_for(model, tcfg)
+    staged = mesh.pipe_size > 1
+
+    def owned(params):
+        """What this rank's stage owns (the whole tree without a pipe
+        axis)."""
+        return (steps_mod.owned_params(params, cfg, splan, mesh.pipe_index)
+                if staged else params)
     corpus = build_synthetic_corpus(
         data_dir, num_seqs=max(4 * plan.global_rows, 256),
         seq_len=args.seq_len + 1, vocab=cfg.vocab_size, rows_per_shard=64,
@@ -320,8 +378,9 @@ def run_rank(args, tcfg: TrainConfig, mesh: mesh_mod.ProcessMesh,
     else:
         state = steps_mod.init_train_state(model, tcfg, mesh=mesh)
     start_step = step
-    start_sums = _checksums(mesh, state.params)
-    if len(set(start_sums)) != 1:
+    start_sums = _checksums(mesh, owned(state.params))
+    if any(len(set(g)) != 1 for g in stage_groups(start_sums,
+                                                  mesh.pipe_size)):
         raise RuntimeError(f"ranks start from different parameters: "
                            f"checksums {start_sums}")
     monitor = StragglerMonitor(num_ranks=mesh.dp_size,
@@ -352,6 +411,8 @@ def run_rank(args, tcfg: TrainConfig, mesh: mesh_mod.ProcessMesh,
         torch.cuda.reset_peak_memory_stats(model.device)
     launches0 = _launch_counts()
     losses, step_s, records, link, during_save = [], [], [], [], []
+    pipe_bytes: List[int] = []
+    pipe_modeled: List[int] = []
     replans: List[Dict[str, Any]] = []
     remesh = None
     t_start = time.time()
@@ -370,11 +431,12 @@ def run_rank(args, tcfg: TrainConfig, mesh: mesh_mod.ProcessMesh,
                     batch = (_rank_rows(raw, args.seq_len, 0,
                                         plan.global_rows, model.device)
                              if canonical else
-                             _rank_rows(raw, args.seq_len, mesh.rank,
+                             _rank_rows(raw, args.seq_len, mesh.dp_rank,
                                         plan.buffer_rows, model.device))
                     during_save.append(mgr is not None and mgr.busy())
                     t0 = time.time()
                     sent0 = _sent(mesh)
+                    pipe0 = mesh.pipe.sent_bytes
                     state, metrics = step_fn(state, batch)
                     rec = {k: float(v) for k, v in metrics.items()}
                     dt = time.time() - t0          # float() synchronized
@@ -384,6 +446,10 @@ def run_rank(args, tcfg: TrainConfig, mesh: mesh_mod.ProcessMesh,
                     step_s.append(dt)
                     records.append(rec)
                     link.append(_sent(mesh) - sent0)
+                    pipe_bytes.append(mesh.pipe.sent_bytes - pipe0)
+                    if staged:
+                        pipe_modeled.append(_modeled_pipe(
+                            cfg, tcfg, splan, mesh.pipe_index, batch))
                     if lead and (step % args.log_every == 0
                                  or step == args.steps):
                         print(f"[train] step {step:5d} loss "
@@ -442,12 +508,17 @@ def run_rank(args, tcfg: TrainConfig, mesh: mesh_mod.ProcessMesh,
                       f"shutdown: {werr!r}")
     wall = time.time() - t_start
     launches = {k: v - launches0[k] for k, v in _launch_counts().items()}
-    end_sums = _checksums(mesh, state.params)
+    end_sums = _checksums(mesh, owned(state.params))
     peak = (torch.cuda.max_memory_allocated(model.device)
             if model.device.type == "cuda" else None)
     return {"rank": mesh.rank, "start_step": start_step, "steps": step,
             "wall_s": wall, "losses": losses, "step_s": step_s,
             "metrics": records, "link_bytes": link, "launches": launches,
+            "pipe_bytes": pipe_bytes, "pipe_bytes_modeled": pipe_modeled,
+            "stage": mesh.pipe_index,
+            "pipe_size": mesh.pipe_size,
+            "model_checksum": model_checksum(end_sums, mesh.pipe_size),
+            "ckpt_attempts": dict(engine.ckpt_attempts),
             "during_save": during_save, "replans": replans,
             "remesh": remesh, "saves": saves,
             "writes": list(mgr.writes) if mgr is not None and lead else [],
@@ -463,7 +534,7 @@ def _rank_main(rank: int, world: int, init_method: str, args,
                plan: cap.CapacityPlan, engine: chaos.ChaosEngine,
                resume: bool) -> Dict[str, Any]:
     mesh_mod.share_cpu(world)
-    shape, axes = mesh_mod.parse_devices(devices)
+    shape, axes = mesh_shape(args, devices)
     mesh = mesh_mod.init(shape, axes, rank, init_method,
                          torch.device(args.device).type)
     try:
@@ -482,9 +553,10 @@ def _run_world(args, tcfg: TrainConfig, devices: str,
                resume: bool, data_dir: str) -> List[Dict[str, Any]]:
     """Every rank of the mesh ``devices`` from start to end: one rank
     in this process, several spawned."""
-    shape, axes = mesh_mod.parse_devices(devices)
+    shape, axes = mesh_shape(args, devices)
     sizes = dict(zip(axes, shape))
-    n_dp = sizes.get("pod", 1) * sizes["data"]
+    n_dp = (sizes.get("pod", 1) * sizes["data"]
+            * sizes.get(mesh_mod.PIPE_AXIS, 1))
     dev = torch.device(args.device)
     if n_dp == 1:
         mesh = mesh_mod.local(shape, axes, dev)
@@ -501,6 +573,16 @@ def _run_world(args, tcfg: TrainConfig, devices: str,
             raise RuntimeError(f"ranks disagree on {key}: "
                                f"{[r[key] for r in ranks]}")
     return ranks
+
+
+def mesh_shape(args, devices: str) -> Tuple[Tuple[int, ...],
+                                            Tuple[str, ...]]:
+    """The mesh of ``--devices``, with ``--pipe-axis`` a leading ``pipe``
+    axis of ``--pipeline-stages``."""
+    shape, axes = mesh_mod.parse_devices(devices)
+    if getattr(args, "pipe_axis", False):
+        shape, axes = mesh_mod.with_pipe(shape, axes, args.pipeline_stages)
+    return shape, axes
 
 
 def _remesh(rec: Dict[str, Any], topo: elastic.MeshTopology,
@@ -551,12 +633,30 @@ def train(args) -> Dict[str, Any]:
           f"bucket_mb {args.bucket_mb} overlap {args.overlap} optimizer "
           f"{args.optimizer} weighting {args.weighting}; attention, cross entropy and the "
           f"int8 exchange through the kernels")
+    if args.pipe_axis:
+        for flag, on in (("--ckpt-every", args.ckpt_every > 0),
+                         ("--resume", args.resume),
+                         ("--chaos", bool(args.chaos)),
+                         ("--kill-pod", bool(args.kill_pod))):
+            if on:
+                raise NotImplementedError(
+                    f"{flag} with --pipe-axis: not ported yet (checkpoints, "
+                    f"chaos and the re-mesh run without a pipe axis)")
+    splan = steps_mod.stage_plan_for(build_model(cfg, "cpu"), tcfg)
+    if splan is not None:
+        print(f"[train] pipeline: {splan.num_stages} stages, layers per "
+              f"stage {splan.layers_per_stage.tolist()}, schedule "
+              f"{args.pipeline_schedule}, "
+              + (f"each stage on its own ranks (pipe axis: "
+                 f"{splan.num_stages * topo.dp_size} ranks)"
+                 if args.pipe_axis else "every stage in each rank's "
+                 "process"))
     engine = build_chaos_engine(args, tcfg, topo)
     if engine.schedule.events:
         kinds = sorted({ev.kind for ev in engine.schedule.events})
         print(f"[train] chaos: {len(engine.schedule.events)} event(s) "
               f"{kinds} (seed {engine.schedule.seed})")
-    shape, axes = mesh_mod.parse_devices(args.devices)
+    shape, axes = mesh_shape(args, args.devices)
     steps_mod.validate_train_config(build_model(cfg, "cpu"), tcfg,
                                     mesh_mod.unjoined(shape, axes))
     if args.dry_run:
@@ -595,7 +695,8 @@ def train(args) -> Dict[str, Any]:
             ranks = _run_world(args, tcfg, devices, plan, engine, resume,
                                data_dir)
             worlds.append((devices, ranks))
-            if len(set(ranks[0]["end_checksums"])) != 1:
+            if any(len(set(g)) != 1 for g in stage_groups(
+                    ranks[0]["end_checksums"], ranks[0]["pipe_size"])):
                 raise RuntimeError(f"ranks end with different parameters: "
                                    f"checksums {ranks[0]['end_checksums']}")
             rec = ranks[0]["remesh"]
@@ -617,6 +718,9 @@ def train(args) -> Dict[str, Any]:
             if decision.accum_scale > 1:
                 print(f"[train] accum_steps scaled x{decision.accum_scale}"
                       f" to preserve the microbatch grid")
+            # the writer's fault-hook attempts (rank 0's, which may be
+            # another process) go on into the next world's engine
+            engine.ckpt_attempts.update(ranks[0]["ckpt_attempts"])
             engine = engine.after_remesh(alive)
             devices = mesh_mod.devices_for_topology(topo)
             print(f"[train] re-meshed to "
@@ -624,10 +728,10 @@ def train(args) -> Dict[str, Any]:
                   f"{topo.dp_size} rank(s) restart from the checkpoint at "
                   f"step {rec['checkpoint']} (lost at step {rec['step']})")
             resume = True
-    return _report(args, worlds, dev)
+    return _report(args, worlds, dev, splan)
 
 
-def _report(args, worlds, dev) -> Dict[str, Any]:
+def _report(args, worlds, dev, splan=None) -> Dict[str, Any]:
     """The run's record from its worlds: the steps that count (a world's
     restore drops what the one before trained past its checkpoint), the
     last world's ranks, and one ``[train] summary`` JSON line."""
@@ -654,6 +758,13 @@ def _report(args, worlds, dev) -> Dict[str, Any]:
     first = worlds[0][1][0]["start_step"]
     summary = {"steps": out["steps"], "start_step": first,
                "losses": out["losses"], "end_checksums": out["end_checksums"],
+               "model_checksum": out["model_checksum"],
+               "stage_plan": (splan.layers_per_stage.tolist()
+                              if splan is not None else None),
+               "schedule": args.pipeline_schedule if splan is not None
+               else None,
+               "ckpt_attempts": sorted([*k, n] for k, n in
+                                       out["ckpt_attempts"].items()),
                **({"trust_ratio": [m["trust_ratio"] for m in out["metrics"]]}
                   if out["metrics"] and "trust_ratio" in out["metrics"][0]
                   else {}),
@@ -662,7 +773,9 @@ def _report(args, worlds, dev) -> Dict[str, Any]:
                                       "losses", "step_s", "launches",
                                       "during_save", "replans", "remesh",
                                       "saves", "writes", "restore",
-                                      "end_checksums", "peak_memory_bytes")}
+                                      "end_checksums", "peak_memory_bytes",
+                                      "stage", "pipe_bytes",
+                                      "pipe_bytes_modeled")}
                    for r in w["ranks"]]} for w in out["worlds"]]}
     if not out["losses"]:
         print(f"[train] nothing to do: checkpoint already at step "
@@ -674,7 +787,9 @@ def _report(args, worlds, dev) -> Dict[str, Any]:
               f"{out['wall_s']:.1f}s, loss {out['first_loss']:.4f} -> "
               f"{out['last_loss']:.4f}; {len(last)} rank(s), backend "
               f"{out['backend']}, transport {out['transport']}; parameters "
-              f"identical on every rank")
+              + ("identical on every rank" if out["pipe_size"] == 1 else
+                 f"identical on every rank of each of the "
+                 f"{out['pipe_size']} stages"))
     for w in out["worlds"]:
         for rec in w["ranks"][0]["writes"]:
             print(f"[ckpt] step {rec['step']} written: {rec['bytes']} bytes "
@@ -718,6 +833,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--pipeline-stages", type=int, default=1)
     ap.add_argument("--pipeline-schedule", default="1f1b",
                     choices=list(cfgbase.PIPELINE_MODES))
+    ap.add_argument("--pipe-axis", action="store_true",
+                    help="each pipeline stage on its own ranks: a leading "
+                         "pipe axis of --pipeline-stages on --devices")
     ap.add_argument("--dry-run", action="store_true",
                     help="check the configuration, print the summary and "
                          "exit without training")

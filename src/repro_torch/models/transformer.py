@@ -444,6 +444,79 @@ def hidden_states(params, embeds: torch.Tensor, cfg: ModelConfig
     return apply_norm(params["final_norm"], x, cfg), aux
 
 
+def pipeline_stage_fns(cfg: ModelConfig, stage_ranges, *,
+                       label_smoothing: float = 0.0,
+                       ce_impl: str = "kernel") -> Dict[str, Any]:
+    """The training objective cut into pipeline segments (the JAX
+    package's ``pipeline_stage_fns``; ``core/pipeline.py`` StagePlan).
+
+    ``stage_ranges``: contiguous (start, stop) layer ranges tiling
+    ``[0, num_layers)``. Returns
+
+      embed_fn(embed_params, inputs)            -> x0 (stage 0's input)
+      stage_fwd[s](layer_slice, x, aux, positions) -> (x', aux')
+      head_fn(head_params, x, labels, weights)  -> (ce_sum, w_sum)
+
+    and ``head_keys`` (the top-level keys ``head_fn`` reads) and
+    ``stage_ranges``. ``layer_slice`` is stage s's part of the layer
+    list; each layer runs as in :func:`hidden_states`, under a
+    non-reentrant checkpoint with ``remat="full"``, so the segments
+    compose to the monolithic forward op for op. ``aux`` threads
+    through the stages as the JAX package threads it; the dense layer
+    adds no aux term (:func:`hidden_states`' aux is 0). The caller
+    composes ``objective = ce_sum + aux * w_sum.detach()``
+    (``Model.loss_fn``'s aggregation)."""
+    from repro_torch.kernels.cross_entropy import ops as ce_ops
+
+    if stack_plan(cfg) != "uniform":
+        raise ValueError(
+            f"pipeline stages require the uniform stack plan; "
+            f"{cfg.name} uses '{stack_plan(cfg)}'")
+    ranges = [(int(a), int(b)) for a, b in stage_ranges]
+    covered = 0
+    for s, (start, stop) in enumerate(ranges):
+        if start != covered or stop <= start:
+            raise ValueError(
+                f"stage_ranges must tile [0, {cfg.num_layers}) "
+                f"contiguously; stage {s} got [{start}, {stop}) after "
+                f"{covered} covered layers")
+        covered = stop
+    if covered != cfg.num_layers:
+        raise ValueError(
+            f"stage_ranges cover {covered} layers, model has "
+            f"{cfg.num_layers}")
+    check_supported(cfg)
+    if cfg.remat not in ("none", "full"):
+        raise ValueError(f"remat '{cfg.remat}' is not ported yet "
+                         f"(none | full)")
+
+    def embed_fn(embed_params, inputs):
+        return embed_tokens(embed_params, inputs, cfg)
+
+    def stage_fwd(layer_slice, x, aux, positions):
+        for lp in layer_slice:
+            if cfg.remat == "full" and torch.is_grad_enabled():
+                x = checkpoint(apply_uniform_layer, lp, x, cfg, positions,
+                               use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                x = apply_uniform_layer(lp, x, cfg, positions)
+        return x, aux
+
+    def head_fn(head_params, x, labels, weights):
+        hidden = apply_norm(head_params["final_norm"], x, cfg)
+        b, s, d = hidden.shape
+        return ce_ops.weighted_cross_entropy(
+            hidden.reshape(b * s, d), lm_head_matrix(head_params, cfg),
+            labels.reshape(-1), weights.reshape(-1).float(),
+            label_smoothing=label_smoothing,
+            logit_softcap=cfg.logit_softcap, impl=ce_impl)
+
+    return {"embed_fn": embed_fn, "stage_fwd": [stage_fwd] * len(ranges),
+            "head_fn": head_fn, "head_keys": head_param_keys(cfg),
+            "stage_ranges": ranges}
+
+
 def _ffn_serving(p, h2: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """The layer's feed-forward on the serving path: the MoE block at the
     eval capacity (its aux loss dropped) or the dense MLP."""

@@ -6,8 +6,8 @@ and the config rules of the modes ported with it (CPU).
       (the same message) for canonical weighting with another
       reduction, overlap, compression or accumulation, for
       ``overlap="backward"`` on a scanned stack or a non-uniform plan,
-      and for pipeline stages on either; a valid pipeline config raises
-      ``NotImplementedError`` in the port only;
+      and for pipeline stages on either; a valid pipeline config passes
+      in both;
   (b) the port's row executor (``steps.canonical_backward``, folding
       each row's gradient into the stream) against JAX's
       ``per_row_values`` + ``canonical_aggregate`` on one device with no
@@ -130,10 +130,7 @@ def test_build_gating_raises_jax_errors(case):
             model=tc, het=tcfgs.HetConfig(**het),
             optimizer=tcfgs.OptimizerConfig(**opt)),
         mesh_mod.local((1, 1), ("data", "model"))))
-    if want is None and het.get("pipeline_stages", 1) > 1:
-        assert got[0] == "NotImplementedError" and "not ported yet" in got[1]
-    else:
-        assert got == want
+    assert got == want
 
 
 # --------------------------------------------------------------------------

@@ -410,10 +410,12 @@ def test_devices_parsing_and_unported_modes():
     model = tbuild(mc, "cpu")
     tcfg = tcfgs.TrainConfig(model=mc, het=tcfgs.HetConfig(
         accum_steps=2, pipeline_stages=2))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tsteps.build_train_step(model, tcfg)
+    with pytest.raises(ValueError, match="pipe"):      # sized to the stages
+        tsteps.build_train_step(model, tcfg, mesh_mod.unjoined(
+            *mesh_mod.with_pipe((1, 1), ("data", "model"), 3)))
     # the ported modes build and take a step on a one-rank (pod, data,
-    # model) mesh (the overlap pipelines over a pod group of one)
+    # model) mesh (the overlap pipelines over a pod group of one; the
+    # pipeline stages in one process)
     mesh = mesh_mod.local((1, 1, 1), ("pod", "data", "model"))
     rng = np.random.default_rng(2)
     batch = {k: torch.from_numpy(rng.integers(0, mc.vocab_size, (4, 8))
@@ -425,6 +427,7 @@ def test_devices_parsing_and_unported_modes():
                      (dict(overlap="backward", bucket_mb=1.0,
                            grad_reduction="hierarchical"), {}),
                      (dict(weighting="canonical"), {}),
+                     (dict(pipeline_stages=2, accum_steps=2), {}),
                      ({}, dict(name="lamb"))):
         tcfg = tcfgs.TrainConfig(model=mc, het=tcfgs.HetConfig(**het),
                                  optimizer=tcfgs.OptimizerConfig(**opt))

@@ -389,6 +389,57 @@ def test_two_ranks_replan_together_then_remesh_on_a_pod_kill(tmp_path,
     assert mgr.verify(8)["hosts"] == 1
 
 
+def test_ckpt_fault_attempts_carry_across_a_remesh(tmp_path):
+    """A ``ckpt_io_fail`` event's write attempts count once for the whole
+    run, as with the JAX driver's one manager. (1) A transient event
+    (fails 2) at step 6 whose first attempt fails before a 2 -> 1
+    re-mesh: the new world's engine and hook fail one more attempt and
+    pass the third, as JAX's single hook does. (2) Through the driver,
+    pod 1 lost at step 3 and every save failing once: each world's
+    writes commit on their second attempt, and the run's record holds
+    the attempts of both worlds (2 a saved step)."""
+    def engine(mod):
+        return mod.ChaosEngine(mod.ChaosSchedule(events=(
+            mod.kill(pod=1, step=3),
+            mod.ckpt_io_fail(step=6, mode="transient", fails=2))),
+            num_ranks=2)
+
+    je, te = engine(jchaos), engine(tchaos)
+    jhook, thook = je.ckpt_fault_hook(), te.ckpt_fault_hook()
+    outcomes = ([], [])
+    for attempt in range(3):
+        if attempt == 1:                # the re-mesh: a new world's hook
+            te = te.after_remesh([0])
+            thook = te.ckpt_fault_hook()
+        for out, hook in zip(outcomes, (jhook, thook)):
+            try:
+                hook(6, "tmp")
+                out.append("ok")
+            except OSError as e:
+                out.append(str(e))
+    assert outcomes[0] == outcomes[1]
+    assert outcomes[1][2] == "ok" and "attempt 2" in outcomes[1][1]
+    assert te.ckpt_attempts == {(0, 6): 3}
+
+    sched = tchaos.ChaosSchedule(events=(
+        tchaos.kill(pod=1, step=3),
+        tchaos.ckpt_io_fail(step=None, mode="transient", fails=1)))
+    path = tmp_path / "chaos.json"
+    path.write_text(sched.to_json())
+    out = ttrain.main(DRIVER + [
+        "--devices", "2,1,1", "--grad-reduction", "hierarchical",
+        "--compression", "int8", "--bucket-mb", "0.05", "--capacities",
+        "1,1", "--steps", "6", "--ckpt-every", "2", "--replan-interval",
+        "2", "--chaos", str(path), "--ckpt-dir", str(tmp_path / "ck")])
+    first, second = out["worlds"]
+    saved = [w["step"] for world in (first, second)
+             for w in world["ranks"][0]["writes"]]
+    assert first["ranks"][0]["writes"] and second["ranks"][0]["writes"]
+    assert all(w["attempts"] == 2 for world in (first, second)
+               for w in world["ranks"][0]["writes"])
+    assert out["ckpt_attempts"] == {(0, s): 2 for s in saved}
+
+
 def test_kill_pod_needs_two_pods_and_dry_run_validates(capsys):
     with pytest.raises(SystemExit, match="two pods or more"):
         ttrain.main(["--smoke", "--device", "cpu", "--kill-pod", "0@3"])

@@ -344,16 +344,15 @@ def test_three_train_steps_match_jax(arch, accum):
 
 
 def test_unported_train_modes_raise():
-    """Pipeline stages still raise "not ported yet" (after the JAX
-    package's own checks, which want an unrolled stack); overlap,
-    canonical weighting and LAMB build and take a finite step."""
+    """Pipeline stages want an unrolled stack (the JAX package's own
+    check) and then build; overlap, canonical weighting, LAMB and the
+    pipeline stages build and take a finite step."""
     _, tc = _cfgs("olmo-1b")
     model = tbuild(tc, "cpu")
     unrolled = dataclasses.replace(tc, scan_layers=False)
     pipe = tcfgs.HetConfig(accum_steps=2, pipeline_stages=2)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tsteps.build_train_step(tbuild(unrolled, "cpu"), tcfgs.TrainConfig(
-            model=unrolled, het=pipe))
+    tsteps.build_train_step(tbuild(unrolled, "cpu"), tcfgs.TrainConfig(
+        model=unrolled, het=pipe))
     with pytest.raises(ValueError, match="scan_layers"):
         tsteps.build_train_step(model, tcfgs.TrainConfig(model=tc, het=pipe))
     batch = _tb(_batch(np.random.default_rng(4), 4, 8, tc.vocab_size))
@@ -452,8 +451,9 @@ def test_olmo_configs_match_jax(which):
 
 
 def test_train_cli_flags_match_jax():
-    """The JAX driver's flags with the same defaults, plus --device;
-    --data-dir defaults to a temporary directory and --ckpt-dir to one
+    """The JAX driver's flags with the same defaults, plus --device and
+    --pipe-axis (the JAX driver's stages never get a pipe axis of their
+    own); --data-dir defaults to a temporary directory and --ckpt-dir to one
     under $TMPDIR instead of a fixed path."""
     import argparse
     seen = {}
@@ -474,11 +474,12 @@ def test_train_cli_flags_match_jax():
         return dict(seen)
 
     jf, tf = grab(jtrain.main), grab(ttrain.main)
-    assert set(tf) == set(jf) | {"--device"}
+    assert set(tf) == set(jf) | {"--device", "--pipe-axis"}
     for flag in jf:
         if flag not in ("--data-dir", "--ckpt-dir"):
             assert tf[flag].default == jf[flag].default, flag
     assert tf["--device"].default == "cuda"
+    assert tf["--pipe-axis"].default is False
     assert tf["--data-dir"].default == ""
     assert tf["--ckpt-dir"].default == os.path.join(tempfile.gettempdir(),
                                                     "hetseq_ckpt")
@@ -506,8 +507,11 @@ def test_train_without_cpu_device_raises_when_cuda_is_absent():
         ttrain.main(["--smoke", "--device", "cpu", "--devices", "2,2"])
     with pytest.raises(NotImplementedError, match="not ported yet"):
         ttrain.main(["--smoke", "--device", "cpu", "--pipeline-stages", "2",
-                     "--accum", "2", "--no-scan-layers"])
+                     "--accum", "2", "--no-scan-layers", "--pipe-axis",
+                     "--ckpt-every", "2"])
     for flag in (["--no-scan-layers"],
+                 ["--pipeline-stages", "2", "--accum", "2",
+                  "--no-scan-layers"],
                  ["--overlap", "buckets", "--grad-reduction",
                   "bucketed_allreduce", "--bucket-mb", "1"],
                  ["--overlap", "backward", "--no-scan-layers",
