@@ -304,8 +304,45 @@ Phases (any failure exits non-zero; no phase swallows an error):
    bucketed_allreduce, AdamW and LAMB, 1F1B on the uniform cut [2, 2]
    and GPipe on capacities 3,1's [3, 1]: losses and every parameter
    bitwise equal.
-17. Prints the seconds of each phase, then one ``{"kernels": [...]}``
-   line (eleven kernels, each with its launches on its path, which must
+17. The last five archs' phase. (a) Kernel 2 at head dim 128 against
+   its plain version with phase 2's tables and lengths at glm4-9b's
+   heads (B=8, H=32, Hkv=2), phi4-mini-3.8b's (24, 8) and arctic-480b's
+   (56, 8): fp32 (TF32 off) within 1e-5, bf16 within 2e-2, each run
+   twice and bitwise equal, the inactive slot exactly 0; timed in bf16
+   (ms, device time, plain, SDPA on the gathered window, the bound);
+   one sequence alone bitwise itself inside the batch; the library's
+   split length ``DECODE_SPLIT``; kernel 1 at D=128 and groups 16 and 7
+   against its plain version (phase 2's tolerances, bitwise repeat).
+   Phase 1 also prints ptxas's registers and spills of kernel 2's
+   instantiations; the D=128 ones must not spill. (b), (c)
+   ``serve_config`` serves glm4-9b and phi4-mini-3.8b at full size
+   (bf16, seed 0, attention_impl="kernel") with phase 4's trace: every
+   request finishes with finite logits, the first prefill group and
+   decode step within phase 4's limit of the reference path, kernel 1
+   once a layer a prefill group and kernel 2 once a layer a decode step
+   (counters zeroed just before, read just after); tokens/s of wall,
+   decode steps, median decode-step ms, peak memory. glm4 then runs
+   ``static_generate`` on the same weights (4 x 1024-token prompts, 64
+   greedy tokens: kernel 1 40 times, nothing else). Each arch's fp32
+   gate on 3 layers: ``static_generate`` through the kernel and the
+   reference path gives the same tokens, and one sequence through the
+   paged engine the static path's. (d) arctic-480b at full width, 2 of
+   35 layers, bf16, the same trace and checks (its kernel-vs-reference
+   logits printed only: bf16 routing flips on near-ties), then the fp32
+   gate on 1 layer (fp32 parameters), one sequence at a time, within
+   1e-3 of the largest reference logit. (e) chameleon-34b at full width,
+   2 of 48 layers, and (f) musicgen-large at full size, each through
+   ``build_train_step`` with phase 5's settings (8 rows of 1024
+   embeddings, labels and weights from a seed, 2 dummy rows, accum 2,
+   bf16, remat full, 4 steps): finite losses, kernels 1, 1b, 3 and 3b
+   launched as phase 5 counts them; ms/step (median of steps 2..4), real
+   tokens/s, the model-FLOPs share of 989 TFLOP/s and peak memory; then
+   the fp32 probe at 2 layers (kernel path vs plain path, loss, grad
+   norm and worst leaf within phase 5's fp32 limits).
+18. Prints the seconds of each phase, then one ``{"kernels": [...]}``
+   line (twelve entries: the eleven kernels and kernel 2 at head dim
+   128 as ``paged_decode_d128``, with its three head layouts as
+   ``cases``; each with its launches on its path, which must
    be above 0; the prefill kernel's D=64 (phase 2's S=512 bucket), D=192
    and D=80 cases ride in its entry as ``at_d64``, ``at_d192`` and
    ``at_d80``, the GQA and MLA paged decodes' longer windows as
@@ -490,6 +527,40 @@ def _by_entry(text: str, start_re: str):
     return out
 
 
+def decode_ptxas_report(build):
+    """ptxas's registers and spills of the GQA paged decode's split and
+    merge kernels at each head dim and dtype built; the D=128 ones
+    (phase 17's) must not spill."""
+    import re
+    log = build.ptxas_log()
+    marks = [(m.start(), m.group(1)) for m in re.finditer(
+        r"Compiling entry function '(\S+)'", log)]
+    rows = {}
+    for i, (pos, mangled) in enumerate(marks):
+        m = re.search(r"paged_decode_(split|merge)I(f|13__nv_bfloat16)Li"
+                      r"(\d+)E", mangled)
+        if not m:
+            continue
+        body = log[pos:marks[i + 1][0] if i + 1 < len(marks) else len(log)]
+        name = (f"paged_decode_{m.group(1)}<"
+                f"{'fp32' if m.group(2) == 'f' else 'bf16'}, "
+                f"D={m.group(3)}>")
+        regs = re.findall(r"Used (\d+) registers", body)
+        spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                            r"loads", body)
+        rows[name] = {"registers": int(regs[0]),
+                      "spill_bytes": sum(int(a) + int(b)
+                                         for a, b in spills)}
+        print(f"[decode] {name}: {rows[name]['registers']} registers, "
+              f"{rows[name]['spill_bytes']} bytes spilled", flush=True)
+    check(len(rows) == 8, f"paged decode instantiations found: "
+          f"{sorted(rows)}")
+    for name, r in rows.items():
+        check("D=128" not in name or r["spill_bytes"] == 0,
+              f"{name}: ptxas spilled {r['spill_bytes']} bytes")
+    return rows
+
+
 def sm90_report(build, lib, fa, ce, md, sk, mk):
     """ptxas's registers and spills of the bf16 tensor-core kernels, the
     dynamic shared memory each launch asks for, the tiles each takes
@@ -625,9 +696,9 @@ def _sdpa_layout(q, k, v):
     return qt, kt, vt
 
 
-def prefill_case(fa, b, s, dtype, gen, dev):
+def prefill_case(fa, b, s, dtype, gen, dev, heads=(32, 4, 64), timed=True):
     import torch
-    h, hkv, d = 32, 4, 64
+    h, hkv, d = heads
     q = torch.randn((b, s, h, d), generator=gen, device=dev).to(dtype)
     k = torch.randn((b, s, hkv, d), generator=gen, device=dev).to(dtype)
     v = torch.randn((b, s, hkv, d), generator=gen, device=dev).to(dtype)
@@ -636,11 +707,12 @@ def prefill_case(fa, b, s, dtype, gen, dev):
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     check(torch.equal(fa.flash_attention_cuda(q, k, v, causal=True), got),
-          f"prefill {dtype} at S={s}: two runs differ")
+          f"prefill {dtype} D={d} group {h // hkv} at S={s}: two runs "
+          f"differ")
     rec = {"kernel": "flash_attention_cuda", "dtype": str(dtype),
            "B": b, "Sq": s, "Skv": s, "H": h, "Hkv": hkv, "D": d,
            "max_abs_err": err, "bitwise_repeat": True}
-    if dtype == torch.bfloat16:
+    if dtype == torch.bfloat16 and timed:
         qt, kt, vt = _sdpa_layout(q, k, v)
         rec["ms"] = cuda_ms(lambda: fa.flash_attention_cuda(q, k, v))
         rec["plain_ms"] = cuda_ms(lambda: fa.flash_attention_plain(q, k, v))
@@ -682,10 +754,12 @@ def paged_tables(dev, b=8, bs=16, mb=32, lens=SERVE_LENS):
     return tables.to(dev), kv_lens.to(dev)
 
 
-def paged_inputs(gen, dev, dtype, mb=32, lens=SERVE_LENS):
-    """GQA decode inputs at tinyllama widths over :func:`paged_tables`."""
+def paged_inputs(gen, dev, dtype, mb=32, lens=SERVE_LENS,
+                 heads=(32, 4, 64)):
+    """GQA decode inputs at tinyllama widths (``heads``: H, Hkv, D) over
+    :func:`paged_tables`."""
     import torch
-    b, bs, hkv, h, d = 8, 16, 4, 32, 64
+    (h, hkv, d), b, bs = heads, 8, 16
     n = b * mb
     q = torch.randn((b, 1, h, d), generator=gen, device=dev).to(dtype)
     kp = torch.randn((n, bs, hkv, d), generator=gen, device=dev).to(dtype)
@@ -693,9 +767,11 @@ def paged_inputs(gen, dev, dtype, mb=32, lens=SERVE_LENS):
     return (q, kp, vp) + paged_tables(dev, b, bs, mb, lens)
 
 
-def decode_case(fa, gen, dev, dtype, mb=32, lens=SERVE_LENS):
+def decode_case(fa, gen, dev, dtype, mb=32, lens=SERVE_LENS,
+                heads=(32, 4, 64)):
     import torch
-    q, kp, vp, tables, kv_lens = paged_inputs(gen, dev, dtype, mb, lens)
+    q, kp, vp, tables, kv_lens = paged_inputs(gen, dev, dtype, mb, lens,
+                                              heads)
     got = fa.flash_decode_paged_cuda(q, kp, vp, tables, kv_lens)
     want = fa.flash_decode_paged_plain(q, kp, vp, tables, kv_lens)
     torch.cuda.synchronize()
@@ -2183,9 +2259,7 @@ def mla_path_phase(fa, md, dev, smi, every):
 
     full = resolve("deepseek-v2-236b")
     args = tserve.parser().parse_args(MLA_SERVE_ARGV)
-    counters = {"flash_attention_cuda": fa.flash_attention_cuda,
-                "flash_decode_paged_cuda": fa.flash_decode_paged_cuda,
-                "mla_decode_paged_cuda": md.mla_decode_paged_cuda}
+    counters = _serve_counters(fa, md)
     log = {"target": None, "reference": [], "kernel": []}
     orig_router = tblocks._router
 
@@ -4015,6 +4089,507 @@ def _finite(x):
 
 
 # --------------------------------------------------------------------------
+# phase 17: the last five archs (glm4-9b, phi4-mini-3.8b, arctic-480b,
+# chameleon-34b, musicgen-large)
+# --------------------------------------------------------------------------
+
+# the D=128 decode cases: (arch, H, Hkv), B=8 over phase 2's tables and
+# lengths; fp32 (TF32 off) is held to 1e-5, bf16 to phase 2's 2e-2
+D128_HEADS = (("glm4-9b", 32, 2), ("phi4-mini-3.8b", 24, 8),
+              ("arctic-480b", 56, 8))
+D128_FP32_TOL = 1e-5
+# the prefill kernel at D=128 and groups 16 (glm4) and 7 (arctic): B, S,
+# H, Hkv
+D128_PREFILL = ((2, 512, 32, 2), (2, 200, 56, 8))
+# arctic-480b's depth cut: 13.6 B parameters (27.2 GB in bf16) a layer;
+# 2 of 35 layers leave room for the draw's fp32 temporary of one expert
+# stack (17.8 GB); the fp32 gate (fp32 parameters, ~56 GB) takes 1
+ARCTIC_LAYERS = 2
+ARCTIC_GATE_LAYERS = 1
+ARCTIC_GATE_ARGV = ["--slots", "1", "--prefill-batch", "1",
+                    "--requests", "4", "--pod-speeds", "1"]
+# glm4's static_generate: batch, prompt, generated tokens; its fp32 gate
+# (layers, prompt, tokens): kernel and reference paths give the same
+# tokens, one sequence through the paged engine the static path's
+ARCH_GEN = (4, 1024, 64)
+ARCH_GATE = (3, 300, 8)
+# the stub-frontend training runs: phase 5's settings (8 rows of 1024,
+# accum 2, the plan's 2 dummy rows, bf16, remat full), 4 steps;
+# chameleon-34b at full width cut to 2 of 48 layers (~31 GB of fp32
+# parameters, gradients and AdamW moments), musicgen-large at full size
+STUB_TRAIN = {"chameleon-34b": 2, "musicgen-large": None}
+STUB_ROWS, STUB_SEQ, STUB_ACCUM, STUB_STEPS = 8, 1024, 2, 4
+# the fp32 probe (TF32 off) at 2 layers: 2 rows of 1024 and a dummy row,
+# kernel path vs plain path, held to phase 5's fp32 limits
+STUB_PROBE_LAYERS = 2
+
+
+def _arch_argv(arch, extra=()):
+    out = [a if a != "tinyllama-1.1b" else arch for a in SERVE_ARGV]
+    for flag, val in zip(extra[::2], extra[1::2]):
+        if flag in out:
+            out[out.index(flag) + 1] = val
+        else:
+            out += [flag, val]
+    return out
+
+
+def d128_kernel_phase(fa, dev, smi):
+    """Phase 17 (a): kernel 2 at D=128 at glm4's, phi4's and arctic's
+    heads; the split length the library reports; kernel 1 at D=128 and
+    groups 16 and 7."""
+    import torch
+    from repro_torch.kernels import _build
+    gen = torch.Generator(device=dev).manual_seed(17)
+    split = _build.load().paged_decode_split_len()
+    check(split == fa.DECODE_SPLIT, f"D=128: the decode kernel splits by "
+          f"{split} positions, DECODE_SPLIT says {fa.DECODE_SPLIT}")
+    recs = []
+    for arch, h, hkv in D128_HEADS:
+        for dtype, tol in ((torch.float32, D128_FP32_TOL),
+                           (torch.bfloat16, BF16_TOL)):
+            r = decode_case(fa, gen, dev, dtype, heads=(h, hkv, 128))
+            r.update(kernel="paged_decode_d128", arch=arch, tol=tol)
+            recs.append(r)
+            print(f"[d128] {arch} decode (B=8, H={h}, Hkv={hkv}, D=128) "
+                  f"{r['dtype']}: max abs err {r['max_abs_err']:.3e} (tol "
+                  f"{tol:g})" + (
+                      f", {r['ms']:.4f} ms, device time "
+                      f"{_ms_or_not(r['device_ms'])}, plain "
+                      f"{r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} "
+                      f"ms (device {_ms_or_not(r['library_device_ms'])}), "
+                      f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}) "
+                      f"[{smi}]" if "ms" in r else ""), flush=True)
+            check(r["max_abs_err"] <= tol, f"decode D=128 {arch} "
+                  f"{r['dtype']}: error {r['max_abs_err']} > {tol}")
+    # batch invariance at D=128: one sequence alone over a shorter table
+    q, kp, vp, tables, kv_lens = paged_inputs(gen, dev, torch.bfloat16,
+                                              heads=(32, 2, 128))
+    batched = fa.flash_decode_paged_cuda(q, kp, vp, tables, kv_lens)
+    alone = fa.flash_decode_paged_cuda(
+        q[5:6].contiguous(), kp, vp, tables[5:6, :20].contiguous(),
+        kv_lens[5:6])
+    check(torch.equal(alone[0], batched[5]), "decode D=128: a sequence "
+          "alone differs from itself inside the batch")
+    prefill = []
+    for b, s, h, hkv in D128_PREFILL:
+        for dtype, tol in ((torch.float32, FP32_TOL),
+                           (torch.bfloat16, BF16_TOL)):
+            r = prefill_case(fa, b, s, dtype, gen, dev, heads=(h, hkv, 128),
+                             timed=False)
+            r["tol"] = tol
+            prefill.append(r)
+            print(f"[d128] prefill D=128 group {h // hkv} (B={b}, S={s}, "
+                  f"H={h}) {r['dtype']}: max abs err {r['max_abs_err']:.3e} "
+                  f"(tol {tol:g})", flush=True)
+            check(r["max_abs_err"] <= tol, f"prefill D=128 group "
+                  f"{h // hkv}: error {r['max_abs_err']}")
+    return recs, {"split_len": split, "prefill": prefill,
+                  "batch_invariant": True}
+
+
+def _serve_counters(fa, md):
+    return {"flash_attention_cuda": fa.flash_attention_cuda,
+            "flash_decode_paged_cuda": fa.flash_decode_paged_cuda,
+            "mla_decode_paged_cuda": md.mla_decode_paged_cuda}
+
+
+def arch_serve(cfg, argv, fa, md, smi, *, gate_tol=None, then=None):
+    """``serve_config`` on ``cfg`` with ``argv``'s settings, every step
+    timed and the first prefill group and decode step held to the
+    reference path: within ``gate_tol`` of the largest reference logit
+    when given, else within phase 4's ``LOGIT_TOL`` for a dense model
+    and printed only for a MoE one (its routing flips on near-ties in
+    bf16). Kernel 1 launches once a layer a prefill group, kernel 2
+    once a layer a decode step; every request finishes with finite
+    logits. ``then(model, params)`` runs on the weights after."""
+    import gc
+    import torch
+    from repro_torch.launch import serve as tserve
+    args = tserve.parser().parse_args(argv)
+    checks, check_s = {}, [0.0]
+    name = cfg.name
+    tol = gate_tol if gate_tol is not None else (
+        None if cfg.moe.enabled else LOGIT_TOL)
+
+    def compare(what, got, want):
+        g, w = got.float(), want.float()
+        err = (g - w).abs().max().item()
+        scale = max(1.0, w.abs().max().item())
+        checks[what] = {"max_abs_err": err, "ref_max_abs": scale,
+                        "argmax_agree": float(
+                            (g.argmax(-1) == w.argmax(-1)).float().mean())}
+        limit = f" (tol {tol * scale:.4e})" if tol is not None else \
+            " (for the record)"
+        print(f"[arch-serve] {name} {cfg.num_layers} layers "
+              f"{cfg.compute_dtype} {what}: kernel vs reference logits max "
+              f"abs err {err:.4e}{limit}, argmax agree "
+              f"{checks[what]['argmax_agree']:.3f}", flush=True)
+        if tol is not None:
+            checks[what]["tol"] = tol * scale
+            check(err <= tol * scale, f"{name} {what}: logits differ by "
+                  f"{err}")
+
+    step_s = {"prefill": [], "decode": [], "prefill_bucket": [],
+              "profiler_s": 0.0}
+    profiles = {}
+    build = step_timed_build(reference_checked_build(
+        tserve.build_engine, compare, check_s, all_finite=True), step_s,
+        profiles)
+    held = {}
+
+    def capture(model, params, *a, **k):
+        held.update(model=model, params=params)
+        return build(model, params, *a, **k)
+
+    result, launches, peak, secs = _serve_mla(cfg, args, capture,
+                                              _serve_counters(fa, md))
+    check(len(checks) == 2, f"{name}: reference checks ran: "
+          f"{sorted(checks)}")
+    st = result.stats
+    reqs = tserve.synthetic_requests(
+        args.requests, cfg.vocab_size, args.rate,
+        (args.min_prompt, args.max_prompt), (args.min_gen, args.max_gen),
+        args.seed)
+    for r in reqs:
+        toks = result.tokens[r.rid]
+        check(len(toks) == r.max_new_tokens and all(
+            0 <= t < cfg.vocab_size for t in toks),
+              f"{name} request {r.rid}: {len(toks)} of {r.max_new_tokens} "
+              f"tokens, or one out of vocab")
+    L = cfg.num_layers
+    expect = {"flash_attention_cuda": L * st["prefill_groups"],
+              "flash_decode_paged_cuda": L * st["decode_steps"],
+              "mla_decode_paged_cuda": 0}
+    check(launches == expect, f"{name} launches {launches} != {expect}")
+    check(st["kernel_launches"] == launches,
+          f"{name}: engine stats {st['kernel_launches']} != {launches}")
+    wall = st["wall_seconds"] - check_s[0] - step_s["profiler_s"]
+    out = {"arch": name, "layers": L, "dtype": cfg.compute_dtype,
+           "stats": st, "launches": launches, "checks": checks,
+           "check_seconds": check_s[0], "seconds": secs,
+           "tokens_per_s_wall": st["total_tokens"] / wall,
+           "decode_steps": st["decode_steps"],
+           "ms_per_decode_step_median": statistics.median(
+               step_s["decode"][1:]) * 1e3,
+           "prefill_group_ms": [(b, t * 1e3) for b, t in zip(
+               step_s["prefill_bucket"], step_s["prefill"])],
+           "profiles": profiles, "peak_memory_gib": peak,
+           "weights_gib": tserve.weight_bytes(cfg) / 2**30}
+    print(f"[arch-serve] {name}, {L} layers, {cfg.compute_dtype}, "
+          f"{args.slots} slots: {st['requests']} requests, "
+          f"{st['total_tokens']} tokens in {wall:.3f} s of wall (reference "
+          f"checks and the profiler excluded): "
+          f"{out['tokens_per_s_wall']:.1f} tok/s, {st['decode_steps']} "
+          f"decode steps (median {out['ms_per_decode_step_median']:.2f} "
+          f"ms), {st['prefill_groups']} prefill groups, peak memory "
+          f"{peak:.2f} GiB (weights {out['weights_gib']:.2f} GiB), "
+          f"launches {launches} [{smi}]", flush=True)
+    for kind, prof in profiles.items():
+        print(f"[arch-serve] {name} torch.profiler over {prof['steps']} "
+              f"{kind} step(s): kernels {prof['device_busy_us'] / 1e3:.3f} "
+              f"ms of device time in {prof['window_us'] / 1e3:.3f} ms of "
+              f"wall; by kernel: " + "; ".join(
+                  f"{k['name'][:40]} x{k['count']} {k['us'] / 1e3:.3f} ms"
+                  for k in prof["kernels"][:6]), flush=True)
+    if then is not None:
+        out["then"] = then(held["model"], held["params"])
+    held.clear()
+    del result
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def arch_generate(model, params, counters, smi):
+    """glm4-9b's static path on the serve's weights: 4 sequences, a
+    1024-token prompt, 64 greedy tokens; kernel 1 once a layer (the
+    contiguous decode attends densely, as in the JAX package), every
+    other kernel never; finite logits; prefill ms, decode-step ms."""
+    import numpy as np
+    cfg = model.cfg
+    batch, plen, ngen = ARCH_GEN
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (batch, plen)).astype(np.int32)
+    record = {"prefill": [], "decode": [], "finite": True, "profiles": {},
+              "profiler_s": 0.0}
+    toks, launches, secs, peak = _counted_generate(model, params, prompts,
+                                                   ngen, counters, record)
+    expect = {n: 0 for n in counters}
+    expect["flash_attention_cuda"] = cfg.num_layers
+    check(launches == expect, f"{cfg.name} generate launches {launches} "
+          f"!= {expect}")
+    check(toks.shape == (batch, ngen) and record["finite"],
+          f"{cfg.name} generate: tokens {toks.shape}, finite "
+          f"{record['finite']}")
+    out = {"batch": batch, "prompt": plen, "generated": ngen,
+           "launches": launches, "prefill_ms": record["prefill"][0] * 1e3,
+           "decode_step_ms_median": statistics.median(
+               record["decode"]) * 1e3,
+           "tokens_per_s_wall": batch * ngen / secs,
+           "peak_memory_gib": peak}
+    print(f"[arch-generate] {cfg.name}, {cfg.num_layers} layers, bf16, "
+          f"static_generate: batch {batch}, prompt {plen}, {ngen} tokens: "
+          f"prefill {out['prefill_ms']:.2f} ms, decode step median "
+          f"{out['decode_step_ms_median']:.2f} ms, "
+          f"{out['tokens_per_s_wall']:.1f} tok/s of wall, peak "
+          f"{peak:.2f} GiB, launches {launches} [{smi}]", flush=True)
+    return out
+
+
+def arch_gate(arch, fa, md, dev):
+    """The fp32 gate (TF32 off) of a dense D=128 arch at ``ARCH_GATE``'s
+    depth: ``static_generate`` through the kernel path and the reference
+    path gives the same greedy tokens; one sequence through the paged
+    engine (kernels 1 and 2) gives the static path's tokens."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import resolve
+    from repro_torch.launch import serve as tserve
+    from repro_torch.models import transformer as tr
+    from repro_torch.models.kvcache import PagedLayout
+    from repro_torch.models.model import build_model
+    from repro_torch.serve import Request
+    layers, plen, ngen = ARCH_GATE
+    cfg = dataclasses.replace(resolve(arch), num_layers=layers,
+                              compute_dtype="float32",
+                              attention_impl="kernel")
+    kern = build_model(cfg, dev)
+    params = kern.init_params(1)
+    ref = build_model(dataclasses.replace(cfg, attention_impl="reference"),
+                      dev)
+    prompts = np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, plen)).astype(np.int32)
+    counters = _serve_counters(fa, md)
+    for f in counters.values():
+        f.launches = 0
+    toks = {m: tserve.static_generate(model, params, prompts, ngen)
+            for m, model in (("kernel", kern), ("reference", ref))}
+    static_launches = {n: f.launches for n, f in counters.items()}
+    mbs = -(-(plen + ngen) // 16)
+    eng = tserve.build_engine(
+        kern, params, PagedLayout(block_size=16, num_blocks=mbs,
+                                  max_blocks_per_seq=mbs),
+        slots=1, prefill_batch=1, pod_speeds=[1.0])
+    paged = eng.run([Request(rid=0, prompt=tuple(int(t) for t in prompts[0]),
+                             max_new_tokens=ngen, arrival=0.0)]).tokens[0]
+    paged_launches = {n: f.launches - static_launches[n]
+                      for n, f in counters.items()}
+    same = bool(np.array_equal(toks["kernel"], toks["reference"]))
+    same_paged = [int(t) for t in toks["kernel"][0]] == list(paged)
+    print(f"[arch-gate] {arch}, {layers} layers, fp32: kernel and "
+          f"reference static_generate tokens identical {same}, the paged "
+          f"engine's on one sequence identical {same_paged} (paged launches "
+          f"{paged_launches})", flush=True)
+    check(same, f"{arch} gate: kernel and reference tokens differ")
+    check(same_paged, f"{arch} gate: paged engine and static path differ")
+    check(paged_launches["flash_decode_paged_cuda"] == layers * (ngen - 1)
+          and static_launches["flash_attention_cuda"] == layers,
+          f"{arch} gate launches: static {static_launches}, paged "
+          f"{paged_launches}")
+    del kern, ref, params, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"layers": layers, "prompt": plen, "generated": ngen,
+            "tokens_identical": same, "paged_engine_identical": same_paged,
+            "static_launches": static_launches,
+            "paged_launches": paged_launches}
+
+
+def stub_batches(cfg, dev, seed=0):
+    """``STUB_STEPS`` batches of ``STUB_ROWS`` real rows of ``STUB_SEQ``
+    embeddings (bf16), labels and weights from a seed, plus the plan's
+    weight-0 dummy rows: the capacity plan of phase 5's run."""
+    import torch
+    from repro_torch.core import capacity as cap
+    plan = cap.plan_capacities(STUB_ROWS, (1.0,), headroom=1.25,
+                               round_buffer_to=STUB_ACCUM)
+    rows = plan.buffer_rows
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = []
+    for _ in range(STUB_STEPS):
+        w = torch.ones((rows, STUB_SEQ), device=dev)
+        w[STUB_ROWS:] = 0.0
+        out.append({
+            "inputs": torch.randn((rows, STUB_SEQ, cfg.d_model),
+                                  generator=gen, device=dev).to(
+                                      torch.bfloat16),
+            "labels": torch.randint(0, cfg.vocab_size, (rows, STUB_SEQ),
+                                    generator=gen, device=dev,
+                                    dtype=torch.int32),
+            "weights": w})
+    return out, rows
+
+
+def stub_train(arch, fa, ce, dev, smi):
+    """Phase 17 (e), (f): ``build_train_step`` on embedding batches at
+    phase 5's settings; finite losses; kernels 1, 1b, 3 and 3b launch as
+    phase 5 counts them; ms/step, real tokens/s, the model-FLOPs share
+    and peak memory; then the fp32 probe at 2 layers."""
+    import gc
+    import torch
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.kernels.parity import rel_l2
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import tree_leaves
+    from repro_torch.optim import adam
+    full = cfgbase.resolve(arch)
+    layers = STUB_TRAIN[arch] or full.num_layers
+    cfg = dataclasses.replace(full, num_layers=layers,
+                              attention_impl="kernel")
+    model = build_model(cfg, dev)
+    tcfg = cfgbase.TrainConfig(
+        model=cfg, shape=cfgbase.ShapeConfig("stub", STUB_SEQ, STUB_ROWS,
+                                             "train"),
+        het=cfgbase.HetConfig(accum_steps=STUB_ACCUM),
+        optimizer=cfgbase.OptimizerConfig(lr=3e-4, warmup_steps=2,
+                                          schedule="constant",
+                                          total_steps=STUB_STEPS))
+    batches, rows = stub_batches(cfg, dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = tsteps.init_train_state(model, tcfg)
+    step = tsteps.build_train_step(model, tcfg)
+    fns = _counters(fa, ce)
+    for f in fns.values():
+        f.launches = 0
+    losses, step_s = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        state, met = step(state, b)
+        torch.cuda.synchronize()
+        step_s.append(time.monotonic() - t0)
+        losses.append(float(met["loss"]))
+    launches = {n: f.launches for n, f in fns.items()}
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    expect = {k: v for k, v in train_launches(
+        cfg, rows, STUB_ACCUM, STUB_SEQ, STUB_STEPS).items()
+        if k in launches}
+    expect["flash_decode_paged_cuda"] = 0
+    check(all(_finite(x) for x in losses), f"{arch}: losses {losses}")
+    check(launches == expect, f"{arch} train launches {launches} != "
+          f"{expect}")
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    ms = statistics.median(step_s[1:]) * 1e3
+    tokens = STUB_ROWS * STUB_SEQ
+    processed = rows * STUB_SEQ
+    attn = 3 * 2.0 * rows * layers * cfg.num_heads * STUB_SEQ ** 2 * \
+        cfg.head_dim
+    flops = 6.0 * cfg.param_count() * processed + attn
+    out = {"arch": arch, "layers": layers, "rows": rows, "losses": losses,
+           "launches": launches, "expected_launches": expect,
+           "step_ms": [t * 1e3 for t in step_s],
+           "ms_per_step_median_2_to_n": ms,
+           "tokens_per_s": tokens / (ms / 1e3),
+           "model_flops_per_step": flops,
+           "mfu_vs_989_tflops": flops / (ms / 1e3) / H100_BF16_FLOPS,
+           "peak_memory_gib": peak, "params": cfg.param_count()}
+    print(f"[stub-train] {arch}, {layers} of {full.num_layers} layers at "
+          f"full width, bf16, remat full, {rows} rows of {STUB_SEQ} "
+          f"embeddings ({STUB_ROWS} real), accum {STUB_ACCUM}: losses "
+          + ", ".join(f"{x:.4f}" for x in losses)
+          + f"; {ms:.1f} ms/step (median of steps 2..{STUB_STEPS}), "
+          f"{out['tokens_per_s']:.0f} real tokens/s, model FLOPs "
+          f"{flops:.3e}/step = {100 * out['mfu_vs_989_tflops']:.2f}% of 989 "
+          f"TFLOP/s, peak memory {peak:.2f} GiB, launches {launches} "
+          f"[{smi}]", flush=True)
+
+    # the fp32 probe: kernel path vs plain path, same params and batch
+    pcfg = dataclasses.replace(cfg, num_layers=STUB_PROBE_LAYERS,
+                               compute_dtype="float32")
+    kern = build_model(pcfg, dev)
+    plain = build_model(dataclasses.replace(pcfg,
+                                            attention_impl="reference"), dev)
+    params = kern.init_params(1)
+    b0 = batches[0]
+    probe = {k: torch.cat([v[:2], v[rows - 1:]]) for k, v in b0.items()}
+    ptcfg = dataclasses.replace(tcfg, model=pcfg,
+                                het=cfgbase.HetConfig(accum_steps=1))
+    k_loss, _, k_grads = tsteps.loss_and_grads(kern, ptcfg, params, probe)
+    loss, _, grads = tsteps.loss_and_grads(plain, ptcfg, params, probe,
+                                           ce_impl="reference")
+    leaves = [rel_l2(a, b) for a, b in zip(tree_leaves(k_grads),
+                                           tree_leaves(grads))]
+    gk, gr = adam.global_norm(k_grads), adam.global_norm(grads)
+    tol = TRAIN_RTOL["float32"]
+    rec = {"layers": STUB_PROBE_LAYERS, "rows": 3,
+           "loss_rel": abs(float(k_loss) - float(loss)) / abs(float(loss)),
+           "grad_norm_rel": abs(float(gk) - float(gr)) / float(gr),
+           "worst_leaf_rel_l2": max(leaves), "tol": tol}
+    print(f"[stub-train] {arch} fp32 probe, {STUB_PROBE_LAYERS} layers: "
+          f"loss rel {rec['loss_rel']:.3e} (tol {tol['loss']:g}), grad norm "
+          f"rel {rec['grad_norm_rel']:.3e} (tol {tol['grad_norm']:g}), "
+          f"worst leaf rel L2 {rec['worst_leaf_rel_l2']:.3e} (tol "
+          f"{tol['leaf']:g})", flush=True)
+    check(rec["loss_rel"] <= tol["loss"] and rec["grad_norm_rel"] <=
+          tol["grad_norm"] and rec["worst_leaf_rel_l2"] <= tol["leaf"],
+          f"{arch} fp32 probe: {rec}")
+    out["probe"] = rec
+    del kern, plain, params, k_grads, grads, batches, b0, probe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def archs_phase(fa, ce, md, dev, smi):
+    """Phase 17: the D=128 kernel cases, then glm4-9b and phi4-mini-3.8b
+    at full size and arctic-480b at full width on the paged engine
+    (glm4 also through ``static_generate``, each dense arch's fp32 gate,
+    arctic's at 1 layer one sequence at a time), then chameleon-34b and
+    musicgen-large through ``build_train_step``. Each path's counters
+    are zeroed just before and read just after; the D=128 decode's
+    launches are the serve runs' kernel-2 counts."""
+    import dataclasses as dc
+    import torch
+    from repro_torch.configs.base import resolve
+    t0 = time.monotonic()
+    recs, kernel = d128_kernel_phase(fa, dev, smi)
+    out = {"kernel": kernel, "seconds": {"kernels": time.monotonic() - t0}}
+    serve = {}
+    for arch in ("glm4-9b", "phi4-mini-3.8b"):
+        t0 = time.monotonic()
+        cfg = dc.replace(resolve(arch), attention_impl="kernel")
+        then = ((lambda m, p: arch_generate(m, p, _serve_counters(fa, md),
+                                            smi))
+                if arch == "glm4-9b" else None)
+        serve[arch] = arch_serve(cfg, _arch_argv(arch), fa, md, smi,
+                                 then=then)
+        serve[arch]["gate"] = arch_gate(arch, fa, md, dev)
+        out["seconds"][arch] = time.monotonic() - t0
+    t0 = time.monotonic()
+    arctic = dc.replace(resolve("arctic-480b"), num_layers=ARCTIC_LAYERS,
+                        attention_impl="kernel")
+    serve["arctic-480b"] = arch_serve(arctic, _arch_argv("arctic-480b"),
+                                      fa, md, smi)
+    gate = dc.replace(arctic, num_layers=ARCTIC_GATE_LAYERS,
+                      param_dtype="float32", compute_dtype="float32")
+    serve["arctic-480b"]["gate"] = arch_serve(
+        gate, _arch_argv("arctic-480b", ARCTIC_GATE_ARGV), fa, md, smi,
+        gate_tol=MLA_GATE_TOL)
+    out["seconds"]["arctic-480b"] = time.monotonic() - t0
+    out["serve"] = serve
+    train = {}
+    for arch in STUB_TRAIN:
+        t0 = time.monotonic()
+        train[arch] = stub_train(arch, fa, ce, dev, smi)
+        out["seconds"][arch] = time.monotonic() - t0
+    out["train"] = train
+    out["launches"] = {
+        "serve": {n: sum(r["launches"][n] for r in serve.values())
+                  for n in ("flash_attention_cuda",
+                            "flash_decode_paged_cuda")},
+        "train": {n: sum(r["launches"][n] for r in train.values())
+                  for n in _counters(fa, ce)}}
+    print("[archs] seconds: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in out["seconds"].items()), flush=True)
+    return recs, out
+
+
+# --------------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
@@ -4071,6 +4646,7 @@ def main(argv=None) -> int:
           flush=True)
     t0 = time.monotonic()
     sm90 = sm90_report(_build, _build.load(), fa, ce, md, sk, mk)
+    sm90["paged_decode"] = decode_ptxas_report(_build)
 
     phases = {"build": build_s, "sm90_report": time.monotonic() - t0}
     t0 = time.monotonic()
@@ -4128,6 +4704,10 @@ def main(argv=None) -> int:
     t0 = time.monotonic()
     pipeline = pipeline_phase(dev, smi, train)
     phases["pipeline_path"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    d128_recs, archs = archs_phase(fa, ce, md, dev, smi)
+    recs += d128_recs
+    phases["archs_path"] = time.monotonic() - t0
     print("[phases] seconds: " + ", ".join(
         f"{k} {v:.1f}" for k, v in phases.items()), flush=True)
 
@@ -4164,7 +4744,12 @@ def main(argv=None) -> int:
                root + "ssd_scan/ssd_scan.py:86"),
            "mlstm_scan_cuda": (
                "src/repro_torch/csrc/mlstm_scan.cu",
-               root + "mlstm_scan/mlstm_scan.py:95")}
+               root + "mlstm_scan/mlstm_scan.py:95"),
+           # kernel 2 at head dim 128 (glm4-9b, phi4-mini, arctic): the
+           # same wrapper and counter, its launches the phase-17 serves'
+           "paged_decode_d128": (
+               "src/repro_torch/csrc/paged_decode.cu",
+               root + "flash_attention/flash_attention.py:210")}
     # launches: the path each kernel serves (GQA decode: serve; the MLA
     # paged decode: the MLA serve path; the contiguous MLA decode: the
     # MLA generate path; the exchange kernels: the multi-rank train path,
@@ -4187,7 +4772,11 @@ def main(argv=None) -> int:
                    "canonical": overlap["canonical"]["launches"].get(n, 0),
                    "pipeline": pipeline["launches"].get(n, 0),
                    "pipe_axis": sum(r.get(n, 0) for r in pipeline[
-                       "pipe_axis"]["launches_by_rank"])}
+                       "pipe_axis"]["launches_by_rank"]),
+                   "archs_serve": archs["launches"]["serve"].get(
+                       "flash_decode_paged_cuda" if n == "paged_decode_d128"
+                       else n, 0),
+                   "archs_train": archs["launches"]["train"].get(n, 0)}
                for n in src}
     path_of = {"flash_decode_paged_cuda": "serve",
                "quantize_int8_cuda": "multi_rank",
@@ -4195,7 +4784,8 @@ def main(argv=None) -> int:
                "mla_decode_paged_cuda": "mla_serve",
                "mla_decode_cuda": "mla_generate",
                "ssd_scan_cuda": "zamba_generate",
-               "mlstm_scan_cuda": "xlstm_generate"}
+               "mlstm_scan_cuda": "xlstm_generate",
+               "paged_decode_d128": "archs_serve"}
     at_keys = ("dtype", "B", "Sq", "S", "H", "Hkv", "D", "T", "V", "R",
                "kv_lens", "bs", "rows", "MB", "G", "P", "N", "chunk", "dk",
                "dv")
@@ -4210,7 +4800,8 @@ def main(argv=None) -> int:
                     if (r.get("D") not in (64, MLA_DQK, ZAMBA_DH)
                         or name != "flash_attention_cuda")
                     and r.get("window") != "long"
-                    and "continuity" not in r and not r.get("bucket")][-1]
+                    and "continuity" not in r and not r.get("bucket")
+                    and r.get("arch") in (None, D128_HEADS[0][0])][-1]
         path_name = path_of.get(name, "train")
         kernels.append({
             "name": name, "route": "cuda", "source": source,
@@ -4227,6 +4818,14 @@ def main(argv=None) -> int:
             "library_device_ms": main_rec.get("library_device_ms"),
             "device_ms_by_launch": main_rec.get("device_ms_by_launch"),
             "at": {k: main_rec[k] for k in main_rec if k in at_keys}})
+        if name == "paged_decode_d128":
+            # glm4's heads lead; phi4's and arctic's ride beside them
+            kernels[-1]["cases"] = [
+                {"arch": r["arch"], **{k: r[k] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "device_ms", "library_device_ms")},
+                 "at": {k: r[k] for k in r if k in at_keys}}
+                for r in timed]
         for key, d, path_name_d in (("at_d64", 64, "serve"),
                                     ("at_d192", MLA_DQK, "mla_serve"),
                                     ("at_d80", ZAMBA_DH, "zamba_generate")):
@@ -4275,7 +4874,7 @@ def main(argv=None) -> int:
               f"path")
     check(kernels[0]["at_d80"]["launches"] > 0,
           "the D=80 prefill never launched on the zamba2 path")
-    check(len(kernels) == 11, f"{len(kernels)} kernels listed")
+    check(len(kernels) == 12, f"{len(kernels)} kernels listed")
     for k in kernels:
         if k["name"] in ("quantize_int8_cuda", "dequant_accum_cuda"):
             check(k["at_one_bucket"]["launches"] > 0,
@@ -4288,7 +4887,8 @@ def main(argv=None) -> int:
          "path": path, "train": train, "multi_rank": multi,
          "mla_path": mla, "zamba_path": zamba, "xlstm_path": xlstm,
          "ckpt_path": ckpt, "overlap_path": overlap,
-         "pipeline_path": pipeline, "kernels": kernels},
+         "pipeline_path": pipeline, "archs_path": archs,
+         "kernels": kernels},
         indent=1,
         default=str))
     print(json.dumps({"kernels": kernels}))

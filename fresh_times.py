@@ -15,7 +15,10 @@ each TREE, each in a process of its own that runs nothing before it:
   H=4, dk=dv=384, chunk 256), held to ``parity.RTOL``;
 * phase 8's ``mla_paged_case`` on the bf16 paged MLA decode
   (``mla_decode_paged_cuda``) at the serve decode shape (B=8, H=128,
-  bs=16, MB=32, ``SERVE_LENS``), held to ``BF16_TOL``.
+  bs=16, MB=32, ``SERVE_LENS``), held to ``BF16_TOL``;
+* phase 2's ``decode_case`` on the bf16 GQA paged decode
+  (``flash_decode_paged_cuda``) at the same serve shape with
+  tinyllama's heads (H=32, Hkv=4, D=64), held to ``BF16_TOL``.
 
 So the draws, checks and timers are the script's: a reading differs from
 the phase's only in what ran before it in the process. From the root of
@@ -43,7 +46,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out"
-KERNELS = ("mlstm_scan_cuda", "mla_decode_paged_cuda")
+KERNELS = ("mlstm_scan_cuda", "mla_decode_paged_cuda",
+           "flash_decode_paged_cuda")
 
 
 def _use_tree(tree: str) -> None:
@@ -66,6 +70,11 @@ def _one(tree: str, kernel: str) -> int:
         rec = cs.mlstm_case(mk, *cs.MLSTM_CASES[0], bf16, gen, dev,
                             timed=True)
         err, tol = rec["rel_l2"], RTOL[("mlstm_scan_cuda", bf16)]
+    elif kernel == "flash_decode_paged_cuda":
+        from repro_torch.kernels.flash_attention import flash_attention as fa
+        gen = torch.Generator(device=dev).manual_seed(2)
+        rec = cs.decode_case(fa, gen, dev, bf16)
+        err, tol = rec["max_abs_err"], cs.BF16_TOL
     else:
         from repro_torch.kernels.mla_decode import mla_decode as md
         from repro_torch.kernels.mla_decode import ref as mla_ref

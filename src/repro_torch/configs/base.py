@@ -403,7 +403,9 @@ def smoke_config(arch_id: str) -> ModelConfig:
 
 
 def _ensure_loaded() -> None:
-    # the arch modules register themselves on import; the other five
-    # JAX arch files have no counterpart in the port yet
+    # the arch modules register themselves on import, one for each of the
+    # JAX package's arch files
     from repro_torch.configs import (  # noqa: F401
-        deepseek_v2_236b, olmo_1b, tinyllama_1_1b, xlstm_125m, zamba2_2_7b)
+        arctic_480b, chameleon_34b, deepseek_v2_236b, glm4_9b,
+        musicgen_large, olmo_1b, phi4_mini_3_8b, tinyllama_1_1b,
+        xlstm_125m, zamba2_2_7b)

@@ -15,11 +15,12 @@
 //   q (B, 1, H, D), pools (N, bs, Hkv, D), out (B, 1, H, D), one dtype
 //   (fp32 or bf16); tables (B, MB) int32, kv_lens (B,) int32. fp32
 //   softmax. One design for both dtypes, the head dim a template
-//   parameter (64 built).
+//   parameter (64 and 128 built).
 //
 // What bounds it on the H100: memory. Each cached K and V element is
-//   used by H/Hkv = 8 query heads for 2 flops each, ~4 flops per bf16
-//   byte against the card's ~295 balance point, so the least time is
+//   used by H/Hkv query heads (3 to 16 in the configs) for 2 flops each,
+//   at most ~32 flops per bf16 byte against the card's ~295 balance
+//   point, so the least time is
 //   sum_b kv_lens[b] * Hkv * D * 2 bytes * 2 (K and V) over 3.35 TB/s.
 //   At serving batch sizes that is well under a microsecond, so what
 //   the kernel pays for is latency: global round trips and barriers in
@@ -43,6 +44,14 @@
 //   * A second small kernel merges each (sequence, head)'s partials
 //     (m, l, acc) in split order, from split 0 up to the last split
 //     below kv_lens[b].
+//   * The scores: at D=64 a thread holds its K row in registers and
+//     walks its heads; at D=128 a whole row would take 128 registers a
+//     thread, so the thread walks the row in 16-byte chunks instead,
+//     each chunk read once from shared memory and used by all its heads
+//     (an accumulator a head). Either way a head's score sums d = 0..D-1
+//     in order, so both give the same bits. At D=64 the register row
+//     is the faster of the two by device time (PERF.md §6), so the
+//     head dim picks the walk.
 //   * Batch invariance: the splits start at position 0 and have a fixed
 //     length, and the merge reads only the splits that hold positions,
 //     so a sequence's arithmetic depends on its own q, table row and
@@ -64,6 +73,7 @@ static_assert(kSplit % kTile == 0 && kTile % 32 == 0 && kTile <= 128,
               "paged_decode: tiles");
 constexpr int kThreads = 128;
 constexpr int kMaxGroup = 16;    // most query heads per kv head
+constexpr int kHeadLanes = kThreads / kTile;   // heads a phase-A pass
 constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -116,6 +126,27 @@ __device__ __forceinline__ void row_f32(const uint8_t* p, float (&out)[D]) {
   }
 }
 
+// 16-byte chunk c of a row of T in shared memory as fp32
+template <typename T>
+__device__ __forceinline__ void chunk_f32(const uint8_t* p, int c,
+                                          float (&out)[16 / sizeof(T)]) {
+  const uint4 u = reinterpret_cast<const uint4*>(p)[c];
+  if constexpr (sizeof(T) == 4) {
+    out[0] = __uint_as_float(u.x);
+    out[1] = __uint_as_float(u.y);
+    out[2] = __uint_as_float(u.z);
+    out[3] = __uint_as_float(u.w);
+  } else {
+    const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 f = __bfloat1622float2(b2[j]);
+      out[2 * j] = f.x;
+      out[2 * j + 1] = f.y;
+    }
+  }
+}
+
 template <typename T, int D>
 struct SplitCfg {
   static constexpr int kChunks = D * sizeof(T) / 16;   // 16-byte chunks a row
@@ -147,6 +178,7 @@ paged_decode_split(const T* __restrict__ q, const T* __restrict__ k_pool,
                    int MB, int splits, float scale) {
   using C = SplitCfg<T, D>;
   constexpr int kC = C::kChunks;
+  static_assert(D % 64 == 0 && D <= kThreads, "paged_decode: head dim");
   extern __shared__ __align__(16) uint8_t smem[];
   const uint32_t ring = sm90::smem_u32(smem);
   float* q_s = reinterpret_cast<float*>(smem + C::kRing);     // [G][D]
@@ -219,13 +251,39 @@ paged_decode_split(const T* __restrict__ q, const T* __restrict__ k_pool,
     const uint8_t* v_t = k_t + C::kTileBytes;
     const int t0 = s0 + t * kTile;
 
-    // A: scores in log2 units; thread (position j, head parity)
-    {
+    // A: scores in log2 units; thread (position j, head lane)
+    if constexpr (D > 64) {
+      const int j = tid % kTile;
+      const bool live = t0 + j < s1;
+      constexpr int kE = 16 / sizeof(T);        // elements a chunk
+      float s[kMaxGroup / kHeadLanes];
+#pragma unroll
+      for (int i = 0; i < kMaxGroup / kHeadLanes; ++i) s[i] = 0.f;
+#pragma unroll 4
+      for (int c = 0; c < kC; ++c) {
+        float kc[kE];
+        chunk_f32<T>(k_t + j * C::kRowBytes, c, kc);
+#pragma unroll
+        for (int i = 0; i < kMaxGroup / kHeadLanes; ++i) {
+          const int hh = tid / kTile + i * kHeadLanes;   // warp-uniform
+          if (hh < group) {
+            const float* qh = q_s + hh * D + c * kE;     // a broadcast
+#pragma unroll
+            for (int e = 0; e < kE; ++e) s[i] = fmaf(qh[e], kc[e], s[i]);
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kMaxGroup / kHeadLanes; ++i) {
+        const int hh = tid / kTile + i * kHeadLanes;
+        if (hh < group) s_s[hh * kTile + j] = live ? s[i] * sl2 : -INFINITY;
+      }
+    } else {
       const int j = tid % kTile;
       const bool live = t0 + j < s1;
       float kr[D];
       row_f32<T, D>(k_t + j * C::kRowBytes, kr);
-      for (int hh = tid / kTile; hh < group; hh += kThreads / kTile) {
+      for (int hh = tid / kTile; hh < group; hh += kHeadLanes) {
         const float4* qh = reinterpret_cast<const float4*>(q_s + hh * D);
         float s = 0.f;
 #pragma unroll
@@ -371,7 +429,7 @@ extern "C" int paged_decode_fwd(const void* q, const void* k_pool,
                                 int B, int H, int Hkv, int D, int N, int bs,
                                 int MB, int splits, float scale, int dtype,
                                 void* stream) {
-  if (D != 64 || Hkv <= 0 || H % Hkv != 0 || H / Hkv > kMaxGroup ||
+  if ((D != 64 && D != 128) || Hkv <= 0 || H % Hkv != 0 || H / Hkv > kMaxGroup ||
       B <= 0 || bs <= 0 || MB <= 0 || N <= 0 ||
       splits != (MB * bs + kSplit - 1) / kSplit)
     return (int)cudaErrorInvalidValue;
@@ -379,12 +437,18 @@ extern "C" int paged_decode_fwd(const void* q, const void* k_pool,
   const int* t = (const int*)tables;
   const int* lens = (const int*)kv_lens;
   float* p = (float*)part;
-  if (dtype == 0)
+  if (dtype == 0 && D == 64)
     return launch<float, 64>(q, k_pool, v_pool, t, lens, o, p, B, H, Hkv, N,
                              bs, MB, splits, scale, s);
-  if (dtype == 1)
+  if (dtype == 1 && D == 64)
     return launch<__nv_bfloat16, 64>(q, k_pool, v_pool, t, lens, o, p, B, H,
                                      Hkv, N, bs, MB, splits, scale, s);
+  if (dtype == 0)
+    return launch<float, 128>(q, k_pool, v_pool, t, lens, o, p, B, H, Hkv,
+                              N, bs, MB, splits, scale, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16, 128>(q, k_pool, v_pool, t, lens, o, p, B,
+                                      H, Hkv, N, bs, MB, splits, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

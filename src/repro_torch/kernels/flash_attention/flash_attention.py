@@ -18,8 +18,9 @@
   * :class:`FlashAttentionFn` — the two as one ``torch.autograd.Function``.
   * :func:`flash_decode_paged_cuda` — single-query GQA decode over a
     paged pool with the block-table gather inside the kernel
-    (``csrc/paged_decode.cu``), replacing ``flash_decode_paged_pallas``.
-    The positions are split across blocks (``DECODE_SPLIT`` a split) and
+    (``csrc/paged_decode.cu``), replacing ``flash_decode_paged_pallas``;
+    head dim 64 (tinyllama) or 128 (glm4-9b, phi4-mini, arctic), as the
+    Pallas kernel reads its head dim from q. The positions are split across blocks (``DECODE_SPLIT`` a split) and
     the partials merged in split order, so a sequence's bits do not
     depend on the batch; :func:`flash_decode_paged_split_plain` models
     the split and the merge. One design for both dtypes.
@@ -44,7 +45,7 @@ from repro_torch.kernels.flash_attention import ref
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 PREFILL_HEAD_DIMS = (64, 80, 128, 192)   # head dims of the forward kernel
 BWD_HEAD_DIMS = (64, 128)            # head dims of the backward kernel
-HEAD_DIM = 64          # the head dim the decode kernel is built for
+DECODE_HEAD_DIMS = (64, 128)   # head dims the decode kernel is built for
 MAX_GROUP = 16         # most query heads per kv head the decode kernel takes
 # kv positions a tile of the bf16 forward kernel, by head dim
 # (csrc/flash_attention.cu, Sm90Tiles; chip_smoke.py and the card tests
@@ -476,10 +477,10 @@ def flash_decode_paged_cuda(
             f"{name}: shapes q {tuple(q.shape)} pools {tuple(k_pool.shape)}"
             f" tables {tuple(block_tables.shape)} lens "
             f"{tuple(kv_lens.shape)} disagree")
-    if (d != HEAD_DIM or hkv <= 0 or h % hkv or h // hkv > MAX_GROUP
+    if (d not in DECODE_HEAD_DIMS or hkv <= 0 or h % hkv or h // hkv > MAX_GROUP
             or n <= 0 or bs <= 0 or block_tables.shape[1] <= 0):
         raise ValueError(
-            f"{name}: needs D == {HEAD_DIM}, H % Hkv == 0, H/Hkv <= "
+            f"{name}: needs D in {DECODE_HEAD_DIMS}, H % Hkv == 0, H/Hkv <= "
             f"{MAX_GROUP} and a non-empty pool, got D={d} H={h} Hkv={hkv} "
             f"N={n} bs={bs} MB={block_tables.shape[1]}")
     scale = softmax_scale if softmax_scale is not None else d ** -0.5

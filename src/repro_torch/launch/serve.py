@@ -152,6 +152,11 @@ def check_fits(cfg: ModelConfig, device: torch.device) -> None:
 def serve(args):
     cfg = (cfgbase.smoke_config(args.arch) if args.smoke
            else cfgbase.resolve(args.arch))
+    if cfg.frontend != "token":
+        # as the JAX driver: the engine's requests are token ids
+        # (chameleon and musicgen run through Model.prefill/decode)
+        raise SystemExit(f"--arch {args.arch}: the serving engine "
+                         f"requires a token frontend")
     cfg = dataclasses.replace(cfg, attention_impl=args.attention_impl)
     return serve_config(cfg, args)
 

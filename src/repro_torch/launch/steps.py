@@ -1466,6 +1466,9 @@ def _build_pipeline_step(model: Model, tcfg: TrainConfig, mesh: ProcessMesh):
     embed_fn, head_fn = seg["embed_fn"], seg["head_fn"]
     stage_fwd, head_keys = seg["stage_fwd"], seg["head_keys"]
     tied = "embed" in head_keys
+    # an embedding-stub frontend has no table: stage 0's embed_fn is the
+    # identity (a cast) and its B event takes no input gradient
+    token = cfg.frontend == "token"
     order = pipe.program_order(S, M, het.pipeline_schedule)
     staged = _staged(tcfg, mesh)
     me = mesh.pipe_index
@@ -1569,8 +1572,8 @@ def _build_pipeline_step(model: Model, tcfg: TrainConfig, mesh: ProcessMesh):
                 with torch.enable_grad():
                     if s == 0:
                         x_in = None
-                        x = embed_fn({"embed": leaves["embed"]},
-                                     mb["inputs"])
+                        x = embed_fn({"embed": leaves["embed"]} if token
+                                     else {}, mb["inputs"])
                         aux = torch.zeros((), dtype=torch.float32,
                                           device=dev)
                     else:
@@ -1602,10 +1605,10 @@ def _build_pipeline_step(model: Model, tcfg: TrainConfig, mesh: ProcessMesh):
             n_slice = len(inputs)
             if s == S - 1:
                 inputs += [t for k in head_keys for t in tree_leaves(leaves[k])]
-            if s == 0:
-                inputs.append(leaves["embed"])
-            else:
+            if s > 0:
                 inputs.append(x_in)
+            elif token:
+                inputs.append(leaves["embed"])
             grads = list(torch.autograd.grad(out, inputs, grad_outputs=cot))
             del out, cot
             for t, g in zip(inputs[:n_slice], grads[:n_slice]):
@@ -1624,13 +1627,14 @@ def _build_pipeline_step(model: Model, tcfg: TrainConfig, mesh: ProcessMesh):
             if s > 0:
                 send("B", s, m, (grads[-1], a_cot))
                 continue
-            g_emb = grads[-1]
-            if not tied:
-                add(leaves["embed"], g_emb)
-            elif staged:
-                hop.send("T", m, (g_emb.index_select(0, touched[m]),))
-            else:
-                add(leaves["embed"], g_emb + head_emb.pop(m))
+            if token:
+                g_emb = grads[-1]
+                if not tied:
+                    add(leaves["embed"], g_emb)
+                elif staged:
+                    hop.send("T", m, (g_emb.index_select(0, touched[m]),))
+                else:
+                    add(leaves["embed"], g_emb + head_emb.pop(m))
             if m == M - 1 and owns_embed:
                 flush(S)
         if staged and tied and me == S - 1:

@@ -155,6 +155,14 @@ CKPT_DIR = os.path.join(tempfile.gettempdir(), "hetseq_ckpt")
 def build_config(args) -> Tuple[ModelConfig, TrainConfig]:
     cfg = (cfgbase.smoke_config(args.arch) if args.smoke
            else cfgbase.resolve(args.arch))
+    if cfg.frontend != "token":
+        # the corpus is token ids, as the JAX driver's is; a stub model
+        # trains through steps.build_train_step on embedding batches
+        raise ValueError(
+            f"--arch {args.arch}: frontend '{cfg.frontend}' takes "
+            f"precomputed embeddings (B, S, d_model), and the driver's "
+            f"synthetic corpus is token ids; train it through "
+            f"launch.steps.build_train_step on embedding batches")
     cfg = dataclasses.replace(cfg, attention_impl="kernel")
     if args.no_scan_layers:
         # the unrolled stack --overlap backward asks for (the port's

@@ -1,5 +1,10 @@
 """Transformer building blocks: norms (and Mamba2's gated RMSNorm), RoPE,
-GQA and MLA attention, MLP, MoE (port of ``repro/models/blocks.py``).
+GQA attention (with optional QK-norm) and MLA attention, the MLP (SwiGLU,
+GeGLU or GELU), MoE (port of ``repro/models/blocks.py``).
+
+GELU is the tanh form (``F.gelu(..., approximate="tanh")``): the JAX
+package's ``jax.nn.gelu`` defaults to ``approximate=True``, while
+``F.gelu`` defaults to the erf form.
 
 Pure functions ``apply(params, x, ...)`` over plain dicts of tensors.
 Weights keep the JAX ``(in, out)`` layout and are applied as ``x @ W``;
@@ -37,17 +42,19 @@ def _cast(x: torch.Tensor, dtype_str: str) -> torch.Tensor:
 def dense_init(gen: torch.Generator, shape: Sequence[int],
                dtype: torch.dtype, fan_in: Optional[int] = None
                ) -> torch.Tensor:
+    """The draw scaled in place: one fp32 temporary a leaf (arctic's
+    expert stacks are 17.8 GB each in fp32)."""
     fan = fan_in if fan_in is not None else shape[0]
     x = torch.randn(tuple(shape), generator=gen, device=gen.device,
                     dtype=torch.float32)
-    return (x * (1.0 / math.sqrt(fan))).to(dtype)
+    return x.mul_(1.0 / math.sqrt(fan)).to(dtype)
 
 
 def embed_init(gen: torch.Generator, shape: Sequence[int],
                dtype: torch.dtype) -> torch.Tensor:
     x = torch.randn(tuple(shape), generator=gen, device=gen.device,
                     dtype=torch.float32)
-    return (x * 0.02).to(dtype)
+    return x.mul_(0.02).to(dtype)
 
 
 def init_norm(cfg: ModelConfig, gen: torch.Generator) -> Dict[str, torch.Tensor]:
@@ -69,21 +76,38 @@ def init_attention(cfg: ModelConfig, gen: torch.Generator
                    ) -> Dict[str, torch.Tensor]:
     dt = dtype_of(cfg.param_dtype)
     d, h, hkv, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    return {
+    p = {
         "wq": dense_init(gen, (d, h * dh), dt),
         "wk": dense_init(gen, (d, hkv * dh), dt),
         "wv": dense_init(gen, (d, hkv * dh), dt),
         "wo": dense_init(gen, (h * dh, d), dt, fan_in=h * dh),
     }
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones((dh,), dtype=dt, device=gen.device)
+        p["k_norm"] = torch.ones((dh,), dtype=dt, device=gen.device)
+    return p
+
+
+GATED = ("swiglu", "geglu")      # activations whose MLP has a gate
 
 
 def init_mlp(cfg: ModelConfig, gen: torch.Generator,
              d_ff: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """Gated (SwiGLU, GeGLU): ``w_gate``, ``w_up``, ``w_down``; GELU:
+    ``w_up`` and ``w_down`` only, as in the JAX package."""
     dt = dtype_of(cfg.param_dtype)
     d, ff = cfg.d_model, d_ff or cfg.d_ff
-    return {"w_gate": dense_init(gen, (d, ff), dt),
-            "w_up": dense_init(gen, (d, ff), dt),
+    if cfg.activation in GATED:
+        return {"w_gate": dense_init(gen, (d, ff), dt),
+                "w_up": dense_init(gen, (d, ff), dt),
+                "w_down": dense_init(gen, (ff, d), dt, fan_in=ff)}
+    return {"w_up": dense_init(gen, (d, ff), dt),
             "w_down": dense_init(gen, (ff, d), dt, fan_in=ff)}
+
+
+def mlp_param_count(cfg: ModelConfig, d_ff: int) -> int:
+    """Parameters of :func:`init_mlp` at hidden width ``d_ff``."""
+    return (3 if cfg.activation in GATED else 2) * cfg.d_model * d_ff
 
 
 # --------------------------------------------------------------------------
@@ -151,15 +175,18 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 def attention_qkv(params, x: torch.Tensor, cfg: ModelConfig,
                   positions: torch.Tensor):
-    """Project to rotated q, k and v, each (B, S, heads, Dh)."""
-    if cfg.qk_norm:
-        raise ValueError("qk_norm is not ported yet")
+    """Project to rotated q, k and v, each (B, S, heads, Dh). With
+    ``qk_norm`` q and k take an fp32 RMS norm over the head dim (eps
+    1e-6, scales ``q_norm`` and ``k_norm``) before RoPE."""
     b, s, _ = x.shape
     h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     cdt = dtype_of(cfg.compute_dtype)
     q = (x @ _cast(params["wq"], cfg.compute_dtype)).reshape(b, s, h, dh)
     k = (x @ _cast(params["wk"], cfg.compute_dtype)).reshape(b, s, hkv, dh)
     v = (x @ _cast(params["wv"], cfg.compute_dtype)).reshape(b, s, hkv, dh)
+    if cfg.qk_norm:
+        q = _rms(q, params["q_norm"])
+        k = _rms(k, params["k_norm"])
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q.to(cdt), k.to(cdt), v.to(cdt)
@@ -184,15 +211,22 @@ def attention_block(params, x: torch.Tensor, cfg: ModelConfig,
     return y
 
 
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default, the tanh form."""
+    return F.gelu(x, approximate="tanh")
+
+
 def mlp_block(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """SwiGLU feed-forward: (silu(x Wg) * x Wu) Wd."""
-    if cfg.activation != "swiglu":
-        raise ValueError(f"activation '{cfg.activation}' is not ported yet "
-                         f"(swiglu only)")
+    """Feed-forward: (act(x Wg) * x Wu) Wd with a gate (act silu for
+    SwiGLU, GELU for GeGLU), gelu(x Wu) Wd without one."""
     cdt = cfg.compute_dtype
-    g = x @ _cast(params["w_gate"], cdt)
-    u = x @ _cast(params["w_up"], cdt)
-    return (F.silu(g) * u) @ _cast(params["w_down"], cdt)
+    if "w_gate" in params:
+        g = x @ _cast(params["w_gate"], cdt)
+        u = x @ _cast(params["w_up"], cdt)
+        h = (F.silu(g) if cfg.activation == "swiglu" else gelu(g)) * u
+    else:
+        h = gelu(x @ _cast(params["w_up"], cdt))
+    return h @ _cast(params["w_down"], cdt)
 
 
 # --------------------------------------------------------------------------
@@ -359,7 +393,8 @@ def _moe_compute_local(x2d: torch.Tensor, gates: torch.Tensor,
     cdt = cfg.compute_dtype
     g = torch.einsum("ecd,edf->ecf", buf, _cast(w_gate, cdt))
     u = torch.einsum("ecd,edf->ecf", buf, _cast(w_up, cdt))
-    eo = torch.einsum("ecf,efd->ecd", F.silu(g) * u, _cast(w_down, cdt))
+    act = F.silu(g) if cfg.activation == "swiglu" else gelu(g)
+    eo = torch.einsum("ecf,efd->ecd", act * u, _cast(w_down, cdt))
     y = torch.zeros((t, d), dtype=eo.dtype, device=eo.device)
     for j in range(k):
         got = eo[slot_e[:, j], torch.clamp(slot_c[:, j], max=capacity - 1)]
@@ -386,9 +421,6 @@ def moe_block(params, x: torch.Tensor, cfg: ModelConfig
     (prefill and decode; training's capacity and the expert-parallel
     branch are not ported)."""
     mo = cfg.moe
-    if cfg.activation != "swiglu":
-        raise ValueError(f"activation '{cfg.activation}' is not ported yet "
-                         f"(swiglu only)")
     b, s, d = x.shape
     x2d = x.reshape(b * s, d)
     gates, eidx, aux = _router(params, x2d, cfg)

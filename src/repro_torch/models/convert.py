@@ -6,8 +6,12 @@ and is applied as ``x @ W`` (``wq`` (d, H*Dh), ``wo`` (H*Dh, d),
 conversion copies each array as it is, with no transpose. The only
 change of structure is the layer stack: the JAX package stacks every
 ``layers`` leaf along a leading (L, ...) axis for ``lax.scan``; the
-port keeps a list of per-layer dicts. A tied model has no ``lm_head``
-and a non-parametric norm is an empty dict on both sides. Nested layer
+port keeps a list of per-layer dicts. A tied model on the token
+frontend has no ``lm_head``, an embedding-stub model (chameleon,
+musicgen) no ``embed``, and a non-parametric norm is an empty dict on
+both sides. The GQA ``attn`` dict carries ``q_norm``/``k_norm`` with
+QK-norm, LayerNorm dicts their ``bias``, a GELU MLP has no ``w_gate``
+and an Arctic MoE layer carries its ``dense`` MLP. Nested layer
 dicts (the MLA projections under ``attn``, the MoE ``router``,
 ``w_gate``/``w_up``/``w_down`` of shape (E, ...) and ``shared`` under
 ``moe``) are carried over key for key, and so are the Mamba2 layers
@@ -31,7 +35,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.transformer import check_supported, stack_plan
+from repro_torch.models.transformer import (check_supported, stack_plan,
+                                            tied_head)
 
 
 def _tensor(x, device) -> torch.Tensor:
@@ -58,19 +63,21 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
     stacks = ({"mlstm_layers": cfg.num_layers // 2,
                "slstm_layers": cfg.num_layers // 2} if plan == "xlstm"
               else {"layers": cfg.num_layers})
-    expected = {"embed", "final_norm", *stacks}
-    if not cfg.tie_embeddings:
+    expected = {"final_norm", *stacks}
+    if cfg.frontend == "token":
+        expected.add("embed")
+    if not tied_head(cfg):
         expected.add("lm_head")
     if plan == "zamba":
         expected.add("shared_attn")
     if set(tree) != expected:
         raise ValueError(f"JAX params have keys {sorted(tree)}, expected "
                          f"{sorted(expected)}")
-    out: Dict[str, Any] = {
-        "embed": _tensor(tree["embed"], device),
-        "final_norm": _tree(tree["final_norm"],
-                            lambda a: _tensor(a, device)),
-    }
+    out: Dict[str, Any] = {}
+    if "embed" in tree:
+        out["embed"] = _tensor(tree["embed"], device)
+    out["final_norm"] = _tree(tree["final_norm"],
+                              lambda a: _tensor(a, device))
     if "lm_head" in tree:
         out["lm_head"] = _tensor(tree["lm_head"], device)
 

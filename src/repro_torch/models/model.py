@@ -10,7 +10,11 @@ paged pool (its latent), and its layers route through the MoE block; a
 Mamba2 hybrid (zamba2) and xLSTM (xlstm-125m) serve through the
 contiguous cache (the paged pool takes the uniform plan only, as in the
 JAX package); ``loss_fn`` refuses all of them (training those layers is
-not ported yet). The
+not ported yet). An embedding-stub config (chameleon-34b,
+musicgen-large) takes precomputed embeddings wherever a token config
+takes ids: (B, S, d) for ``loss_fn``, ``logits_fn`` and ``prefill``,
+(B, d) for ``decode``; the paged decode refuses it, as the JAX
+package's does. The
 device defaults to ``"cuda"`` and a CUDA device that is not there
 raises: the CPU runs only when the caller asks for it.
 
@@ -61,8 +65,9 @@ class Model:
                 ce_impl: str = "kernel",
                 label_smoothing: Optional[float] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, Any]]:
-        """batch: inputs (B, S) int, labels (B, S) int, weights (B, S)
-        float (0 => dummy token, paper M3).
+        """batch: inputs (B, S) int, or (B, S, d) embeddings on a stub
+        frontend, labels (B, S) int, weights (B, S) float (0 => dummy
+        token, paper M3).
 
         ``label_smoothing``: CE smoothing factor; None falls back to a
         float ``batch["label_smoothing"]`` entry if present, else 0.0.
@@ -89,7 +94,8 @@ class Model:
 
     @torch.no_grad()
     def logits_fn(self, params, inputs: torch.Tensor) -> torch.Tensor:
-        """inputs (B, S) token ids -> logits (B, S, V) (no cache)."""
+        """inputs (B, S) token ids (or (B, S, d) stub embeddings) ->
+        logits (B, S, V) (no cache)."""
         x = tr.embed_tokens(params, inputs, self.cfg)
         hidden, _ = tr.hidden_states(params, x, self.cfg)
         return tr.unembed(params, hidden, self.cfg)
@@ -98,7 +104,8 @@ class Model:
     def prefill(self, params, inputs: torch.Tensor,
                 max_len: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """inputs (B, S) token ids, one shared length. Returns
+        """inputs (B, S) token ids (or (B, S, d) stub embeddings), one
+        shared length. Returns
         (next-token logits (B, V) of the last position, the contiguous
         cache covering ``max_len`` (default S) positions)."""
         cfg = self.cfg
@@ -112,8 +119,9 @@ class Model:
     @torch.no_grad()
     def decode(self, params, inputs: torch.Tensor, cache, pos: int
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """inputs: token ids (B,) at position ``pos`` (an int). Returns
-        (logits (B, V), the cache updated in place)."""
+        """inputs: token ids (B,), or stub embeddings (B, d), at position
+        ``pos`` (an int). Returns (logits (B, V), the cache updated in
+        place)."""
         x = tr.embed_tokens(params, inputs[:, None], self.cfg)
         hidden, cache = tr.decode_step(params, x, self.cfg, cache, pos)
         return tr.unembed(params, hidden, self.cfg)[:, 0, :], cache
@@ -156,6 +164,9 @@ class Model:
                      block_tables: torch.Tensor, kv_lens: torch.Tensor
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """inputs: token ids (B,); kv_lens (B,) per-sequence depths."""
+        if self.cfg.frontend != "token":
+            raise ValueError("paged decode supports the token frontend "
+                             f"only, got {self.cfg.frontend!r}")
         x = tr.embed_tokens(params, inputs[:, None], self.cfg)
         hidden, cache = tr.decode_step_paged(params, x, self.cfg,
                                              paged_cache, block_tables,

@@ -10,11 +10,14 @@ Stack plans (:func:`stack_plan`, from the config):
   xlstm   — alternating mLSTM and sLSTM blocks, num_layers // 2 pairs
             (xlstm-125m).
 
-Parameters are a plain dict: ``embed`` (V, d), ``final_norm``,
-``lm_head`` (d, V; absent with tied embeddings, where the head is
-``embed`` transposed) and ``layers``, a list with one dict per layer:
-``ln1``, ``attn``, ``ln2`` and ``mlp`` or ``moe`` on the uniform plan
-(``attn`` holds the MLA projections on an MLA config), ``ln`` and
+Parameters are a plain dict: ``embed`` (V, d; the token frontend
+only), ``final_norm``, ``lm_head`` (d, V; absent with tied embeddings
+on the token frontend, where the head is ``embed`` transposed) and
+``layers``, a list with one dict per layer: ``ln1``, ``attn``, ``ln2``
+and ``mlp`` or ``moe`` on the uniform plan (``attn`` holds the MLA
+projections on an MLA config, and ``q_norm``/``k_norm`` with QK-norm;
+an Arctic-style MoE layer adds ``dense``, the dense residual MLP run
+beside the experts), ``ln`` and
 ``mamba`` on the mamba and zamba plans; the zamba plan adds
 ``shared_attn`` (``ln1``, ``attn``, ``ln2``, ``mlp``), ONE dict applied
 ``num_layers // attn_every`` times, each application with its own KV
@@ -33,7 +36,9 @@ package) and the contiguous cache of static-batch serving
 (:func:`prefill`, :func:`init_cache`, :func:`decode_step`; every
 plan). MoE, MLA, Mamba2, zamba and xLSTM stacks are ported for serving
 only; :func:`check_supported` names what a config may not use yet,
-:func:`check_servable` what serving may not.
+:func:`check_servable` what serving may not. The embedding-stub
+frontend (chameleon, musicgen) takes precomputed embeddings (B, S, d)
+in place of token ids, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -45,7 +50,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.flash_attention import (
-    HEAD_DIM, PREFILL_HEAD_DIMS)
+    DECODE_HEAD_DIMS, PREFILL_HEAD_DIMS)
 from repro_torch.kernels.mla_decode.mla_decode import RANK, ROPE_DIM
 from repro_torch.kernels.mlstm_scan.mlstm_scan import MAX_DK, WIDTH_MULT
 from repro_torch.kernels.ssd_scan.ssd_scan import (MAX_CHUNK, P_SLICE,
@@ -54,7 +59,8 @@ from repro_torch.models.blocks import (_cast, apply_norm, attention_block,
                                        dtype_of, embed_init, dense_init,
                                        init_attention, init_mla, init_mlp,
                                        init_moe, init_norm, mla_block,
-                                       mlp_block, moe_block)
+                                       mlp_block, mlp_param_count,
+                                       moe_block)
 from repro_torch.models.kvcache import (PagedLayout, attention_decode,
                                         attention_decode_paged,
                                         decode_write_index, init_gqa_cache,
@@ -83,9 +89,9 @@ def stack_plan(cfg: ModelConfig) -> str:
 def check_supported(cfg: ModelConfig, serving: bool = False) -> None:
     """Raise for any config feature outside this port. MoE, MLA, SSM
     (Mamba2), hybrid (zamba) and xLSTM stacks pass only with ``serving``
-    (prefill and decode): their training (the MoE aux loss, the MLA
-    backward, the SSD backward, the mLSTM backward) is not ported
-    yet."""
+    (prefill and decode): their training (the MoE aux loss and
+    capacity, the MLA backward, the SSD backward, the mLSTM backward) is
+    not ported yet."""
     unsupported = [
         (cfg.moe.enabled and not serving, "MoE training"),
         (cfg.mla.enabled and not serving, "MLA training"),
@@ -94,14 +100,14 @@ def check_supported(cfg: ModelConfig, serving: bool = False) -> None:
         (cfg.hybrid.enabled and not serving, "hybrid training"),
         (cfg.hybrid.enabled and not cfg.ssm.enabled,
          "hybrid without an SSM"),
-        (cfg.moe.dense_residual, "MoE dense_residual"),
         (cfg.xlstm.enabled and not serving,
          "xLSTM training (the mLSTM backward)"),
-        (cfg.qk_norm, "qk_norm"),
-        (cfg.frontend != "token", f"frontend '{cfg.frontend}'"),
+        (cfg.frontend not in ("token", "embedding_stub"),
+         f"frontend '{cfg.frontend}'"),
         (cfg.norm not in ("rmsnorm", "layernorm", "nonparam_ln"),
          f"norm '{cfg.norm}'"),
-        (cfg.activation != "swiglu", f"activation '{cfg.activation}'"),
+        (cfg.activation not in ("swiglu", "geglu", "gelu"),
+         f"activation '{cfg.activation}'"),
     ]
     missing = [name for bad, name in unsupported if bad]
     if missing:
@@ -123,7 +129,7 @@ def head_param_keys(cfg: ModelConfig) -> Tuple[str, ...]:
     0 (the head): stage 0 is the head, stage s layer L-s, stage L+1 the
     embedding table (a tied table also takes a head-stage contribution,
     so it is final only at L+1)."""
-    if cfg.tie_embeddings and cfg.frontend == "token":
+    if tied_head(cfg):
         return ("final_norm", "embed")
     return ("final_norm", "lm_head")
 
@@ -142,7 +148,7 @@ def check_paged(cfg: ModelConfig) -> None:
 def check_servable(cfg: ModelConfig, device, paged: bool = True) -> None:
     """``check_supported(serving=True)`` plus what the serving kernels
     cannot take on the card: the GQA paged-decode kernel (``paged``) is
-    built for head_dim 64, the MLA decode kernels (the paged one, and
+    built for head dims 64 and 128, the MLA decode kernels (the paged one, and
     with ``paged=False`` the contiguous one) for latent rank 512 and RoPE
     width 64, the prefill kernel for head dims 64, 80, 128 and 192, the
     SSD kernel for state dim 64, a head dim that is a multiple of 32 and
@@ -190,12 +196,12 @@ def check_servable(cfg: ModelConfig, device, paged: bool = True) -> None:
                 f"nope + rope in {PREFILL_HEAD_DIMS}, got "
                 f"{m.kv_lora_rank}, {m.rope_head_dim}, {dqk}; not ported "
                 f"yet")
-    elif paged and cfg.head_dim != HEAD_DIM:
+    elif paged and cfg.head_dim not in DECODE_HEAD_DIMS:
         raise ValueError(
             f"{cfg.name}: serving with attention_impl='kernel' needs "
-            f"head_dim {HEAD_DIM} (the paged-decode kernel's), got "
-            f"{cfg.head_dim}; serving at head_dim {cfg.head_dim} is not "
-            f"ported yet")
+            f"head_dim in {DECODE_HEAD_DIMS} (the paged-decode kernel's), "
+            f"got {cfg.head_dim}; serving at head_dim {cfg.head_dim} is "
+            f"not ported yet")
     elif cfg.head_dim not in PREFILL_HEAD_DIMS:
         raise ValueError(
             f"{cfg.name}: the prefill kernel (attention_impl='kernel') "
@@ -210,11 +216,11 @@ def init_params(cfg: ModelConfig, seed: int, device) -> Dict[str, Any]:
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
     dt = dtype_of(cfg.param_dtype)
-    params: Dict[str, Any] = {
-        "embed": embed_init(gen, (cfg.vocab_size, cfg.d_model), dt),
-        "final_norm": init_norm(cfg, gen),
-    }
-    if not cfg.tie_embeddings:
+    params: Dict[str, Any] = {}
+    if cfg.frontend == "token":
+        params["embed"] = embed_init(gen, (cfg.vocab_size, cfg.d_model), dt)
+    params["final_norm"] = init_norm(cfg, gen)
+    if not tied_head(cfg):
         params["lm_head"] = dense_init(gen, (cfg.d_model, cfg.vocab_size),
                                        dt)
     plan = stack_plan(cfg)
@@ -242,9 +248,17 @@ def init_uniform_layer(cfg: ModelConfig, gen: torch.Generator
         "ln2": init_norm(cfg, gen)}
     if cfg.moe.enabled:
         p["moe"] = init_moe(cfg, gen)
+        if cfg.moe.dense_residual:
+            p["dense"] = init_mlp(cfg, gen, d_ff=cfg.d_ff)
     else:
         p["mlp"] = init_mlp(cfg, gen)
     return p
+
+
+def tied_head(cfg: ModelConfig) -> bool:
+    """Whether the head is the embedding table transposed: tied weights
+    on the token frontend (a stub frontend has no table)."""
+    return cfg.tie_embeddings and cfg.frontend == "token"
 
 
 def init_mamba_layer(cfg: ModelConfig, gen: torch.Generator
@@ -266,8 +280,11 @@ def count_params_analytic(cfg: ModelConfig) -> int:
     """Parameters of ``init_params(cfg)``, from the widths alone."""
     d, dh, h = cfg.d_model, cfg.head_dim, cfg.num_heads
     norm = {"rmsnorm": d, "layernorm": 2 * d, "nonparam_ln": 0}[cfg.norm]
-    head = 0 if cfg.tie_embeddings else d * cfg.vocab_size
-    base = cfg.vocab_size * d + norm + head
+    head = 0 if tied_head(cfg) else d * cfg.vocab_size
+    embed = cfg.vocab_size * d if cfg.frontend == "token" else 0
+    base = embed + norm + head
+    gqa = d * dh * (h * 2 + cfg.num_kv_heads * 2) + (2 * dh if cfg.qk_norm
+                                                      else 0)
     plan = stack_plan(cfg)
     if plan == "xlstm":
         di, nh, _ = mlstm_dims(cfg)
@@ -283,8 +300,8 @@ def count_params_analytic(cfg: ModelConfig) -> int:
         total = base + cfg.num_layers * (norm + mamba)
         if plan == "zamba":
             ff = cfg.hybrid.shared_attn_d_ff
-            total += (norm + d * dh * (h * 2 + cfg.num_kv_heads * 2)
-                      + (norm + 3 * d * ff if ff > 0 else 0))
+            total += (norm + gqa
+                      + (norm + mlp_param_count(cfg, ff) if ff > 0 else 0))
         return total
     if cfg.mla.enabled:
         m = cfg.mla
@@ -295,13 +312,16 @@ def count_params_analytic(cfg: ModelConfig) -> int:
         attn += (d * m.q_lora_rank + m.q_lora_rank + m.q_lora_rank * h * qd
                  if m.q_lora_rank > 0 else d * h * qd)
     else:
-        attn = d * dh * (h * 2 + cfg.num_kv_heads * 2)
+        attn = gqa
     if cfg.moe.enabled:
         mo = cfg.moe
         ffn = (d * mo.num_experts + 3 * mo.num_experts * d * mo.expert_d_ff
-               + 3 * d * mo.shared_d_ff * mo.num_shared_experts)
+               + (mlp_param_count(cfg, mo.shared_d_ff * mo.num_shared_experts)
+                  if mo.num_shared_experts > 0 else 0)
+               + (mlp_param_count(cfg, cfg.d_ff) if mo.dense_residual
+                  else 0))
     else:
-        ffn = 3 * d * cfg.d_ff
+        ffn = mlp_param_count(cfg, cfg.d_ff)
     layer = 2 * norm + attn + ffn
     return base + cfg.num_layers * layer
 
@@ -335,19 +355,23 @@ def cast_params(params: Any, dtype: torch.dtype) -> Any:
 
 def embed_tokens(params, inputs: torch.Tensor,
                  cfg: ModelConfig) -> torch.Tensor:
-    """Token ids (B, S) -> embeddings (B, S, d) in the compute dtype.
-    ``F.embedding``: its backward sums repeated tokens deterministically
-    on the card."""
-    return F.embedding(inputs.long(), params["embed"]).to(
-        dtype_of(cfg.compute_dtype))
+    """Token ids (B, S) -> embeddings (B, S, d) in the compute dtype, or,
+    on the embedding-stub frontend, the precomputed embeddings (B, S, d)
+    cast to it. ``F.embedding``: its backward sums repeated tokens
+    deterministically on the card."""
+    cdt = dtype_of(cfg.compute_dtype)
+    if cfg.frontend != "token":
+        return inputs.to(cdt)
+    return F.embedding(inputs.long(), params["embed"]).to(cdt)
 
 
 def lm_head_matrix(params, cfg: ModelConfig) -> torch.Tensor:
     """The (d, V) head in the compute dtype: ``embed`` transposed (a
     view) when tied. With tied weights the gradient reaches ``embed``
     through both this and the gather of :func:`embed_tokens`, and
-    autograd sums the two into the one leaf, as JAX does."""
-    if cfg.tie_embeddings:
+    autograd sums the two into the one leaf, as JAX does. A stub
+    frontend always has its own ``lm_head``."""
+    if tied_head(cfg):
         return _cast(params["embed"], cfg.compute_dtype).t()
     return _cast(params["lm_head"], cfg.compute_dtype)
 
@@ -362,7 +386,7 @@ def unembed(params, hidden: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 def apply_uniform_layer(p, x: torch.Tensor, cfg: ModelConfig,
                         positions: torch.Tensor) -> torch.Tensor:
-    """One pre-norm decoder layer: attention then SwiGLU, residual."""
+    """One pre-norm decoder layer: attention then the MLP, residual."""
     x = x + attention_block(p["attn"], apply_norm(p["ln1"], x, cfg), cfg,
                             positions)
     return x + mlp_block(p["mlp"], apply_norm(p["ln2"], x, cfg), cfg)
@@ -519,9 +543,13 @@ def pipeline_stage_fns(cfg: ModelConfig, stage_ranges, *,
 
 def _ffn_serving(p, h2: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """The layer's feed-forward on the serving path: the MoE block at the
-    eval capacity (its aux loss dropped) or the dense MLP."""
+    eval capacity (its aux loss dropped), plus the dense residual MLP on
+    the same input where the layer has one (Arctic), or the dense MLP."""
     if "moe" in p:
-        return moe_block(p["moe"], h2, cfg)[0]
+        m = moe_block(p["moe"], h2, cfg)[0]
+        if "dense" in p:
+            m = m + mlp_block(p["dense"], h2, cfg)
+        return m
     return mlp_block(p["mlp"], h2, cfg)
 
 

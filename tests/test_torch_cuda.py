@@ -36,7 +36,10 @@ to its split model (2e-3) at the generate shape, and whose static path
 (``static_generate``), kernel route against reference route at fp32,
 is held by ``MLA_PATH_TOL`` with identical greedy tokens.
 The bf16 SSD scan (tensor cores, three kernels) must repeat its bits,
-also where the chunk is not a multiple of its 64-row tile.
+also where the chunk is not a multiple of its 64-row tile. The paged
+decode at head dim 128 (glm4-9b's group of 16, phi4-mini's 3, arctic's
+7) is held like the head-dim-64 one (1e-4 fp32, 2e-2 bf16), repeats its
+bits and is batch invariant.
 """
 import numpy as np
 import pytest
@@ -102,11 +105,11 @@ def test_prefill_kernel_matches_plain(dev, dtype, tol, b, sq, skv, h, hkv,
     assert _err(got, want) <= tol
 
 
-def _paged(rng, dev, dtype, b, bs, mb, hkv, group, lens):
+def _paged(rng, dev, dtype, b, bs, mb, hkv, group, lens, d=64):
     n = b * mb
-    q = _randn(rng, (b, 1, hkv * group, 64), dev, dtype)
-    kp = _randn(rng, (n, bs, hkv, 64), dev, dtype)
-    vp = _randn(rng, (n, bs, hkv, 64), dev, dtype)
+    q = _randn(rng, (b, 1, hkv * group, d), dev, dtype)
+    kp = _randn(rng, (n, bs, hkv, d), dev, dtype)
+    vp = _randn(rng, (n, bs, hkv, d), dev, dtype)
     tables = np.full((b, mb), n, np.int32)
     perm = rng.permutation(n)
     for i, ln in enumerate(lens):
@@ -137,6 +140,40 @@ def test_paged_decode_kernel_matches_plain(dev, dtype, tol, bs, mb, hkv,
     assert _err(got, want) <= tol
     inactive = [i for i, ln in enumerate(lens) if ln == 1]
     assert not got[inactive].any()
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("bs,mb,hkv,group,lens", [
+    (16, 32, 2, 16, [512, 1, 37, 200, 16, 301, 455, 129]),   # glm4
+    (12, 9, 8, 3, [100, 1, 13, 108]),                       # phi4
+    (16, 5, 8, 7, [64, 1, 80, 33]),                         # arctic
+])
+def test_paged_decode_kernel_d128_matches_plain(dev, dtype, tol, bs, mb,
+                                                hkv, group, lens):
+    rng = np.random.default_rng(bs * mb + 128)
+    args = _paged(rng, dev, dtype, len(lens), bs, mb, hkv, group, lens,
+                  d=128)
+    n0 = fa.flash_decode_paged_cuda.launches
+    got = fa.flash_decode_paged_cuda(*args)
+    assert fa.flash_decode_paged_cuda.launches == n0 + 1
+    assert _err(got, fa.flash_decode_paged_plain(*args)) <= tol
+    assert torch.equal(fa.flash_decode_paged_cuda(*args), got)
+    inactive = [i for i, ln in enumerate(lens) if ln == 1]
+    assert not got[inactive].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_kernel_d128_is_batch_invariant(dev, dtype):
+    rng = np.random.default_rng(6)
+    lens = [1000, 1, 37, 300, 16, 512, 455, 129]
+    q, kp, vp, tables, kv_lens = _paged(rng, dev, dtype, 8, 16, 64, 2, 16,
+                                        lens, d=128)
+    got = fa.flash_decode_paged_cuda(q, kp, vp, tables, kv_lens)
+    seq = 3
+    alone = fa.flash_decode_paged_cuda(
+        q[seq:seq + 1].contiguous(), kp, vp,
+        tables[seq:seq + 1, :24].contiguous(), kv_lens[seq:seq + 1])
+    assert torch.equal(alone[0], got[seq])
 
 
 def test_kernels_refuse_what_they_do_not_take(dev):

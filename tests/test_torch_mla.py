@@ -432,8 +432,9 @@ def test_check_servable_on_the_card_names_kernel_widths():
                        "cuda")
     gqa = dataclasses.replace(tcfgs.resolve("olmo-1b"),
                               attention_impl="kernel")
-    with pytest.raises(ValueError, match="head_dim 64"):
-        ttr.check_servable(gqa, "cuda")
+    ttr.check_servable(gqa, "cuda")             # head dim 128 is built
+    with pytest.raises(ValueError, match=r"head_dim in \(64, 128\)"):
+        ttr.check_servable(dataclasses.replace(gqa, head_dim=80), "cuda")
 
 
 def test_full_depth_deepseek_refused_before_allocating(monkeypatch):

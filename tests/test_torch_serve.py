@@ -201,13 +201,24 @@ def _port_impl(name):
     return "kernel" if name == "pallas" else name
 
 
-@pytest.mark.parametrize("which", ["smoke", "full"])
-def test_configs_match_jax_field_by_field(which):
+# every arch the JAX package registers; tinyllama's cases keep their
+# first ids
+ALL_ARCHS = ["arctic-480b", "chameleon-34b", "deepseek-v2-236b", "glm4-9b",
+             "musicgen-large", "olmo-1b", "phi4-mini-3.8b", ARCH,
+             "xlstm-125m", "zamba2-2.7b"]
+
+
+@pytest.mark.parametrize("which,arch", [
+    pytest.param(w, a, id=w if a == ARCH else f"{w}-{a}")
+    for w in ("smoke", "full") for a in ALL_ARCHS])
+def test_configs_match_jax_field_by_field(which, arch):
     get = {"smoke": "smoke_config", "full": "resolve"}[which]
+    jcfgs.resolve(ARCH)                 # loads the JAX registry
+    assert sorted(jcfgs._REGISTRY) == sorted(ALL_ARCHS)
     for impl in jcfgs.ATTENTION_IMPLS:
-        jc = dataclasses.replace(getattr(jcfgs, get)(ARCH),
+        jc = dataclasses.replace(getattr(jcfgs, get)(arch),
                                  attention_impl=impl)
-        tc = dataclasses.replace(getattr(tcfgs, get)(ARCH),
+        tc = dataclasses.replace(getattr(tcfgs, get)(arch),
                                  attention_impl=_port_impl(impl))
         jd, td = dataclasses.asdict(jc), dataclasses.asdict(tc)
         jd["attention_impl"] = _port_impl(jd["attention_impl"])
@@ -216,7 +227,7 @@ def test_configs_match_jax_field_by_field(which):
     assert tcfgs.ATTENTION_IMPLS == tuple(
         _port_impl(i) for i in jcfgs.ATTENTION_IMPLS)
     with pytest.raises(ValueError, match="attention_impl"):
-        dataclasses.replace(tcfgs.smoke_config(ARCH), attention_impl="pallas")
+        dataclasses.replace(tcfgs.smoke_config(arch), attention_impl="pallas")
 
 
 def _flags(main):

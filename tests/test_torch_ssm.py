@@ -426,8 +426,9 @@ def test_check_servable_on_the_card_names_kernel_widths():
     olmo = dataclasses.replace(tcfgs.resolve("olmo-1b"),
                                attention_impl="kernel")
     ttr.check_servable(olmo, "cuda", paged=False)
-    with pytest.raises(ValueError, match="head_dim 64"):
-        ttr.check_servable(olmo, "cuda")
+    ttr.check_servable(olmo, "cuda")            # the decode kernel's 128
+    with pytest.raises(ValueError, match=r"head_dim in \(64, 128\)"):
+        ttr.check_servable(dataclasses.replace(olmo, head_dim=80), "cuda")
 
 
 def test_paged_engine_refuses_zamba_as_jax_does(jax_side):
