@@ -12,7 +12,7 @@ Phases (any failure exits non-zero; no phase swallows an error):
    CUDA kernel from ``src/repro_torch/csrc`` with nvcc (one nvcc per
    source, all started together) and prints the build time. Then the
    bf16 tensor-core kernels (the prefill forward at head dims 64, 80,
-   128 and 192, the backward's dq and dk/dv passes at 64 and 128, the
+   128 and 192, the backward's dq and dk/dv passes at 64, 128 and 192, the
    CE forward for both head layouts, the MLA decode's split kernel for
    the paged and the contiguous cache, the SSD and mLSTM scans'
    chunk-state and chunk-scan kernels, and their helpers: the CE and MLA
@@ -43,7 +43,9 @@ Phases (any failure exits non-zero; no phase swallows an error):
    dense inputs, a yardstick the port never calls.
 3. Training kernel phase: the prefill forward with its lse and the
    attention backward at olmo-1b heads (H=Hkv=16, D=128) and tinyllama's
-   (H=32, Hkv=4, D=64), B=2, S in {512, 1024, 200}; the fused
+   (H=32, Hkv=4, D=64), B=2, S in {512, 1024, 200}, and at head dim 192
+   (MLA training: H=8, Hkv=2, S=200, and deepseek-v2's B=5, S=1024,
+   H=Hkv=128, the shape phase 18 gives it, timed in bf16); the fused
    cross-entropy forward at T=4096, D=2048, V=50304 with zero weights,
    eps in {0, 0.1}, the head as a (D, V) matrix and as a tied (V, D)
    table; the dlogits pass on a (4096, 50304) tile. Each output is
@@ -339,10 +341,27 @@ Phases (any failure exits non-zero; no phase swallows an error):
    tokens/s, the model-FLOPs share of 989 TFLOP/s and peak memory; then
    the fp32 probe at 2 layers (kernel path vs plain path, loss, grad
    norm and worst leaf within phase 5's fp32 limits).
-18. Prints the seconds of each phase, then one ``{"kernels": [...]}``
-   line (twelve entries: the eleven kernels and kernel 2 at head dim
+18. MoE and MLA training phase: deepseek-v2 at full width, 1 of 60
+   layers (5.02 B parameters: 160 experts top-6, two shared experts,
+   MLA at head dim 192, vocab 102400 with an untied head), bf16, remat
+   full, ``configs.base.optimizer_for``'s bf16 moments, through
+   ``build_train_step`` with phase 5's settings (8 rows of 1024 tokens
+   of the synthetic corpus, 2 dummy rows, accum 2, 4 steps): finite
+   losses, the aux term of ``loss_fn``'s metrics finite and positive,
+   kernels 1 and 1b (head dim 192), 3 and 3b launched as phase 5 counts
+   them (counters zeroed just before, read just after); ms/step (median
+   of steps 2..4), real tokens/s, the model-FLOPs share of 989 TFLOP/s
+   with active parameters only (6 of 160 experts), peak memory; one
+   more step under torch.profiler (device time by kernel). Then the
+   fp32 probe at the same width, fp32 parameters, on 3 rows (2 real, 1
+   dummy): kernel path vs plain path, loss, grad norm and worst leaf
+   within phase 5's fp32 limits.
+19. Prints the seconds of each phase, then one ``{"kernels": [...]}``
+   line (thirteen entries: the eleven kernels, kernel 2 at head dim
    128 as ``paged_decode_d128``, with its three head layouts as
-   ``cases``; each with its launches on its path, which must
+   ``cases``, and kernel 1b at head dim 192 as
+   ``flash_attention_bwd_d192``, its launches phase 18's; each with
+   its launches on its path, which must
    be above 0; the prefill kernel's D=64 (phase 2's S=512 bucket), D=192
    and D=80 cases ride in its entry as ``at_d64``, ``at_d192`` and
    ``at_d80``, the GQA and MLA paged decodes' longer windows as
@@ -399,6 +418,9 @@ REPS = 20
 # rows x tokens of one train-phase microbatch: 8 rows + 2 dummy rows of
 # headroom, accum 2
 TRAIN_MICROBATCH = (5, 1024)
+# the attention of one phase-18 microbatch (deepseek-v2's MLA): B, S, H,
+# Hkv, D
+DEEPSEEK_MICROBATCH = (5, 1024, 128, 128, 192)
 
 SERVE_ARGV = ["--arch", "tinyllama-1.1b", "--device", "cuda",
               "--attention-impl", "kernel", "--seed", "0",
@@ -658,7 +680,7 @@ def sm90_report(build, lib, fa, ce, md, sk, mk):
               + (f"; SASS {r.get('sass_hgmma', 0)} HGMMA" if have_sass
                  else "; no cuobjdump: SASS not read"), flush=True)
     products = [n for n in rows if n not in SM90_HELPERS]
-    check(len(products) == 16, f"bf16 tensor-core kernels found: {products}")
+    check(len(products) == 18, f"bf16 tensor-core kernels found: {products}")
     for n in products:
         r = rows[n]
         check(r["spill_bytes"] == 0, f"{n}: ptxas spilled")
@@ -1148,6 +1170,12 @@ def train_kernel_phase(fa, ce, ce_ref, dev, main_rows, main_seq):
             for s in (512, 1024, 200):
                 new += attention_train_case(fa, 2, s, h, hkv, d, dtype, gen,
                                             dev, timed=False)
+        # head dim 192 (MLA training): GQA on ragged tiles, then the
+        # shape phase 18 gives it, timed in bf16
+        new += attention_train_case(fa, 2, 200, 8, 2, MLA_DQK, dtype, gen,
+                                    dev, timed=False)
+        new += attention_train_case(fa, *DEEPSEEK_MICROBATCH, dtype, gen,
+                                    dev, timed=dtype == torch.bfloat16)
         for eps, tied in ((0.0, False), (0.1, True)):
             rec, inputs = ce_case(ce, ce_ref, 4096, 2048, 50304, eps, tied,
                                   dtype, gen, dev, timed=False)
@@ -4590,6 +4618,209 @@ def archs_phase(fa, ce, md, dev, smi):
 
 
 # --------------------------------------------------------------------------
+# phase 18: MoE and MLA training (deepseek-v2 at full width, 1 of 60
+# layers: one layer's parameters, gradients, accumulation carry and bf16
+# moments come to ~50 GB; two layers do not fit one 80 GB card)
+# --------------------------------------------------------------------------
+
+DEEPSEEK_TRAIN_LAYERS = 1
+DEEPSEEK_PROBE_ROWS = 3      # the fp32 probe: 2 real rows and 1 dummy
+
+
+def deepseek_batches(cfg, dev, seed=0):
+    """``STUB_STEPS`` packed batches of the synthetic corpus (zipf
+    bigrams, ``data/synthetic.py``): ``STUB_ROWS`` real rows of
+    ``STUB_SEQ`` tokens and the plan's weight-0 dummy rows (phase 5's
+    plan)."""
+    import torch
+    from repro_torch.core import capacity as cap
+    from repro_torch.core import dummy
+    from repro_torch.data.synthetic import make_lm_records
+    plan = cap.plan_capacities(STUB_ROWS, (1.0,), headroom=1.25,
+                               round_buffer_to=STUB_ACCUM)
+    out = []
+    for i in range(STUB_STEPS):
+        rec = make_lm_records(STUB_ROWS, STUB_SEQ, cfg.vocab_size,
+                              seed=seed + i)
+        packed = dummy.pack_global_batch(rec, plan)
+        out.append({k: torch.from_numpy(v).to(dev)
+                    for k, v in packed.items()})
+    return out, plan.buffer_rows
+
+
+def active_params(cfg) -> int:
+    """Parameters a token runs through: all but the unrouted experts'
+    (JAX's ``count_params_analytic(active_only=True)``)."""
+    mo = cfg.moe
+    per_expert = 3 * cfg.d_model * mo.expert_d_ff
+    return cfg.param_count() - cfg.num_layers * (
+        mo.num_experts - mo.top_k) * per_expert
+
+
+def _rel_l2_by_rows(got, want) -> float:
+    """``parity.rel_l2`` summed over blocks of leading-dim rows (its fp64
+    copies of a whole 1.26 B-element expert stack would not fit beside
+    the probe's two gradient trees)."""
+    import torch
+    from repro_torch.optim.adam import row_blocks
+    num = den = 0.0
+    for r in row_blocks(want):
+        g, w = got[r].double(), want[r].double()
+        num += torch.sum(torch.square(g - w)).item()
+        den += torch.sum(torch.square(w)).item()
+    return (num / den) ** 0.5 if den > 0 else num ** 0.5
+
+
+def deepseek_train_phase(fa, ce, dev, smi):
+    """Phase 18: deepseek-v2 at full width, ``DEEPSEEK_TRAIN_LAYERS`` of
+    60 layers, through ``build_train_step`` (see the module docstring)."""
+    import gc
+    import torch
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import tree_leaves
+    from repro_torch.optim import adam
+    from torch.profiler import ProfilerActivity, profile
+    t_phase = time.monotonic()
+    full = cfgbase.resolve("deepseek-v2-236b")
+    cfg = dataclasses.replace(full, num_layers=DEEPSEEK_TRAIN_LAYERS,
+                              attention_impl="kernel")
+    ocfg = cfgbase.optimizer_for(cfg, lr=3e-4, warmup_steps=2,
+                                 schedule="constant",
+                                 total_steps=STUB_STEPS)
+    check(ocfg.m_dtype == ocfg.v_dtype == "bfloat16",
+          f"optimizer_for gave {ocfg.m_dtype}/{ocfg.v_dtype} moments")
+    model = build_model(cfg, dev)
+    tcfg = cfgbase.TrainConfig(
+        model=cfg, shape=cfgbase.ShapeConfig("deepseek", STUB_SEQ,
+                                             STUB_ROWS, "train"),
+        het=cfgbase.HetConfig(accum_steps=STUB_ACCUM), optimizer=ocfg)
+    batches, rows = deepseek_batches(cfg, dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = tsteps.init_train_state(model, tcfg)
+    step = tsteps.build_train_step(model, tcfg)
+    # the aux term: loss_fn's metrics on the first microbatch
+    with torch.no_grad():
+        half = {k: v[:rows // STUB_ACCUM] for k, v in batches[0].items()}
+        _, _, met0 = model.loss_fn(state.params, half)
+    aux = float(met0["aux"])
+    fns = _counters(fa, ce)
+    for f in fns.values():
+        f.launches = 0
+    losses, step_s = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        state, met = step(state, b)
+        torch.cuda.synchronize()
+        step_s.append(time.monotonic() - t0)
+        losses.append(float(met["loss"]))
+    launches = {n: f.launches for n, f in fns.items()}
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    expect = {k: v for k, v in train_launches(
+        cfg, rows, STUB_ACCUM, STUB_SEQ, STUB_STEPS).items()
+        if k in launches}
+    expect["flash_decode_paged_cuda"] = 0
+    check(all(_finite(x) for x in losses), f"deepseek losses {losses}")
+    check(_finite(aux) and aux > 0, f"deepseek aux term {aux}")
+    check(launches == expect, f"deepseek train launches {launches} != "
+          f"{expect}")
+    # one more step under torch.profiler: device time by kernel
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, _ = step(state, batches[-1])
+        torch.cuda.synchronize()
+    step_profile = _profile_rec(prof, (time.monotonic() - t0) * 1e6)
+    del state, step, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    ms = statistics.median(step_s[1:]) * 1e3
+    tokens = STUB_ROWS * STUB_SEQ
+    processed = rows * STUB_SEQ
+    L = cfg.num_layers
+    attn = 3 * 2.0 * rows * L * cfg.num_heads * STUB_SEQ ** 2 * \
+        (cfg.mla.nope_head_dim + cfg.mla.rope_head_dim)
+    n_active = active_params(cfg)
+    flops = 6.0 * n_active * processed + attn
+    busy, win = step_profile["device_busy_us"], step_profile["window_us"]
+    out = {"layers": L, "rows": rows, "losses": losses, "aux": aux,
+           "moments": [ocfg.m_dtype, ocfg.v_dtype], "launches": launches,
+           "expected_launches": expect,
+           "step_ms": [t * 1e3 for t in step_s],
+           "ms_per_step_median_2_to_n": ms,
+           "tokens_per_s": tokens / (ms / 1e3),
+           "params": cfg.param_count(), "active_params": n_active,
+           "model_flops_per_step": flops,
+           "mfu_vs_989_tflops": flops / (ms / 1e3) / H100_BF16_FLOPS,
+           "peak_memory_gib": peak, "step_profile": step_profile}
+    print(f"[deepseek-train] deepseek-v2-236b, {L} of {full.num_layers} "
+          f"layers at full width ({cfg.param_count()} parameters, "
+          f"{n_active} active), bf16, remat {cfg.remat}, {ocfg.m_dtype} "
+          f"moments, {rows} rows of {STUB_SEQ} tokens ({STUB_ROWS} real), "
+          f"accum {STUB_ACCUM}: losses "
+          + ", ".join(f"{x:.4f}" for x in losses)
+          + f"; aux {aux:.6f}; {ms:.1f} ms/step (median of steps "
+          f"2..{STUB_STEPS}), {out['tokens_per_s']:.0f} real tokens/s, "
+          f"model FLOPs {flops:.3e}/step = "
+          f"{100 * out['mfu_vs_989_tflops']:.2f}% of 989 TFLOP/s, peak "
+          f"memory {peak:.2f} GiB, launches {launches} [{smi}]",
+          flush=True)
+    print(f"[deepseek-train] torch.profiler over 1 step: kernels "
+          f"{busy / 1e3:.3f} ms of device time in {win / 1e3:.3f} ms of "
+          f"wall; by kernel: "
+          + "; ".join(f"{k['name'][:60]} x{k['count']} {k['us'] / 1e3:.3f} "
+                      f"ms" for k in step_profile["kernels"][:12]),
+          flush=True)
+
+    # the fp32 probe: kernel path vs plain path, same params and rows;
+    # fp32 parameters, so the gradients are not rounded to bf16 (~60 GB:
+    # the parameters and both gradient trees)
+    pcfg = dataclasses.replace(cfg, compute_dtype="float32",
+                               param_dtype="float32")
+    torch.cuda.reset_peak_memory_stats(dev)
+    kern = build_model(pcfg, dev)
+    plain = build_model(dataclasses.replace(pcfg,
+                                            attention_impl="reference"), dev)
+    params = kern.init_params(1)
+    b0 = batches[0]
+    probe = {k: torch.cat([v[:DEEPSEEK_PROBE_ROWS - 1], v[rows - 1:]])
+             for k, v in b0.items()}
+    ptcfg = dataclasses.replace(tcfg, model=pcfg,
+                                het=cfgbase.HetConfig(accum_steps=1))
+    k_loss, _, k_grads = tsteps.loss_and_grads(kern, ptcfg, params, probe)
+    loss, _, grads = tsteps.loss_and_grads(plain, ptcfg, params, probe,
+                                           ce_impl="reference")
+    leaves = [_rel_l2_by_rows(a, b) for a, b in zip(tree_leaves(k_grads),
+                                                    tree_leaves(grads))]
+    gk, gr = adam.global_norm(k_grads), adam.global_norm(grads)
+    tol = TRAIN_RTOL["float32"]
+    rec = {"layers": L, "rows": DEEPSEEK_PROBE_ROWS,
+           "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+           "loss_rel": abs(float(k_loss) - float(loss)) / abs(float(loss)),
+           "grad_norm_rel": abs(float(gk) - float(gr)) / float(gr),
+           "worst_leaf_rel_l2": max(leaves), "tol": tol}
+    print(f"[deepseek-train] fp32 probe, {L} layer, fp32 parameters, "
+          f"{DEEPSEEK_PROBE_ROWS} rows (peak {rec['peak_memory_gib']:.2f} "
+          f"GiB): loss rel {rec['loss_rel']:.3e} (tol "
+          f"{tol['loss']:g}), grad norm rel {rec['grad_norm_rel']:.3e} "
+          f"(tol {tol['grad_norm']:g}), worst leaf rel L2 "
+          f"{rec['worst_leaf_rel_l2']:.3e} (tol {tol['leaf']:g})",
+          flush=True)
+    check(rec["loss_rel"] <= tol["loss"] and rec["grad_norm_rel"] <=
+          tol["grad_norm"] and rec["worst_leaf_rel_l2"] <= tol["leaf"],
+          f"deepseek fp32 probe: {rec}")
+    out["probe"] = rec
+    del kern, plain, params, k_grads, grads, batches, b0, probe
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.monotonic() - t_phase
+    return out
+
+
+# --------------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
@@ -4708,6 +4939,9 @@ def main(argv=None) -> int:
     d128_recs, archs = archs_phase(fa, ce, md, dev, smi)
     recs += d128_recs
     phases["archs_path"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    deepseek = deepseek_train_phase(fa, ce, dev, smi)
+    phases["deepseek_train_path"] = time.monotonic() - t0
     print("[phases] seconds: " + ", ".join(
         f"{k} {v:.1f}" for k, v in phases.items()), flush=True)
 
@@ -4749,7 +4983,12 @@ def main(argv=None) -> int:
            # same wrapper and counter, its launches the phase-17 serves'
            "paged_decode_d128": (
                "src/repro_torch/csrc/paged_decode.cu",
-               root + "flash_attention/flash_attention.py:210")}
+               root + "flash_attention/flash_attention.py:210"),
+           # kernel 1b at head dim 192 (deepseek-v2's MLA training): the
+           # same wrapper and counter, its launches phase 18's
+           "flash_attention_bwd_d192": (
+               "src/repro_torch/csrc/flash_attention_bwd.cu",
+               root + "flash_attention/ref.py:115")}
     # launches: the path each kernel serves (GQA decode: serve; the MLA
     # paged decode: the MLA serve path; the contiguous MLA decode: the
     # MLA generate path; the exchange kernels: the multi-rank train path,
@@ -4776,7 +5015,10 @@ def main(argv=None) -> int:
                    "archs_serve": archs["launches"]["serve"].get(
                        "flash_decode_paged_cuda" if n == "paged_decode_d128"
                        else n, 0),
-                   "archs_train": archs["launches"]["train"].get(n, 0)}
+                   "archs_train": archs["launches"]["train"].get(n, 0),
+                   "deepseek_train": deepseek["launches"].get(
+                       "flash_attention_bwd_cuda"
+                       if n == "flash_attention_bwd_d192" else n, 0)}
                for n in src}
     path_of = {"flash_decode_paged_cuda": "serve",
                "quantize_int8_cuda": "multi_rank",
@@ -4785,20 +5027,27 @@ def main(argv=None) -> int:
                "mla_decode_cuda": "mla_generate",
                "ssd_scan_cuda": "zamba_generate",
                "mlstm_scan_cuda": "xlstm_generate",
-               "paged_decode_d128": "archs_serve"}
+               "paged_decode_d128": "archs_serve",
+               "flash_attention_bwd_d192": "deepseek_train"}
     at_keys = ("dtype", "B", "Sq", "S", "H", "Hkv", "D", "T", "V", "R",
                "kv_lens", "bs", "rows", "MB", "G", "P", "N", "chunk", "dk",
                "dv")
     kernels = []
+    attention = ("flash_attention_cuda", "flash_attention_bwd_cuda")
     for name, (source, replaces) in src.items():
-        mine = [r for r in recs if r["kernel"] == name]
+        if name == "flash_attention_bwd_d192":
+            mine = [r for r in recs if r["kernel"] == attention[1]
+                    and r.get("D") == MLA_DQK]
+        else:
+            mine = [r for r in recs if r["kernel"] == name]
         timed = [r for r in mine if "ms" in r]
-        # the prefill kernel's row is the train path's D=128 case; its
-        # D=192 case (the MLA prefill) and D=80 case (zamba2's shared
-        # attention) ride beside it
+        # the attention kernels' rows are the train path's D=128 cases;
+        # the prefill's D=192 case (the MLA prefill) and D=80 case
+        # (zamba2's shared attention) ride beside it, the backward's
+        # D=192 case has its own row
         main_rec = [r for r in timed
                     if (r.get("D") not in (64, MLA_DQK, ZAMBA_DH)
-                        or name != "flash_attention_cuda")
+                        or name not in attention)
                     and r.get("window") != "long"
                     and "continuity" not in r and not r.get("bucket")
                     and r.get("arch") in (None, D128_HEADS[0][0])][-1]
@@ -4826,9 +5075,10 @@ def main(argv=None) -> int:
                     "device_ms", "library_device_ms")},
                  "at": {k: r[k] for k in r if k in at_keys}}
                 for r in timed]
-        for key, d, path_name_d in (("at_d64", 64, "serve"),
-                                    ("at_d192", MLA_DQK, "mla_serve"),
-                                    ("at_d80", ZAMBA_DH, "zamba_generate")):
+        for key, d, path_name_d in ((("at_d64", 64, "serve"),
+                                     ("at_d192", MLA_DQK, "mla_serve"),
+                                     ("at_d80", ZAMBA_DH, "zamba_generate"))
+                                    if name == attention[0] else ()):
             # D=64: phase 2's largest bucket (B=2, S=512)
             at_d = [r for r in timed if r.get("D") == d
                     and (d != 64 or r.get("Sq") == 512)]
@@ -4874,7 +5124,7 @@ def main(argv=None) -> int:
               f"path")
     check(kernels[0]["at_d80"]["launches"] > 0,
           "the D=80 prefill never launched on the zamba2 path")
-    check(len(kernels) == 12, f"{len(kernels)} kernels listed")
+    check(len(kernels) == 13, f"{len(kernels)} kernels listed")
     for k in kernels:
         if k["name"] in ("quantize_int8_cuda", "dequant_accum_cuda"):
             check(k["at_one_bucket"]["launches"] > 0,
@@ -4888,7 +5138,7 @@ def main(argv=None) -> int:
          "mla_path": mla, "zamba_path": zamba, "xlstm_path": xlstm,
          "ckpt_path": ckpt, "overlap_path": overlap,
          "pipeline_path": pipeline, "archs_path": archs,
-         "kernels": kernels},
+         "deepseek_train_path": deepseek, "kernels": kernels},
         indent=1,
         default=str))
     print(json.dumps({"kernels": kernels}))

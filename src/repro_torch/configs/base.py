@@ -374,6 +374,20 @@ class TrainConfig:
     ckpt_keep: int = 3
 
 
+def optimizer_for(model: ModelConfig, **overrides) -> OptimizerConfig:
+    """The per-architecture optimizer-state dtypes (the JAX package's
+    policy): the two MoE giants, arctic-480b and deepseek-v2-236b, keep
+    bf16 Adam moments (fp32 moments of one deepseek layer alone would
+    add ~30 GB); every other arch keeps fp32 moments. ``overrides`` set
+    any other :class:`OptimizerConfig` field."""
+    policy = {
+        "arctic-480b": {"m_dtype": "bfloat16", "v_dtype": "bfloat16"},
+        "deepseek-v2-236b": {"m_dtype": "bfloat16", "v_dtype": "bfloat16"},
+    }.get(model.name, {})
+    policy.update(overrides)
+    return OptimizerConfig(**policy)
+
+
 # --------------------------------------------------------------------------
 # Registry
 # --------------------------------------------------------------------------

@@ -70,12 +70,14 @@ def accumulate_grads(loss_fn: Callable, params: Any, microbatches: Dict,
     """Loop over stacked microbatches; returns (grads, loss, weight_sum)
     with grads of the weighted-mean loss over all real tokens, divided by
     the summed weight once (``weighting.finalize``/``scale_grads``, the
-    train step's rule)."""
+    train step's rule). The sums are divided in place: one gradient tree
+    is held, not two."""
     def grad_fn(p, mb):
         return value_and_grad(loss_fn, p, mb, **loss_kwargs)
 
     g_sum, o_sum, w_sum = accumulate_sums(grad_fn, params, microbatches)
-    return (weighting.scale_grads(g_sum, w_sum),
+    inv = 1.0 / torch.clamp(w_sum, min=1e-9)
+    return (tree_map(lambda g: g.mul_(inv.to(g.dtype)), g_sum),
             weighting.finalize(o_sum, w_sum), w_sum)
 
 

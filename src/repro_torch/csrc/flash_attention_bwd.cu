@@ -15,7 +15,7 @@
 //   sum over its H / Hkv query heads. dq, dk, dv come out in q's dtype
 //   (fp32 or bf16) with fp32 accumulation; like the reference, p is
 //   rounded to that dtype before the dv product and ds before the dq
-//   and dk products. D in {64, 128}; all tensors contiguous.
+//   and dk products. D in {64, 128, 192}; all tensors contiguous.
 //
 // What bounds it on the H100: about 2.5x the forward's causal flops
 //   (five products of the forward's size, one of them recomputing the
@@ -66,10 +66,18 @@
 //     arithmetic on the CPU).
 //   * The causal mask is applied only on tiles that cross the diagonal
 //     or the ragged end; tiles that no row sees are not visited.
+//   * D = 192 (MLA training; v arrives zero-padded from 128): one
+//     64 x 192 fp32 accumulator is 96 registers a thread, so the dk/dv
+//     pass cannot hold both of its own. Its block's two warpgroups take
+//     the same 64 keys and split the outputs instead: warpgroup 0 sums
+//     dV, warpgroup 1 dK, each in one accumulator, each computing S^T and
+//     dP^T itself from the shared K, V tiles and the shared ring of Q, dO
+//     tiles (branch-free: warpgroup 0's dP^T is not used). The dq pass
+//     keeps its design (one accumulator).
 //   What bounds it now: each warpgroup runs its products, the
 //   elementwise p/ds work and the next products in turn, with one
 //   barrier a tile; the dq pass recomputes S and dP (7 products for the
-//   function's 5).
+//   function's 5; 8 at D = 192).
 //
 // fp32: the first, CUDA-core version, unchanged: fp32 arithmetic, one
 //   key per lane, K and V tiles padded to D+1 floats in shared memory
@@ -106,10 +114,10 @@ __device__ __forceinline__ float warp_sum(float x) {
 // dq pass: q rows per block. 32 at D=128 halves the accumulators a
 // lane holds (168 registers at 64 rows, 72 at 32); ptxas still reports
 // a 32-byte local stack at D=128 with either tile, so that spill is
-// not register pressure.
+// not register pressure. D=192 takes 32 rows for the same reason.
 template <int D>
 __host__ __device__ constexpr int dq_tile() {
-  return D == 128 ? 32 : 64;
+  return D >= 128 ? 32 : 64;
 }
 
 template <int D>
@@ -420,12 +428,14 @@ struct DqCfg {
 };
 
 // dk/dv pass: kBKV keys a block (64 a consumer warpgroup), kBQ q rows a
-// streamed tile
+// streamed tile. Above D = 128 (kSplit) the block's two warpgroups take
+// the same 64 keys, one output each (flash_bwd_dkv_split).
 template <int D, int kBKV_, int kBQ_>
 struct DkvCfg {
+  static constexpr bool kSplit = D > 128;
   static constexpr int kBKV = kBKV_;
   static constexpr int kBQ = kBQ_;
-  static constexpr int kThreads = 2 * kBKV;       // 128 a warpgroup
+  static constexpr int kThreads = kSplit ? 256 : 2 * kBKV;  // 128 a wg
   static constexpr int kKBytes = kBKV * D * 2;    // the K or V tile
   static constexpr int kQBytes = kBQ * D * 2;     // one Q or dO tile
   // a stage: Q, dO, then lse and Dv of its rows, padded to 1 KB
@@ -630,9 +640,10 @@ flash_bwd_dq_sm90(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+// each warpgroup owns 64 keys and sums both their dK and dV
 template <int D, class C>
-__global__ void __launch_bounds__(C::kThreads)
-flash_bwd_dkv_sm90(const __nv_bfloat16* __restrict__ q,
+__device__ __forceinline__ void
+flash_bwd_dkv_pair(const __nv_bfloat16* __restrict__ q,
                    const __nv_bfloat16* __restrict__ k,
                    const __nv_bfloat16* __restrict__ v,
                    const __nv_bfloat16* __restrict__ dout,
@@ -806,6 +817,188 @@ flash_bwd_dkv_sm90(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+// the two warpgroups take the block's 64 keys; warpgroup 0 sums their dV,
+// warpgroup 1 their dK, each in one accumulator (the D = 192 design)
+template <int D, class C>
+__device__ __forceinline__ void
+flash_bwd_dkv_split(const __nv_bfloat16* __restrict__ q,
+                    const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v,
+                    const __nv_bfloat16* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ dvec,
+                    __nv_bfloat16* __restrict__ dk,
+                    __nv_bfloat16* __restrict__ dv, int Sq, int Skv, int H,
+                    int Hkv, int causal, int q_offset, float scale) {
+  constexpr int kBKV = C::kBKV, kBQ = C::kBQ, kT = C::kThreads;
+  static_assert(kBKV == 64 && kT == 256, "split: 64 keys, two warpgroups");
+  constexpr int kC = D / 8;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = sm90::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t k_s = base, v_s = base + C::kKBytes;
+  const uint32_t ring = base + 2 * C::kKBytes;
+  uint8_t* const ring_ptr = smem_raw + (ring - raw);
+
+  const int kt = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int group = H / Hkv;
+  const int tid = threadIdx.x, wg = tid / 128, lane = tid % 32;
+  const int warp = (tid % 128) / 32;
+  const bool sums_dk = wg == 1;
+  const int k0 = kt * kBKV;
+  const size_t q_ld = (size_t)H * D, kv_ld = (size_t)Hkv * D;
+  const size_t kv_off = ((size_t)b * Skv + k0) * kv_ld + (size_t)hk * D;
+
+  // q tiles that see a key of this tile (qpos >= k0), per query head
+  const int row_lo = causal ? max(0, k0 - q_offset) : 0;
+  const int t_lo = row_lo / kBQ;
+  const int per_head = max(0, (Sq + kBQ - 1) / kBQ - t_lo);
+  const int n_it = group * per_head;
+
+  // as flash_bwd_dkv_pair's: heads in order, q tiles in order within one
+  auto load_stage = [&](int it, uint32_t st) {
+    const int h = hk * group + it / per_head;
+    const int q0 = (t_lo + it % per_head) * kBQ;
+    const size_t off = ((size_t)b * Sq + q0) * q_ld + (size_t)h * D;
+    sm90::load_rows<kBQ, kC, kT>(st, q + off, q_ld, Sq - q0, kC, tid);
+    sm90::load_rows<kBQ, kC, kT>(st + C::kQBytes, dout + off, q_ld,
+                                 Sq - q0, kC, tid);
+    for (int i = tid; i < 2 * kBQ; i += kT) {
+      const int row = q0 + i % kBQ;
+      const bool ok = row < Sq;
+      const float* src = (i < kBQ ? lse : dvec) +
+                         ((size_t)b * Sq + (ok ? row : 0)) * H + h;
+      sm90::cp_async_4(st + 2 * C::kQBytes + i * 4, src, ok);
+    }
+  };
+
+  sm90::load_rows<kBKV, kC, kT>(k_s, k + kv_off, kv_ld, Skv - k0, kC, tid);
+  sm90::load_rows<kBKV, kC, kT>(v_s, v + kv_off, kv_ld, Skv - k0, kC, tid);
+  if (n_it > 0) load_stage(0, ring);
+  sm90::cp_async_commit();
+
+  // this thread's two keys (rows r, r + 8 of the block's 64 of S^T)
+  const int key0 = k0 + warp * 16 + lane / 4, key1 = key0 + 8;
+  const float sl2 = scale * kLog2e;
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  for (int it = 0; it < n_it; ++it) {
+    const int q0 = (t_lo + it % per_head) * kBQ;
+    sm90::cp_async_wait<0>();
+    sm90::fence_proxy_async();
+    __syncthreads();
+    if (it + 1 < n_it) load_stage(it + 1, ring + ((it + 1) & 1) * C::kStageBytes);
+    sm90::cp_async_commit();
+    const uint32_t q_s = ring + (it & 1) * C::kStageBytes;
+    const uint32_t do_s = q_s + C::kQBytes;
+    const float* lse_s = reinterpret_cast<const float*>(
+        ring_ptr + (it & 1) * C::kStageBytes + 2 * C::kQBytes);
+    const float* dv_s = lse_s + kBQ;
+
+    // S^T = K Q^T and dP^T = V dO^T (64 x kBQ each), in both warpgroups
+    float st[kBQ / 2], dpt[kBQ / 2];
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t a_off = (kk / 4) * kBKV * 128 + (kk % 4) * 32;
+      const uint32_t b_off = (kk / 4) * kBQ * 128 + (kk % 4) * 32;
+      sm90::wgmma_ss<kBQ, 0>(st, sm90::desc_sw128(k_s + a_off, 16, 1024),
+                             sm90::desc_sw128(q_s + b_off, 16, 1024),
+                             kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t a_off = (kk / 4) * kBKV * 128 + (kk % 4) * 32;
+      const uint32_t b_off = (kk / 4) * kBQ * 128 + (kk % 4) * 32;
+      sm90::wgmma_ss<kBQ, 0>(dpt, sm90::desc_sw128(v_s + a_off, 16, 1024),
+                             sm90::desc_sw128(do_s + b_off, 16, 1024),
+                             kk > 0);
+    }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(st);
+    sm90::fence_regs(dpt);
+
+    // p^T (warpgroup 0) or ds^T (warpgroup 1) on the fragment, rounded
+    // to bf16 as flash_bwd_dkv_pair rounds them
+    const bool edge = q0 + kBQ > Sq ||
+                      (causal && k0 + kBKV - 1 > q0 + q_offset);
+    uint32_t af[kBQ / 16][4];
+#pragma unroll
+    for (int ks = 0; ks < kBQ / 16; ++ks) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int a = 8 * ks + 2 * i;
+        const int key = (i & 1) ? key1 : key0;
+        const int cl = 16 * ks + 8 * (i >> 1) + 2 * (lane % 4);
+        const float2 l2 = *reinterpret_cast<const float2*>(lse_s + cl);
+        const float2 d2 = *reinterpret_cast<const float2*>(dv_s + cl);
+        float x2[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int row = q0 + cl + e;
+          float x = fmaf(st[a + e], sl2, -((e ? l2.y : l2.x) * kLog2e));
+          if (edge && (row >= Sq || (causal && key > row + q_offset)))
+            x = -INFINITY;
+          const float p = sm90::fast_exp2(x);
+          const float ds = p * (dpt[a + e] - (e ? d2.y : d2.x)) * scale;
+          x2[e] = sums_dk ? ds : p;
+        }
+        af[ks][i] = sm90::pack_bf16(x2[0], x2[1]);
+      }
+    }
+    // dV += P^T dO or dK += dS^T Q: dO and Q are (q row, D), read
+    // MN-major (the transpose bit)
+    const uint32_t b_s = sums_dk ? q_s : do_s;
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kBQ / 16; ++ks)
+      sm90::wgmma_rs<D, 1>(acc, af[ks],
+                           sm90::desc_sw128(b_s + ks * 16 * 128,
+                                            kBQ * 128, 1024), 1);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(acc);
+#pragma unroll
+    for (int ks = 0; ks < kBQ / 16; ++ks) sm90::fence_regs(af[ks]);
+  }
+
+  __nv_bfloat16* const out = sums_dk ? dk : dv;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int key = half ? key1 : key0;
+    if (key >= Skv) continue;
+    const size_t off = ((size_t)(b * Skv + key) * Hkv + hk) * D +
+                       2 * (lane % 4);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(out + off + 8 * j) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * half],
+                                acc[4 * j + 2 * half + 1]);
+  }
+}
+
+template <int D, class C>
+__global__ void __launch_bounds__(C::kThreads)
+flash_bwd_dkv_sm90(const __nv_bfloat16* __restrict__ q,
+                   const __nv_bfloat16* __restrict__ k,
+                   const __nv_bfloat16* __restrict__ v,
+                   const __nv_bfloat16* __restrict__ dout,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ dvec,
+                   __nv_bfloat16* __restrict__ dk,
+                   __nv_bfloat16* __restrict__ dv, int Sq, int Skv, int H,
+                   int Hkv, int causal, int q_offset, float scale) {
+  if constexpr (C::kSplit)
+    flash_bwd_dkv_split<D, C>(q, k, v, dout, lse, dvec, dk, dv, Sq, Skv, H,
+                              Hkv, causal, q_offset, scale);
+  else
+    flash_bwd_dkv_pair<D, C>(q, k, v, dout, lse, dvec, dk, dv, Sq, Skv, H,
+                             Hkv, causal, q_offset, scale);
+}
+
 // The tiles each head dim takes: the dq pass's (q rows, kv positions a
 // tile) and the dk/dv pass's (keys, q rows a tile), chosen by timing at
 // the train path's shape (PERF.md).
@@ -817,6 +1010,10 @@ template <> struct BwdTiles<64> {
 template <> struct BwdTiles<128> {
   using Dq = DqCfg<128, 64, 64>;
   using Dkv = DkvCfg<128, 64, 64>;
+};
+template <> struct BwdTiles<192> {
+  using Dq = DqCfg<192, 64, 64>;
+  using Dkv = DkvCfg<192, 64, 64>;
 };
 
 template <int D>
@@ -863,8 +1060,8 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    int B, int Sq, int Skv, int H, int Hkv,
                                    int D, int causal, int q_offset,
                                    float scale, int dtype, void* stream) {
-  if ((D != 64 && D != 128) || Hkv <= 0 || H % Hkv != 0 || B <= 0 ||
-      Sq <= 0)
+  if ((D != 64 && D != 128 && D != 192) || Hkv <= 0 || H % Hkv != 0 ||
+      B <= 0 || Sq <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const float* l = (const float*)lse;
@@ -874,16 +1071,19 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
                        H, Hkv, causal, q_offset, scale, s)
   if (dtype == 0) {
     if (D == 64) REPRO_BWD(float, 64);
-    REPRO_BWD(float, 128);
+    if (D == 128) REPRO_BWD(float, 128);
+    REPRO_BWD(float, 192);
   }
 #undef REPRO_BWD
+#define REPRO_BWD(DD)                                                     \
+  return launch_sm90<DD>(q, k, v, out, dout, l, dvc, dq, dk, dv, B, Sq,   \
+                         Skv, H, Hkv, causal, q_offset, scale, s)
   if (dtype == 1) {
-    if (D == 64)
-      return launch_sm90<64>(q, k, v, out, dout, l, dvc, dq, dk, dv, B, Sq,
-                             Skv, H, Hkv, causal, q_offset, scale, s);
-    return launch_sm90<128>(q, k, v, out, dout, l, dvc, dq, dk, dv, B, Sq,
-                            Skv, H, Hkv, causal, q_offset, scale, s);
+    if (D == 64) REPRO_BWD(64);
+    if (D == 128) REPRO_BWD(128);
+    REPRO_BWD(192);
   }
+#undef REPRO_BWD
   return (int)cudaErrorInvalidValue;
 }
 
@@ -901,6 +1101,7 @@ extern "C" int flash_attention_bwd_sm90_tile(int D, int axis) {
   }
   REPRO_TILE(64)
   REPRO_TILE(128)
+  REPRO_TILE(192)
 #undef REPRO_TILE
   return -1;
 }
@@ -913,5 +1114,7 @@ extern "C" int flash_attention_bwd_sm90_smem(int D, int pass) {
     return pass ? BwdTiles<64>::Dkv::kSmem : BwdTiles<64>::Dq::kSmem;
   if (D == 128)
     return pass ? BwdTiles<128>::Dkv::kSmem : BwdTiles<128>::Dq::kSmem;
+  if (D == 192)
+    return pass ? BwdTiles<192>::Dkv::kSmem : BwdTiles<192>::Dq::kSmem;
   return -1;
 }

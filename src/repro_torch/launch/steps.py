@@ -40,6 +40,16 @@ Every rank applies the same update to the same reduced gradient, so the
 parameters stay bitwise identical across ranks. The optimizer is AdamW
 or LAMB (``optim/{adam,lamb}.py``).
 
+A MoE stack's aux loss (:func:`aux_weight_for`): each rank routes its
+own rows of a microbatch at the training capacity of their tokens,
+dummy rows included, as each data rank of the JAX step's SPMD region
+does. The JAX objective is ``ce + mean_r(aux_r) * W`` with ``W`` the
+region's weight sum of the microbatch (every data rank under
+"allreduce", the pod under "hierarchical", the rank itself under
+"bucketed_allreduce", a row under ``weighting="canonical"``), so each
+rank's objective takes ``aux_r * W / n`` (one scalar all-reduce a
+microbatch, before its backward) and the ranks' sums add up to it.
+
 Overlap (``HetConfig.overlap``, the bucketed reductions only; a mesh
 without reduction axes falls back to the monolithic step, as in the JAX
 package): the optimizer moments live packed, one (num_buckets,
@@ -168,6 +178,32 @@ def _overlap_enabled(tcfg: TrainConfig, mesh: ProcessMesh) -> bool:
     the monolithic step runs, as in the JAX package)."""
     tcfg.het.validate()
     return tcfg.het.overlap != "none" and bool(_reduce_axes(tcfg, mesh))
+
+
+def aux_weight_for(model: Model, tcfg: TrainConfig, mesh: ProcessMesh
+                   ) -> Optional[Callable[[torch.Tensor], torch.Tensor]]:
+    """``Model.loss_fn``'s ``aux_weight`` for this config's step, or None
+    (a microbatch's own weight sum): the weight sum of the JAX step's
+    routing region over its rank count, where the region spans more
+    than this rank (see the module docstring). The pipelined step is
+    pinned to "allreduce" or "bucketed_allreduce", the overlap steps to
+    the bucketed reductions, so the rule covers them; a dense stack
+    needs no weight (its aux is 0)."""
+    if not model.cfg.moe.enabled or tcfg.het.weighting == "canonical":
+        return None
+    if _hier(tcfg, mesh):
+        comm = mesh.data
+    elif tcfg.het.grad_reduction == "bucketed_allreduce":
+        return None
+    else:
+        comm = mesh.dp
+    if comm.size <= 1:
+        return None
+
+    def weight(w: torch.Tensor) -> torch.Tensor:
+        return comm.all_reduce(w.float().clone()) / comm.size
+
+    return weight
 
 
 def stage_plan_for(model: Model,
@@ -619,10 +655,12 @@ def reduce_grads(model: Model, tcfg: TrainConfig, mesh: ProcessMesh,
     objects (``sent_bytes``)."""
     het = tcfg.het
     accum = max(1, het.accum_steps)
+    aux_weight = aux_weight_for(model, tcfg, mesh)
 
     def grad_fn(p, mb):
         return value_and_grad(model.loss_fn, p, mb, ce_impl=ce_impl,
-                              label_smoothing=tcfg.label_smoothing)
+                              label_smoothing=tcfg.label_smoothing,
+                              aux_weight=aux_weight)
 
     g, o, w_local = accumulate_sums(grad_fn, state.params,
                                     split_microbatches(batch, accum))
@@ -753,7 +791,8 @@ def _backward_into_stream(model: Model, tcfg: TrainConfig, params: Any,
                           mb: Dict[str, torch.Tensor], stream: torch.Tensor,
                           layout: bkt.BucketLayout, *, copy: bool,
                           on_forward: Optional[Callable] = None,
-                          on_stage: Optional[Callable] = None
+                          on_stage: Optional[Callable] = None,
+                          aux_weight: Optional[Callable] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One microbatch's forward and backward with every leaf gradient
     written into its range of the fp32 ``stream`` (``copy``, or added
@@ -763,8 +802,9 @@ def _backward_into_stream(model: Model, tcfg: TrainConfig, params: Any,
     backward stage s and every stage below it are complete, in stage
     order (stage 0 the head, s layer L-s, L+1 the embedding). The hooks
     also fire under ``torch.utils.checkpoint`` (remat), where each
-    layer is recomputed inside its own backward. Returns this
-    microbatch's (objective sum, weight sum)."""
+    layer is recomputed inside its own backward. ``aux_weight``: as
+    ``Model.loss_fn``'s. Returns this microbatch's (objective sum,
+    weight sum)."""
     cfg = model.cfg
     L = cfg.num_layers
     leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
@@ -798,7 +838,8 @@ def _backward_into_stream(model: Model, tcfg: TrainConfig, params: Any,
 
     with torch.enable_grad():
         o, w, _ = model.loss_fn(leaves, mb, ce_impl="kernel",
-                                label_smoothing=tcfg.label_smoothing)
+                                label_smoothing=tcfg.label_smoothing,
+                                aux_weight=aux_weight)
     w = w.detach()
     if on_forward is not None:
         on_forward(o.detach(), w)
@@ -938,6 +979,7 @@ def _build_overlap_step(model: Model, tcfg: TrainConfig, mesh: ProcessMesh):
     use_err = _err_enabled(tcfg, mesh)
     backward = het.overlap == "backward"
     fused = ocfg.grad_clip <= 0 and (backward or ocfg.name != "lamb")
+    aux_weight = aux_weight_for(model, tcfg, mesh)
     cache: Dict[str, Any] = {}
 
     def layout_of(params):
@@ -950,7 +992,8 @@ def _build_overlap_step(model: Model, tcfg: TrainConfig, mesh: ProcessMesh):
 
     def grad_fn(p, mb):
         return value_and_grad(model.loss_fn, p, mb, ce_impl="kernel",
-                              label_smoothing=tcfg.label_smoothing)
+                              label_smoothing=tcfg.label_smoothing,
+                              aux_weight=aux_weight)
 
     def after_backward(state, batch, flat, layout):
         """``overlap="buckets"``: the monolithic step's gradient, then the
@@ -1008,7 +1051,8 @@ def _build_overlap_step(model: Model, tcfg: TrainConfig, mesh: ProcessMesh):
                 model, tcfg, state.params, mb, stream, layout,
                 copy=accum == 1, on_forward=on_forward if last else None,
                 on_stage=(lambda s: pipeline.flush_ready_buckets(
-                    s, lambda k: stream[k])) if last else None)
+                    s, lambda k: stream[k])) if last else None,
+                aux_weight=aux_weight)
             if not last:
                 o_acc, w_acc = o_acc + o, w_acc + w
         pipeline.finish()
@@ -1435,11 +1479,13 @@ def _build_pipeline_step(model: Model, tcfg: TrainConfig, mesh: ProcessMesh):
 
     An F event runs one stage's forward on its boundary input (detached,
     requiring grad) and keeps the graph; the last stage adds ``ce + aux
-    * w`` and ``w`` into the fp32 sums. A B event takes the gradient of
-    that graph with the cotangent from the next stage
-    (``torch.autograd.grad``): the stage slice's gradients are added
-    into the fp32 accumulator (microbatch order, the monolithic step's
-    add order) and the input cotangent goes back a stage. A tied table's
+    * w`` and ``w`` into the fp32 sums (``w`` the aux term's weight,
+    :func:`aux_weight_for`). A B event takes the gradient of that graph
+    with the cotangents from the next stage, the activation's and the
+    aux carry's (``torch.autograd.grad``): the stage slice's gradients
+    are added into the fp32 accumulator (microbatch order, the
+    monolithic step's add order) and the input cotangent goes back a
+    stage. A tied table's
     head gradient is added to the gather's once per microbatch at the
     stage-0 B event, the monolithic backward's association. Then the
     reduction over the data-parallel ranks: "allreduce" a per-leaf fp32
@@ -1483,6 +1529,7 @@ def _build_pipeline_step(model: Model, tcfg: TrainConfig, mesh: ProcessMesh):
     index = StageIndex(_param_shapes(cfg), cfg, splan) if staged else None
     hop = (PipeHop(mesh.pipe, order, S, me, tied, dev) if staged else None)
     owns_embed = (not staged) or me == (S - 1 if tied else 0)
+    aux_weight = aux_weight_for(model, tcfg, mesh)
     cache: Dict[str, Any] = {}
 
     def layers_of(tree, s):
@@ -1585,14 +1632,19 @@ def _build_pipeline_step(model: Model, tcfg: TrainConfig, mesh: ProcessMesh):
                     if s == S - 1:
                         ce, w = head_fn({k: leaves[k] for k in head_keys},
                                         x_out, mb["labels"], mb["weights"])
+                # the graph's outputs and, but on the last stage, the
+                # aux carry where a layer of the stage adds to it
+                outs = [x_out] + ([a_out] if a_out.requires_grad else [])
                 if s < S - 1:
                     send("F", s, m, (x_out.detach(), a_out.detach()))
-                    saved[(s, m)] = (x_in, x_out)
+                    saved[(s, m)] = (x_in, outs)
                 else:
                     w_sg = w.detach()
-                    o_acc = o_acc + (ce.detach() + a_out.detach() * w_sg)
+                    a_w = w_sg if aux_weight is None else aux_weight(w_sg)
+                    o_acc = o_acc + (ce.detach() + a_out.detach() * a_w)
                     w_acc = w_acc + w_sg
-                    saved[(s, m)] = (x_in, ce, w_sg)
+                    obj = ce + a_out * a_w if a_out.requires_grad else ce
+                    saved[(s, m)] = (x_in, [obj], a_w)
                 continue
             # a B event
             if s == S - 1:
@@ -1601,6 +1653,7 @@ def _build_pipeline_step(model: Model, tcfg: TrainConfig, mesh: ProcessMesh):
             else:
                 x_in, out = saved.pop((s, m))
                 cot, a_cot = recv("B", s + 1, m)
+                cot = [cot, a_cot][:len(out)]
             inputs = tree_leaves(layers_of(leaves, s))
             n_slice = len(inputs)
             if s == S - 1:

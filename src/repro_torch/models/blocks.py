@@ -403,30 +403,38 @@ def _moe_compute_local(x2d: torch.Tensor, gates: torch.Tensor,
     return y
 
 
-def moe_capacity(cfg: ModelConfig, tokens: int, seq_len: int) -> int:
-    """Serving's expert capacity (a multiple of 8, at least 8): the eval
-    factor, and for a single-token decode the exact no-drop capacity."""
+def moe_capacity(cfg: ModelConfig, tokens: int, seq_len: int,
+                 train: bool = False) -> int:
+    """The expert capacity of a call over ``tokens`` tokens (a multiple
+    of 8, at least 8): ``ceil(tokens * top_k * factor / E)`` with the
+    training factor under ``train``, else the eval factor, and for a
+    single-token decode (``seq_len == 1``, not ``train``) the exact
+    no-drop capacity (the JAX ``moe_block``'s ``capacity_for``)."""
     mo = cfg.moe
-    if seq_len == 1:
+    if not train and seq_len == 1:
         return max(8, -(-tokens * mo.top_k // 8) * 8)
-    cap = int(math.ceil(tokens * mo.top_k * mo.capacity_factor_eval
-                        / mo.num_experts))
+    cf = mo.capacity_factor if train else mo.capacity_factor_eval
+    cap = int(math.ceil(tokens * mo.top_k * cf / mo.num_experts))
     return max(8, -(-cap // 8) * 8)
 
 
-def moe_block(params, x: torch.Tensor, cfg: ModelConfig
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
+def moe_block(params, x: torch.Tensor, cfg: ModelConfig,
+              train: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (y, aux_loss) for x (B, S, d): routed experts plus the
-    shared experts, as the JAX ``moe_block(train=False)`` on one device
-    (prefill and decode; training's capacity and the expert-parallel
-    branch are not ported)."""
+    shared experts, as the JAX ``moe_block`` on one device. ``train``
+    (the default, as in the JAX package) takes the training capacity
+    over the call's B * S tokens, dummy rows included; ``train=False``
+    (prefill and decode) the eval capacity. Under autograd the gradient
+    reaches the router through the gates and, through ``probs``, the
+    aux loss; a dropped (token, slot) takes no expert gradient. The
+    expert-parallel branch is not ported (all experts are local)."""
     mo = cfg.moe
     b, s, d = x.shape
     x2d = x.reshape(b * s, d)
     gates, eidx, aux = _router(params, x2d, cfg)
     y = _moe_compute_local(
         x2d, gates.to(x.dtype), eidx, params["w_gate"], params["w_up"],
-        params["w_down"], moe_capacity(cfg, b * s, s), cfg)
+        params["w_down"], moe_capacity(cfg, b * s, s, train), cfg)
     out = y.reshape(b, s, d)
     if mo.num_shared_experts > 0:
         out = out + mlp_block(params["shared"], x, cfg)

@@ -5,18 +5,19 @@ the entry points: ``init_params``, the training loss ``loss_fn``, the
 forward ``logits_fn``, the static-batch serving functions ``prefill``,
 ``decode`` and ``init_cache`` (a contiguous cache), and the paged
 serving functions ``init_paged_cache``, ``prefill_paged`` and
-``decode_paged``. A MoE or MLA config (deepseek-v2) serves through the
-paged pool (its latent), and its layers route through the MoE block; a
-Mamba2 hybrid (zamba2) and xLSTM (xlstm-125m) serve through the
-contiguous cache (the paged pool takes the uniform plan only, as in the
-JAX package); ``loss_fn`` refuses all of them (training those layers is
-not ported yet). An embedding-stub config (chameleon-34b,
-musicgen-large) takes precomputed embeddings wherever a token config
-takes ids: (B, S, d) for ``loss_fn``, ``logits_fn`` and ``prefill``,
-(B, d) for ``decode``; the paged decode refuses it, as the JAX
-package's does. The
-device defaults to ``"cuda"`` and a CUDA device that is not there
-raises: the CPU runs only when the caller asks for it.
+``decode_paged``. A MoE or MLA config (deepseek-v2, arctic-480b) serves
+through the paged pool (its latent) at the MoE's eval capacity, and
+trains (``loss_fn``, ``logits_fn``) at its training capacity with the
+aux loss folded in; a Mamba2 hybrid (zamba2) and xLSTM (xlstm-125m)
+serve through the contiguous cache (the paged pool takes the uniform
+plan only, as in the JAX package), and ``loss_fn`` refuses them
+(training those layers is not ported yet). An embedding-stub config
+(chameleon-34b, musicgen-large) takes precomputed embeddings wherever a
+token config takes ids: (B, S, d) for ``loss_fn``, ``logits_fn`` and
+``prefill``, (B, d) for ``decode``; the paged decode refuses it, as the
+JAX package's does. The device defaults to ``"cuda"`` and a CUDA device
+that is not there raises: the CPU runs only when the caller asks for
+it.
 
 The training loss follows the HetSeq aggregation contract (paper M1/M3):
 every token carries a weight (0 for dummy/padding tokens); ``loss_fn``
@@ -26,7 +27,7 @@ to exactly the single-process loss.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -63,7 +64,9 @@ class Model:
 
     def loss_fn(self, params, batch: Dict[str, torch.Tensor],
                 ce_impl: str = "kernel",
-                label_smoothing: Optional[float] = None
+                label_smoothing: Optional[float] = None,
+                aux_weight: Optional[Callable[[torch.Tensor],
+                                              torch.Tensor]] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, Any]]:
         """batch: inputs (B, S) int, or (B, S, d) embeddings on a stub
         frontend, labels (B, S) int, weights (B, S) float (0 => dummy
@@ -72,8 +75,16 @@ class Model:
         ``label_smoothing``: CE smoothing factor; None falls back to a
         float ``batch["label_smoothing"]`` entry if present, else 0.0.
         Returns (objective_sum, weight_sum, metrics); objective_sum is
-        differentiable, divide by the (summed) weight_sum once. The MoE
-        aux term of the JAX package is 0 on the dense plan."""
+        differentiable, divide by the (summed) weight_sum once.
+
+        ``objective_sum = ce_sum + aux * weight``: the MoE aux loss (0 on
+        a dense stack) times a constant. ``aux_weight(w)`` gives it from
+        this call's detached weight sum; by default it is that weight
+        sum, the JAX package's one-device ``loss_fn``. A data-parallel
+        step whose JAX counterpart routes a reduction region's rows as
+        one SPMD call passes the region's weight sum over its rank
+        count, so the ranks' objectives add up to the JAX objective
+        (``launch/steps.py``)."""
         cfg = self.cfg
         if label_smoothing is None:
             from_batch = batch.get("label_smoothing", 0.0)
@@ -89,13 +100,17 @@ class Model:
             batch["weights"].reshape(-1).float(),
             label_smoothing=label_smoothing,
             logit_softcap=cfg.logit_softcap, impl=ce_impl)
-        objective_sum = loss_sum + aux * w_sum.detach()
+        w = w_sum.detach()
+        objective_sum = loss_sum + aux * (w if aux_weight is None
+                                          else aux_weight(w))
         return objective_sum, w_sum, {"ce_sum": loss_sum, "aux": aux}
 
     @torch.no_grad()
     def logits_fn(self, params, inputs: torch.Tensor) -> torch.Tensor:
         """inputs (B, S) token ids (or (B, S, d) stub embeddings) ->
-        logits (B, S, V) (no cache)."""
+        logits (B, S, V) (no cache). A MoE layer routes at its training
+        capacity over the call's B * S tokens, as the JAX ``logits_fn``
+        does."""
         x = tr.embed_tokens(params, inputs, self.cfg)
         hidden, _ = tr.hidden_states(params, x, self.cfg)
         return tr.unembed(params, hidden, self.cfg)

@@ -34,8 +34,9 @@ Serving runs two cache families: the paged pool (:func:`prefill`, then
 :func:`decode_step_paged`; the uniform plan only, as in the JAX
 package) and the contiguous cache of static-batch serving
 (:func:`prefill`, :func:`init_cache`, :func:`decode_step`; every
-plan). MoE, MLA, Mamba2, zamba and xLSTM stacks are ported for serving
-only; :func:`check_supported` names what a config may not use yet,
+plan). The uniform plan (dense, MoE and MLA layers) trains; Mamba2,
+zamba and xLSTM stacks are ported for serving only;
+:func:`check_supported` names what a config may not use yet,
 :func:`check_servable` what serving may not. The embedding-stub
 frontend (chameleon, musicgen) takes precomputed embeddings (B, S, d)
 in place of token ids, as in the JAX package.
@@ -87,14 +88,11 @@ def stack_plan(cfg: ModelConfig) -> str:
 
 
 def check_supported(cfg: ModelConfig, serving: bool = False) -> None:
-    """Raise for any config feature outside this port. MoE, MLA, SSM
-    (Mamba2), hybrid (zamba) and xLSTM stacks pass only with ``serving``
-    (prefill and decode): their training (the MoE aux loss and
-    capacity, the MLA backward, the SSD backward, the mLSTM backward) is
-    not ported yet."""
+    """Raise for any config feature outside this port. SSM (Mamba2),
+    hybrid (zamba) and xLSTM stacks pass only with ``serving`` (prefill
+    and decode): their training (the SSD backward, the mLSTM backward)
+    is not ported yet. MoE and MLA layers train (the uniform plan)."""
     unsupported = [
-        (cfg.moe.enabled and not serving, "MoE training"),
-        (cfg.mla.enabled and not serving, "MLA training"),
         (cfg.ssm.enabled and not cfg.hybrid.enabled and not serving,
          "SSM training"),
         (cfg.hybrid.enabled and not serving, "hybrid training"),
@@ -112,7 +110,7 @@ def check_supported(cfg: ModelConfig, serving: bool = False) -> None:
     missing = [name for bad, name in unsupported if bad]
     if missing:
         raise ValueError(f"{cfg.name}: {', '.join(missing)} not ported to "
-                         f"repro_torch yet (dense layers; MoE/MLA layers, "
+                         f"repro_torch yet (dense, MoE and MLA layers; "
                          f"Mamba2, zamba and xLSTM stacks for serving)")
 
 
@@ -385,11 +383,40 @@ def unembed(params, hidden: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def apply_uniform_layer(p, x: torch.Tensor, cfg: ModelConfig,
-                        positions: torch.Tensor) -> torch.Tensor:
-    """One pre-norm decoder layer: attention then the MLP, residual."""
-    x = x + attention_block(p["attn"], apply_norm(p["ln1"], x, cfg), cfg,
-                            positions)
-    return x + mlp_block(p["mlp"], apply_norm(p["ln2"], x, cfg), cfg)
+                        positions: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One pre-norm decoder layer, residual: MLA or GQA attention, then
+    the MoE at the training capacity (plus Arctic's dense residual MLP on
+    the same input) or the MLP. Returns (x, the layer's MoE aux loss, an
+    fp32 scalar: 0 for a dense layer)."""
+    h = apply_norm(p["ln1"], x, cfg)
+    block = mla_block if cfg.mla.enabled else attention_block
+    x = x + block(p["attn"], h, cfg, positions)
+    h2 = apply_norm(p["ln2"], x, cfg)
+    if "moe" in p:
+        m, aux = moe_block(p["moe"], h2, cfg)
+        if "dense" in p:
+            m = m + mlp_block(p["dense"], h2, cfg)
+    else:
+        m = mlp_block(p["mlp"], h2, cfg)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + m, aux
+
+
+def _uniform_stack(layers, x: torch.Tensor, aux: torch.Tensor,
+                   cfg: ModelConfig, positions: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The uniform layers in order, each under a non-reentrant checkpoint
+    with ``remat="full"`` when a gradient is wanted; their aux losses
+    added to ``aux`` in layer order (the JAX scan's carry)."""
+    for lp in layers:
+        if cfg.remat == "full" and torch.is_grad_enabled():
+            x, a = checkpoint(apply_uniform_layer, lp, x, cfg, positions,
+                              use_reentrant=False, preserve_rng_state=False)
+        else:
+            x, a = apply_uniform_layer(lp, x, cfg, positions)
+        aux = aux + a
+    return x, aux
 
 
 def _apply_shared_attn(p, x, cfg, positions):
@@ -421,15 +448,16 @@ def _apply_shared_attn_decode(p, x, cfg, k_cache, v_cache, pos):
 
 def hidden_states(params, embeds: torch.Tensor, cfg: ModelConfig
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """embeds (B, S, d) -> (final-normed hidden (B, S, d), aux loss 0).
+    """embeds (B, S, d) -> (final-normed hidden (B, S, d), aux loss: the
+    layers' MoE aux losses summed, an fp32 scalar; 0 without MoE).
 
-    The uniform plan is the training forward. ``cfg.remat``: "full" runs
-    each layer under a non-reentrant checkpoint (only the layer input is
-    kept; the backward recomputes the layer, attention kernel
-    included), "none" keeps every activation; "dots" (save matmul
-    outputs only) is not ported yet. The mamba, zamba and xlstm plans
-    are forward only (scoring, ``Model.logits_fn``): their training is
-    not ported yet."""
+    The uniform plan is the training forward (dense, MoE at the training
+    capacity, MLA). ``cfg.remat``: "full" runs each layer under a
+    non-reentrant checkpoint (only the layer input is kept; the backward
+    recomputes the layer, attention kernel and routing included), "none"
+    keeps every activation; "dots" (save matmul outputs only) is not
+    ported yet. The mamba, zamba and xlstm plans are forward only
+    (scoring, ``Model.logits_fn``): their training is not ported yet."""
     plan = stack_plan(cfg)
     if plan == "xlstm":
         check_supported(cfg, serving=True)
@@ -457,14 +485,8 @@ def hidden_states(params, embeds: torch.Tensor, cfg: ModelConfig
         raise ValueError(f"remat '{cfg.remat}' is not ported yet "
                          f"(none | full)")
     positions = torch.arange(embeds.shape[1], device=embeds.device)
-    x = embeds
-    for lp in params["layers"]:
-        if cfg.remat == "full" and torch.is_grad_enabled():
-            x = checkpoint(apply_uniform_layer, lp, x, cfg, positions,
-                           use_reentrant=False, preserve_rng_state=False)
-        else:
-            x = apply_uniform_layer(lp, x, cfg, positions)
     aux = torch.zeros((), dtype=torch.float32, device=embeds.device)
+    x, aux = _uniform_stack(params["layers"], embeds, aux, cfg, positions)
     return apply_norm(params["final_norm"], x, cfg), aux
 
 
@@ -486,10 +508,10 @@ def pipeline_stage_fns(cfg: ModelConfig, stage_ranges, *,
     list; each layer runs as in :func:`hidden_states`, under a
     non-reentrant checkpoint with ``remat="full"``, so the segments
     compose to the monolithic forward op for op. ``aux`` threads
-    through the stages as the JAX package threads it; the dense layer
-    adds no aux term (:func:`hidden_states`' aux is 0). The caller
-    composes ``objective = ce_sum + aux * w_sum.detach()``
-    (``Model.loss_fn``'s aggregation)."""
+    through the stages as the JAX package threads it: each MoE layer
+    adds its aux loss, in layer order (a dense layer adds 0). The caller
+    composes ``objective = ce_sum + aux * weight`` with the weight
+    ``Model.loss_fn``'s ``aux_weight`` gives."""
     from repro_torch.kernels.cross_entropy import ops as ce_ops
 
     if stack_plan(cfg) != "uniform":
@@ -518,14 +540,7 @@ def pipeline_stage_fns(cfg: ModelConfig, stage_ranges, *,
         return embed_tokens(embed_params, inputs, cfg)
 
     def stage_fwd(layer_slice, x, aux, positions):
-        for lp in layer_slice:
-            if cfg.remat == "full" and torch.is_grad_enabled():
-                x = checkpoint(apply_uniform_layer, lp, x, cfg, positions,
-                               use_reentrant=False,
-                               preserve_rng_state=False)
-            else:
-                x = apply_uniform_layer(lp, x, cfg, positions)
-        return x, aux
+        return _uniform_stack(layer_slice, x, aux, cfg, positions)
 
     def head_fn(head_params, x, labels, weights):
         hidden = apply_norm(head_params["final_norm"], x, cfg)
@@ -546,7 +561,7 @@ def _ffn_serving(p, h2: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     eval capacity (its aux loss dropped), plus the dense residual MLP on
     the same input where the layer has one (Arctic), or the dense MLP."""
     if "moe" in p:
-        m = moe_block(p["moe"], h2, cfg)[0]
+        m = moe_block(p["moe"], h2, cfg, train=False)[0]
         if "dense" in p:
             m = m + mlp_block(p["dense"], h2, cfg)
         return m

@@ -8,7 +8,11 @@ stacked (L, ...) array, so a per-layer vector (a norm scale) is a
 matrix there and decays; an empty norm dict has no leaf, so it takes no
 part. Unlike the JAX package's pure function, :func:`apply_update`
 writes the new parameters and moments into the existing tensors (one
-copy of the model's state on the card instead of two) and returns them.
+copy of the model's state on the card instead of two) and returns them;
+it runs the elementwise math a block of leading-dim rows at a time
+(:data:`UPDATE_CHUNK` elements) with the clip factor applied there, so
+its fp32 temporaries stay bounded whatever a leaf's size (a deepseek-v2
+expert stack is 1.26 B elements) and the gradient tree is not copied.
 
 Flat-view path (``HetConfig.overlap`` in {"buckets", "backward"}):
 :func:`apply_update_flat` runs the same elementwise math on packed
@@ -107,6 +111,24 @@ def moments(g: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
     return pf, update, mf, vf
 
 
+# elements a block of rows of :func:`apply_update`'s elementwise math
+# holds at most (a leaf with longer rows takes one row a block): each fp32
+# temporary stays at 512 MiB
+UPDATE_CHUNK = 1 << 27
+
+
+def row_blocks(t: torch.Tensor):
+    """Indices of ``t``'s leading-dim blocks, each at most
+    ``UPDATE_CHUNK`` elements (one row where a row is larger); a small
+    or 0-d tensor is one block (``...``)."""
+    if t.dim() == 0 or t.numel() <= UPDATE_CHUNK:
+        yield ...
+        return
+    rows = max(1, UPDATE_CHUNK // (t.numel() // t.shape[0]))
+    for r in range(0, t.shape[0], rows):
+        yield slice(r, r + rows)
+
+
 def leaf_groups(*trees: Any):
     """(stream shape, per-tree pieces) of every leaf of the JAX
     package's tree: the layer stack's leaves stacked, so a group's
@@ -120,21 +142,24 @@ def leaf_groups(*trees: Any):
 def apply_update(params: Any, grads: Any, state: AdamState,
                  cfg: OptimizerConfig, lr: torch.Tensor
                  ) -> Tuple[Any, AdamState, Dict[str, torch.Tensor]]:
-    """One AdamW step, in place. Returns (params, state', metrics)."""
-    if cfg.grad_clip > 0:
-        grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
-    else:
-        gnorm = global_norm(grads)
+    """One AdamW step, in place. Returns (params, state', metrics). The
+    values are those of clipping the tree (``clip_by_global_norm``) and
+    then updating leaf by leaf; each leaf runs in :func:`row_blocks`."""
+    gnorm = global_norm(grads)
+    clip = (clip_scale(gnorm, cfg.grad_clip) if cfg.grad_clip > 0
+            else None)
     step = state.step + 1
     bc1, bc2 = bias_corrections(cfg, step)
     for shape, (ps, gs, ms, vs) in leaf_groups(params, grads, state.m,
                                                state.v):
         for p, g, m, v in zip(ps, gs, ms, vs):
-            pf, update, mf, vf = moments(g, m, v, p, cfg, bc1, bc2,
-                                         len(shape) >= 2)
-            p.copy_(pf - lr * update)
-            m.copy_(mf)
-            v.copy_(vf)
+            for r in row_blocks(p):
+                gr = g[r] if clip is None else g[r] * clip.to(g.dtype)
+                pf, update, mf, vf = moments(gr, m[r], v[r], p[r], cfg, bc1,
+                                             bc2, len(shape) >= 2)
+                p[r].copy_(pf - lr * update)
+                m[r].copy_(mf)
+                v[r].copy_(vf)
     metrics = {"grad_norm": gnorm, "lr": lr}
     return params, AdamState(step=step, m=state.m, v=state.v), metrics
 

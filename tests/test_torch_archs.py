@@ -31,8 +31,9 @@ arctic).
       misses it;
   (f) refusals: the serve driver (JAX's message) and the paged decode
       refuse a stub arch, the train driver refuses one with a
-      ``ValueError`` (its corpus is token ids), MoE training still
-      raises.
+      ``ValueError`` (its corpus is token ids); arctic's MoE trains
+      (``loss_fn``, aux loss in the metrics) while the recurrent plans'
+      training still raises.
 
 Tolerances (fp32, the same arithmetic in another order): logits,
 caches and losses 2e-5 absolute or 1e-5 relative; gradients,
@@ -192,12 +193,11 @@ def test_forward_prefill_and_decode_match_jax(arch, impl):
     x = _inputs(tc, rng, (2, 14))
     jx = jnp.asarray(x)
     tx = torch.from_numpy(x)
-    if not tc.moe.enabled:
-        # (an MoE forward outside serving runs the training capacity,
-        # which is not ported: logits_fn refuses arctic, as deepseek)
-        with torch.no_grad():
-            _close(tmodel.logits_fn(params, tx),
-                   jmodel.logits_fn(jparams, jx))
+    # (a MoE forward outside serving runs the training capacity, as
+    # JAX's logits_fn does)
+    with torch.no_grad():
+        _close(tmodel.logits_fn(params, tx),
+               jmodel.logits_fn(jparams, jx))
     jl, jcache = jmodel.prefill(jparams, jx[:, :11], max_len=14)
     tl, tcache = tmodel.prefill(params, tx[:, :11], max_len=14)
     for pos in (11, 12, 13):
@@ -412,8 +412,6 @@ def test_checkpoint_template_and_readiness_match_jax(arch, overlap):
             jsteps.state_shapes(jmodel, jtc, jmesh)))
     assert tsteps.checkpoint_format(tmodel, ttc, tmesh) == \
         jsteps.checkpoint_format(jmodel, jtc, jmesh)
-    if tc.moe.enabled:
-        return                      # MoE training: not ported
     jshape = jax.eval_shape(jmodel.init_params, jax.random.PRNGKey(0))
     tparams = tmodel.init_params(0)
     jpieces = jsteps._staged_leaf_pieces(jshape, jc)
@@ -534,9 +532,21 @@ def test_drivers_refuse_stub_archs(arch):
 
 
 def test_moe_training_still_raises():
+    """MoE training is ported (tests/test_torch_moe_train.py): arctic's
+    ``loss_fn`` trains, its aux loss in the metrics; the recurrent
+    plans' training is what still raises."""
     _, tc = _cfgs("arctic-480b")
     model = tbuild(tc, "cpu")
     params = model.init_params(0)
     batch = _tb(_stub_batch(tc, np.random.default_rng(0), 2, 8))
-    with pytest.raises(ValueError, match="MoE training"):
-        model.loss_fn(params, batch)
+    obj, w, met = model.loss_fn(params, batch)
+    assert torch.isfinite(obj) and float(w) == float(batch["weights"].sum())
+    assert float(met["aux"]) > 0
+    for arch, what in (("zamba2-2.7b", "hybrid training"),
+                       ("xlstm-125m", "xLSTM training")):
+        with pytest.raises(ValueError, match=what):
+            model = tbuild(tcfgs.smoke_config(arch), "cpu")
+            model.loss_fn(model.init_params(0), {
+                "inputs": torch.zeros((1, 4), dtype=torch.int32),
+                "labels": torch.zeros((1, 4), dtype=torch.int32),
+                "weights": torch.ones((1, 4))})

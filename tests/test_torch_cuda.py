@@ -213,6 +213,7 @@ DTYPE_ONLY = [torch.float32, torch.bfloat16]
     (1, 200, 200, 8, 2, 128, 0),       # GQA 4 at D=128, ragged tiles
     (1, 20, 50, 4, 1, 128, 30),        # q_offset, MQA
     (2, 77, 77, 8, 2, 64, 0),          # tinyllama's D
+    (2, 150, 150, 8, 2, 192, 0),       # MLA training's D, GQA, ragged
 ])
 def test_prefill_lse_and_backward_match_plain(dev, dtype, b, sq, skv, h,
                                               hkv, d, off):

@@ -403,6 +403,10 @@ def test_params_round_trip_through_the_jax_layout():
 
 
 def test_training_moe_and_mla_is_refused():
+    """MoE and MLA training are ported (tests/test_torch_moe_train.py):
+    the config check passes deepseek-v2 and ``loss_fn`` trains it, aux
+    loss in its metrics; the recurrent plans' training (SSM, hybrid,
+    xLSTM) is what is still refused."""
     cfg = dataclasses.replace(tcfgs.smoke_config(ARCH),
                               compute_dtype="float32")
     model = tbuild(cfg, "cpu")
@@ -410,12 +414,18 @@ def test_training_moe_and_mla_is_refused():
     batch = {"inputs": torch.zeros((1, 4), dtype=torch.int32),
              "labels": torch.zeros((1, 4), dtype=torch.int32),
              "weights": torch.ones((1, 4))}
-    with pytest.raises(ValueError, match="MoE training, MLA training not "
-                                         "ported"):
-        model.loss_fn(params, batch)
-    with pytest.raises(ValueError, match="not ported"):
-        ttr.check_supported(cfg)
+    ttr.check_supported(cfg)
     ttr.check_supported(cfg, serving=True)
+    obj, w, met = model.loss_fn(params, batch)
+    assert torch.isfinite(obj) and float(w) == 4.0
+    assert float(met["aux"]) > 0
+    zamba = tcfgs.smoke_config("zamba2-2.7b")
+    mamba = dataclasses.replace(
+        zamba, hybrid=dataclasses.replace(zamba.hybrid, enabled=False))
+    for c, what in ((zamba, "hybrid training"), (mamba, "SSM training"),
+                    (tcfgs.smoke_config("xlstm-125m"), "xLSTM training")):
+        with pytest.raises(ValueError, match=f"{what}.*not ported"):
+            ttr.check_supported(c)
 
 
 def test_check_servable_on_the_card_names_kernel_widths():

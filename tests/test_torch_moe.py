@@ -92,7 +92,8 @@ def test_moe_block_matches_jax(case, b, s, moe):
     x = _x(np.random.default_rng(b * s), b, s, jc.d_model)
     jy, jaux = jblocks.moe_block(jp, jnp.asarray(x), jc, jblocks.LOCAL_CTX,
                                  train=False)
-    ty, taux = tblocks.moe_block(tp, torch.from_numpy(x), tc)
+    ty, taux = tblocks.moe_block(tp, torch.from_numpy(x), tc,
+                                 train=False)
     assert ty.shape == x.shape
     _close(ty, jy)
     _close(taux, jaux)
@@ -124,5 +125,5 @@ def test_moe_block_without_shared_experts_matches_jax():
     x = _x(np.random.default_rng(9), 2, 7, jc.d_model)
     jy, _ = jblocks.moe_block(jp, jnp.asarray(x), jc, jblocks.LOCAL_CTX,
                               train=False)
-    ty, _ = tblocks.moe_block(tp, torch.from_numpy(x), tc)
+    ty, _ = tblocks.moe_block(tp, torch.from_numpy(x), tc, train=False)
     _close(ty, jy)

@@ -150,7 +150,7 @@ def _attention_bwd_inputs(rng, b, sq, skv, h, hkv, d):
     return q, k, v, dout
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 192])
 @pytest.mark.parametrize("b,sq,skv,h,hkv,causal,off", ATTN_CASES)
 def test_attention_bwd_tile_model_matches_jax_vjp_and_plain(d, b, sq, skv,
                                                             h, hkv, causal,
