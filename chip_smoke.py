@@ -12,7 +12,8 @@ Phases (any failure exits non-zero; no phase swallows an error):
    CUDA kernel from ``src/repro_torch/csrc`` with nvcc (one nvcc per
    source, all started together) and prints the build time. Then the
    bf16 tensor-core kernels (the prefill forward at head dims 64, 80,
-   128 and 192, the backward's dq and dk/dv passes at 64, 128 and 192, the
+   128 and 192, the backward's dq and dk/dv passes at 64, 80, 128 and
+   192, the
    CE forward for both head layouts, the MLA decode's split kernel for
    the paged and the contiguous cache, the SSD and mLSTM scans'
    chunk-state and chunk-scan kernels, and their helpers: the CE and MLA
@@ -356,11 +357,52 @@ Phases (any failure exits non-zero; no phase swallows an error):
    fp32 probe at the same width, fp32 parameters, on 3 rows (2 real, 1
    dummy): kernel path vs plain path, loss, grad norm and worst leaf
    within phase 5's fp32 limits.
-19. Prints the seconds of each phase, then one ``{"kernels": [...]}``
-   line (thirteen entries: the eleven kernels, kernel 2 at head dim
+19. Mamba2-hybrid training phase. (a) The SSD backward
+   (``csrc/ssd_scan_bwd.cu``, no TPU kernel: the JAX package
+   differentiates ``ref.ssd_chunked``) against ``ssd_scan_bwd_plain`` in
+   fp32 (TF32 off) and bf16, by the relative L2 error of each of its six
+   gradients (dx, ddt, dA, dB, dC, dD; the largest held to
+   ``parity.RTOL``): zamba2's training microbatch (B=5, S=1024, H=80,
+   P=64, N=64, one group, chunk 256, with D), a ragged tail (S=1000), S
+   shorter than the chunk (S=100), two groups (G=2, H=8) and no D; (b)
+   kernel 1b at head dim 80 against its plain version at the shared
+   block's training shape (B=5, S=1024, H=Hkv=32) and a small ragged
+   GQA case (S=200, H=8, Hkv=2), fp32 and bf16. Every case is printed
+   before any is checked, and runs twice with bitwise-equal outputs.
+   Timed in bf16 at the training shapes: ms, device time (the SSD
+   backward by each of its six launches), the bound, the plain
+   version's time, the library's (SDPA's autograd backward with
+   ``is_causal=True`` for 1b, also by device time; none for the SSD
+   backward, which no PyTorch call computes). (c) zamba2-2.7b at full
+   width and depth (54 Mamba2 layers, the shared block after every 6:
+   2.42 B parameters, fp32, ``optimizer_for``'s fp32 moments), bf16
+   compute, remat full (one checkpoint a group), through
+   ``build_train_step`` with phase 5's settings (8 rows of 1024 tokens of
+   the synthetic corpus, 2 dummy rows, accum 2, 4 steps), after every
+   earlier model is freed: finite losses; counters zeroed just before and
+   read just after, a step launching the SSD forward 216 times (each
+   layer's forward and its group's recompute, 2 microbatches), the SSD
+   backward 108, kernel 1 at head dim 80 36 (9 applications, twice a
+   microbatch), 1b 18, 3 twice, 3b 4 times (two 4096-token chunks of a
+   5,120-token microbatch), every other kernel never; ms/step (median of
+   steps 2..4), real tokens/s, the model-FLOPs share of 989 TFLOP/s (6 x
+   parameters x tokens, the shared block counted once an application,
+   plus the attention's and the scan's own products, forward and
+   backward), peak memory; one more step under torch.profiler (device
+   time by kernel). (d) The fp32 probe (TF32 off) at full width cut to
+   6 layers (one group), fp32 parameters, 3 rows (2 real, 1 dummy): the
+   kernel path against the plain path, whose SSD scan runs in fp64
+   (``ref.ssd_chunked(acc_dtype=torch.float64)``: the plain path in fp32
+   is itself ~8e-5 off that on A_log's gradient, above the leaf limit),
+   loss, grad norm and worst leaf within phase 5's fp32 limits; the
+   reading against the plain path in fp32 is printed for the record.
+20. Prints the seconds of each phase, then one ``{"kernels": [...]}``
+   line (fifteen entries: the eleven kernels, kernel 2 at head dim
    128 as ``paged_decode_d128``, with its three head layouts as
-   ``cases``, and kernel 1b at head dim 192 as
-   ``flash_attention_bwd_d192``, its launches phase 18's; each with
+   ``cases``, kernel 1b at head dim 192 as
+   ``flash_attention_bwd_d192``, its launches phase 18's, and the SSD
+   backward as ``ssd_scan_bwd`` and kernel 1b at head dim 80 as
+   ``flash_attention_bwd_d80``, their launches phase 19's; each with
    its launches on its path, which must
    be above 0; the prefill kernel's D=64 (phase 2's S=512 bucket), D=192
    and D=80 cases ride in its entry as ``at_d64``, ``at_d192`` and
@@ -389,7 +431,9 @@ the same.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import json
 import statistics
 import subprocess
@@ -680,7 +724,7 @@ def sm90_report(build, lib, fa, ce, md, sk, mk):
               + (f"; SASS {r.get('sass_hgmma', 0)} HGMMA" if have_sass
                  else "; no cuobjdump: SASS not read"), flush=True)
     products = [n for n in rows if n not in SM90_HELPERS]
-    check(len(products) == 18, f"bf16 tensor-core kernels found: {products}")
+    check(len(products) == 20, f"bf16 tensor-core kernels found: {products}")
     for n in products:
         r = rows[n]
         check(r["spill_bytes"] == 0, f"{n}: ptxas spilled")
@@ -4820,6 +4864,404 @@ def deepseek_train_phase(fa, ce, dev, smi):
     return out
 
 
+# the SSD backward cases (B, S, H, G, chunk, with D): zamba2's training
+# microbatch (8 rows and 2 dummy rows in two microbatches of 5, 80 heads,
+# one group, chunk 256) first, then a ragged tail, S shorter than the
+# chunk, two groups and no D
+SSD_BWD_CASES = [(5, 1024, 80, 1, 256, True), (2, 1000, 80, 1, 256, True),
+                 (2, 100, 80, 1, 256, True), (2, 512, 8, 2, 256, True),
+                 (2, 700, 16, 1, 256, False)]
+# kernel 1b at head dim 80: the shared block's training microbatch
+# (B=5, S=1024, H=Hkv=32), then a small ragged GQA case
+BWD80_CASES = [(5, 1024, ZAMBA_HEADS, ZAMBA_HEADS), (2, 200, 8, 2)]
+ZAMBA_PROBE_LAYERS = 6       # the fp32 probe: one group
+ZAMBA_PROBE_ROWS = 3         # 2 real rows and 1 dummy
+SSD_BWD_NAMES = ("dx", "ddt", "dA", "dB", "dC", "dD")
+
+
+def ssd_bwd_flops_bytes(b, s, h, chunk, tensors):
+    """The SSD backward's operations and bytes for these shapes: per (b,
+    h) and chunk of q rows, five products over the causal pairs (q (q +
+    1) / 2 of them: C B^T and the two products of its weighted gradient
+    with B and C, N multiply-adds a pair; dy x^T and M^T dy, P each) and
+    five (q, P, N) products for the states (the chunk state, the
+    incoming state's gradient, dy state_in, G B, x G); every input read
+    once and every output written once."""
+    q_full = min(chunk, s)
+    rows = [min(q_full, s - t0) for t0 in range(0, s, q_full)]
+    pairs = sum(q * (q + 1) // 2 for q in rows)
+    flops = 2.0 * b * h * (pairs * (3 * ZAMBA_N + 2 * ZAMBA_P)
+                           + 5 * s * ZAMBA_N * ZAMBA_P)
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    return flops, nbytes
+
+
+def ssd_bwd_case(sk, b, s, h, g, chunk, use_d, dtype, gen, dev, timed):
+    """The SSD backward against ``ssd_scan_bwd_plain``: the relative L2
+    error of each of its six gradients, two runs bitwise equal; timed at
+    the training shape."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.parity import rel_l2
+
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    x = r(b, s, h, ZAMBA_P).to(dtype)
+    dt = F.softplus(r(b, s, h) - 2.0)
+    A = -torch.exp(r(h) * 0.5)
+    Bm = (r(b, s, g, ZAMBA_N) * 0.3).to(dtype)
+    Cm = (r(b, s, g, ZAMBA_N) * 0.3).to(dtype)
+    D = r(h) if use_d else None
+    dy = r(b, s, h, ZAMBA_P).to(dtype)
+    args = (x, dt, A, Bm, Cm, D, dy)
+    got = sk.ssd_scan_bwd_cuda(*args, chunk_size=chunk)
+    want = sk.ssd_scan_bwd_plain(*args, chunk_size=chunk)
+    again = sk.ssd_scan_bwd_cuda(*args, chunk_size=chunk)
+    torch.cuda.synchronize()
+    check(all(a is None if w is None else (a.dtype == w.dtype
+                                           and a.shape == w.shape)
+              for a, w in zip(got, want)),
+          f"SSD backward {dtype} at {(b, s, h, g, chunk)}: dtypes or "
+          f"shapes differ from the plain version's")
+    check(all(torch.equal(a, g_) for a, g_ in zip(again, got)
+              if a is not None),
+          f"SSD backward {dtype} at {(b, s, h, g, chunk)}: two runs differ")
+    errs = {n: rel_l2(a, w) for n, a, w in zip(SSD_BWD_NAMES, got, want)
+            if w is not None}
+    rec = {"kernel": "ssd_scan_bwd_cuda", "dtype": str(dtype), "B": b,
+           "S": s, "H": h, "G": g, "P": ZAMBA_P, "N": ZAMBA_N,
+           "chunk": chunk, "with_D": use_d, "rel_l2": max(errs.values()),
+           "rel_l2_by_gradient": errs,
+           "max_abs_err": max((a.float() - w.float()).abs().max().item()
+                              for a, w in zip(got, want) if w is not None),
+           "bitwise_repeat": True}
+    if timed:
+        run = lambda: sk.ssd_scan_bwd_cuda(*args, chunk_size=chunk)
+        rec["ms"] = cuda_ms(run)
+        by_kernel = device_ms_by_kernel(run)
+        rec["device_ms_by_launch"] = by_kernel and {
+            next((k for k in ("ssd_bwd_states", "ssd_bwd_pass",
+                              "ssd_bwd_rows", "ssd_bwd_cols", "ssd_bwd_dt",
+                              "ssd_bwd_final") if k in n), n[:60]): ms
+            for n, ms in by_kernel.items()}
+        rec["device_ms"] = by_kernel and sum(by_kernel.values())
+        rec["plain_ms"] = cuda_ms(lambda: sk.ssd_scan_bwd_plain(
+            *args, chunk_size=chunk), reps=5)
+        rec["library_ms"] = None        # no PyTorch call computes it
+        flops, nbytes = ssd_bwd_flops_bytes(
+            b, s, h, chunk, [t for t in args + got if t is not None])
+        rec["bound_ms"], rec["bound_by"] = _bound(nbytes, flops)
+    return rec
+
+
+def bwd80_case(fa, b, s, h, hkv, dtype, gen, dev, timed):
+    """Kernel 1b at head dim 80 against its plain version on the forward
+    kernel's out and lse, two runs bitwise equal; timed beside SDPA's
+    autograd backward (``is_causal=True``), also by device time."""
+    import torch
+    from repro_torch.kernels.parity import rel_l2
+
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+    q, dout = r(b, s, h, ZAMBA_DH), r(b, s, h, ZAMBA_DH)
+    k, v = r(b, s, hkv, ZAMBA_DH), r(b, s, hkv, ZAMBA_DH)
+    out, lse = fa.flash_attention_cuda(q, k, v, return_lse=True)
+    got = fa.flash_attention_bwd_cuda(q, k, v, out, lse, dout)
+    want = fa.flash_attention_bwd_plain(q, k, v, out, lse, dout)
+    again = fa.flash_attention_bwd_cuda(q, k, v, out, lse, dout)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, g) for a, g in zip(again, got)),
+          f"D=80 backward {dtype} at S={s}: two runs differ")
+    rec = {"kernel": "flash_attention_bwd_cuda", "dtype": str(dtype),
+           "B": b, "S": s, "H": h, "Hkv": hkv, "D": ZAMBA_DH,
+           "rel_l2": max(rel_l2(a, w) for a, w in zip(got, want)),
+           "max_abs_err": max((a.float() - w.float()).abs().max().item()
+                              for a, w in zip(got, want)),
+           "bitwise_repeat": True}
+    if timed:
+        run = lambda: fa.flash_attention_bwd_cuda(q, k, v, out, lse, dout)
+        rec["ms"] = cuda_ms(run)
+        rec["device_ms"] = device_ms(run)
+        rec["plain_ms"] = cuda_ms(lambda: fa.flash_attention_bwd_plain(
+            q, k, v, out, lse, dout))
+        qt, kt, vt = (x.detach().requires_grad_(True)
+                      for x in _sdpa_layout(q, k, v))
+        o_t = _sdpa(qt, kt, vt, True)
+        do_t = dout.transpose(1, 2).contiguous()
+        lib = lambda: torch.autograd.grad(o_t, (qt, kt, vt), do_t,
+                                          retain_graph=True)
+        rec["library_ms"] = cuda_ms(lib)
+        rec["library_device_ms"] = device_ms(lib)
+        rec["bound_ms"], rec["bound_by"] = _attn_bound(
+            b, s, h, hkv, ZAMBA_DH, 2.5, (q, k, v, out, lse, dout), got)
+    return rec
+
+
+def zamba_train_kernel_phase(fa, sk, dev, smi):
+    """Phase 19 (a), (b): the SSD backward and kernel 1b at head dim 80
+    against their plain versions, fp32 (TF32 off) and bf16, by relative
+    L2 (``parity.RTOL``); every case printed before any is checked."""
+    import torch
+    from repro_torch.kernels.parity import RTOL
+    gen = torch.Generator(device=dev).manual_seed(19)
+    recs = []
+    for dtype in (torch.float32, torch.bfloat16):
+        bf16 = dtype == torch.bfloat16
+        new = [ssd_bwd_case(sk, *c, dtype, gen, dev, timed=bf16 and i == 0)
+               for i, c in enumerate(SSD_BWD_CASES)]
+        for r in new:
+            r["tol"] = RTOL[("ssd_scan_bwd_cuda", dtype)]
+        bwd = [bwd80_case(fa, *c, dtype, gen, dev, timed=bf16 and i == 0)
+               for i, c in enumerate(BWD80_CASES)]
+        for r in bwd:
+            r["tol"] = RTOL[("flash_attention_bwd_d80", dtype)]
+        new += bwd
+        for r in new:
+            shape = {k: r[k] for k in ("B", "S", "H", "G", "Hkv", "D",
+                                       "chunk", "with_D") if k in r}
+            print(f"[zamba-train-kernels] {r['kernel']} {r['dtype']} "
+                  f"{shape}: rel L2 {r['rel_l2']:.3e} (tol {r['tol']:g})"
+                  + (" by gradient " + ", ".join(
+                      f"{k} {v:.2e}" for k, v in
+                      r["rel_l2_by_gradient"].items())
+                     if "rel_l2_by_gradient" in r else "")
+                  + f", max abs err {r['max_abs_err']:.3e}"
+                  + (f"; {r['ms']:.4f} ms, device "
+                     f"{_ms_or_not(r['device_ms'])}, plain "
+                     f"{r['plain_ms']:.4f} ms, library "
+                     + ("none" if r["library_ms"] is None
+                        else f"{r['library_ms']:.4f} ms (SDPA backward), "
+                             f"device {_ms_or_not(r['library_device_ms'])}")
+                     + f", bound {r['bound_ms']:.6f} ms ({r['bound_by']}) "
+                       f"[{smi}]" if "ms" in r else "")
+                  + (f"; device time by launch {r['device_ms_by_launch']}"
+                     if r.get("device_ms_by_launch") else ""), flush=True)
+        recs += new
+    # every case of both dtypes is printed before any is checked
+    bad = [f"{r['kernel']} {r['dtype']} {r.get('S')}: {r['rel_l2']}"
+           for r in recs if not r["rel_l2"] <= r["tol"]]
+    check(not bad, "zamba training kernels vs plain: " + "; ".join(bad))
+    return recs
+
+
+@contextlib.contextmanager
+def _ssd_reference_in(acc_dtype):
+    """The plain path's SSD scan (``ref.ssd_chunked``, which the
+    "reference" impl runs) computed in ``acc_dtype`` while the block
+    runs."""
+    from repro_torch.kernels.ssd_scan import ref
+    real = ref.ssd_chunked
+    ref.ssd_chunked = functools.partial(real, acc_dtype=acc_dtype)
+    try:
+        yield
+    finally:
+        ref.ssd_chunked = real
+
+
+def zamba_train_phase(fa, ce, sk, dev, smi, every):
+    """Phase 19 (c), (d): zamba2-2.7b at full width and depth through
+    ``build_train_step`` (phase 5's settings), then the fp32 probe (see
+    the module docstring)."""
+    import gc
+    import torch
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.models import transformer as tr
+    from repro_torch.models.model import build_model
+    from repro_torch.models.ssm import mamba_dims
+    from repro_torch.models.transformer import tree_leaves
+    from repro_torch.optim import adam
+    from torch.profiler import ProfilerActivity, profile
+    t_phase = time.monotonic()
+    cfg = dataclasses.replace(cfgbase.resolve("zamba2-2.7b"),
+                              attention_impl="kernel")
+    check(cfg.remat == "full" and cfg.compute_dtype == "bfloat16",
+          f"zamba2's remat {cfg.remat}, compute {cfg.compute_dtype}")
+    ocfg = cfgbase.optimizer_for(cfg, lr=3e-4, warmup_steps=2,
+                                 schedule="constant",
+                                 total_steps=STUB_STEPS)
+    model = build_model(cfg, dev)
+    tcfg = cfgbase.TrainConfig(
+        model=cfg, shape=cfgbase.ShapeConfig("zamba", STUB_SEQ, STUB_ROWS,
+                                             "train"),
+        het=cfgbase.HetConfig(accum_steps=STUB_ACCUM), optimizer=ocfg)
+    batches, rows = deepseek_batches(cfg, dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = tsteps.init_train_state(model, tcfg)
+    step = tsteps.build_train_step(model, tcfg)
+    fns = dict(every)
+    fns["ssd_scan_bwd_cuda"] = sk.ssd_scan_bwd_cuda
+    for f in fns.values():
+        f.launches = 0
+    losses, step_s = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        state, met = step(state, b)
+        torch.cuda.synchronize()
+        step_s.append(time.monotonic() - t0)
+        losses.append(float(met["loss"]))
+    launches = {n: f.launches for n, f in fns.items()}
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    # per step: each Mamba2 layer's scan twice a microbatch (the forward,
+    # then its group's recompute under remat full) and its backward once;
+    # the shared block's attention twice an application a microbatch and
+    # its backward once (9 applications); the CE forward once a
+    # microbatch and the dlogits pass once a 4096-token chunk of it
+    groups = cfg.num_layers // cfg.hybrid.attn_every
+    n = STUB_STEPS
+    expect = {k: 0 for k in launches}
+    base = train_launches(dataclasses.replace(cfg, num_layers=groups), rows,
+                          STUB_ACCUM, STUB_SEQ, n)
+    for k in ("flash_attention_cuda", "flash_attention_bwd_cuda",
+              "cross_entropy_cuda", "ce_dlogits_cuda"):
+        expect[k] = base[k]
+    expect["ssd_scan_cuda"] = 2 * cfg.num_layers * STUB_ACCUM * n
+    expect["ssd_scan_bwd_cuda"] = cfg.num_layers * STUB_ACCUM * n
+    check(all(_finite(x) for x in losses), f"zamba2 losses {losses}")
+    check(launches == expect, f"zamba2 train launches {launches} != "
+          f"{expect}")
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, _ = step(state, batches[-1])
+        torch.cuda.synchronize()
+    step_profile = _profile_rec(prof, (time.monotonic() - t0) * 1e6)
+    del state, step, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    ms = statistics.median(step_s[1:]) * 1e3
+    tokens = STUB_ROWS * STUB_SEQ
+    processed = rows * STUB_SEQ
+    # model FLOPs of a step: 6 x parameters x tokens, the shared block's
+    # counted once per application (each application is its own
+    # products), plus the attention's products (causal, forward and
+    # backward: 3 x 2 B S^2 D H an application) and the SSD scan's (its
+    # causal pair and state products, forward and backward: 3 x the
+    # forward's, ssd_flops_bytes)
+    shared = tr.count_params_analytic(cfg) - tr.count_params_analytic(
+        dataclasses.replace(cfg, hybrid=dataclasses.replace(
+            cfg.hybrid, enabled=False)))
+    n_eff = cfg.param_count() + (groups - 1) * shared
+    attn = 3 * 2.0 * rows * groups * cfg.num_heads * STUB_SEQ ** 2 * \
+        cfg.head_dim
+    scan_fwd, _ = ssd_flops_bytes(rows, STUB_SEQ, mamba_dims(cfg)[1], 1,
+                                  cfg.ssm.chunk_size, [])
+    scan = 3 * scan_fwd * cfg.num_layers
+    flops = 6.0 * n_eff * processed + attn + scan
+    busy, win = step_profile["device_busy_us"], step_profile["window_us"]
+    out = {"layers": cfg.num_layers, "rows": rows, "losses": losses,
+           "moments": [ocfg.m_dtype, ocfg.v_dtype], "launches": launches,
+           "expected_launches": expect,
+           "step_ms": [t * 1e3 for t in step_s],
+           "ms_per_step_median_2_to_n": ms,
+           "tokens_per_s": tokens / (ms / 1e3),
+           "params": cfg.param_count(), "shared_block_params": shared,
+           "model_flops_per_step": flops,
+           "model_flops_parts": {"6ND": 6.0 * n_eff * processed,
+                                 "attention": attn, "scan": scan},
+           "mfu_vs_989_tflops": flops / (ms / 1e3) / H100_BF16_FLOPS,
+           "peak_memory_gib": peak, "step_profile": step_profile}
+    print(f"[zamba-train] zamba2-2.7b at full width and depth "
+          f"({cfg.num_layers} Mamba2 layers, the shared block after every "
+          f"{cfg.hybrid.attn_every}; {cfg.param_count()} parameters), bf16, "
+          f"remat {cfg.remat}, {ocfg.m_dtype} moments, {rows} rows of "
+          f"{STUB_SEQ} tokens ({STUB_ROWS} real), accum {STUB_ACCUM}: "
+          f"losses " + ", ".join(f"{x:.4f}" for x in losses)
+          + f"; {ms:.1f} ms/step (median of steps 2..{STUB_STEPS}), "
+          f"{out['tokens_per_s']:.0f} real tokens/s, model FLOPs "
+          f"{flops:.3e}/step (6 N D {6.0 * n_eff * processed:.3e} with N = "
+          f"{n_eff} counting the shared block once an application, "
+          f"attention {attn:.3e}, scan {scan:.3e}) = "
+          f"{100 * out['mfu_vs_989_tflops']:.2f}% of 989 TFLOP/s, peak "
+          f"memory {peak:.2f} GiB, launches {launches} [{smi}]", flush=True)
+    print(f"[zamba-train] torch.profiler over 1 step: kernels "
+          f"{busy / 1e3:.3f} ms of device time in {win / 1e3:.3f} ms of "
+          f"wall; by kernel: "
+          + "; ".join(f"{k['name'][:60]} x{k['count']} {k['us'] / 1e3:.3f} "
+                      f"ms" for k in step_profile["kernels"][:14]),
+          flush=True)
+
+    # the fp32 probe: kernel path vs plain path, same params and rows,
+    # full width cut to one group
+    pcfg = dataclasses.replace(cfg, num_layers=ZAMBA_PROBE_LAYERS,
+                               compute_dtype="float32",
+                               param_dtype="float32")
+    torch.cuda.reset_peak_memory_stats(dev)
+    kern = build_model(pcfg, dev)
+    plain = build_model(dataclasses.replace(pcfg,
+                                            attention_impl="reference"), dev)
+    params = kern.init_params(1)
+    b0 = batches[0]
+    probe = {k: torch.cat([v[:ZAMBA_PROBE_ROWS - 1], v[rows - 1:]])
+             for k, v in b0.items()}
+    ptcfg = dataclasses.replace(tcfg, model=pcfg,
+                                het=cfgbase.HetConfig(accum_steps=1))
+    sk.ssd_scan_bwd_cuda.launches = 0
+    k_loss, _, k_grads = tsteps.loss_and_grads(kern, ptcfg, params, probe)
+    check(sk.ssd_scan_bwd_cuda.launches == ZAMBA_PROBE_LAYERS,
+          f"the probe's kernel path ran {sk.ssd_scan_bwd_cuda.launches} "
+          f"SSD backward launches")
+    names = _leaf_names(params)
+    tol = TRAIN_RTOL["float32"]
+    rec = {"layers": ZAMBA_PROBE_LAYERS, "rows": ZAMBA_PROBE_ROWS,
+           "tol": tol}
+    gk = adam.global_norm(k_grads)
+
+    def worst_leaf(got, want):
+        errs = [_rel_l2_by_rows(a, b) for a, b in zip(tree_leaves(got),
+                                                      tree_leaves(want))]
+        i = max(range(len(errs)), key=errs.__getitem__)
+        return errs[i], names[i]
+
+    # the plain path twice: as it runs (fp32), for the record, then with
+    # its SSD scan computed in fp64, which the limits hold
+    plain_grads = {}
+    for acc in (torch.float32, torch.float64):
+        with _ssd_reference_in(acc):
+            loss, _, grads = tsteps.loss_and_grads(plain, ptcfg, params,
+                                                   probe,
+                                                   ce_impl="reference")
+        gr = adam.global_norm(grads)
+        err, leaf = worst_leaf(k_grads, grads)
+        rec["scan_" + str(acc).split(".")[-1]] = {
+            "loss_rel": abs(float(k_loss) - float(loss)) / abs(float(loss)),
+            "grad_norm_rel": abs(float(gk) - float(gr)) / float(gr),
+            "worst_leaf_rel_l2": err, "worst_leaf": leaf}
+        plain_grads[acc] = grads
+    # how far the fp32 plain path itself is from its fp64-scan version
+    err, leaf = worst_leaf(plain_grads[torch.float32],
+                           plain_grads[torch.float64])
+    rec["plain_fp32_vs_fp64_scan"] = {"worst_leaf_rel_l2": err,
+                                      "worst_leaf": leaf}
+    del plain_grads, grads
+    rec["peak_memory_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    held = rec["scan_float64"]
+    print(f"[zamba-train] fp32 probe, {ZAMBA_PROBE_LAYERS} layers (one "
+          f"group) at full width, fp32 parameters, {ZAMBA_PROBE_ROWS} rows "
+          f"(peak {rec['peak_memory_gib']:.2f} GiB), kernel path vs plain "
+          f"path with its SSD scan in fp64: loss rel "
+          f"{held['loss_rel']:.3e} (tol {tol['loss']:g}), grad norm rel "
+          f"{held['grad_norm_rel']:.3e} (tol {tol['grad_norm']:g}), worst "
+          f"leaf rel L2 {held['worst_leaf_rel_l2']:.3e} "
+          f"({held['worst_leaf']}; tol {tol['leaf']:g}); against the plain "
+          f"path in fp32 (not held: its own gradient of A_log is the "
+          f"least exact): {rec['scan_float32']}; the fp32 plain path "
+          f"against its fp64-scan self: worst leaf rel L2 "
+          f"{rec['plain_fp32_vs_fp64_scan']['worst_leaf_rel_l2']:.3e} "
+          f"({rec['plain_fp32_vs_fp64_scan']['worst_leaf']})", flush=True)
+    check(held["loss_rel"] <= tol["loss"] and held["grad_norm_rel"] <=
+          tol["grad_norm"] and held["worst_leaf_rel_l2"] <= tol["leaf"],
+          f"zamba2 fp32 probe: {rec}")
+    out["probe"] = rec
+    del kern, plain, params, k_grads, batches, b0, probe
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.monotonic() - t_phase
+    return out
+
+
 # --------------------------------------------------------------------------
 
 
@@ -4942,6 +5384,12 @@ def main(argv=None) -> int:
     t0 = time.monotonic()
     deepseek = deepseek_train_phase(fa, ce, dev, smi)
     phases["deepseek_train_path"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    recs += zamba_train_kernel_phase(fa, sk, dev, smi)
+    phases["zamba_train_kernels"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    zamba_train = zamba_train_phase(fa, ce, sk, dev, smi, every)
+    phases["zamba_train_path"] = time.monotonic() - t0
     print("[phases] seconds: " + ", ".join(
         f"{k} {v:.1f}" for k, v in phases.items()), flush=True)
 
@@ -4988,7 +5436,19 @@ def main(argv=None) -> int:
            # same wrapper and counter, its launches phase 18's
            "flash_attention_bwd_d192": (
                "src/repro_torch/csrc/flash_attention_bwd.cu",
+               root + "flash_attention/ref.py:115"),
+           # the SSD scan's backward: no TPU kernel (the JAX package
+           # differentiates ref.ssd_chunked); its launches phase 19's
+           "ssd_scan_bwd": (
+               "src/repro_torch/csrc/ssd_scan_bwd.cu",
+               "none: JAX differentiates " + root + "ssd_scan/ref.py:80"),
+           # kernel 1b at head dim 80 (zamba2's shared block): the same
+           # wrapper and counter, its launches phase 19's
+           "flash_attention_bwd_d80": (
+               "src/repro_torch/csrc/flash_attention_bwd.cu",
                root + "flash_attention/ref.py:115")}
+    counter_of = {"ssd_scan_bwd": "ssd_scan_bwd_cuda",
+                  "flash_attention_bwd_d80": "flash_attention_bwd_cuda"}
     # launches: the path each kernel serves (GQA decode: serve; the MLA
     # paged decode: the MLA serve path; the contiguous MLA decode: the
     # MLA generate path; the exchange kernels: the multi-rank train path,
@@ -5018,7 +5478,9 @@ def main(argv=None) -> int:
                    "archs_train": archs["launches"]["train"].get(n, 0),
                    "deepseek_train": deepseek["launches"].get(
                        "flash_attention_bwd_cuda"
-                       if n == "flash_attention_bwd_d192" else n, 0)}
+                       if n == "flash_attention_bwd_d192" else n, 0),
+                   "zamba_train": zamba_train["launches"].get(
+                       counter_of.get(n, n), 0)}
                for n in src}
     path_of = {"flash_decode_paged_cuda": "serve",
                "quantize_int8_cuda": "multi_rank",
@@ -5028,18 +5490,22 @@ def main(argv=None) -> int:
                "ssd_scan_cuda": "zamba_generate",
                "mlstm_scan_cuda": "xlstm_generate",
                "paged_decode_d128": "archs_serve",
-               "flash_attention_bwd_d192": "deepseek_train"}
+               "flash_attention_bwd_d192": "deepseek_train",
+               "ssd_scan_bwd": "zamba_train",
+               "flash_attention_bwd_d80": "zamba_train"}
     at_keys = ("dtype", "B", "Sq", "S", "H", "Hkv", "D", "T", "V", "R",
                "kv_lens", "bs", "rows", "MB", "G", "P", "N", "chunk", "dk",
                "dv")
     kernels = []
     attention = ("flash_attention_cuda", "flash_attention_bwd_cuda")
     for name, (source, replaces) in src.items():
-        if name == "flash_attention_bwd_d192":
+        if name in ("flash_attention_bwd_d192", "flash_attention_bwd_d80"):
+            d = MLA_DQK if name.endswith("192") else ZAMBA_DH
             mine = [r for r in recs if r["kernel"] == attention[1]
-                    and r.get("D") == MLA_DQK]
+                    and r.get("D") == d]
         else:
-            mine = [r for r in recs if r["kernel"] == name]
+            mine = [r for r in recs if r["kernel"] == counter_of.get(name,
+                                                                     name)]
         timed = [r for r in mine if "ms" in r]
         # the attention kernels' rows are the train path's D=128 cases;
         # the prefill's D=192 case (the MLA prefill) and D=80 case
@@ -5124,7 +5590,7 @@ def main(argv=None) -> int:
               f"path")
     check(kernels[0]["at_d80"]["launches"] > 0,
           "the D=80 prefill never launched on the zamba2 path")
-    check(len(kernels) == 13, f"{len(kernels)} kernels listed")
+    check(len(kernels) == 15, f"{len(kernels)} kernels listed")
     for k in kernels:
         if k["name"] in ("quantize_int8_cuda", "dequant_accum_cuda"):
             check(k["at_one_bucket"]["launches"] > 0,
@@ -5138,7 +5604,8 @@ def main(argv=None) -> int:
          "mla_path": mla, "zamba_path": zamba, "xlstm_path": xlstm,
          "ckpt_path": ckpt, "overlap_path": overlap,
          "pipeline_path": pipeline, "archs_path": archs,
-         "deepseek_train_path": deepseek, "kernels": kernels},
+         "deepseek_train_path": deepseek, "zamba_train_path": zamba_train,
+         "kernels": kernels},
         indent=1,
         default=str))
     print(json.dumps({"kernels": kernels}))

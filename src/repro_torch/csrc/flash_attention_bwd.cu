@@ -15,7 +15,7 @@
 //   sum over its H / Hkv query heads. dq, dk, dv come out in q's dtype
 //   (fp32 or bf16) with fp32 accumulation; like the reference, p is
 //   rounded to that dtype before the dv product and ds before the dq
-//   and dk products. D in {64, 128, 192}; all tensors contiguous.
+//   and dk products. D in {64, 80, 128, 192}; all tensors contiguous.
 //
 // What bounds it on the H100: about 2.5x the forward's causal flops
 //   (five products of the forward's size, one of them recomputing the
@@ -66,6 +66,13 @@
 //     arithmetic on the CPU).
 //   * The causal mask is applied only on tiles that cross the diagonal
 //     or the ragged end; tiles that no row sees are not visited.
+//   * D = 80 (zamba2's shared attention block): the shared-memory tiles
+//     are padded to 128 columns, two 64-column swizzle blocks, as the
+//     forward pads them (the 16-byte global reads stay 80 wide and the
+//     pad columns are never read); the products over D take five k16
+//     steps, and dQ, dK and dV are n80 products. A 64 x 80 fp32
+//     accumulator is 40 registers a thread, so the dk/dv pass keeps both
+//     of its own in one warpgroup (the D <= 128 design).
 //   * D = 192 (MLA training; v arrives zero-padded from 128): one
 //     64 x 192 fp32 accumulator is 96 registers a thread, so the dk/dv
 //     pass cannot hold both of its own. Its block's two warpgroups take
@@ -81,7 +88,10 @@
 //
 // fp32: the first, CUDA-core version, unchanged: fp32 arithmetic, one
 //   key per lane, K and V tiles padded to D+1 floats in shared memory
-//   where 32 lanes read 32 different keys.
+//   where 32 lanes read 32 different keys. At D = 80 (not a multiple of
+//   the 32 lanes) a lane of the dq pass holds ceil(D / 32) = 3 columns a
+//   row, lane + 32 c, the third live on lanes 0..15 only, as the forward
+//   does.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
@@ -142,7 +152,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const float* __restrict__ lse, float* __restrict__ dvec,
                     T* __restrict__ dq, int Sq, int Skv, int H, int Hkv,
                     int causal, int q_offset, float scale) {
-  constexpr int kC = D / 32;
+  constexpr int kC = (D + 31) / 32;
   constexpr int kBQ = dq_tile<D>();
   constexpr int kRowsPerWarp = kBQ / kWarps;
   extern __shared__ float smem[];
@@ -181,7 +191,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int c = 0; c < kC; ++c) {
         const int d = lane + 32 * c;
-        part += to_f(dout[base + d]) * to_f(out[base + d]);
+        if (D % 32 == 0 || d < D)
+          part += to_f(dout[base + d]) * to_f(out[base + d]);
       }
       ls = lse[(size_t)(b * Sq + row) * H + h];
     }
@@ -236,7 +247,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const float dsj = __shfl_sync(0xffffffffu, ds, j);
 #pragma unroll
         for (int c = 0; c < kC; ++c)
-          acc[i][c] = fmaf(dsj, k_s[j][lane + 32 * c], acc[i][c]);
+          if (D % 32 == 0 || lane + 32 * c < D)
+            acc[i][c] = fmaf(dsj, k_s[j][lane + 32 * c], acc[i][c]);
       }
     }
   }
@@ -247,7 +259,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (row >= Sq) continue;
     T* dst = dq + ((size_t)(b * Sq + row) * H + h) * D;
 #pragma unroll
-    for (int c = 0; c < kC; ++c) dst[lane + 32 * c] = from_f<T>(acc[i][c]);
+    for (int c = 0; c < kC; ++c)
+      if (D % 32 == 0 || lane + 32 * c < D)
+        dst[lane + 32 * c] = from_f<T>(acc[i][c]);
   }
 }
 
@@ -419,8 +433,9 @@ struct DqCfg {
   static constexpr int kBQ = kBQ_;
   static constexpr int kBKV = kBKV_;
   static constexpr int kThreads = 2 * kBQ;        // 128 a warpgroup
-  static constexpr int kQBytes = kBQ * D * 2;     // the Q or dO tile
-  static constexpr int kKVBytes = kBKV * D * 2;   // one K or V tile
+  static constexpr int kDP = (D + 63) / 64 * 64;  // tile columns in smem
+  static constexpr int kQBytes = kBQ * kDP * 2;   // the Q or dO tile
+  static constexpr int kKVBytes = kBKV * kDP * 2; // one K or V tile
   // Q, dO, a 2-stage ring of K and V, the rows' lse and Dv, 1 KB to
   // align the base
   static constexpr int kSmem = 2 * kQBytes + 2 * 2 * kKVBytes +
@@ -436,8 +451,9 @@ struct DkvCfg {
   static constexpr int kBKV = kBKV_;
   static constexpr int kBQ = kBQ_;
   static constexpr int kThreads = kSplit ? 256 : 2 * kBKV;  // 128 a wg
-  static constexpr int kKBytes = kBKV * D * 2;    // the K or V tile
-  static constexpr int kQBytes = kBQ * D * 2;     // one Q or dO tile
+  static constexpr int kDP = (D + 63) / 64 * 64;  // tile columns in smem
+  static constexpr int kKBytes = kBKV * kDP * 2;  // the K or V tile
+  static constexpr int kQBytes = kBQ * kDP * 2;   // one Q or dO tile
   // a stage: Q, dO, then lse and Dv of its rows, padded to 1 KB
   static constexpr int kStageBytes = 2 * kQBytes + (2 * kBQ * 4 + 1023) /
                                      1024 * 1024;
@@ -1007,6 +1023,10 @@ template <> struct BwdTiles<64> {
   using Dq = DqCfg<64, 64, 64>;
   using Dkv = DkvCfg<64, 64, 64>;
 };
+template <> struct BwdTiles<80> {
+  using Dq = DqCfg<80, 64, 64>;
+  using Dkv = DkvCfg<80, 64, 64>;
+};
 template <> struct BwdTiles<128> {
   using Dq = DqCfg<128, 64, 64>;
   using Dkv = DkvCfg<128, 64, 64>;
@@ -1060,7 +1080,8 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    int B, int Sq, int Skv, int H, int Hkv,
                                    int D, int causal, int q_offset,
                                    float scale, int dtype, void* stream) {
-  if ((D != 64 && D != 128 && D != 192) || Hkv <= 0 || H % Hkv != 0 ||
+  if ((D != 64 && D != 80 && D != 128 && D != 192) || Hkv <= 0 ||
+      H % Hkv != 0 ||
       B <= 0 || Sq <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
@@ -1071,6 +1092,7 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
                        H, Hkv, causal, q_offset, scale, s)
   if (dtype == 0) {
     if (D == 64) REPRO_BWD(float, 64);
+    if (D == 80) REPRO_BWD(float, 80);
     if (D == 128) REPRO_BWD(float, 128);
     REPRO_BWD(float, 192);
   }
@@ -1080,6 +1102,7 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
                          Skv, H, Hkv, causal, q_offset, scale, s)
   if (dtype == 1) {
     if (D == 64) REPRO_BWD(64);
+    if (D == 80) REPRO_BWD(80);
     if (D == 128) REPRO_BWD(128);
     REPRO_BWD(192);
   }
@@ -1100,6 +1123,7 @@ extern "C" int flash_attention_bwd_sm90_tile(int D, int axis) {
     return axis >= 0 && axis < 4 ? t[axis] : -1;                           \
   }
   REPRO_TILE(64)
+  REPRO_TILE(80)
   REPRO_TILE(128)
   REPRO_TILE(192)
 #undef REPRO_TILE
@@ -1112,6 +1136,8 @@ extern "C" int flash_attention_bwd_sm90_smem(int D, int pass) {
   if (pass != 0 && pass != 1) return -1;
   if (D == 64)
     return pass ? BwdTiles<64>::Dkv::kSmem : BwdTiles<64>::Dq::kSmem;
+  if (D == 80)
+    return pass ? BwdTiles<80>::Dkv::kSmem : BwdTiles<80>::Dq::kSmem;
   if (D == 128)
     return pass ? BwdTiles<128>::Dkv::kSmem : BwdTiles<128>::Dq::kSmem;
   if (D == 192)

@@ -202,6 +202,14 @@ def load() -> ctypes.CDLL:
                 ci, ci, ci, ci, ci, ci, ci,     # B, S, H, P, G, N, Q
                 ci, vp]                         # dtype, stream
             lib.ssd_scan_fwd.restype = ci
+            lib.ssd_scan_bwd.argtypes = [
+                vp, vp, vp, vp, vp, vp, vp,     # x, dt, A, B, C, D (or 0),
+                                                # dy
+                vp, vp, vp, vp, vp, vp, vp,     # dx, ddt, dA, dB, dC, dD
+                                                # (or 0), scratch
+                ci, ci, ci, ci, ci, ci, ci,     # B, S, H, P, G, N, Q
+                ci, vp]                         # dtype, stream
+            lib.ssd_scan_bwd.restype = ci
             lib.mlstm_scan_fwd.argtypes = [
                 vp, vp, vp, vp, vp,             # q, k, v, i_pre, f_pre
                 vp, vp, vp, vp, vp,             # h, C, n, m, scratch

@@ -11,8 +11,9 @@
     kernel.
   * :func:`flash_attention_bwd_cuda` — its recompute backward
     (``csrc/flash_attention_bwd.cu``), held against ``ref.py::_flash_bwd``
-    (the Pallas kernel has no backward); head dim 64, 128 or 192 (MLA
-    training). bf16 runs on the tensor cores (wgmma), p and ds rounded to
+    (the Pallas kernel has no backward); head dim 64, 80 (zamba2's
+    shared block), 128 or 192 (MLA training). bf16 runs on the tensor
+    cores (wgmma; at 80 on tiles padded to 128 columns), p and ds rounded to
     bf16 once as the reference rounds them (at 192 the dk/dv pass's two
     warpgroups split the two outputs, which leaves each sum's order as
     it is); :func:`flash_attention_bwd_tiled_plain` models that
@@ -46,7 +47,7 @@ from repro_torch.kernels.flash_attention import ref
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 PREFILL_HEAD_DIMS = (64, 80, 128, 192)   # head dims of the forward kernel
-BWD_HEAD_DIMS = (64, 128, 192)       # head dims of the backward kernel
+BWD_HEAD_DIMS = (64, 80, 128, 192)   # head dims of the backward kernel
 DECODE_HEAD_DIMS = (64, 128)   # head dims the decode kernel is built for
 MAX_GROUP = 16         # most query heads per kv head the decode kernel takes
 # kv positions a tile of the bf16 forward kernel, by head dim
@@ -57,8 +58,8 @@ KV_TILES = {64: 64, 80: 64, 128: 64, 192: 32}
 # block, kv positions a dq-pass tile, keys a dk/dv-pass block, q rows a
 # dk/dv-pass tile) (csrc/flash_attention_bwd.cu, BwdTiles; held equal to
 # flash_attention_bwd_sm90_tile)
-BWD_TILES = {64: (64, 64, 64, 64), 128: (64, 64, 64, 64),
-             192: (64, 64, 64, 64)}
+BWD_TILES = {64: (64, 64, 64, 64), 80: (64, 64, 64, 64),
+             128: (64, 64, 64, 64), 192: (64, 64, 64, 64)}
 # positions a split of the decode kernel and a stage of its ring
 # (csrc/paged_decode.cu; held equal to paged_decode_split_len)
 DECODE_SPLIT = 64

@@ -5,11 +5,15 @@ layouts).
 ``impl``:
   * "sequential" — the direct recurrence (``ref.ssd_sequential``);
   * "reference"  — the chunked SSD algorithm (``ref.ssd_chunked``);
-  * "kernel"     — the hand-written CUDA kernel (``ssd_scan.py``) for
-                   CUDA tensors, its plain version for CPU tensors. It
+  * "kernel"     — the hand-written CUDA kernels (``ssd_scan.py``) for
+                   CUDA tensors, their plain versions for CPU tensors. It
                    stands for the JAX package's "pallas" and, like it,
-                   starts from zero state (prefill); decode uses
-                   :func:`ssd_decode_step`.
+                   starts from zero state (prefill and training); decode
+                   uses :func:`ssd_decode_step`. When a gradient is
+                   wanted it runs as ``SSDScanFn``, the forward kernel
+                   with the backward kernel (``csrc/ssd_scan_bwd.cu``) as
+                   its gradient, which takes the final state's cotangent
+                   as 0.
 """
 from __future__ import annotations
 
@@ -18,7 +22,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels.ssd_scan import ref
-from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan_cuda
+from repro_torch.kernels.ssd_scan.ssd_scan import SSDScanFn, ssd_scan_cuda
 
 
 def ssd_scan(
@@ -41,9 +45,13 @@ def ssd_scan(
             raise NotImplementedError(
                 "the ssd kernel starts from zero state (prefill); decode "
                 "uses ssd_decode_step")
-        return ssd_scan_cuda(x.contiguous(), dt.contiguous(), A,
-                             Bm.contiguous(), Cm.contiguous(), D,
-                             chunk_size=chunk_size)
+        args = (x.contiguous(), dt.contiguous(), A.contiguous(),
+                Bm.contiguous(), Cm.contiguous(),
+                D.contiguous() if D is not None else None)
+        if torch.is_grad_enabled() and any(
+                t is not None and t.requires_grad for t in args):
+            return SSDScanFn.apply(*args, chunk_size)
+        return ssd_scan_cuda(*args, chunk_size=chunk_size)
     raise ValueError(f"unknown ssd impl '{impl}'")
 
 

@@ -82,10 +82,13 @@ def ssd_chunked(
     *,
     chunk_size: int = 256,
     initial_state: Optional[torch.Tensor] = None,
+    acc_dtype: torch.dtype = torch.float32,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The chunked SSD scan; a ragged tail is padded with zeros (dt = 0
     keeps the state and adds nothing). Returns (y in x's dtype, final
-    state fp32)."""
+    state fp32). It computes in ``acc_dtype``: fp32, as the JAX package
+    does, or fp64 for a reference of more digits (its gradient of A, a
+    small sum of large terms, keeps ~5 digits in fp32)."""
     b, s, h, p = x.shape
     n = Bm.shape[-1]
     orig_s = s
@@ -99,11 +102,11 @@ def ssd_chunked(
         s = s + pad
     c = s // q
 
-    Bf = _broadcast_groups(Bm, h).float().reshape(b, c, q, h, n)
-    Cf = _broadcast_groups(Cm, h).float().reshape(b, c, q, h, n)
-    xf = x.float().reshape(b, c, q, h, p)
-    dtf = dt.float().reshape(b, c, q, h)
-    dA_log = dtf * A.float()[None, None, None, :]        # (B, C, Q, H)
+    Bf = _broadcast_groups(Bm, h).to(acc_dtype).reshape(b, c, q, h, n)
+    Cf = _broadcast_groups(Cm, h).to(acc_dtype).reshape(b, c, q, h, n)
+    xf = x.to(acc_dtype).reshape(b, c, q, h, p)
+    dtf = dt.to(acc_dtype).reshape(b, c, q, h)
+    dA_log = dtf * A.to(acc_dtype)[None, None, None, :]  # (B, C, Q, H)
     dA_log = dA_log.permute(0, 3, 1, 2)                  # (B, H, C, Q)
     A_cum = torch.cumsum(dA_log, dim=-1)                 # (B, H, C, Q)
 
@@ -119,8 +122,8 @@ def ssd_chunked(
 
     # 3) inter-chunk recurrence over chunk states
     chunk_decay = torch.exp(A_cum[..., -1])              # (B, H, C)
-    state = (initial_state.float() if initial_state is not None
-             else torch.zeros((b, h, p, n), dtype=torch.float32,
+    state = (initial_state.to(acc_dtype) if initial_state is not None
+             else torch.zeros((b, h, p, n), dtype=acc_dtype,
                               device=x.device))
     prev = []
     for ci in range(c):
@@ -136,8 +139,9 @@ def ssd_chunked(
 
     y = (Y_diag + Y_off).reshape(b, s, h, p)[:, :orig_s]
     if D is not None:
-        y = y + x.float()[:, :orig_s] * D.float()[None, None, :, None]
-    return y.to(x.dtype), state
+        y = y + (x.to(acc_dtype)[:, :orig_s]
+                 * D.to(acc_dtype)[None, None, :, None])
+    return y.to(x.dtype), state.float()
 
 
 def ssd_decode_step(

@@ -1,4 +1,5 @@
-"""Hand-written CUDA SSD scan and its plain PyTorch version.
+"""Hand-written CUDA SSD scan, its backward, and their plain PyTorch
+versions.
 
 :func:`ssd_scan_cuda` — the Mamba2 SSD chunked scan from zero state
 (``csrc/ssd_scan.cu``), replacing the JAX package's ``ssd_scan_pallas``:
@@ -16,6 +17,15 @@ three operands made in fp32 inside the kernels (the weighted B, the
 carried state and the decay-weighted scores) fed as bf16 hi/lo pairs;
 :func:`ssd_scan_tiled_plain` models that arithmetic for the tests. fp32
 keeps the one CUDA-core kernel.
+
+:func:`ssd_scan_bwd_cuda` — the scan's backward (``csrc/ssd_scan_bwd.cu``),
+with the final state's cotangent taken as 0 (training drops the state).
+The JAX package has no kernel for it (its training differentiates
+``ref.ssd_chunked``); its plain version :func:`ssd_scan_bwd_plain` writes
+out the kernel's arithmetic step by step, and runs for CPU tensors. It
+counts its launches as the forward does (one a call, six kernel
+launches). :class:`SSDScanFn` joins the two as one
+``torch.autograd.Function``.
 """
 from __future__ import annotations
 
@@ -29,6 +39,7 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 STATE_DIM = 64         # the state dim N the kernel is built for
 P_SLICE = 32           # head dim P must be a multiple of this
 MAX_CHUNK = 256        # largest chunk Q (one chunk row per thread)
+BWD_MAX_P = 128        # largest head dim P of the backward kernel
 # rows a tile of the bf16 chunk scan (csrc/ssd_scan.cu; held equal to
 # ssd_scan_sm90_tile)
 ROW_TILE = 64
@@ -55,6 +66,23 @@ def _mm_pair(a, b_pair):
     return out if lo is None else out + a @ lo
 
 
+def _chunked(t: torch.Tensor, h: int, nc: int, q: int) -> torch.Tensor:
+    """(B, S, G|H, F) -> (B, H, nc, q, F) fp32, groups broadcast over
+    heads, rows past S as 0."""
+    b, s = t.shape[:2]
+    t = t.float()
+    if t.shape[2] != h:
+        t = t.repeat_interleave(h // t.shape[2], dim=2)
+    t = torch.nn.functional.pad(t, (0, 0, 0, 0, 0, nc * q - s))
+    return t.reshape(b, nc, q, h, -1).permute(0, 3, 1, 2, 4)
+
+
+def _unchunked(t: torch.Tensor, s: int) -> torch.Tensor:
+    """(B, H, nc, q, F) -> (B, S, H, F)."""
+    b, h, nc, q, f = t.shape
+    return t.permute(0, 2, 3, 1, 4).reshape(b, nc * q, h, f)[:, :s]
+
+
 def ssd_scan_tiled_plain(x, dt, A, Bm, Cm, D=None, *, chunk_size: int = 256,
                          rounding: str = "pair"):
     """The bf16 kernels' arithmetic in plain PyTorch, for the tests:
@@ -70,20 +98,11 @@ def ssd_scan_tiled_plain(x, dt, A, Bm, Cm, D=None, *, chunk_size: int = 256,
     final state fp32). ``rounding`` "bf16" or "tf32" replaces the pairs
     with one rounding, for the record."""
     b, s, h, p = x.shape
-    g, n = Bm.shape[2], Bm.shape[3]
+    n = Bm.shape[3]
     q = min(int(chunk_size), s)
     nc = -(-s // q)
-    pad = nc * q - s
-
-    def heads(t):                      # (B, S, G|H, F) -> (B, H, nc, q, F)
-        t = t.float()
-        if t.shape[2] != h:
-            t = t.repeat_interleave(h // t.shape[2], dim=2)
-        t = torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad))
-        return t.reshape(b, nc, q, h, -1).permute(0, 3, 1, 2, 4)
-
-    xf, Bf, Cf = heads(x), heads(Bm), heads(Cm)
-    dtf = heads(dt[..., None])[..., 0]                 # (B, H, nc, q)
+    xf, Bf, Cf = (_chunked(t, h, nc, q) for t in (x, Bm, Cm))
+    dtf = _chunked(dt[..., None], h, nc, q)[..., 0]    # (B, H, nc, q)
     acum = torch.cumsum(dtf * A.float()[None, :, None, None], dim=-1)
     a_last = acum[..., -1]                             # (B, H, nc)
     # 1. chunk states
@@ -124,9 +143,52 @@ def ssd_scan_tiled_plain(x, dt, A, Bm, Cm, D=None, *, chunk_size: int = 256,
         if D is not None:
             y = y + D.float()[None, :, None, None, None] * xf[..., i0:i1, :]
         ys.append(y)
-    y = torch.cat(ys, dim=-2)                          # (B, H, nc, q, P)
-    y = y.permute(0, 2, 3, 1, 4).reshape(b, nc * q, h, p)[:, :s]
+    y = _unchunked(torch.cat(ys, dim=-2), s)
     return y.to(x.dtype), state
+
+
+def _checked(name: str, x, dt, A, Bm, Cm, D, chunk_size: int, *,
+             dy: Optional[torch.Tensor] = None, max_p: Optional[int] = None):
+    """The checks both kernels' wrappers make of CUDA inputs: one device,
+    contiguous, x (and dy) fp32 or bf16 with B and C in x's dtype, dt, A
+    and D fp32, agreeing shapes and the widths the kernels take. Returns
+    (B, S, H, P, G, N, the chunk's rows)."""
+    tensors = [t for t in (x, dt, A, Bm, Cm, D, dy) if t is not None]
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: tensors must be on CPU or CUDA, got {dev}")
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on different devices "
+                             f"({t.device} vs {dev})")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{name}: dtype {x.dtype} not supported "
+                        f"(float32 or bfloat16)")
+    if any(t.dtype != x.dtype for t in (Bm, Cm, dy) if t is not None):
+        raise TypeError(f"{name}: B/C dtypes (and dy's) must be x's "
+                        f"({x.dtype})")
+    if any(t.dtype != torch.float32 for t in (dt, A, D) if t is not None):
+        raise TypeError(f"{name}: dt, A and D must be float32")
+    b, s, h, p = x.shape
+    g, n = Bm.shape[2], Bm.shape[3]
+    if (dt.shape != (b, s, h) or A.shape != (h,) or Bm.shape != (b, s, g, n)
+            or Cm.shape != Bm.shape or (D is not None and D.shape != (h,))
+            or (dy is not None and dy.shape != x.shape)):
+        raise ValueError(
+            f"{name}: shapes x {tuple(x.shape)} dt {tuple(dt.shape)} A "
+            f"{tuple(A.shape)} B {tuple(Bm.shape)} C {tuple(Cm.shape)} "
+            f"disagree")
+    q = min(int(chunk_size), s)
+    if (n != STATE_DIM or p % P_SLICE or (max_p is not None and p > max_p)
+            or g <= 0 or h % g or q <= 0 or q > MAX_CHUNK):
+        raise ValueError(
+            f"{name}: needs N == {STATE_DIM}, P % {P_SLICE} == 0"
+            + (f" and P <= {max_p}" if max_p is not None else "")
+            + f", H % G == 0 and a chunk of 1..{MAX_CHUNK} rows, got "
+            f"N={n} P={p} H={h} G={g} chunk={q}")
+    return b, s, h, p, g, n, q
 
 
 def ssd_scan_plain(x, dt, A, Bm, Cm, D=None, *, chunk_size: int = 256):
@@ -152,39 +214,8 @@ def ssd_scan_cuda(
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, A, Bm, Cm, D, chunk_size=chunk_size)
     name = "ssd_scan_cuda"
-    tensors = [x, dt, A, Bm, Cm] + ([D] if D is not None else [])
+    b, s, h, p, g, n, q = _checked(name, x, dt, A, Bm, Cm, D, chunk_size)
     dev = x.device
-    if dev.type != "cuda":
-        raise ValueError(f"{name}: tensors must be on CPU or CUDA, got {dev}")
-    for t in tensors:
-        if t.device != dev:
-            raise ValueError(f"{name}: tensors on different devices "
-                             f"({t.device} vs {dev})")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: tensors must be contiguous")
-    if x.dtype not in _DTYPE_CODES:
-        raise TypeError(f"{name}: dtype {x.dtype} not supported "
-                        f"(float32 or bfloat16)")
-    if Bm.dtype != x.dtype or Cm.dtype != x.dtype:
-        raise TypeError(f"{name}: B/C dtypes must be x's ({x.dtype})")
-    if any(t.dtype != torch.float32 for t in (dt, A) + ((D,) if D is not None
-                                                       else ())):
-        raise TypeError(f"{name}: dt, A and D must be float32")
-    b, s, h, p = x.shape
-    g, n = Bm.shape[2], Bm.shape[3]
-    if (dt.shape != (b, s, h) or A.shape != (h,) or Bm.shape != (b, s, g, n)
-            or Cm.shape != Bm.shape or (D is not None and D.shape != (h,))):
-        raise ValueError(
-            f"{name}: shapes x {tuple(x.shape)} dt {tuple(dt.shape)} A "
-            f"{tuple(A.shape)} B {tuple(Bm.shape)} C {tuple(Cm.shape)} "
-            f"disagree")
-    q = min(int(chunk_size), s)
-    if (n != STATE_DIM or p % P_SLICE or g <= 0 or h % g or q <= 0
-            or q > MAX_CHUNK):
-        raise ValueError(
-            f"{name}: needs N == {STATE_DIM}, P % {P_SLICE} == 0, H % G "
-            f"== 0 and a chunk of 1..{MAX_CHUNK} rows, got N={n} P={p} "
-            f"H={h} G={g} chunk={q}")
     if x.dtype == torch.bfloat16:
         if any(t.data_ptr() % 16 for t in (x, Bm, Cm)):
             raise ValueError(f"{name}: bf16 x, B and C must be 16-byte "
@@ -219,3 +250,201 @@ def ssd_scan_cuda(
 
 
 ssd_scan_cuda.launches = 0
+
+
+def ssd_scan_bwd_plain(x, dt, A, Bm, Cm, D, dy, *, chunk_size: int = 256):
+    """The backward of :func:`ssd_scan_plain` with the final state's
+    cotangent 0, in fp32, as the kernel computes it (``A_cum`` the
+    inclusive cumsum of dt A within a chunk, ``a`` its last row):
+
+    1. per chunk, the state it adds, S_c = sum_j exp(a - A_cum_j) dt_j
+       x_j B_j^T, and the gradient its output puts on its incoming
+       state, L_c = sum_i exp(A_cum_i) dy_i C_i^T;
+    2. the state passing forward (state_in[0] = 0, state_in[c + 1] =
+       exp(a_c) state_in[c] + S_c), then in reverse the gradient of S_c,
+       G_c (0 for the last chunk, G_{c-1} = L_c + exp(a_c) G_c), and
+       the gradient of a_c through the carried state, exp(a_c)
+       <state_in[c], G_c>;
+    3. per chunk, with F_ij = exp(A_cum_i - A_cum_j) dt_j on the causal
+       half (0 above it), M = (C B^T) F, dM = dy x^T and dCB = dM F:
+       dC = dCB B + exp(A_cum) dy state_in; dB = dCB^T C + exp(a -
+       A_cum) dt G^T x; dx = M^T dy + exp(a - A_cum) dt G B (+ D dy);
+       ddt's direct part, column sums of dM F / dt plus exp(a - A_cum)
+       x^T G B; and A_cum's gradient: row sums minus column sums of dM
+       M, the carried state's exp(A_cum) C . (dy state_in), minus the
+       chunk state's exp(a - A_cum) dt x^T G B, and a's gradient (step 2
+       and the chunk state's sum) at the last row;
+    4. A_cum's gradient summed in reverse over the chunk (the cumsum's
+       transpose): ddt += A that, dA = sum dt that. A_cum's gradient
+       and these sums are taken in fp64 from fp32 terms: each pair's
+       dM M enters at its row and (negated) at its column from one fp32
+       value, so the pairs that do not straddle a row cancel exactly in
+       that row's reverse sum, and A's gradient, a small sum of large
+       terms, keeps its digits;
+    5. dB and dC summed over the heads of a group; dD = sum dy . x.
+
+    Rows past S read as 0, as in the forward. Returns (dx, ddt, dA, dB,
+    dC, dD): dx, dB, dC in x's dtype, the rest fp32; dD is None without
+    D."""
+    b, s, h, p = x.shape
+    g, n = Bm.shape[2], Bm.shape[3]
+    q = min(int(chunk_size), s)
+    nc = -(-s // q)
+    xf, Bf, Cf, dyf = (_chunked(t, h, nc, q) for t in (x, Bm, Cm, dy))
+    dtf = _chunked(dt[..., None], h, nc, q)[..., 0]          # (B, H, nc, q)
+    Af = A.float()
+    acum = torch.cumsum(dtf * Af[None, :, None, None], dim=-1)
+    a_last = acum[..., -1]                                   # (B, H, nc)
+    decay = torch.exp(a_last[..., None] - acum)              # exp(a - A_cum)
+    w = decay * dtf
+    e_in = torch.exp(acum)
+    # 1. chunk states, and the output's gradient on the incoming state
+    st = (xf * w[..., None]).transpose(-1, -2) @ Bf          # (.., P, N)
+    loc = (dyf * e_in[..., None]).transpose(-1, -2) @ Cf
+    # 2. the state passing, forward then in reverse
+    state = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+    state_in = []
+    for c in range(nc):
+        state_in.append(state)
+        state = torch.exp(a_last[:, :, c])[..., None, None] * state \
+            + st[:, :, c]
+    g_next = torch.zeros_like(state)
+    grads, d_last = [None] * nc, [None] * nc
+    for c in reversed(range(nc)):
+        e = torch.exp(a_last[:, :, c])
+        grads[c] = g_next
+        d_last[c] = e.double() * (state_in[c].double()
+                                  * g_next.double()).sum(dim=(-1, -2))
+        g_next = loc[:, :, c] + e[..., None, None] * g_next
+    sin = torch.stack(state_in, dim=2)                       # (B,H,nc,P,N)
+    gst = torch.stack(grads, dim=2)
+    d_last = torch.stack(d_last, dim=2)                      # (B, H, nc)
+    # 3. per chunk
+    ii = torch.arange(q, device=x.device)
+    causal = ii[:, None] >= ii[None, :]
+    diff = acum[..., :, None] - acum[..., None, :]
+    L = torch.where(causal, torch.exp(torch.where(causal, diff, 0.0)), 0.0)
+    cb = Cf @ Bf.transpose(-1, -2)                           # (.., q, q)
+    dm = dyf @ xf.transpose(-1, -2)
+    fac = L * dtf[..., None, :]
+    m = cb * fac
+    dcb = dm * fac
+    dmm = (dm * m).double()            # each pair's term, summed in fp64
+    u = dyf @ sin                                            # (.., q, N)
+    dC = dcb @ Bf + e_in[..., None] * u
+    d_acum = dmm.sum(dim=-1) + (e_in * (Cf * u).sum(dim=-1)).double()
+    gb = Bf @ gst.transpose(-1, -2)                          # (.., q, P)
+    gx = xf @ gst                                            # (.., q, N)
+    s_j = (Bf * gx).sum(dim=-1)
+    dx = m.transpose(-1, -2) @ dyf + w[..., None] * gb
+    dB = dcb.transpose(-1, -2) @ Cf + w[..., None] * gx
+    ddt = (dm * cb * L).sum(dim=-2) + decay * s_j
+    ws = (w * s_j).double()            # -ws at each row, +ws at the last
+    d_acum = d_acum - dmm.sum(dim=-2) - ws
+    d_acum[..., -1] += d_last + ws.sum(dim=-1)
+    # 4. through the cumsum, in fp64
+    dda = torch.flip(torch.cumsum(torch.flip(d_acum, (-1,)), -1), (-1,))
+    ddt = (ddt.double() + Af.double()[None, :, None, None] * dda).float()
+    dA = (dtf.double() * dda).sum(dim=(0, 2, 3)).float()
+    dD = None
+    if D is not None:
+        dx = dx + D.float()[None, :, None, None, None] * dyf
+        dD = (dyf * xf).sum(dim=(0, 2, 3, 4))
+    # 5. back to the input layouts; a group's heads summed
+    rep = h // g
+    dB = _unchunked(dB, s).reshape(b, s, g, rep, n).sum(dim=3)
+    dC = _unchunked(dC, s).reshape(b, s, g, rep, n).sum(dim=3)
+    return (_unchunked(dx, s).to(x.dtype), _unchunked(ddt[..., None], s)[
+        ..., 0], dA, dB.to(x.dtype), dC.to(x.dtype), dD)
+
+
+def ssd_scan_bwd_cuda(
+    x: torch.Tensor,                     # (B, S, H, P) fp32 or bf16
+    dt: torch.Tensor,                    # (B, S, H) fp32
+    A: torch.Tensor,                     # (H,) fp32
+    Bm: torch.Tensor,                    # (B, S, G, N) x's dtype
+    Cm: torch.Tensor,                    # (B, S, G, N)
+    D: Optional[torch.Tensor],           # (H,) fp32 or None
+    dy: torch.Tensor,                    # (B, S, H, P) x's dtype
+    *,
+    chunk_size: int = 256,
+):
+    """The scan's backward with the final state's cotangent 0: returns
+    (dx, ddt, dA, dB, dC, dD), dx, dB and dC in x's dtype, ddt (B, S, H),
+    dA (H,) and dD (H,) (None without D) in fp32. The kernel takes the
+    forward's shapes with P at most ``BWD_MAX_P``; every sum runs in a
+    fixed order (two calls give equal bits)."""
+    if x.device.type == "cpu":
+        return ssd_scan_bwd_plain(x, dt, A, Bm, Cm, D, dy,
+                                  chunk_size=chunk_size)
+    name = "ssd_scan_bwd_cuda"
+    b, s, h, p, g, n, q = _checked(name, x, dt, A, Bm, Cm, D, chunk_size,
+                                   dy=dy, max_p=BWD_MAX_P)
+    dev = x.device
+    dx = torch.empty_like(x)
+    dB = torch.empty_like(Bm)
+    dC = torch.empty_like(Cm)
+    ddt = torch.empty((b, s, h), dtype=torch.float32, device=dev)
+    dA = torch.zeros((h,), dtype=torch.float32, device=dev)
+    dD = (torch.zeros((h,), dtype=torch.float32, device=dev)
+          if D is not None else None)
+    if b == 0 or s == 0:
+        return dx, ddt, dA, dB.zero_(), dC.zero_(), dD
+    from repro_torch.kernels import _build
+    lib = _build.load()
+    nc = -(-s // q)
+    nt = -(-q // ROW_TILE)
+    # scratch: in fp64, A_cum's gradient from the rows and from the
+    # columns, a's gradient, its chunk-state part per column tile and dA
+    # per chunk; in fp32, A_cum, ddt's direct part, the chunk states /
+    # incoming states and L / G (P N each), dD per column tile, dB and dC
+    # per head (B S H N each)
+    chunks = b * h * nc
+    work = torch.empty((chunks * (6 * q + 2 * p * n + 4 + 3 * nt)
+                        + 2 * b * s * h * n,), dtype=torch.float32,
+                       device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.ssd_scan_bwd(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+            Cm.data_ptr(), D.data_ptr() if D is not None else None,
+            dy.data_ptr(), dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(),
+            dB.data_ptr(), dC.data_ptr(),
+            dD.data_ptr() if dD is not None else None, work.data_ptr(),
+            b, s, h, p, g, n, q, _DTYPE_CODES[x.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t "
+                           f"{err}")
+    ssd_scan_bwd_cuda.launches += 1
+    return dx, ddt, dA, dB, dC, dD
+
+
+ssd_scan_bwd_cuda.launches = 0
+
+
+class SSDScanFn(torch.autograd.Function):
+    """``ssd_scan_cuda`` with ``ssd_scan_bwd_cuda`` as its backward:
+    (x, dt, A, B, C, D, chunk_size) -> (y, final state). Training drops
+    the final state; a gradient that reaches it raises (the backward
+    takes its cotangent as 0)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, D, chunk_size):
+        ctx.set_materialize_grads(False)
+        ctx.chunk_size = chunk_size
+        ctx.save_for_backward(x, dt, A, Bm, Cm, D)
+        y, final = ssd_scan_cuda(x, dt, A, Bm, Cm, D, chunk_size=chunk_size)
+        return y, final
+
+    @staticmethod
+    def backward(ctx, dy, dfinal):
+        if dfinal is not None:
+            raise RuntimeError(
+                "SSDScanFn: a gradient reached the final state; the SSD "
+                "backward takes the final state's cotangent as 0 "
+                "(training drops the state)")
+        x, dt, A, Bm, Cm, D = ctx.saved_tensors
+        dx, ddt, dA, dB, dC, dD = ssd_scan_bwd_cuda(
+            x, dt, A, Bm, Cm, D, dy.contiguous().to(x.dtype),
+            chunk_size=ctx.chunk_size)
+        return dx, ddt, dA, dB, dC, dD, None

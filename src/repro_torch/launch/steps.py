@@ -748,7 +748,11 @@ def _stage_groups(tree: Any, cfg) -> List[Tuple[str, List[Tuple[Any,
     """Each top-level subtree in sorted key order with its backward
     stages, the JAX package's partition: the layer list a part a layer
     (layer l at stage L-l), the embedding table at L+1 (a tied table is
-    final only there), the head's keys at 0."""
+    final only there), the head's keys at 0. On the zamba plan (which
+    only the overlap-free stream paths take: ``overlap="buckets"`` and
+    canonical weighting) the shared block, applied after every group,
+    is final once the first group's backward has run: the stage of that
+    group's last layer."""
     L = cfg.num_layers
     head = set(tr.head_param_keys(cfg))
     groups = []
@@ -759,6 +763,8 @@ def _stage_groups(tree: Any, cfg) -> List[Tuple[str, List[Tuple[Any,
             parts = [(tree[key], L + 1)]
         elif key in head:
             parts = [(tree[key], 0)]
+        elif key == "shared_attn" and tr.stack_plan(cfg) == "zamba":
+            parts = [(tree[key], L - cfg.hybrid.attn_every + 1)]
         else:
             raise ValueError(
                 f"overlap='backward': unexpected param subtree '{key}' "

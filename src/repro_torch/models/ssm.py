@@ -121,12 +121,17 @@ def mamba_block(params, x: torch.Tensor, cfg: ModelConfig,
     """x (B, S, d_model) -> y (B, S, d_model) [, (conv_state, ssm_state)].
 
     The scan runs with ``impl="kernel"`` when ``cfg.attention_impl ==
-    "kernel"`` (the CUDA SSD kernel for CUDA tensors, ``ref.ssd_chunked``
-    for CPU tensors) and ``impl="reference"`` otherwise. This is where
-    the port differs from the JAX package, whose ``mamba_block`` pins
-    the scan to ``"reference"`` whatever the config says. The kernel
-    starts from zero state, as prefill does; with an ``initial_state``
-    only the reference scan runs (``attention_impl="reference"``)."""
+    "kernel"`` (the CUDA SSD kernels for CUDA tensors, their plain
+    versions for CPU tensors) and ``impl="reference"`` otherwise. This
+    is where the port differs from the JAX package, whose
+    ``mamba_block`` pins the scan to ``"reference"`` whatever the config
+    says, in serving and in training alike: JAX differentiates
+    ``ref.ssd_chunked``, and here a gradient through the kernel path
+    runs ``SSDScanFn``, whose backward is the SSD backward kernel. The
+    block runs under autograd (training drops the final state, so the
+    backward takes its cotangent as 0). The kernel starts from zero
+    state, as prefill and training do; with an ``initial_state`` only
+    the reference scan runs (``attention_impl="reference"``)."""
     s = cfg.ssm
     bsz, seq, _ = x.shape
     d_inner, nheads, _, _ = mamba_dims(cfg)

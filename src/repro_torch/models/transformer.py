@@ -27,15 +27,18 @@ pair p running mLSTM block p then sLSTM block p. Norm dicts are empty
 for OLMo's non-parametric LayerNorm. The JAX package stacks the layers
 along a leading axis for ``lax.scan`` (for zamba an outer scan over
 groups and an inner one over a group's layers; for xlstm one scan over
-the pairs); here the stacks are Python loops, each uniform layer under
-``torch.utils.checkpoint`` when ``remat="full"``.
+the pairs); here the stacks are Python loops under
+``torch.utils.checkpoint`` when ``remat="full"``: each uniform or Mamba2
+layer, each zamba group (its ``attn_every`` Mamba2 layers and the shared
+block after them), as the JAX package's ``jax.checkpoint`` wraps each
+scan body.
 
 Serving runs two cache families: the paged pool (:func:`prefill`, then
 :func:`decode_step_paged`; the uniform plan only, as in the JAX
 package) and the contiguous cache of static-batch serving
 (:func:`prefill`, :func:`init_cache`, :func:`decode_step`; every
-plan). The uniform plan (dense, MoE and MLA layers) trains; Mamba2,
-zamba and xLSTM stacks are ported for serving only;
+plan). The uniform plan (dense, MoE and MLA layers) and the Mamba2 and
+zamba stacks train; xLSTM stacks are ported for serving only;
 :func:`check_supported` names what a config may not use yet,
 :func:`check_servable` what serving may not. The embedding-stub
 frontend (chameleon, musicgen) takes precomputed embeddings (B, S, d)
@@ -88,14 +91,11 @@ def stack_plan(cfg: ModelConfig) -> str:
 
 
 def check_supported(cfg: ModelConfig, serving: bool = False) -> None:
-    """Raise for any config feature outside this port. SSM (Mamba2),
-    hybrid (zamba) and xLSTM stacks pass only with ``serving`` (prefill
-    and decode): their training (the SSD backward, the mLSTM backward)
-    is not ported yet. MoE and MLA layers train (the uniform plan)."""
+    """Raise for any config feature outside this port. xLSTM stacks
+    pass only with ``serving`` (prefill and decode): their training (the
+    mLSTM backward) is not ported yet. Dense, MoE and MLA layers (the
+    uniform plan), Mamba2 stacks and zamba hybrids train."""
     unsupported = [
-        (cfg.ssm.enabled and not cfg.hybrid.enabled and not serving,
-         "SSM training"),
-        (cfg.hybrid.enabled and not serving, "hybrid training"),
         (cfg.hybrid.enabled and not cfg.ssm.enabled,
          "hybrid without an SSM"),
         (cfg.xlstm.enabled and not serving,
@@ -110,15 +110,17 @@ def check_supported(cfg: ModelConfig, serving: bool = False) -> None:
     missing = [name for bad, name in unsupported if bad]
     if missing:
         raise ValueError(f"{cfg.name}: {', '.join(missing)} not ported to "
-                         f"repro_torch yet (dense, MoE and MLA layers; "
-                         f"Mamba2, zamba and xLSTM stacks for serving)")
+                         f"repro_torch yet (dense, MoE, MLA, Mamba2 and "
+                         f"zamba stacks; xLSTM stacks for serving)")
 
 
 def supports_staged_backward(cfg: ModelConfig) -> bool:
     """``overlap="backward"`` flushes gradient buckets as the backward
     lands them over the uniform stack (dense, MoE, MLA), as in the JAX
     package; the stack is a Python loop here, so ``scan_layers=False``
-    needs nothing more."""
+    needs nothing more. The Mamba2 and zamba stacks are refused, as the
+    JAX package's ``validate_train_config`` refuses them (and pipeline
+    stages with them)."""
     return stack_plan(cfg) == "uniform"
 
 
@@ -403,6 +405,15 @@ def apply_uniform_layer(p, x: torch.Tensor, cfg: ModelConfig,
     return x + m, aux
 
 
+def _remat_call(fn, *args, cfg: ModelConfig):
+    """``fn(*args)``, under a non-reentrant checkpoint with ``remat=
+    "full"`` when a gradient is wanted."""
+    if cfg.remat == "full" and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(*args)
+
+
 def _uniform_stack(layers, x: torch.Tensor, aux: torch.Tensor,
                    cfg: ModelConfig, positions: torch.Tensor
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -410,11 +421,8 @@ def _uniform_stack(layers, x: torch.Tensor, aux: torch.Tensor,
     with ``remat="full"`` when a gradient is wanted; their aux losses
     added to ``aux`` in layer order (the JAX scan's carry)."""
     for lp in layers:
-        if cfg.remat == "full" and torch.is_grad_enabled():
-            x, a = checkpoint(apply_uniform_layer, lp, x, cfg, positions,
-                              use_reentrant=False, preserve_rng_state=False)
-        else:
-            x, a = apply_uniform_layer(lp, x, cfg, positions)
+        x, a = _remat_call(apply_uniform_layer, lp, x, cfg, positions,
+                           cfg=cfg)
         aux = aux + a
     return x, aux
 
@@ -446,18 +454,55 @@ def _apply_shared_attn_decode(p, x, cfg, k_cache, v_cache, pos):
     return x, (k_cache, v_cache)
 
 
+def _mamba_layer(lp, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """One pre-norm Mamba2 layer, residual."""
+    return x + mamba_block(lp["mamba"], apply_norm(lp["ln"], x, cfg), cfg)
+
+
+def _zamba_group(layers, shared, x: torch.Tensor, cfg: ModelConfig,
+                 positions: torch.Tensor) -> torch.Tensor:
+    """A zamba group: its Mamba2 layers in order, then the shared
+    attention block (the JAX package's ``group_body``)."""
+    for lp in layers:
+        x = _mamba_layer(lp, x, cfg)
+    return _apply_shared_attn(shared, x, cfg, positions)
+
+
+def _ssm_stack(params, x: torch.Tensor, cfg: ModelConfig,
+               positions: torch.Tensor) -> torch.Tensor:
+    """The mamba plan's layers, or the zamba plan's groups of
+    ``attn_every`` layers each followed by the shared block (layers past
+    the last whole group run alone, as serving runs them), each under
+    :func:`_remat_call`."""
+    layers = params["layers"]
+    if stack_plan(cfg) == "mamba":
+        for lp in layers:
+            x = _remat_call(_mamba_layer, lp, x, cfg, cfg=cfg)
+        return x
+    every = cfg.hybrid.attn_every
+    whole = len(layers) // every * every
+    for g0 in range(0, whole, every):
+        x = _remat_call(_zamba_group, layers[g0:g0 + every],
+                        params["shared_attn"], x, cfg, positions, cfg=cfg)
+    for lp in layers[whole:]:
+        x = _remat_call(_mamba_layer, lp, x, cfg, cfg=cfg)
+    return x
+
+
 def hidden_states(params, embeds: torch.Tensor, cfg: ModelConfig
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """embeds (B, S, d) -> (final-normed hidden (B, S, d), aux loss: the
     layers' MoE aux losses summed, an fp32 scalar; 0 without MoE).
 
-    The uniform plan is the training forward (dense, MoE at the training
-    capacity, MLA). ``cfg.remat``: "full" runs each layer under a
-    non-reentrant checkpoint (only the layer input is kept; the backward
-    recomputes the layer, attention kernel and routing included), "none"
-    keeps every activation; "dots" (save matmul outputs only) is not
-    ported yet. The mamba, zamba and xlstm plans are forward only
-    (scoring, ``Model.logits_fn``): their training is not ported yet."""
+    The training forward of the uniform plan (dense, MoE at the training
+    capacity, MLA) and of the mamba and zamba plans. ``cfg.remat``:
+    "full" runs each uniform or Mamba2 layer, and each zamba group (its
+    Mamba2 layers and the shared block), under a non-reentrant
+    checkpoint (only its input is kept; the backward recomputes it,
+    attention and SSD kernels and routing included), "none" keeps every
+    activation; "dots" (save matmul outputs only) is not ported yet. The
+    xlstm plan is forward only (scoring, ``Model.logits_fn``): its
+    training is not ported yet."""
     plan = stack_plan(cfg)
     if plan == "xlstm":
         check_supported(cfg, serving=True)
@@ -467,26 +512,17 @@ def hidden_states(params, embeds: torch.Tensor, cfg: ModelConfig
             x = x + slstm_block(sp["blk"], apply_norm(sp["ln"], x, cfg), cfg)
         aux = torch.zeros((), dtype=torch.float32, device=embeds.device)
         return apply_norm(params["final_norm"], x, cfg), aux
-    if plan in ("mamba", "zamba"):
-        check_supported(cfg, serving=True)
-        positions = torch.arange(embeds.shape[1], device=embeds.device)
-        x = embeds
-        every = cfg.hybrid.attn_every if plan == "zamba" else 0
-        for i, lp in enumerate(params["layers"]):
-            x = x + mamba_block(lp["mamba"], apply_norm(lp["ln"], x, cfg),
-                                cfg)
-            if every and (i + 1) % every == 0:
-                x = _apply_shared_attn(params["shared_attn"], x, cfg,
-                                       positions)
-        aux = torch.zeros((), dtype=torch.float32, device=embeds.device)
-        return apply_norm(params["final_norm"], x, cfg), aux
     check_supported(cfg)
     if cfg.remat not in ("none", "full"):
         raise ValueError(f"remat '{cfg.remat}' is not ported yet "
                          f"(none | full)")
     positions = torch.arange(embeds.shape[1], device=embeds.device)
     aux = torch.zeros((), dtype=torch.float32, device=embeds.device)
-    x, aux = _uniform_stack(params["layers"], embeds, aux, cfg, positions)
+    if plan in ("mamba", "zamba"):
+        x = _ssm_stack(params, embeds, cfg, positions)
+    else:
+        x, aux = _uniform_stack(params["layers"], embeds, aux, cfg,
+                                positions)
     return apply_norm(params["final_norm"], x, cfg), aux
 
 

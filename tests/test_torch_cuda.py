@@ -36,7 +36,10 @@ to its split model (2e-3) at the generate shape, and whose static path
 (``static_generate``), kernel route against reference route at fp32,
 is held by ``MLA_PATH_TOL`` with identical greedy tokens.
 The bf16 SSD scan (tensor cores, three kernels) must repeat its bits,
-also where the chunk is not a multiple of its 64-row tile. The paged
+also where the chunk is not a multiple of its 64-row tile. The SSD
+backward is held to ``ssd_scan_bwd_plain`` by relative L2 error of each
+of its six gradients, and kernel 1b at head dim 80 to its plain version,
+both to ``parity.RTOL`` and both repeating their bits. The paged
 decode at head dim 128 (glm4-9b's group of 16, phi4-mini's 3, arctic's
 7) is held like the head-dim-64 one (1e-4 fp32, 2e-2 bf16), repeats its
 bits and is batch invariant.
@@ -879,6 +882,60 @@ def test_bf16_ssd_scan_kernel_matches_plain_and_repeats(dev, b, s, h, g,
     assert _close("ssd final", fin, fw, tol)
     y2, fin2 = sk.ssd_scan_cuda(*args, chunk_size=chunk)
     assert torch.equal(y2, y) and torch.equal(fin2, fin)
+
+
+@pytest.mark.parametrize("dtype", DTYPE_ONLY)
+@pytest.mark.parametrize("b,s,h,g,chunk,use_d,p", [
+    (5, 1024, 80, 1, 256, True, 64),  # zamba2's training microbatch
+    (2, 1000, 80, 1, 256, True, 64),  # ragged tail
+    (2, 100, 80, 1, 256, True, 64),   # S shorter than the chunk
+    (2, 512, 8, 2, 256, True, 64),    # groups
+    (2, 300, 6, 3, 96, False, 96),    # groups, ragged, Q = 96, no D
+    (1, 130, 4, 1, 130, True, 128),   # Q = 130, the largest P
+])
+def test_ssd_backward_kernel_matches_plain_and_repeats(dev, dtype, b, s, h,
+                                                       g, chunk, use_d, p):
+    """The SSD backward (``csrc/ssd_scan_bwd.cu``) against
+    ``ssd_scan_bwd_plain``: each of the six gradients by relative L2
+    (``parity.RTOL``), two runs bitwise equal."""
+    rng = np.random.default_rng(s + h + g + p + 1)
+    args = _ssd_inputs(rng, dev, dtype, b, s, h, g, use_d, p)
+    dy = _randn(rng, (b, s, h, p), dev, dtype)
+    n0 = sk.ssd_scan_bwd_cuda.launches
+    got = sk.ssd_scan_bwd_cuda(*args, dy, chunk_size=chunk)
+    assert sk.ssd_scan_bwd_cuda.launches == n0 + 1
+    want = sk.ssd_scan_bwd_plain(*args, dy, chunk_size=chunk)
+    tol = RTOL[("ssd_scan_bwd_cuda", dtype)]
+    for name, g_, w in zip(("dx", "ddt", "dA", "dB", "dC", "dD"), got,
+                           want):
+        if w is None:
+            assert g_ is None
+            continue
+        assert g_.dtype == w.dtype and g_.shape == w.shape, name
+        assert _close(f"ssd backward {name}", g_, w, tol)
+    again = sk.ssd_scan_bwd_cuda(*args, dy, chunk_size=chunk)
+    assert all(torch.equal(a, g_) for a, g_ in zip(again, got)
+               if a is not None)
+
+
+@pytest.mark.parametrize("dtype", DTYPE_ONLY)
+@pytest.mark.parametrize("b,s,h,hkv", [(5, 1024, 32, 32), (2, 200, 8, 2)])
+def test_backward_kernel_head_dim_80_matches_plain(dev, dtype, b, s, h,
+                                                   hkv):
+    """Kernel 1b at zamba2's head dim 80 (the shared block's training
+    shape and a ragged GQA case), fp32 and bf16, against its plain
+    version by relative L2 (``parity.RTOL``), two runs bitwise equal."""
+    rng = np.random.default_rng(s + h + 80)
+    q, dout = (_randn(rng, (b, s, h, 80), dev, dtype) for _ in range(2))
+    k, v = (_randn(rng, (b, s, hkv, 80), dev, dtype) for _ in range(2))
+    out, lse = fa.flash_attention_cuda(q, k, v, return_lse=True)
+    got = fa.flash_attention_bwd_cuda(q, k, v, out, lse, dout)
+    want = fa.flash_attention_bwd_plain(q, k, v, out, lse, dout)
+    tol = RTOL[("flash_attention_bwd_d80", dtype)]
+    for name, g_, w in zip(("dq", "dk", "dv"), got, want):
+        assert _close(f"backward D=80 {name}", g_, w, tol)
+    again = fa.flash_attention_bwd_cuda(q, k, v, out, lse, dout)
+    assert all(torch.equal(a, g_) for a, g_ in zip(again, got))
 
 
 @pytest.mark.parametrize("dtype", DTYPE_ONLY)

@@ -19,9 +19,10 @@ package on the CPU, fp32 throughout, inputs made with numpy from a seed:
   identical to JAX's (prompt 40: a ragged tail at chunk 32), JAX on a
   (1, 1) mesh of Auto axes;
 * the config field by field, the parameter tree and count, the
-  ``params_from_jax``/``params_to_numpy`` round trip, and what the port
-  refuses (zamba2 training, widths the kernels do not take, the paged
-  engine).
+  ``params_from_jax``/``params_to_numpy`` round trip, what the port
+  refuses (widths the kernels do not take, the paged engine), and that
+  zamba2 and a Mamba2 stack pass the training check (their training
+  against JAX is in ``tests/test_torch_zamba_train.py``).
 """
 import dataclasses
 
@@ -390,21 +391,26 @@ def test_params_round_trip_through_the_jax_layout(jax_side):
 
 
 def test_training_zamba_and_ssm_is_refused():
+    """No longer refused: the zamba and mamba plans pass
+    ``check_supported`` for training and give a finite ``loss_fn`` (their
+    gradients against JAX's: tests/test_torch_zamba_train.py); xLSTM
+    training stays refused."""
     _, tc = _cfgs()
-    model = tbuild(tc, "cpu")
-    params = model.init_params(0)
-    batch = {"inputs": torch.zeros((1, 4), dtype=torch.int32),
-             "labels": torch.zeros((1, 4), dtype=torch.int32),
-             "weights": torch.ones((1, 4))}
-    with pytest.raises(ValueError, match="hybrid training not ported"):
-        model.loss_fn(params, batch)
     mamba = dataclasses.replace(
         tc, hybrid=dataclasses.replace(tc.hybrid, enabled=False))
     assert ttr.stack_plan(mamba) == "mamba"
-    with pytest.raises(ValueError, match="SSM training not ported"):
-        ttr.check_supported(mamba)
-    ttr.check_supported(mamba, serving=True)
-    ttr.check_supported(tc, serving=True)
+    batch = {"inputs": torch.zeros((1, 4), dtype=torch.int32),
+             "labels": torch.zeros((1, 4), dtype=torch.int32),
+             "weights": torch.ones((1, 4))}
+    for cfg in (tc, mamba):
+        ttr.check_supported(cfg)
+        ttr.check_supported(cfg, serving=True)
+        model = tbuild(cfg, "cpu")
+        obj, w, met = model.loss_fn(model.init_params(0), batch)
+        assert torch.isfinite(obj) and float(w) == 4.0
+        assert float(met["aux"]) == 0.0
+    with pytest.raises(ValueError, match="xLSTM training"):
+        ttr.check_supported(tcfgs.smoke_config("xlstm-125m"))
 
 
 def test_check_servable_on_the_card_names_kernel_widths():
