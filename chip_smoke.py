@@ -239,9 +239,9 @@ Phases (any failure exits non-zero; no phase swallows an error):
 14. Checkpoint and re-mesh path phase: ``repro_torch.launch.train``,
    each run a fresh process under a temporary ``--ckpt-dir`` removed
    after. First the disk: the free bytes there must hold the phase's
-   checkpoints (two of olmo-1b at 4 layers, ~4.5 GB each: fp32
+   checkpoints (two of olmo-1b at 2 layers, ~2.9 GB each: fp32
    parameters, m and v), or the phase fails. Then phase 5's settings
-   (olmo-1b at full width, the depth cut to 4 layers, which keeps the
+   (olmo-1b at full width, the depth cut to 2 layers, which keeps the
    script inside its time limit; 8 rows of 1024, accum 2): 24
    steps with a checkpoint every 12 (steps
    2-12 run with no write in flight, steps 13-24 while step 12's write
@@ -251,7 +251,7 @@ Phases (any failure exits non-zero; no phase swallows an error):
    run's, and each run's kernel
    counters are phase 5's per step. Then phase 7's settings with
    capacities 1,1, ``--ckpt-every 4 --kill-pod 1@3``, 6 steps, at full
-   width with the depth cut to 4 layers (a two-pod checkpoint holds the
+   width with the depth cut to 2 layers (a two-pod checkpoint holds the
    residual of both pods, about twice the bytes; run through the
    driver's ``main`` with the cut registered, as the CLI has no depth
    flag): both ranks raise ``RemeshRequired`` at step 5 with the same
@@ -359,7 +359,13 @@ Phases (any failure exits non-zero; no phase swallows an error):
    within phase 5's fp32 limits.
 19. Mamba2-hybrid training phase. (a) The SSD backward
    (``csrc/ssd_scan_bwd.cu``, no TPU kernel: the JAX package
-   differentiates ``ref.ssd_chunked``) against ``ssd_scan_bwd_plain`` in
+   differentiates ``ref.ssd_chunked``; fp32 on six CUDA-core kernels,
+   bf16 on four tensor-core ones: the chunk states on ``wgmma`` with the
+   weighted B and C as bf16 hi/lo pairs, the state passing forward and in
+   reverse, one pass over the causal pairs of 64-row tiles a (batch
+   row, chunk, group, head slice) that walks its heads in order, and
+   the group sums of dB and dC over the head slices) against
+   ``ssd_scan_bwd_plain`` in
    fp32 (TF32 off) and bf16, by the relative L2 error of each of its six
    gradients (dx, ddt, dA, dB, dC, dD; the largest held to
    ``parity.RTOL``): zamba2's training microbatch (B=5, S=1024, H=80,
@@ -370,7 +376,8 @@ Phases (any failure exits non-zero; no phase swallows an error):
    GQA case (S=200, H=8, Hkv=2), fp32 and bf16. Every case is printed
    before any is checked, and runs twice with bitwise-equal outputs.
    Timed in bf16 at the training shapes: ms, device time (the SSD
-   backward by each of its six launches), the bound, the plain
+   backward by each of its four launches), the SSD backward's scratch
+   bytes, the bound, the plain
    version's time, the library's (SDPA's autograd backward with
    ``is_causal=True`` for 1b, also by device time; none for the SSD
    backward, which no PyTorch call computes). (c) zamba2-2.7b at full
@@ -542,11 +549,16 @@ def _ms_or_not(x) -> str:
 
 SM90_SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu",
                 "cross_entropy.cu", "mla_decode.cu", "ssd_scan.cu",
-                "mlstm_scan.cu")
-# the bf16 kernels' entry points that run no product: merges and the
-# SSD and mLSTM state passings
+                "mlstm_scan.cu", "ssd_scan_bwd.cu")
+# the bf16 kernels' entry points that run no product: merges, the SSD
+# and mLSTM state passings, the SSD backward's state passing and group
+# sums
 SM90_HELPERS = ("ce_merge", "mla_merge", "ssd_state_pass",
-                "mlstm_state_pass")
+                "mlstm_state_pass", "ssd_bwd_pass_sm90",
+                "ssd_bwd_group_sm90")
+# the SSD backward's bf16 kernels, by their order in one call
+SSD_BWD_LAUNCHES = ("ssd_bwd_states_sm90", "ssd_bwd_pass_sm90",
+                    "ssd_bwd_pairs_sm90", "ssd_bwd_group_sm90")
 # the mLSTM scan's bf16 kernels, by their order in one call
 MLSTM_LAUNCHES = ("mlstm_chunk_state_sm90", "mlstm_state_pass",
                   "mlstm_chunk_scan_sm90")
@@ -558,10 +570,13 @@ def _sm90_name(mangled: str):
     and mLSTM state passings), None for any other."""
     import re
     for name in ("ssd_chunk_state_sm90", "ssd_chunk_scan_sm90",
-                 "mlstm_chunk_state_sm90",
-                 "mlstm_chunk_scan_sm90") + SM90_HELPERS[1:]:
+                 "mlstm_chunk_state_sm90", "mlstm_chunk_scan_sm90",
+                 "ssd_bwd_states_sm90") + SM90_HELPERS[1:]:
         if name in mangled:
             return name
+    m = re.search(r"ssd_bwd_pairs_sm90ILi(\d+)E", mangled)
+    if m:
+        return f"ssd_bwd_pairs_sm90<P={m.group(1)}>"
     m = re.search(r"mla_split_sm90ILb([01])E", mangled)
     if m:
         return "mla_split_sm90<" + ("paged" if m.group(1) == "1"
@@ -677,6 +692,9 @@ def sm90_report(build, lib, fa, ce, md, sk, mk):
     ssd = lib.ssd_scan_sm90_tile()
     check(ssd == sk.ROW_TILE, f"the SSD scan's row tile is {ssd}, the "
           f"wrapper says {sk.ROW_TILE}")
+    ssd_bwd = lib.ssd_scan_bwd_sm90_tile()
+    check(ssd_bwd == sk.BWD_ROW_TILE, f"the SSD backward's row tile is "
+          f"{ssd_bwd}, the wrapper says {sk.BWD_ROW_TILE}")
     mlstm = (lib.mlstm_scan_sm90_tile(0), lib.mlstm_scan_sm90_tile(1))
     check(mlstm == (mk.ROW_TILE, mk.DV_SLICE), f"the mLSTM scan's row tile "
           f"and dv slice are {mlstm}, the wrapper says "
@@ -686,7 +704,8 @@ def sm90_report(build, lib, fa, ce, md, sk, mk):
           f"CE {ce_tiles[0]} tokens x {ce_tiles[1]} vocab columns, "
           f"decode split {split} positions, MLA decode split {mla[0]} "
           f"positions in tiles of {mla[1]} (partials of {mla[2]} floats), "
-          f"SSD chunk scan tiles of {ssd} rows, mLSTM chunk scan tiles of "
+          f"SSD chunk scan tiles of {ssd} rows, SSD backward pair tiles of "
+          f"{ssd_bwd} rows, mLSTM chunk scan tiles of "
           f"{mlstm[0]} rows x {mlstm[1]} dv columns", flush=True)
     for name in rows:
         if name.startswith("ce_fwd_sm90"):
@@ -696,6 +715,11 @@ def sm90_report(build, lib, fa, ce, md, sk, mk):
             lib.mla_decode_paged_sm90_smem()
     rows["ssd_chunk_state_sm90"]["dynamic_smem"] = lib.ssd_scan_sm90_smem(0)
     rows["ssd_chunk_scan_sm90"]["dynamic_smem"] = lib.ssd_scan_sm90_smem(1)
+    rows["ssd_bwd_states_sm90"]["dynamic_smem"] = \
+        lib.ssd_scan_bwd_sm90_smem(0, ZAMBA_P)
+    for p in (32, 64, 96, 128):
+        rows[f"ssd_bwd_pairs_sm90<P={p}>"]["dynamic_smem"] = \
+            lib.ssd_scan_bwd_sm90_smem(1, p)
     for kernel, name in enumerate(("mlstm_chunk_state_sm90",
                                    "mlstm_chunk_scan_sm90")):
         rows[name]["dynamic_smem"] = lib.mlstm_scan_sm90_smem(
@@ -703,9 +727,15 @@ def sm90_report(build, lib, fa, ce, md, sk, mk):
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     have_sass = Path(cuobjdump).exists()
     objs = {o.stem.rsplit("_", 1)[0]: o for o in build.objects()}
+    # every source's PTX made at once (one nvcc a source, all started
+    # together)
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(len(SM90_SOURCES)) as pool:
+        ptxs = dict(zip(SM90_SOURCES, pool.map(
+            lambda src: build.ptx(build.CSRC / src), SM90_SOURCES)))
     for src in SM90_SOURCES:
         path = build.CSRC / src
-        for name, body in _by_entry(build.ptx(path),
+        for name, body in _by_entry(ptxs[src],
                                     r"\.entry\s+(\w+)\(").items():
             rows[name]["ptx_wgmma"] = body.count("wgmma.mma_async")
             rows[name]["ptx_cp_async"] = body.count("cp.async.cg")
@@ -724,7 +754,7 @@ def sm90_report(build, lib, fa, ce, md, sk, mk):
               + (f"; SASS {r.get('sass_hgmma', 0)} HGMMA" if have_sass
                  else "; no cuobjdump: SASS not read"), flush=True)
     products = [n for n in rows if n not in SM90_HELPERS]
-    check(len(products) == 20, f"bf16 tensor-core kernels found: {products}")
+    check(len(products) == 25, f"bf16 tensor-core kernels found: {products}")
     for n in products:
         r = rows[n]
         check(r["spill_bytes"] == 0, f"{n}: ptxas spilled")
@@ -3299,12 +3329,13 @@ def xlstm_path_phase(counters, dev, smi):
 # --------------------------------------------------------------------------
 
 # phase 14's re-mesh run: phase 7's settings at full width, the depth cut
-# to 4 layers (a two-pod checkpoint holds the residual of both pods, about
-# twice the bytes), capacities 1,1, a checkpoint every 4 steps and pod 1
+# to 2 layers (a two-pod checkpoint holds the residual of both pods, about
+# twice the bytes; the script's run neared its time limit at 4), capacities
+# 1,1, a checkpoint every 4 steps and pod 1
 # lost at step 3: three missed reports later (step 5) the replan cannot
 # fit the global batch in pod 0's buffer, and the run restarts on one pod
 # from the step-4 checkpoint, accum x2, to step 6
-REMESH_LAYERS = 4
+REMESH_LAYERS = 2
 REMESH_ARGV = [a for a in MULTI_ARGV]
 for _flag, _value in (("--capacities", "1,1"), ("--steps", "6")):
     REMESH_ARGV[REMESH_ARGV.index(_flag) + 1] = _value
@@ -3312,13 +3343,13 @@ REMESH_ARGV += ["--ckpt-every", "4", "--kill-pod", "1@3"]
 # the resume runs: phase 5's settings (olmo-1b at full width, 8 rows of
 # 1024, accum 2) with the depth cut to RESUME_LAYERS (the checks do not
 # grow with depth, and at full depth the script's run neared its time
-# limit once phase 15 was added). The first takes RESUME_FIRST steps
-# with checkpoints at steps
-# 12 and 24: its steps 2-12 run with no write in flight and its steps
-# 13-24 while step 12's write is (a write outlasts 12 steps), the two
-# medians of one process. The second resumes from step 24 to
+# limit once phase 15 was added, at 4 layers once phase 19 was). The
+# first takes RESUME_FIRST steps with checkpoints at steps 12 and 24: its
+# steps 2-12 run with no write in flight and its steps 13-24 while step
+# 12's write is (a write outlasts 12 steps), the two medians of one
+# process. The second resumes from step 24 to
 # RESUME_STEPS, against that many uninterrupted steps.
-RESUME_LAYERS = 4
+RESUME_LAYERS = 2
 RESUME_CKPT_EVERY = 12
 RESUME_FIRST = 24
 RESUME_STEPS = 26
@@ -3383,7 +3414,7 @@ def ckpt_phase(smi, train_rec):
     driver, each run a fresh process under a temporary ``--ckpt-dir``
     (removed after): the disk check, the one-rank resume at full width
     and RESUME_LAYERS of depth (bitwise against an uninterrupted run)
-    and the two-pod run that loses a pod and re-meshes (4 layers:
+    and the two-pod run that loses a pod and re-meshes (2 layers:
     ``REMESH_LAYERS``)."""
     import shutil
     import tempfile
@@ -4940,9 +4971,10 @@ def ssd_bwd_case(sk, b, s, h, g, chunk, use_d, dtype, gen, dev, timed):
         rec["ms"] = cuda_ms(run)
         by_kernel = device_ms_by_kernel(run)
         rec["device_ms_by_launch"] = by_kernel and {
-            next((k for k in ("ssd_bwd_states", "ssd_bwd_pass",
-                              "ssd_bwd_rows", "ssd_bwd_cols", "ssd_bwd_dt",
-                              "ssd_bwd_final") if k in n), n[:60]): ms
+            next((k for k in SSD_BWD_LAUNCHES + (
+                "ssd_bwd_states", "ssd_bwd_pass", "ssd_bwd_rows",
+                "ssd_bwd_cols", "ssd_bwd_dt", "ssd_bwd_final") if k in n),
+                 n[:60]): ms
             for n, ms in by_kernel.items()}
         rec["device_ms"] = by_kernel and sum(by_kernel.values())
         rec["plain_ms"] = cuda_ms(lambda: sk.ssd_scan_bwd_plain(
@@ -4951,7 +4983,24 @@ def ssd_bwd_case(sk, b, s, h, g, chunk, use_d, dtype, gen, dev, timed):
         flops, nbytes = ssd_bwd_flops_bytes(
             b, s, h, chunk, [t for t in args + got if t is not None])
         rec["bound_ms"], rec["bound_by"] = _bound(nbytes, flops)
+        rec["scratch_bytes"] = _ssd_bwd_scratch_bytes(sk, b, s, h, g, chunk,
+                                                      dtype)
     return rec
+
+
+def _ssd_bwd_scratch_bytes(sk, b, s, h, g, chunk, dtype):
+    """The bytes of scratch ``ssd_scan_bwd_cuda`` asks for at these
+    shapes (None for a tree whose wrapper has no ``bwd_scratch_floats``,
+    such as an older checkout timed by ``fresh_times.py``)."""
+    import torch
+    if not hasattr(sk, "bwd_scratch_floats"):
+        return None
+    from repro_torch.kernels import _build
+    q = min(chunk, s)
+    bf16 = dtype == torch.bfloat16
+    slices = (_build.load().ssd_scan_bwd_sm90_slices(b, s, h, g, q)
+              if bf16 else 1)
+    return 4 * sk.bwd_scratch_floats(b, s, h, ZAMBA_P, g, q, bf16, slices)
 
 
 def bwd80_case(fa, b, s, h, hkv, dtype, gen, dev, timed):
@@ -5035,7 +5084,9 @@ def zamba_train_kernel_phase(fa, sk, dev, smi):
                      + f", bound {r['bound_ms']:.6f} ms ({r['bound_by']}) "
                        f"[{smi}]" if "ms" in r else "")
                   + (f"; device time by launch {r['device_ms_by_launch']}"
-                     if r.get("device_ms_by_launch") else ""), flush=True)
+                     if r.get("device_ms_by_launch") else "")
+                  + (f"; scratch {r['scratch_bytes']} bytes"
+                     if r.get("scratch_bytes") else ""), flush=True)
         recs += new
     # every case of both dtypes is printed before any is checked
     bad = [f"{r['kernel']} {r['dtype']} {r.get('S')}: {r['rel_l2']}"

@@ -18,7 +18,11 @@ each TREE, each in a process of its own that runs nothing before it:
   bs=16, MB=32, ``SERVE_LENS``), held to ``BF16_TOL``;
 * phase 2's ``decode_case`` on the bf16 GQA paged decode
   (``flash_decode_paged_cuda``) at the same serve shape with
-  tinyllama's heads (H=32, Hkv=4, D=64), held to ``BF16_TOL``.
+  tinyllama's heads (H=32, Hkv=4, D=64), held to ``BF16_TOL``;
+* phase 19's ``ssd_bwd_case`` on the bf16 SSD backward
+  (``ssd_scan_bwd_cuda``) at the first of ``SSD_BWD_CASES`` (zamba2's
+  training microbatch: B=5, S=1024, H=80, P=64, N=64, one group, chunk
+  256, with D), held to ``parity.RTOL``, with its device time by launch.
 
 So the draws, checks and timers are the script's: a reading differs from
 the phase's only in what ran before it in the process. From the root of
@@ -47,7 +51,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out"
 KERNELS = ("mlstm_scan_cuda", "mla_decode_paged_cuda",
-           "flash_decode_paged_cuda")
+           "flash_decode_paged_cuda", "ssd_scan_bwd_cuda")
 
 
 def _use_tree(tree: str) -> None:
@@ -70,6 +74,12 @@ def _one(tree: str, kernel: str) -> int:
         rec = cs.mlstm_case(mk, *cs.MLSTM_CASES[0], bf16, gen, dev,
                             timed=True)
         err, tol = rec["rel_l2"], RTOL[("mlstm_scan_cuda", bf16)]
+    elif kernel == "ssd_scan_bwd_cuda":
+        from repro_torch.kernels.ssd_scan import ssd_scan as sk
+        gen = torch.Generator(device=dev).manual_seed(19)
+        rec = cs.ssd_bwd_case(sk, *cs.SSD_BWD_CASES[0], bf16, gen, dev,
+                              timed=True)
+        err, tol = rec["rel_l2"], RTOL[("ssd_scan_bwd_cuda", bf16)]
     elif kernel == "flash_decode_paged_cuda":
         from repro_torch.kernels.flash_attention import flash_attention as fa
         gen = torch.Generator(device=dev).manual_seed(2)

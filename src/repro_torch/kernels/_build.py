@@ -191,10 +191,13 @@ def load() -> ctypes.CDLL:
             for fn in ("mla_decode_paged_split_len", "mla_decode_paged_tile",
                        "mla_decode_paged_part_len",
                        "mla_decode_paged_sm90_smem", "ssd_scan_sm90_tile",
-                       "ssd_scan_sm90_smem"):
+                       "ssd_scan_sm90_smem", "ssd_scan_bwd_sm90_tile",
+                       "ssd_scan_bwd_sm90_slices", "ssd_scan_bwd_sm90_smem"):
                 getattr(lib, fn).argtypes = []
                 getattr(lib, fn).restype = ci
             lib.ssd_scan_sm90_smem.argtypes = [ci]      # kernel
+            lib.ssd_scan_bwd_sm90_slices.argtypes = [ci] * 5  # B S H G Q
+            lib.ssd_scan_bwd_sm90_smem.argtypes = [ci, ci]    # kernel, P
             lib.ssd_scan_fwd.argtypes = [
                 vp, vp, vp, vp, vp, vp,         # x, dt, A, B, C, D (or 0)
                 vp, vp, vp,                     # y, final state, scratch

@@ -22,10 +22,14 @@ keeps the one CUDA-core kernel.
 with the final state's cotangent taken as 0 (training drops the state).
 The JAX package has no kernel for it (its training differentiates
 ``ref.ssd_chunked``); its plain version :func:`ssd_scan_bwd_plain` writes
-out the kernel's arithmetic step by step, and runs for CPU tensors. It
-counts its launches as the forward does (one a call, six kernel
-launches). :class:`SSDScanFn` joins the two as one
-``torch.autograd.Function``.
+out the backward's arithmetic step by step, and runs for CPU tensors. It
+counts its launches as the forward does (one a call). bf16 runs on the
+tensor cores in four kernels (chunk states, the state passing, one pass
+over the causal pairs of ``BWD_ROW_TILE``-row tiles, the group sums),
+with the operands made in fp32 fed as bf16 hi/lo pairs;
+:func:`ssd_scan_bwd_tiled_plain` models that arithmetic for the tests.
+fp32 keeps six CUDA-core kernels. :class:`SSDScanFn` joins the forward
+and the backward as one ``torch.autograd.Function``.
 """
 from __future__ import annotations
 
@@ -43,6 +47,9 @@ BWD_MAX_P = 128        # largest head dim P of the backward kernel
 # rows a tile of the bf16 chunk scan (csrc/ssd_scan.cu; held equal to
 # ssd_scan_sm90_tile)
 ROW_TILE = 64
+# rows a tile of the bf16 backward's pair pass (csrc/ssd_scan_bwd.cu; held
+# equal to ssd_scan_bwd_sm90_tile)
+BWD_ROW_TILE = 64
 
 
 def _pair(v: torch.Tensor, rounding: str):
@@ -252,6 +259,33 @@ def ssd_scan_cuda(
 ssd_scan_cuda.launches = 0
 
 
+def _bwd_state_pass(st, loc, a_last):
+    """The backward's state passing over the chunks of S_c (``st``) and
+    L_c (``loc``), (B, H, nc, P, N) each: forward, state_in[0] = 0,
+    state_in[c + 1] = exp(a_c) state_in[c] + S_c; then in reverse the
+    gradient of S_c, G_c (0 for the last chunk, G_{c-1} = L_c + exp(a_c)
+    G_c), and the gradient of a_c through the carried state, exp(a_c)
+    <state_in[c], G_c> in fp64. Returns (state_in, G, a_c's gradient),
+    stacked over the chunks."""
+    nc = st.shape[2]
+    state = torch.zeros_like(st[:, :, 0])
+    state_in = []
+    for c in range(nc):
+        state_in.append(state)
+        state = torch.exp(a_last[:, :, c])[..., None, None] * state \
+            + st[:, :, c]
+    g_next = torch.zeros_like(state)
+    grads, d_last = [None] * nc, [None] * nc
+    for c in reversed(range(nc)):
+        e = torch.exp(a_last[:, :, c])
+        grads[c] = g_next
+        d_last[c] = e.double() * (state_in[c].double()
+                                  * g_next.double()).sum(dim=(-1, -2))
+        g_next = loc[:, :, c] + e[..., None, None] * g_next
+    return (torch.stack(state_in, dim=2), torch.stack(grads, dim=2),
+            torch.stack(d_last, dim=2))
+
+
 def ssd_scan_bwd_plain(x, dt, A, Bm, Cm, D, dy, *, chunk_size: int = 256):
     """The backward of :func:`ssd_scan_plain` with the final state's
     cotangent 0, in fp32, as the kernel computes it (``A_cum`` the
@@ -302,23 +336,7 @@ def ssd_scan_bwd_plain(x, dt, A, Bm, Cm, D, dy, *, chunk_size: int = 256):
     st = (xf * w[..., None]).transpose(-1, -2) @ Bf          # (.., P, N)
     loc = (dyf * e_in[..., None]).transpose(-1, -2) @ Cf
     # 2. the state passing, forward then in reverse
-    state = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
-    state_in = []
-    for c in range(nc):
-        state_in.append(state)
-        state = torch.exp(a_last[:, :, c])[..., None, None] * state \
-            + st[:, :, c]
-    g_next = torch.zeros_like(state)
-    grads, d_last = [None] * nc, [None] * nc
-    for c in reversed(range(nc)):
-        e = torch.exp(a_last[:, :, c])
-        grads[c] = g_next
-        d_last[c] = e.double() * (state_in[c].double()
-                                  * g_next.double()).sum(dim=(-1, -2))
-        g_next = loc[:, :, c] + e[..., None, None] * g_next
-    sin = torch.stack(state_in, dim=2)                       # (B,H,nc,P,N)
-    gst = torch.stack(grads, dim=2)
-    d_last = torch.stack(d_last, dim=2)                      # (B, H, nc)
+    sin, gst, d_last = _bwd_state_pass(st, loc, a_last)
     # 3. per chunk
     ii = torch.arange(q, device=x.device)
     causal = ii[:, None] >= ii[None, :]
@@ -358,6 +376,147 @@ def ssd_scan_bwd_plain(x, dt, A, Bm, Cm, D, dy, *, chunk_size: int = 256):
         ..., 0], dA, dB.to(x.dtype), dC.to(x.dtype), dD)
 
 
+def ssd_scan_bwd_tiled_plain(x, dt, A, Bm, Cm, D, dy, *,
+                             chunk_size: int = 256, rounding: str = "pair"):
+    """The bf16 backward kernels' arithmetic in plain PyTorch, for the
+    tests; the steps of :func:`ssd_scan_bwd_plain`, with the operands
+    made in fp32 rounded as the kernels feed them to bf16 products:
+
+    1. S_c = x^T (w B) and L_c = dy^T (exp(A_cum) C), the weighted B and
+       C as bf16 pairs;
+    2. the state passing as in the plain version, fp32 (a_c's gradient
+       in fp64);
+    3. per head and chunk, in tiles of ``BWD_ROW_TILE`` rows: u = dy_i
+       state_in (the state as a pair) for dC_i and A_cum's gradient from
+       the carried state; per column tile j, x_j G and B_j G^T (G as a
+       pair) for dB_j, dx_j and s; then the causal pairs (i >= j) in
+       order: S^T = B_j C_i^T and dM^T = x_j dy_i^T of the exact
+       operands, M^T = S^T l dt_j and (dM F)^T = dM^T l dt_j as pairs in
+       dx_j += M^T dy_i, dB_j += (dM F)^T C_i and dC_i += (dM F) B_j, v =
+       dM M summed in fp64 over the rows and the columns of each pair;
+    4. A_cum's gradient summed in reverse in fp64, as the plain version.
+
+    Rows past S read as 0. ``rounding`` "bf16" or "tf32" replaces the
+    pairs with one rounding, for the record. Returns what
+    :func:`ssd_scan_bwd_plain` returns."""
+    b, s, h, p = x.shape
+    g, n = Bm.shape[2], Bm.shape[3]
+    q = min(int(chunk_size), s)
+    nc = -(-s // q)
+    t = BWD_ROW_TILE
+    nt = -(-q // t)
+    qp = nt * t
+    rp = lambda v: _pair(v, rounding)
+    xf, Bf, Cf, dyf = (_chunked(v, h, nc, q) for v in (x, Bm, Cm, dy))
+    dtf = _chunked(dt[..., None], h, nc, q)[..., 0]          # (B, H, nc, q)
+    Af = A.float()
+    acum = torch.cumsum(dtf * Af[None, :, None, None], dim=-1)
+    a_last = acum[..., -1]
+    e_in = torch.exp(acum)
+    w = torch.exp(a_last[..., None] - acum) * dtf
+    # 1. chunk states, the weighted operand as a pair
+    st = _mm_pair(xf.transpose(-1, -2), rp(Bf * w[..., None]))
+    loc = _mm_pair(dyf.transpose(-1, -2), rp(Cf * e_in[..., None]))
+    # 2. the state passing, forward then in reverse
+    sin, gst, d_last = _bwd_state_pass(st, loc, a_last)
+    # 3. rows padded to whole tiles: zeros, A_cum flat, dt 0
+    pad = lambda v: torch.nn.functional.pad(v, (0, 0, 0, qp - q))
+    xp, Bp, Cp, dyp = (pad(v) for v in (xf, Bf, Cf, dyf))
+    dtp = torch.nn.functional.pad(dtf, (0, qp - q))
+    acp = torch.cat([acum, acum[..., -1:].expand(*acum.shape[:-1], qp - q)],
+                    dim=-1)
+    e_p = torch.exp(acp)
+    decay = torch.exp(a_last[..., None] - acp)
+    w_p = decay * dtp
+    # the carried state's terms
+    u = _mm_pair(dyp, rp(sin))                               # (.., qp, N)
+    dC = e_p[..., None] * u
+    d_row = (e_p * (Cp * u).sum(dim=-1)).double()
+    # the chunk state's terms
+    g_pair = rp(gst)
+    gx = _mm_pair(xp, g_pair)                                # x G
+    gb = _mm_pair(Bp, tuple(v.transpose(-1, -2) if v is not None else None
+                            for v in g_pair))                # B G^T
+    s_j = (Bp * gx).sum(dim=-1)
+    ws = (w_p * s_j).double()
+    dx = w_p[..., None] * gb
+    if D is not None:
+        dx = dx + D.float()[None, :, None, None, None] * dyp
+    dB = w_p[..., None] * gx
+    ddt = decay * s_j
+    v_col = torch.zeros_like(d_row)
+    dx, dB, dC, ddt = (list(v.split(t, dim=-2 if v.dim() == 5 else -1))
+                       for v in (dx, dB, dC, ddt))
+    d_row = list(d_row.split(t, dim=-1))
+    v_col = list(v_col.split(t, dim=-1))
+    tiles = lambda v: v.split(t, dim=-2)
+    xt, Bt, Ct, dyt = (tiles(v) for v in (xp, Bp, Cp, dyp))
+    at, dtt = acp.split(t, dim=-1), dtp.split(t, dim=-1)
+    idx = torch.arange(qp, device=x.device).split(t)
+    for jt in range(nt):
+        for it in range(jt, nt):
+            sT = Bt[jt] @ Ct[it].transpose(-1, -2)           # rows j, cols i
+            dmT = xt[jt] @ dyt[it].transpose(-1, -2)
+            live = (idx[it][None, :] >= idx[jt][:, None]) & (
+                idx[it][None, :] < q)
+            arg = torch.where(live, at[it][..., None, :]
+                              - at[jt][..., :, None], 0.0)
+            l = torch.where(live, torch.exp(arg), 0.0)
+            ldt = l * dtt[jt][..., :, None]
+            m = sT * ldt
+            f = dmT * ldt
+            ddt[jt] = ddt[jt] + (dmT * sT * l).sum(dim=-1)
+            v = (dmT * m).double()
+            v_col[jt] = v_col[jt] + v.sum(dim=-1)
+            d_row[it] = d_row[it] + v.sum(dim=-2)
+            dx[jt] = dx[jt] + _mm_pair_left(rp(m), dyt[it])
+            dB[jt] = dB[jt] + _mm_pair_left(rp(f), Ct[it])
+            dC[it] = dC[it] + _mm_pair_left(
+                tuple(v_.transpose(-1, -2) if v_ is not None else None
+                      for v_ in rp(f)), Bt[jt])
+    cat = lambda vs, dim: torch.cat(vs, dim=dim)[..., :q, :] if dim == -2 \
+        else torch.cat(vs, dim=-1)[..., :q]
+    dx, dB, dC = (cat(v, -2) for v in (dx, dB, dC))
+    ddt = cat(ddt, -1)
+    d_acum = cat(d_row, -1) - cat(v_col, -1) - ws[..., :q]
+    d_acum[..., -1] += d_last + ws.sum(dim=-1)
+    # 4. through the cumsum, in fp64
+    dda = torch.flip(torch.cumsum(torch.flip(d_acum, (-1,)), -1), (-1,))
+    ddt = (ddt.double() + Af.double()[None, :, None, None] * dda).float()
+    dA = (dtf.double() * dda).sum(dim=(0, 2, 3)).float()
+    dD = None if D is None else (dyf * xf).sum(dim=(0, 2, 3, 4))
+    rep = h // g
+    dB = _unchunked(dB, s).reshape(b, s, g, rep, n).sum(dim=3)
+    dC = _unchunked(dC, s).reshape(b, s, g, rep, n).sum(dim=3)
+    return (_unchunked(dx, s).to(x.dtype), _unchunked(ddt[..., None], s)[
+        ..., 0], dA, dB.to(x.dtype), dC.to(x.dtype), dD)
+
+
+def _mm_pair_left(a_pair, b):
+    """(hi + lo) @ b, the two products summed in the kernel's order."""
+    hi, lo = a_pair
+    out = hi @ b
+    return out if lo is None else out + lo @ b
+
+
+def bwd_scratch_floats(b: int, s: int, h: int, p: int, g: int, q: int,
+                       bf16: bool, slices: int = 1) -> int:
+    """fp32 words of :func:`ssd_scan_bwd_cuda`'s scratch. fp32: per
+    chunk, A_cum's gradient from the rows and the columns (fp64, q each),
+    a's gradient, its chunk-state part per column tile and dA's part
+    (fp64), A_cum and ddt's direct part (q each), the chunk state then
+    state_in and L then G (P N each), dD's part per column tile; dB and
+    dC per head (B S H N each). bf16: per chunk the two P N states,
+    a's gradient by warp of the state passing (P / 2 fp64), dA's part
+    (fp64), A_cum (q) and dD's part; dB and dC per head slice (``slices``
+    x B S G N each)."""
+    chunks = b * h * -(-s // q)
+    n = STATE_DIM
+    if bf16:
+        return chunks * (2 * p * n + p + q + 3) + 2 * slices * b * s * g * n
+    nt = -(-q // BWD_ROW_TILE)
+    return chunks * (6 * q + 2 * p * n + 4 + 3 * nt) + 2 * b * s * h * n
+
 def ssd_scan_bwd_cuda(
     x: torch.Tensor,                     # (B, S, H, P) fp32 or bf16
     dt: torch.Tensor,                    # (B, S, H) fp32
@@ -371,9 +530,11 @@ def ssd_scan_bwd_cuda(
 ):
     """The scan's backward with the final state's cotangent 0: returns
     (dx, ddt, dA, dB, dC, dD), dx, dB and dC in x's dtype, ddt (B, S, H),
-    dA (H,) and dD (H,) (None without D) in fp32. The kernel takes the
-    forward's shapes with P at most ``BWD_MAX_P``; every sum runs in a
-    fixed order (two calls give equal bits)."""
+    dA (H,) and dD (H,) (None without D) in fp32. The kernels take the
+    forward's shapes with P at most ``BWD_MAX_P``, in bf16 also
+    16-byte-aligned x, B, C and dy and B, H <= 65535; every sum runs in a
+    fixed order (two calls give equal bits). bf16 runs the tensor-core
+    kernels, fp32 the CUDA-core ones."""
     if x.device.type == "cpu":
         return ssd_scan_bwd_plain(x, dt, A, Bm, Cm, D, dy,
                                   chunk_size=chunk_size)
@@ -381,6 +542,14 @@ def ssd_scan_bwd_cuda(
     b, s, h, p, g, n, q = _checked(name, x, dt, A, Bm, Cm, D, chunk_size,
                                    dy=dy, max_p=BWD_MAX_P)
     dev = x.device
+    bf16 = x.dtype == torch.bfloat16
+    if bf16:
+        if any(t.data_ptr() % 16 for t in (x, Bm, Cm, dy)):
+            raise ValueError(f"{name}: bf16 x, B, C and dy must be 16-byte "
+                             f"aligned (16-byte copies)")
+        if b > 65535 or h > 65535:
+            raise ValueError(f"{name}: bf16 takes B, H <= 65535, got B={b} "
+                             f"H={h}")
     dx = torch.empty_like(x)
     dB = torch.empty_like(Bm)
     dC = torch.empty_like(Cm)
@@ -392,17 +561,9 @@ def ssd_scan_bwd_cuda(
         return dx, ddt, dA, dB.zero_(), dC.zero_(), dD
     from repro_torch.kernels import _build
     lib = _build.load()
-    nc = -(-s // q)
-    nt = -(-q // ROW_TILE)
-    # scratch: in fp64, A_cum's gradient from the rows and from the
-    # columns, a's gradient, its chunk-state part per column tile and dA
-    # per chunk; in fp32, A_cum, ddt's direct part, the chunk states /
-    # incoming states and L / G (P N each), dD per column tile, dB and dC
-    # per head (B S H N each)
-    chunks = b * h * nc
-    work = torch.empty((chunks * (6 * q + 2 * p * n + 4 + 3 * nt)
-                        + 2 * b * s * h * n,), dtype=torch.float32,
-                       device=dev)
+    slices = lib.ssd_scan_bwd_sm90_slices(b, s, h, g, q) if bf16 else 1
+    work = torch.empty((bwd_scratch_floats(b, s, h, p, g, q, bf16, slices),),
+                       dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.ssd_scan_bwd(

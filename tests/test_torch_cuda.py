@@ -37,7 +37,9 @@ to its split model (2e-3) at the generate shape, and whose static path
 is held by ``MLA_PATH_TOL`` with identical greedy tokens.
 The bf16 SSD scan (tensor cores, three kernels) must repeat its bits,
 also where the chunk is not a multiple of its 64-row tile. The SSD
-backward is held to ``ssd_scan_bwd_plain`` by relative L2 error of each
+backward (fp32 on the CUDA cores; bf16 on the tensor cores, at P = 32,
+64, 96 and 128, a ragged tail, S shorter than the chunk, two groups and
+no D) is held to ``ssd_scan_bwd_plain`` by relative L2 error of each
 of its six gradients, and kernel 1b at head dim 80 to its plain version,
 both to ``parity.RTOL`` and both repeating their bits. The paged
 decode at head dim 128 (glm4-9b's group of 16, phi4-mini's 3, arctic's
@@ -701,7 +703,7 @@ def test_mla_contiguous_bf16_kernel_matches_split_model_and_repeats(dev,
 
 def test_mla_and_ssd_take_the_tiles_the_cpu_models_follow(dev):
     """The split, tile and partial length of mla_decode_paged_split_plain
-    and the row tile of ssd_scan_tiled_plain
+    and the row tiles of ssd_scan_tiled_plain and ssd_scan_bwd_tiled_plain
     (tests/test_torch_sm90_numerics.py) are the ones the built kernels
     launch with."""
     from repro_torch.kernels import _build
@@ -712,6 +714,9 @@ def test_mla_and_ssd_take_the_tiles_the_cpu_models_follow(dev):
     assert lib.mla_decode_paged_sm90_smem() > 0
     assert lib.ssd_scan_sm90_tile() == sk.ROW_TILE
     assert lib.ssd_scan_sm90_smem(0) > 0 and lib.ssd_scan_sm90_smem(1) > 0
+    assert lib.ssd_scan_bwd_sm90_tile() == sk.BWD_ROW_TILE
+    assert all(lib.ssd_scan_bwd_sm90_smem(k, p) > 0 for k in (0, 1)
+               for p in (32, 64, 96, 128))
 
 
 def test_mla_kernels_refuse_what_they_do_not_take(dev):
@@ -913,6 +918,40 @@ def test_ssd_backward_kernel_matches_plain_and_repeats(dev, dtype, b, s, h,
             continue
         assert g_.dtype == w.dtype and g_.shape == w.shape, name
         assert _close(f"ssd backward {name}", g_, w, tol)
+    again = sk.ssd_scan_bwd_cuda(*args, dy, chunk_size=chunk)
+    assert all(torch.equal(a, g_) for a, g_ in zip(again, got)
+               if a is not None)
+
+
+@pytest.mark.parametrize("b,s,h,g,chunk,use_d,p", [
+    (2, 300, 4, 1, 128, True, 32),    # P = 32, ragged tail
+    (5, 1024, 80, 1, 256, True, 64),  # zamba2's training microbatch
+    (2, 100, 8, 1, 256, True, 64),    # S shorter than the chunk
+    (2, 512, 8, 2, 256, False, 96),   # two groups, no D, P = 96
+    (1, 130, 4, 1, 130, True, 128),   # Q = 130, the largest P
+    (2, 700, 16, 2, 256, True, 128),  # ragged tail, two groups
+])
+def test_bf16_ssd_backward_kernel_matches_plain_and_repeats(dev, b, s, h, g,
+                                                            chunk, use_d, p):
+    """The bf16 SSD backward (the tensor-core kernels of
+    ``csrc/ssd_scan_bwd.cu``) against ``ssd_scan_bwd_plain``: each of the
+    six gradients by relative L2 (``parity.RTOL``), one launch count a
+    call, two calls bitwise equal."""
+    rng = np.random.default_rng(s + h + g + p + 2)
+    args = _ssd_inputs(rng, dev, torch.bfloat16, b, s, h, g, use_d, p)
+    dy = _randn(rng, (b, s, h, p), dev, torch.bfloat16)
+    n0 = sk.ssd_scan_bwd_cuda.launches
+    got = sk.ssd_scan_bwd_cuda(*args, dy, chunk_size=chunk)
+    assert sk.ssd_scan_bwd_cuda.launches == n0 + 1
+    want = sk.ssd_scan_bwd_plain(*args, dy, chunk_size=chunk)
+    tol = RTOL[("ssd_scan_bwd_cuda", torch.bfloat16)]
+    for name, g_, w in zip(("dx", "ddt", "dA", "dB", "dC", "dD"), got,
+                           want):
+        if w is None:
+            assert g_ is None
+            continue
+        assert g_.dtype == w.dtype and g_.shape == w.shape, name
+        assert _close(f"bf16 ssd backward {name}", g_, w, tol)
     again = sk.ssd_scan_bwd_cuda(*args, dy, chunk_size=chunk)
     assert all(torch.equal(a, g_) for a, g_ in zip(again, got)
                if a is not None)

@@ -36,6 +36,11 @@ stabiliser, the state passing, the chunk scan in 64-row tiles; the
 weighted keys, the carried state and the decay-weighted scores fed as
 bf16 hi/lo pairs) and is held against ``mlstm_scan_pallas`` in
 interpret mode and JAX's ``ref.mlstm_chunked``.
+``ssd_scan_bwd_tiled_plain`` follows ``csrc/ssd_scan_bwd.cu``'s bf16 path
+(the chunk states with the weighted B and C as pairs, the carried state
+and G as pairs, one pass over the causal pairs of 64-row tiles with M^T
+and (dM F)^T as pairs, v summed in fp64) and is held against ``jax.vjp``
+of JAX's ``ref.ssd_chunked`` and against ``ssd_scan_bwd_plain``.
 
 Tolerances are the card's limits for the kernels
 (``repro_torch.kernels.parity.RTOL``, relative L2): 5e-4 for the bf16
@@ -55,7 +60,10 @@ made operands and of TF32 (both above the limit: why the kernel takes
 pairs) are printed, not asserted. The mLSTM model is held to the bf16
 mLSTM scan's limit, ``RTOL[("mlstm_scan_cuda", bf16)]`` = 6e-4, on h, C,
 n and m; the readings of one bf16 rounding of each of its made operands
-are printed, not asserted.
+are printed, not asserted. The SSD backward's model is held to the bf16
+backward's limit, ``RTOL[("ssd_scan_bwd_cuda", bf16)]`` = 8e-4, on each
+of its six gradients; the reading of one bf16 rounding of its made
+operands is printed beside it, and the pairs must read closer.
 """
 import re
 
@@ -92,6 +100,7 @@ DECODE_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 CE_TOL = RTOL[("cross_entropy_cuda", torch.bfloat16)]
 SSD_TOL = RTOL[("ssd_scan_cuda", torch.bfloat16)]
 MLSTM_TOL = RTOL[("mlstm_scan_cuda", torch.bfloat16)]
+SSD_BWD_TOL = RTOL[("ssd_scan_bwd_cuda", torch.bfloat16)]
 
 # (b, sq, skv, h, hkv, causal, q_offset): ragged Sq = Skv over several q
 # and kv tiles (group 2), chunked prefill (q_offset > 0, Skv > Sq, group
@@ -516,6 +525,65 @@ def test_ssd_tile_model_matches_pallas_and_jax_ref(pallas_interpret, b, s, h,
             assert r <= SSD_TOL, (what, r)
 
 
+
+# (b, s, h, p, g, chunk, with D): P = 32 over chunks of 128 with a ragged
+# tail; S shorter than the chunk and not a multiple of the 64-row tile,
+# two groups, no D; P = 128 with a 4-row last chunk
+SSD_BWD_MODEL_CASES = [
+    (1, 320, 2, 32, 1, 128, True),
+    (2, 200, 4, 64, 2, 256, False),
+    (1, 260, 2, 128, 1, 128, True),
+]
+SSD_BWD_GRADS = ("dx", "ddt", "dA", "dB", "dC", "dD")
+
+
+@pytest.mark.parametrize("b,s,h,p,g,chunk,use_d", SSD_BWD_MODEL_CASES)
+def test_ssd_bwd_tile_model_matches_jax_vjp_and_plain(b, s, h, p, g, chunk,
+                                                      use_d):
+    import jax
+    rng = np.random.default_rng(s + h + p)
+    f = lambda *shape: torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32))
+    bf = lambda t: t.bfloat16().float()      # bf16-representable, fp32
+    x, dy = bf(f(b, s, h, p)), bf(f(b, s, h, p))
+    dt = torch.nn.functional.softplus(f(b, s, h) - 2.0)
+    a = -torch.exp(f(h) * 0.5)
+    bm, cm = bf(f(b, s, g, 64) * 0.3), bf(f(b, s, g, 64) * 0.3)
+    d = f(h) if use_d else None
+    args = (x, dt, a, bm, cm, d, dy)
+
+    def y_of(*ins):
+        return ssd_jref.ssd_chunked(*ins[:5], ins[5] if use_d else None,
+                                    chunk_size=chunk)[0]
+
+    jins = [jnp.asarray(t.numpy()) for t in args[:5]] + (
+        [jnp.asarray(d.numpy())] if use_d else [])
+    jgrads = jax.vjp(y_of, *jins)[1](jnp.asarray(dy.numpy()))
+    oracles = {
+        "jax vjp": [torch.from_numpy(np.asarray(v)) for v in jgrads]
+        + ([] if use_d else [None]),
+        "plain": tsk.ssd_scan_bwd_plain(*args, chunk_size=chunk),
+    }
+    worst = {}
+    readings = {}
+    for rnd in ("pair", "bf16"):
+        got = tsk.ssd_scan_bwd_tiled_plain(*args, chunk_size=chunk,
+                                           rounding=rnd)
+        assert got[0].shape == x.shape and got[3].shape == bm.shape
+        for oname, want in oracles.items():
+            errs = {n: rel_l2(gv, wv) for n, gv, wv in
+                    zip(SSD_BWD_GRADS, got, want) if wv is not None}
+            readings.update({f"{rnd} {n} vs {oname}": e
+                             for n, e in errs.items()})
+            worst[(rnd, oname)] = max(errs.values())
+    print(f"[sm90-ssd-bwd] {(b, s, h, p, g, chunk, use_d)}: "
+          + ", ".join(f"{k_} {v_:.2e}" for k_, v_ in readings.items()))
+    for what, r in readings.items():
+        if what.startswith("pair"):
+            assert r <= SSD_BWD_TOL, (what, r)
+    for oname in oracles:
+        assert worst[("pair", oname)] < worst[("bf16", oname)], oname
+
 def _mlstm_inputs(rng, b, s, h, dk, dv):
     """bf16 q, k and v (the kernel's path dtype), fp32 gates as
     xlstm-125m's init sets them up (f~ shifted by its bias)."""
@@ -591,7 +659,8 @@ def test_tile_constants_match_the_sources_build_hashes():
     sources that ``_build`` compiles and hashes: the decode split and
     stage, the backward's tiles (BwdTiles), the forward's kv tiles
     (Sm90Tiles), the MLA decode's split and tile, the SSD chunk scan's
-    row tile, and the mLSTM chunk scan's row tile and dv slice."""
+    row tile, the SSD backward's pair-pass row tile, and the mLSTM chunk
+    scan's row tile and dv slice."""
     srcs = {p.name: p for p in _build.sources()}
     decode = srcs["paged_decode.cu"].read_text()
     assert _constexpr(decode, "kSplit") == tfa.DECODE_SPLIT
@@ -612,6 +681,8 @@ def test_tile_constants_match_the_sources_build_hashes():
     assert _constexpr(mla, "kTile") == tmd.TILE
     ssd = srcs["ssd_scan.cu"].read_text()
     assert _constexpr(ssd, "kRowTile") == tsk.ROW_TILE
+    ssd_bwd = srcs["ssd_scan_bwd.cu"].read_text()
+    assert _constexpr(ssd_bwd, "kRowTile") == tsk.BWD_ROW_TILE
     mlstm = srcs["mlstm_scan.cu"].read_text()
     assert _constexpr(mlstm, "kRowTile") == tmk.ROW_TILE
     assert _constexpr(mlstm, "kDvSlice") == tmk.DV_SLICE
