@@ -108,7 +108,7 @@ Phases (any failure exits non-zero; no phase swallows an error):
 7. Multi-rank train path phase: ``repro_torch.launch.train --devices
    2,1,1 --grad-reduction hierarchical --compression int8 --bucket-mb
    25 --capacities 2,1`` trains full-width olmo-1b (bf16 compute) on two
-   ranks that share the card (gloo), 4 steps of 8 rows x 1024 tokens,
+   ranks that share the card (gloo), 3 steps of 8 rows x 1024 tokens,
    accum 2. The ranks start from fresh counters and report them back.
    Checks: every loss finite; both ranks end with bitwise-identical
    parameters (a checksum gathered over the group); per rank, launches
@@ -117,7 +117,8 @@ Phases (any failure exits non-zero; no phase swallows an error):
    equal ``modeled_link_bytes``. Then the HetSeq invariant across two
    ranks at full width, depth cut to 2 layers, fp32: the two-rank
    reduced gradient (fp32 and int8 exchange) against one process's on
-   the union of the real rows. Prints ms per step, real tokens/s, the
+   the union of the real rows, and one int8 and one fp32 exchange of
+   the whole stack timed. Prints ms per step, real tokens/s, the
    peak memory of each rank, the backend and the transport.
 8. MLA kernel phase: the absorbed-MLA decode kernels
    (``csrc/mla_decode.cu``) against their plain versions
@@ -239,9 +240,9 @@ Phases (any failure exits non-zero; no phase swallows an error):
 14. Checkpoint and re-mesh path phase: ``repro_torch.launch.train``,
    each run a fresh process under a temporary ``--ckpt-dir`` removed
    after. First the disk: the free bytes there must hold the phase's
-   checkpoints (two of olmo-1b at 2 layers, ~2.9 GB each: fp32
+   checkpoints (two of olmo-1b at 1 layer, ~2.0 GB each: fp32
    parameters, m and v), or the phase fails. Then phase 5's settings
-   (olmo-1b at full width, the depth cut to 2 layers, which keeps the
+   (olmo-1b at full width, the depth cut to 1 layer, which keeps the
    script inside its time limit; 8 rows of 1024, accum 2): 24
    steps with a checkpoint every 12 (steps
    2-12 run with no write in flight, steps 13-24 while step 12's write
@@ -251,7 +252,7 @@ Phases (any failure exits non-zero; no phase swallows an error):
    run's, and each run's kernel
    counters are phase 5's per step. Then phase 7's settings with
    capacities 1,1, ``--ckpt-every 4 --kill-pod 1@3``, 6 steps, at full
-   width with the depth cut to 2 layers (a two-pod checkpoint holds the
+   width with the depth cut to 1 layer (a two-pod checkpoint holds the
    residual of both pods, about twice the bytes; run through the
    driver's ``main`` with the cut registered, as the CLI has no depth
    flag): both ranks raise ``RemeshRequired`` at step 5 with the same
@@ -267,15 +268,16 @@ Phases (any failure exits non-zero; no phase swallows an error):
    same run's steps with no write in flight, the uninterrupted run's and
    phase 5's, each with the card's name and power limit.
 15. Overlap and canonical path phase: phase 7's command three more
-   times, with ``--overlap buckets``, ``--overlap backward
-   --no-scan-layers`` and that with ``--optimizer lamb``: every loss
+   times, the depth cut to 2 layers, with ``--overlap buckets``,
+   ``--overlap backward --no-scan-layers`` and that with ``--optimizer
+   lamb``: every loss
    finite, both ranks end bitwise equal, per rank kernel 4 twice and
-   kernel 5 once a bucket a step (180 buckets of 25 MiB) and kernels 1,
+   kernel 5 once a bucket a step (25-MiB buckets) and kernels 1,
    1b, 3, 3b as phase 7, the wire bytes of each step the buckets'
    ``modeled_bucket_link_bytes`` summed; ms per step, real tokens/s and
    peak memory printed beside phase 7's (for information). Then the
    exactness probe: two ranks at full width, depth cut to 2 layers,
-   fp32 (TF32 off), ``grad_clip=0``, accum 2, 3 steps: with
+   fp32 (TF32 off), ``grad_clip=0``, accum 2, 2 steps: with
    ``bucketed_allreduce`` and with hierarchical int8 and error
    feedback, ``buckets`` and ``backward`` must give losses, parameters
    and (int8) the error state bitwise those of ``none``, and the error
@@ -285,13 +287,14 @@ Phases (any failure exits non-zero; no phase swallows an error):
    settings, accum 1, 4 steps): finite losses, and per row of every
    step the attention forward twice a layer, its backward once, the CE
    forward and one dlogits chunk; and two ranks at depth 2, fp32, on
-   the canonical batches of a 6-row plan under plans (2,1) x4 and
-   (1,1) x2 then (3,1) x2: bitwise-equal losses and parameter
+   the canonical batches of a 6-row plan under plans (2,1) x3 and
+   (1,1) then (3,1) x2: bitwise-equal losses and parameter
    checksums.
 16. Pipeline path phase: ``repro_torch.launch.train --pipeline-stages
-   2 --no-scan-layers`` with phase 5's settings but 4 steps and accum 4
-   (the plan's 12 buffer rows in 4 microbatches of 3, so 1F1B has a
-   steady state), on one rank, so the uniform cut [8, 8]: every loss
+   2 --no-scan-layers`` with phase 5's settings but the depth cut to 4
+   layers, 3 steps and accum 4 (the plan's 12 buffer rows in 4
+   microbatches of 3, so 1F1B has a steady state), on one rank, so the
+   uniform cut [2, 2]: every loss
    finite, and per step kernel 1 twice a layer a microbatch (remat),
    1b once, 3 once a microbatch, 3b once a 4096-token chunk, kernels 4
    and 5 never. Then the same run with ``--pipe-axis``, two stage ranks
@@ -337,8 +340,8 @@ Phases (any failure exits non-zero; no phase swallows an error):
    2 of 48 layers, and (f) musicgen-large at full size, each through
    ``build_train_step`` with phase 5's settings (8 rows of 1024
    embeddings, labels and weights from a seed, 2 dummy rows, accum 2,
-   bf16, remat full, 4 steps): finite losses, kernels 1, 1b, 3 and 3b
-   launched as phase 5 counts them; ms/step (median of steps 2..4), real
+   bf16, remat full, 3 steps): finite losses, kernels 1, 1b, 3 and 3b
+   launched as phase 5 counts them; ms/step (median of steps 2..3), real
    tokens/s, the model-FLOPs share of 989 TFLOP/s and peak memory; then
    the fp32 probe at 2 layers (kernel path vs plain path, loss, grad
    norm and worst leaf within phase 5's fp32 limits).
@@ -347,11 +350,11 @@ Phases (any failure exits non-zero; no phase swallows an error):
    MLA at head dim 192, vocab 102400 with an untied head), bf16, remat
    full, ``configs.base.optimizer_for``'s bf16 moments, through
    ``build_train_step`` with phase 5's settings (8 rows of 1024 tokens
-   of the synthetic corpus, 2 dummy rows, accum 2, 4 steps): finite
+   of the synthetic corpus, 2 dummy rows, accum 2, 3 steps): finite
    losses, the aux term of ``loss_fn``'s metrics finite and positive,
    kernels 1 and 1b (head dim 192), 3 and 3b launched as phase 5 counts
    them (counters zeroed just before, read just after); ms/step (median
-   of steps 2..4), real tokens/s, the model-FLOPs share of 989 TFLOP/s
+   of steps 2..3), real tokens/s, the model-FLOPs share of 989 TFLOP/s
    with active parameters only (6 of 160 experts), peak memory; one
    more step under torch.profiler (device time by kernel). Then the
    fp32 probe at the same width, fp32 parameters, on 3 rows (2 real, 1
@@ -385,14 +388,14 @@ Phases (any failure exits non-zero; no phase swallows an error):
    2.42 B parameters, fp32, ``optimizer_for``'s fp32 moments), bf16
    compute, remat full (one checkpoint a group), through
    ``build_train_step`` with phase 5's settings (8 rows of 1024 tokens of
-   the synthetic corpus, 2 dummy rows, accum 2, 4 steps), after every
+   the synthetic corpus, 2 dummy rows, accum 2, 3 steps), after every
    earlier model is freed: finite losses; counters zeroed just before and
    read just after, a step launching the SSD forward 216 times (each
    layer's forward and its group's recompute, 2 microbatches), the SSD
    backward 108, kernel 1 at head dim 80 36 (9 applications, twice a
    microbatch), 1b 18, 3 twice, 3b 4 times (two 4096-token chunks of a
    5,120-token microbatch), every other kernel never; ms/step (median of
-   steps 2..4), real tokens/s, the model-FLOPs share of 989 TFLOP/s (6 x
+   steps 2..3), real tokens/s, the model-FLOPs share of 989 TFLOP/s (6 x
    parameters x tokens, the shared block counted once an application,
    plus the attention's and the scan's own products, forward and
    backward), peak memory; one more step under torch.profiler (device
@@ -403,13 +406,47 @@ Phases (any failure exits non-zero; no phase swallows an error):
    is itself ~8e-5 off that on A_log's gradient, above the leaf limit),
    loss, grad norm and worst leaf within phase 5's fp32 limits; the
    reading against the plain path in fp32 is printed for the record.
-20. Prints the seconds of each phase, then one ``{"kernels": [...]}``
-   line (fifteen entries: the eleven kernels, kernel 2 at head dim
+20. xLSTM training phase. (a) The mLSTM backward
+   (``csrc/mlstm_scan_bwd.cu``, no TPU kernel: the JAX package
+   differentiates ``ref.mlstm_chunked``; fp32 on six CUDA-core kernels
+   for both dtypes) against ``mlstm_scan_bwd_plain`` in fp32 (TF32 off)
+   and bf16, by the relative L2 error of each of its five gradients (dq,
+   dk, dv, di~, df~; the largest held to ``parity.RTOL``): xlstm-125m's
+   training microbatch (B=5, S=1024, H=4, dk=dv=384, chunk 256), a
+   ragged tail (S=300), S shorter than the chunk (S=100), dk != dv (128,
+   256) at chunk 128, and large gates (i~ ~ U(-30, 30), f~ ~ U(-10, 6),
+   S=512), the last also against autograd through the reference scan in
+   fp64 (the kernel no further from it than 3x the plain version: every
+   fp32 evaluation reads up to ~5e-3 there). Every case is printed
+   before any is checked, and runs twice with bitwise-equal outputs.
+   Timed in bf16 at the training shape: ms, device time by each of its
+   six launches, scratch bytes, the bound, the plain version's time,
+   library none (no PyTorch call computes it). (b) xlstm-125m at full
+   width and depth (6 mLSTM and 6 sLSTM blocks, 173 M parameters, fp32
+   moments), bf16 compute, remat full (one checkpoint a pair), through
+   ``build_train_step`` with phase 5's settings (8 rows of 1024 tokens of
+   the synthetic corpus, 2 dummy rows, accum 2), a warm-up step and two
+   timed ones: finite losses; counters zeroed just before and read just
+   after, a step launching the mLSTM forward 24 times (each mLSTM
+   block's forward and its pair's recompute, 2 microbatches), its
+   backward 12, kernel 3 twice, 3b 4 times, every other kernel never;
+   ms/step (median of steps 2..3), real tokens/s, the model-FLOPs share
+   of 989 TFLOP/s (6 x parameters x tokens plus the scan's own products,
+   forward and backward), peak memory. No profiled step: the sLSTM loop
+   is ~hundreds of thousands of launches a step. (c) The fp32 probe
+   (TF32 off) at full width cut to one pair (2 layers), fp32 parameters,
+   3 rows (2 real, 1 dummy): the kernel path against the plain path,
+   whose mLSTM scan runs in fp64
+   (``ref.mlstm_chunked(acc_dtype=torch.float64)``), loss, grad norm and
+   worst leaf within phase 5's fp32 limits.
+21. Prints the seconds of each phase, then one ``{"kernels": [...]}``
+   line (sixteen entries: the eleven kernels, kernel 2 at head dim
    128 as ``paged_decode_d128``, with its three head layouts as
    ``cases``, kernel 1b at head dim 192 as
-   ``flash_attention_bwd_d192``, its launches phase 18's, and the SSD
+   ``flash_attention_bwd_d192``, its launches phase 18's, the SSD
    backward as ``ssd_scan_bwd`` and kernel 1b at head dim 80 as
-   ``flash_attention_bwd_d80``, their launches phase 19's; each with
+   ``flash_attention_bwd_d80``, their launches phase 19's, and the
+   mLSTM backward as ``mlstm_scan_bwd``, its launches phase 20's; each with
    its launches on its path, which must
    be above 0; the prefill kernel's D=64 (phase 2's S=512 bucket), D=192
    and D=80 cases ride in its entry as ``at_d64``, ``at_d192`` and
@@ -1723,7 +1760,7 @@ MULTI_ARGV = ["--arch", "olmo-1b", "--device", "cuda", "--seed", "0",
               "--devices", "2,1,1", "--grad-reduction", "hierarchical",
               "--compression", "int8", "--bucket-mb", "25",
               "--capacities", "2,1", "--global-batch", "8", "--seq-len",
-              "1024", "--accum", "2", "--steps", "4", "--lr", "3e-4",
+              "1024", "--accum", "2", "--steps", "3", "--lr", "3e-4",
               "--warmup", "2", "--schedule", "constant", "--log-every", "1"]
 # the HetSeq invariant across two ranks at full width, depth cut to 2
 # layers, fp32 (TF32 off): the reduced gradient against one process on
@@ -1798,21 +1835,32 @@ def probe_rank(rank, world, init_method, seq_len):
         stack = torch.randn((lo.num_buckets, lo.bucket_elems),
                             generator=gen, device=mesh.device)
         err = torch.zeros_like(stack)
+        # one exchange each (the median of 3 before phase 20 was added:
+        # the fp32 one takes ~10 s over gloo), after the probe's own
         out["exchange_ms"] = {}
         for comp in ("int8", "none"):
-            times = []
-            for _ in range(3):
-                torch.cuda.synchronize()
-                t0 = time.monotonic()
-                bkt.exchange_buckets(stack, err, comm=mesh.pod,
-                                     compress=comp == "int8",
-                                     total=lo.total, impl="kernel")
-                torch.cuda.synchronize()
-                times.append(time.monotonic() - t0)
-            out["exchange_ms"][comp] = statistics.median(times) * 1e3
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            bkt.exchange_buckets(stack, err, comm=mesh.pod,
+                                 compress=comp == "int8",
+                                 total=lo.total, impl="kernel")
+            torch.cuda.synchronize()
+            out["exchange_ms"][comp] = (time.monotonic() - t0) * 1e3
     finally:
         mesh_mod.destroy(mesh)
     return out
+
+
+def shard_buckets(lo, p, index, block_size=256):
+    """Buckets of layout ``lo`` whose shard ``index`` of ``p`` holds data
+    rows in the int8 per-bucket exchange: the stream's data blocks fill
+    the buckets in order (``core/buckets.py::bucket_legs``), each
+    bucket's blocks split into ``p`` shards of ``ns``."""
+    rpb = lo.bucket_elems // block_size
+    ns = rpb // p
+    data = max(1, min(lo.num_buckets * rpb, -(-lo.total // block_size)))
+    return sum(1 for k in range(lo.num_buckets)
+               if min(rpb, max(0, data - k * rpb)) > index * ns)
 
 
 def multi_rank_train(dev, argv, smi, per_bucket=False, tag="multi"):
@@ -1851,10 +1899,20 @@ def multi_rank_train(dev, argv, smi, per_bucket=False, tag="multi"):
     modeled = (sum(bkt.modeled_bucket_link_bytes(lo, 2, k, compress=True)
                    for k in range(lo.num_buckets)) if per_bucket
                else bkt.modeled_link_bytes(lo, 2, compress=True))
+    pods, data = (list(map(int, args.devices.split(","))) + [1])[:2]
     for r in ranks:
-        check(r["launches"] == expect,
+        want = dict(expect)
+        if per_bucket and data == 1:
+            # the cross-pod exchange's rank r is pod r: it re-quantizes
+            # and accumulates its shard of a bucket only where the shard
+            # holds data rows (the last bucket's shards past the stream's
+            # data are empty at some depths)
+            held = shard_buckets(lo, pods, r["rank"])
+            want["quantize_int8_cuda"] = (lo.num_buckets + held) * n
+            want["dequant_accum_cuda"] = held * n
+        check(r["launches"] == want,
               f"{tag}: rank {r['rank']} launches {r['launches']} != "
-              f"{expect}")
+              f"{want}")
         check(r["link_bytes"] == [modeled] * n,
               f"{tag}: rank {r['rank']} wire bytes {r['link_bytes']} "
               f"!= modeled {modeled} a step")
@@ -1904,7 +1962,7 @@ def multi_rank_probe(seq_len, smi):
     exchange_ms = inv.pop("exchange_ms")
     print(f"[multi] one exchange of the full olmo-1b stack between the 2 "
           f"ranks ({chunks} chunks): int8 {exchange_ms['int8']:.1f} ms, "
-          f"fp32 {exchange_ms['none']:.1f} ms (median of 3) [{smi}]",
+          f"fp32 {exchange_ms['none']:.1f} ms (one each) [{smi}]",
           flush=True)
     for comp, rec in inv.items():
         rec["tol"] = MULTI_INVARIANT_RTOL[comp]
@@ -3169,8 +3227,10 @@ def _block_timed_prefill(model, params, prompts, max_len):
         return run
     tr.mlstm_block, tr.slstm_block = timed("mlstm"), timed("slstm")
     try:
-        with tprofile(activities=[ProfilerActivity.CPU,
-                                  ProfilerActivity.CUDA]) as prof:
+        # kernels only: the sLSTM loop's ~500,000 host ops would cost the
+        # profiler's event processing about a minute, and nothing reads
+        # them
+        with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
             torch.cuda.synchronize()
             t0 = time.monotonic()
             model.prefill(params,
@@ -3329,13 +3389,14 @@ def xlstm_path_phase(counters, dev, smi):
 # --------------------------------------------------------------------------
 
 # phase 14's re-mesh run: phase 7's settings at full width, the depth cut
-# to 2 layers (a two-pod checkpoint holds the residual of both pods, about
-# twice the bytes; the script's run neared its time limit at 4), capacities
+# to 1 layer (a two-pod checkpoint holds the residual of both pods, about
+# twice the bytes; the script's run neared its time limit at 4 layers, and
+# again at 2 once phase 20 was added), capacities
 # 1,1, a checkpoint every 4 steps and pod 1
 # lost at step 3: three missed reports later (step 5) the replan cannot
 # fit the global batch in pod 0's buffer, and the run restarts on one pod
 # from the step-4 checkpoint, accum x2, to step 6
-REMESH_LAYERS = 2
+REMESH_LAYERS = 1
 REMESH_ARGV = [a for a in MULTI_ARGV]
 for _flag, _value in (("--capacities", "1,1"), ("--steps", "6")):
     REMESH_ARGV[REMESH_ARGV.index(_flag) + 1] = _value
@@ -3343,13 +3404,14 @@ REMESH_ARGV += ["--ckpt-every", "4", "--kill-pod", "1@3"]
 # the resume runs: phase 5's settings (olmo-1b at full width, 8 rows of
 # 1024, accum 2) with the depth cut to RESUME_LAYERS (the checks do not
 # grow with depth, and at full depth the script's run neared its time
-# limit once phase 15 was added, at 4 layers once phase 19 was). The
+# limit once phase 15 was added, at 4 layers once phase 19 was, at 2 once
+# phase 20 was). The
 # first takes RESUME_FIRST steps with checkpoints at steps 12 and 24: its
 # steps 2-12 run with no write in flight and its steps 13-24 while step
 # 12's write is (a write outlasts 12 steps), the two medians of one
 # process. The second resumes from step 24 to
 # RESUME_STEPS, against that many uninterrupted steps.
-RESUME_LAYERS = 2
+RESUME_LAYERS = 1
 RESUME_CKPT_EVERY = 12
 RESUME_FIRST = 24
 RESUME_STEPS = 26
@@ -3639,20 +3701,25 @@ OVERLAP_RUNS = (("buckets", ["--overlap", "buckets"]),
                 ("backward_lamb", ["--overlap", "backward",
                                    "--no-scan-layers", "--optimizer",
                                    "lamb"]))
-# the exactness probe: two ranks at full width, depth cut to 2 layers,
-# fp32 (TF32 off), grad_clip 0, accum 2, 3 steps of 8 rows x 1024
+# the three overlap runs (phase 7's command with each overlap mode) at
+# full width, the depth cut to 2 layers (full depth before phase 20 was
+# added: their checks, launches and wire bytes a bucket, do not depend on
+# depth); the exactness probe: two ranks at full width, depth cut to 2
+# layers, fp32 (TF32 off), grad_clip 0, accum 2, 2 steps of 8 rows x
+# 1024 (the second from the first's update; 3 before phase 20)
 OVERLAP_LAYERS = 2
-OVERLAP_STEPS = 3
+OVERLAP_STEPS = 2
 # canonical at full width: phase 5's settings with --weighting canonical
 # (accum 1, which canonical requires), 4 steps; then two ranks at depth
-# 2, fp32, 6 rows of 1024 a batch (the last batch partial), under two
-# plan sequences
+# 2, fp32, 6 rows of 1024 a batch from a 14-row corpus (the last batch
+# partial: 6, 6, 2), under two plan sequences of 3 steps (4 of a 20-row
+# corpus before phase 20 was added)
 CANONICAL_ARGV = [a for a in TRAIN_ARGV] + ["--weighting", "canonical"]
 for _flag, _value in (("--accum", "1"), ("--steps", "4")):
     CANONICAL_ARGV[CANONICAL_ARGV.index(_flag) + 1] = _value
 CANONICAL_ROWS = 6
-CANONICAL_PLANS = {"fixed": ((2.0, 1.0),) * 4,
-                   "replanned": ((1.0, 1.0),) * 2 + ((3.0, 1.0),) * 2}
+CANONICAL_PLANS = {"fixed": ((2.0, 1.0),) * 3,
+                   "replanned": ((1.0, 1.0),) + ((3.0, 1.0),) * 2}
 
 
 def _flat_params(params):
@@ -3869,6 +3936,20 @@ def canonical_train(dev, fa, ce, smi):
             "peak_memory_gib": peak, "wall_s": result["wall_s"]}
 
 
+def _olmo_cut_argv(argv, layers):
+    """``argv`` with olmo-1b at ``layers`` layers, registered in this
+    process as ``olmo-1b-cut`` (the driver's ranks take the resolved
+    config from it, so no CLI depth flag is needed)."""
+    from repro_torch.configs import base as cfgbase
+    cfgbase.register("olmo-1b-cut", *(
+        lambda get=get: dataclasses.replace(get("olmo-1b"),
+                                            num_layers=layers)
+        for get in (cfgbase.resolve, cfgbase.smoke_config)))
+    argv = list(argv)
+    argv[argv.index("--arch") + 1] = "olmo-1b-cut"
+    return argv
+
+
 def overlap_phase(dev, fa, ce, smi, multi):
     """Phase 15: the overlap modes at full width through the driver,
     their exactness on the card at depth 2, and canonical weighting."""
@@ -3878,9 +3959,10 @@ def overlap_phase(dev, fa, ce, smi, multi):
     from repro_torch.data.synthetic import build_synthetic_corpus
     from repro_torch.launch import mesh as mesh_mod
     out = {"runs": {}}
+    argv = _olmo_cut_argv(MULTI_ARGV, OVERLAP_LAYERS)
     for name, flags in OVERLAP_RUNS:
         t0 = time.monotonic()
-        rec = multi_rank_train(dev, MULTI_ARGV + flags, smi,
+        rec = multi_rank_train(dev, argv + flags, smi,
                                per_bucket=True, tag=f"overlap-{name}")
         rec["process_seconds"] = time.monotonic() - t0
         out["runs"][name] = rec
@@ -3898,7 +3980,7 @@ def overlap_phase(dev, fa, ce, smi, multi):
     root = tempfile.mkdtemp(prefix="hetseq_canonical_")
     try:
         corpus = build_synthetic_corpus(
-            root + "/c", num_seqs=20, seq_len=1025,
+            root + "/c", num_seqs=14, seq_len=1025,
             vocab=cfgbase.resolve("olmo-1b").vocab_size, rows_per_shard=8,
             seed=0)
         t0 = time.monotonic()
@@ -3954,21 +4036,25 @@ def overlap_phase(dev, fa, ce, smi, multi):
 # pipeline path phase
 # --------------------------------------------------------------------------
 
-# phase 5's settings with two pipeline stages: 4 steps, accum 4 (the
-# plan's 12 buffer rows divide by it: 4 microbatches of 3 rows, so 1F1B
-# has a steady state), the uniform cut on one rank
-PIPE_STEPS, PIPE_ACCUM = 4, 4
+# phase 5's settings with two pipeline stages, olmo-1b at full width cut
+# to 4 layers (full depth before phase 20 was added: the checks, the
+# stage plan, launches and pipe bytes, follow the cut): 3 steps (4
+# before), accum 4 (the plan's 12 buffer rows divide by it: 4
+# microbatches of 3 rows, so 1F1B has a steady state), the uniform cut on
+# one rank
+PIPE_STEPS, PIPE_ACCUM, PIPE_LAYERS = 3, 4, 4
 PIPE_ARGV = [a for a in TRAIN_ARGV]
 for _flag, _value in (("--steps", str(PIPE_STEPS)),
                       ("--accum", str(PIPE_ACCUM))):
     PIPE_ARGV[PIPE_ARGV.index(_flag) + 1] = _value
 PIPE_ARGV += ["--pipeline-stages", "2", "--no-scan-layers"]
 # the fp32 exactness probe: olmo-1b at full width cut to 4 layers, 2 rows
-# of 1024 a step in 2 microbatches, 3 steps, grad_clip 0; each
+# of 1024 a step in 2 microbatches, 2 steps (3 before phase 20 was
+# added), grad_clip 0; each
 # pipelined run (one a reduction x optimizer x schedule, the 1f1b runs
 # on the uniform cut [2, 2], the gpipe runs on capacities 3,1's [3, 1])
 # against the pipeline_stages=1 run of its reduction and optimizer
-PIPE_EXACT_LAYERS, PIPE_EXACT_STEPS, PIPE_EXACT_ROWS = 4, 3, 2
+PIPE_EXACT_LAYERS, PIPE_EXACT_STEPS, PIPE_EXACT_ROWS = 4, 2, 2
 PIPE_EXACT_CUTS = {"1f1b": (), "gpipe": (3.0, 1.0)}
 # --cards 4: two data-parallel ranks of capacities 3,1, whose two
 # entries also size the stages: layers [12, 4]
@@ -3985,11 +4071,13 @@ def stage_launches(cfg, layers, head, buffer_rows, accum, seq_len, steps):
     return n
 
 
-def _pipe_run(argv, tag, smi):
+def _pipe_run(argv, tag, smi, layers=None):
     """The driver's pipelined run with the checks both forms share:
     finite losses, the stage plan, every stage's ranks equal, each
     rank's launches of its own layers and head, kernels 4 and 5 idle,
-    and (a pipe axis) each rank's pipe bytes a step the modeled count."""
+    and (a pipe axis) each rank's pipe bytes a step the modeled count.
+    ``layers``: olmo-1b's depth cut (``argv`` names ``olmo-1b-cut``,
+    registered at that depth here and in the driver's process)."""
     from repro_torch.configs import base as cfgbase
     from repro_torch.launch import steps as tsteps
     from repro_torch.launch import train as ttrain
@@ -3999,7 +4087,7 @@ def _pipe_run(argv, tag, smi):
     n_dp = ttrain.mesh_mod.topology_from_devices(args.devices).dp_size
     plan = ttrain.make_plan(tcfg, n_dp)
     splan = tsteps.stage_plan_for(build_model(cfg, "cpu"), tcfg)
-    text, summary, wall = run_driver(argv, tag)
+    text, summary, wall = run_driver(argv, tag, layers=layers)
     backend = [ln.split("backend ")[1].split(",")[0]
                for ln in text.splitlines() if "backend " in ln][0]
     losses = summary["losses"]
@@ -4137,8 +4225,9 @@ def pipeline_phase(dev, smi, train):
     exactness in fp32."""
     import torch
     t0 = time.monotonic()
-    one = _pipe_run(PIPE_ARGV, "one-process", smi)
-    staged = _pipe_run(PIPE_ARGV + ["--pipe-axis"], "pipe-axis", smi)
+    argv = _olmo_cut_argv(PIPE_ARGV, PIPE_LAYERS)
+    one = _pipe_run(argv, "one-process", smi, PIPE_LAYERS)
+    staged = _pipe_run(argv + ["--pipe-axis"], "pipe-axis", smi, PIPE_LAYERS)
     check(staged["model_checksum"] == one["model_checksum"]
           == one["end_checksums"][0],
           f"pipe axis: checksum {staged['model_checksum']} != the one-"
@@ -4217,11 +4306,12 @@ ARCTIC_GATE_ARGV = ["--slots", "1", "--prefill-batch", "1",
 ARCH_GEN = (4, 1024, 64)
 ARCH_GATE = (3, 300, 8)
 # the stub-frontend training runs: phase 5's settings (8 rows of 1024,
-# accum 2, the plan's 2 dummy rows, bf16, remat full), 4 steps;
+# accum 2, the plan's 2 dummy rows, bf16, remat full), 3 steps;
 # chameleon-34b at full width cut to 2 of 48 layers (~31 GB of fp32
 # parameters, gradients and AdamW moments), musicgen-large at full size
 STUB_TRAIN = {"chameleon-34b": 2, "musicgen-large": None}
-STUB_ROWS, STUB_SEQ, STUB_ACCUM, STUB_STEPS = 8, 1024, 2, 4
+# 3 steps, a warm-up and two timed ones (4 before phase 20 was added)
+STUB_ROWS, STUB_SEQ, STUB_ACCUM, STUB_STEPS = 8, 1024, 2, 3
 # the fp32 probe (TF32 off) at 2 layers: 2 rows of 1024 and a dummy row,
 # kernel path vs plain path, held to phase 5's fp32 limits
 STUB_PROBE_LAYERS = 2
@@ -5096,17 +5186,16 @@ def zamba_train_kernel_phase(fa, sk, dev, smi):
 
 
 @contextlib.contextmanager
-def _ssd_reference_in(acc_dtype):
-    """The plain path's SSD scan (``ref.ssd_chunked``, which the
-    "reference" impl runs) computed in ``acc_dtype`` while the block
-    runs."""
-    from repro_torch.kernels.ssd_scan import ref
-    real = ref.ssd_chunked
-    ref.ssd_chunked = functools.partial(real, acc_dtype=acc_dtype)
+def _reference_in(ref, scan, acc_dtype):
+    """The plain path's scan ``ref.<scan>`` (``ssd_chunked`` or
+    ``mlstm_chunked``, which the "reference" impl runs) computed in
+    ``acc_dtype`` while the block runs."""
+    real = getattr(ref, scan)
+    setattr(ref, scan, functools.partial(real, acc_dtype=acc_dtype))
     try:
         yield
     finally:
-        ref.ssd_chunked = real
+        setattr(ref, scan, real)
 
 
 def zamba_train_phase(fa, ce, sk, dev, smi, every):
@@ -5116,6 +5205,7 @@ def zamba_train_phase(fa, ce, sk, dev, smi, every):
     import gc
     import torch
     from repro_torch.configs import base as cfgbase
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
     from repro_torch.launch import steps as tsteps
     from repro_torch.models import transformer as tr
     from repro_torch.models.model import build_model
@@ -5270,7 +5360,7 @@ def zamba_train_phase(fa, ce, sk, dev, smi, every):
     # its SSD scan computed in fp64, which the limits hold
     plain_grads = {}
     for acc in (torch.float32, torch.float64):
-        with _ssd_reference_in(acc):
+        with _reference_in(ssd_ref, "ssd_chunked", acc):
             loss, _, grads = tsteps.loss_and_grads(plain, ptcfg, params,
                                                    probe,
                                                    ce_impl="reference")
@@ -5311,6 +5401,325 @@ def zamba_train_phase(fa, ce, sk, dev, smi, every):
     torch.cuda.empty_cache()
     out["seconds"] = time.monotonic() - t_phase
     return out
+
+
+# (B, S, H, dk, dv, chunk, large gates): xlstm-125m's training microbatch
+# (phase 20's: 5 rows of 1024, 4 heads of 384, chunk 256) first, then a
+# ragged tail, S shorter than the chunk, dk != dv at another chunk, and
+# large gates (i~ ~ U(-30, 30), f~ ~ U(-10, 6))
+MLSTM_BWD_CASES = [(5, 1024, 4, 384, 384, 256, False),
+                   (2, 300, 4, 384, 384, 256, False),
+                   (2, 100, 4, 384, 384, 256, False),
+                   (2, 300, 4, 128, 256, 128, False),
+                   (2, 512, 4, 384, 384, 256, True)]
+MLSTM_BWD_NAMES = ("dq", "dk", "dv", "di", "df")
+MLSTM_BWD_LAUNCHES = ("mlstm_bwd_gates", "mlstm_bwd_fstate",
+                      "mlstm_bwd_rows", "mlstm_bwd_rstate", "mlstm_bwd_cols",
+                      "mlstm_bwd_gate_grads")
+XLSTM_PROBE_LAYERS = 2       # the fp32 probe: one pair
+XLSTM_PROBE_ROWS = 3         # 2 real rows and 1 dummy
+
+
+def mlstm_bwd_flops_bytes(b, s, h, dk, dv, chunk, tensors):
+    """The mLSTM backward's operations and bytes for these shapes: per (b,
+    h) and chunk of q rows, five products over the causal pairs (q (q +
+    1) / 2 of them: q k^T, dS k and dS^T q, dk multiply-adds a pair; dh
+    v^T and W^T dnum, dv each) and the state products of the chunks that
+    have them (dk dv multiply-adds a row): C_in dh and L over the rows
+    after the first chunk, the chunk states, G v and G^T k over the rows
+    before the last; every input read once and every output written
+    once."""
+    q_full = min(chunk, s)
+    rows = [min(q_full, s - t0) for t0 in range(0, s, q_full)]
+    pairs = sum(q * (q + 1) // 2 for q in rows)
+    flops = 2.0 * b * h * (pairs * (3 * dk + 2 * dv) + dk * dv * (
+        2 * (s - rows[0]) + 3 * (s - rows[-1])))
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    return flops, nbytes
+
+
+def mlstm_bwd_case(mk, b, s, h, dk, dv, chunk, large, dtype, gen, dev,
+                   timed):
+    """The mLSTM backward against ``mlstm_scan_bwd_plain``: the relative
+    L2 error of each of its five gradients, two runs bitwise equal; timed
+    at the training shape."""
+    import torch
+    from repro_torch.kernels.parity import rel_l2
+
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    q, k = r(b, s, h, dk).to(dtype), r(b, s, h, dk).to(dtype)
+    v, dh = r(b, s, h, dv).to(dtype), r(b, s, h, dv).to(dtype)
+    if large:
+        i_pre = torch.rand((b, s, h), generator=gen, device=dev) * 60 - 30
+        f_pre = torch.rand((b, s, h), generator=gen, device=dev) * 16 - 10
+    else:
+        # as xlstm-125m's init sets the gates up: f~ shifted by its bias
+        i_pre, f_pre = r(b, s, h), r(b, s, h) + 4.5
+    args = (q, k, v, i_pre, f_pre, dh)
+    got = mk.mlstm_scan_bwd_cuda(*args, chunk_size=chunk)
+    want = mk.mlstm_scan_bwd_plain(*args, chunk_size=chunk)
+    again = mk.mlstm_scan_bwd_cuda(*args, chunk_size=chunk)
+    torch.cuda.synchronize()
+    shape = (b, s, h, dk, dv, chunk)
+    check(all(a.dtype == w.dtype and a.shape == w.shape
+              for a, w in zip(got, want)),
+          f"mLSTM backward {dtype} at {shape}: dtypes or shapes differ from "
+          f"the plain version's")
+    check(all(torch.equal(a, g_) for a, g_ in zip(again, got)),
+          f"mLSTM backward {dtype} at {shape}: two runs differ")
+    errs = {n: rel_l2(a, w) for n, a, w in zip(MLSTM_BWD_NAMES, got, want)}
+    rec = {"kernel": "mlstm_scan_bwd_cuda", "dtype": str(dtype), "B": b,
+           "S": s, "H": h, "dk": dk, "dv": dv, "chunk": chunk,
+           "large_gates": large, "rel_l2": max(errs.values()),
+           "rel_l2_by_gradient": errs,
+           "max_abs_err": max((a.float() - w.float()).abs().max().item()
+                              for a, w in zip(got, want)),
+           "bitwise_repeat": True}
+    if large:
+        # at these gates every fp32 evaluation (the kernel, the plain
+        # version, autograd through the reference) reads ~1e-3 to ~3e-2
+        # against the fp64 reference (b reaches ~1e3 over a chunk and
+        # denominators cancel): both are read against autograd through the
+        # reference scan in fp64, for the record
+        from repro_torch.kernels.mlstm_scan import ref
+        ins = [t.double().requires_grad_(True) for t in args[:5]]
+        y64, _ = ref.mlstm_chunked(*ins, chunk_size=chunk,
+                                   acc_dtype=torch.float64)
+        exact = torch.autograd.grad(y64, ins, dh.double())
+        rec["kernel_vs_fp64"] = max(rel_l2(a, w) for a, w in zip(got,
+                                                                  exact))
+        rec["plain_vs_fp64"] = max(rel_l2(a, w) for a, w in zip(want,
+                                                                 exact))
+        del ins, y64, exact
+    if timed:
+        run = lambda: mk.mlstm_scan_bwd_cuda(*args, chunk_size=chunk)
+        rec["ms"] = cuda_ms(run)
+        by_kernel = device_ms_by_kernel(run)
+        rec["device_ms_by_launch"] = {
+            next((k for k in MLSTM_BWD_LAUNCHES if k in n), n[:60]): ms
+            for n, ms in by_kernel.items()} if by_kernel else None
+        rec["device_ms"] = sum(by_kernel.values()) if by_kernel else None
+        rec["plain_ms"] = cuda_ms(lambda: mk.mlstm_scan_bwd_plain(
+            *args, chunk_size=chunk), reps=5)
+        rec["library_ms"] = None        # no PyTorch call computes it
+        flops, nbytes = mlstm_bwd_flops_bytes(b, s, h, dk, dv, chunk,
+                                              list(args) + list(got))
+        rec["bound_ms"], rec["bound_by"] = _bound(nbytes, flops)
+        q_ = min(chunk, s)
+        rec["scratch_bytes"] = (4 * mk.bwd_scratch_floats(b, s, h, dk, dv,
+                                                          q_)
+                                if hasattr(mk, "bwd_scratch_floats")
+                                else None)
+    return rec
+
+
+def xlstm_train_kernel_phase(mk, dev, smi):
+    """Phase 20 (a): the mLSTM backward against its plain version, fp32
+    (TF32 off) and bf16, by relative L2 (``parity.RTOL``); every case
+    printed before any is checked."""
+    import torch
+    from repro_torch.kernels.parity import RTOL
+    gen = torch.Generator(device=dev).manual_seed(20)
+    recs = []
+    for dtype in (torch.float32, torch.bfloat16):
+        bf16 = dtype == torch.bfloat16
+        new = [mlstm_bwd_case(mk, *c, dtype, gen, dev,
+                              timed=bf16 and i == 0)
+               for i, c in enumerate(MLSTM_BWD_CASES)]
+        for r in new:
+            r["tol"] = RTOL[("mlstm_scan_bwd_large_gates" if r["large_gates"]
+                             else "mlstm_scan_bwd_cuda", dtype)]
+            shape = {k: r[k] for k in ("B", "S", "H", "dk", "dv", "chunk",
+                                       "large_gates")}
+            print(f"[xlstm-train-kernels] {r['kernel']} {r['dtype']} "
+                  f"{shape}: rel L2 {r['rel_l2']:.3e} (tol {r['tol']:g}) by "
+                  f"gradient " + ", ".join(
+                      f"{k} {v:.2e}" for k, v in
+                      r["rel_l2_by_gradient"].items())
+                  + f", max abs err {r['max_abs_err']:.3e}"
+                  + (f"; against the fp64 reference: kernel "
+                     f"{r['kernel_vs_fp64']:.3e}, plain "
+                     f"{r['plain_vs_fp64']:.3e}" if r["large_gates"] else "")
+                  + (f"; {r['ms']:.4f} ms, device "
+                     f"{_ms_or_not(r['device_ms'])}, plain "
+                     f"{r['plain_ms']:.4f} ms, library none, bound "
+                     f"{r['bound_ms']:.6f} ms ({r['bound_by']}) [{smi}]; "
+                     f"device time by launch {r['device_ms_by_launch']}; "
+                     f"scratch {r['scratch_bytes']} bytes"
+                     if "ms" in r else ""), flush=True)
+        recs += new
+    bad = [f"{r['kernel']} {r['dtype']} S={r['S']}: {r['rel_l2']}"
+           for r in recs if not r["rel_l2"] <= r["tol"]]
+    check(not bad, "mLSTM backward vs plain: " + "; ".join(bad))
+    return recs
+
+
+def xlstm_train_phase(ce, mk, dev, smi, every):
+    """Phase 20 (b), (c): xlstm-125m at full width and depth through
+    ``build_train_step`` (phase 5's settings), then the fp32 probe (see
+    the module docstring)."""
+    import gc
+    import torch
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.kernels.mlstm_scan import ref as mlstm_ref
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import tree_leaves
+    from repro_torch.models.xlstm import mlstm_dims
+    from repro_torch.optim import adam
+    t_phase = time.monotonic()
+    cfg = dataclasses.replace(cfgbase.resolve("xlstm-125m"),
+                              attention_impl="kernel")
+    check(cfg.remat == "full" and cfg.compute_dtype == "bfloat16",
+          f"xlstm-125m's remat {cfg.remat}, compute {cfg.compute_dtype}")
+    ocfg = cfgbase.optimizer_for(cfg, lr=3e-4, warmup_steps=2,
+                                 schedule="constant",
+                                 total_steps=STUB_STEPS)
+    model = build_model(cfg, dev)
+    tcfg = cfgbase.TrainConfig(
+        model=cfg, shape=cfgbase.ShapeConfig("xlstm", STUB_SEQ, STUB_ROWS,
+                                             "train"),
+        het=cfgbase.HetConfig(accum_steps=STUB_ACCUM), optimizer=ocfg)
+    batches, rows = deepseek_batches(cfg, dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = tsteps.init_train_state(model, tcfg)
+    step = tsteps.build_train_step(model, tcfg)
+    fns = dict(every)
+    fns["mlstm_scan_bwd_cuda"] = mk.mlstm_scan_bwd_cuda
+    for f in fns.values():
+        f.launches = 0
+    losses, step_s = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        state, met = step(state, b)
+        torch.cuda.synchronize()
+        step_s.append(time.monotonic() - t0)
+        losses.append(float(met["loss"]))
+    launches = {n: f.launches for n, f in fns.items()}
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    # per step: each mLSTM layer's scan twice a microbatch (the forward,
+    # then its pair's recompute under remat full) and its backward once;
+    # the CE forward once a microbatch and the dlogits pass once a
+    # 4096-token chunk of it; no attention
+    pairs = cfg.num_layers // 2
+    n = len(batches)
+    expect = {k: 0 for k in launches}
+    base = train_launches(cfg, rows, STUB_ACCUM, STUB_SEQ, n)
+    for k in ("cross_entropy_cuda", "ce_dlogits_cuda"):
+        expect[k] = base[k]
+    expect["mlstm_scan_cuda"] = 2 * pairs * STUB_ACCUM * n
+    expect["mlstm_scan_bwd_cuda"] = pairs * STUB_ACCUM * n
+    check(all(_finite(x) for x in losses), f"xlstm-125m losses {losses}")
+    check(launches == expect, f"xlstm-125m train launches {launches} != "
+          f"{expect}")
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    ms = statistics.median(step_s[1:]) * 1e3
+    tokens = STUB_ROWS * STUB_SEQ
+    processed = rows * STUB_SEQ
+    # model FLOPs of a step: 6 x parameters x tokens, plus the mLSTM
+    # scan's own products (its causal pair and state products, forward
+    # and backward: 3 x the forward's, mlstm_flops_bytes)
+    _, h, dk = mlstm_dims(cfg)
+    scan_fwd, _ = mlstm_flops_bytes(rows, STUB_SEQ, h, dk, dk, 256, [])
+    scan = 3 * scan_fwd * pairs
+    flops = 6.0 * cfg.param_count() * processed + scan
+    out = {"layers": cfg.num_layers, "rows": rows, "losses": losses,
+           "moments": [ocfg.m_dtype, ocfg.v_dtype], "launches": launches,
+           "expected_launches": expect,
+           "step_ms": [t * 1e3 for t in step_s],
+           "ms_per_step_median_2_to_n": ms,
+           "tokens_per_s": tokens / (ms / 1e3),
+           "params": cfg.param_count(),
+           "model_flops_per_step": flops,
+           "model_flops_parts": {"6ND": 6.0 * cfg.param_count() * processed,
+                                 "scan": scan},
+           "mfu_vs_989_tflops": flops / (ms / 1e3) / H100_BF16_FLOPS,
+           "peak_memory_gib": peak}
+    print(f"[xlstm-train] xlstm-125m at full width and depth "
+          f"({pairs} mLSTM and {pairs} sLSTM blocks; {cfg.param_count()} "
+          f"parameters), bf16, remat {cfg.remat}, {ocfg.m_dtype} moments, "
+          f"{rows} rows of {STUB_SEQ} tokens ({STUB_ROWS} real), accum "
+          f"{STUB_ACCUM}: losses " + ", ".join(f"{x:.4f}" for x in losses)
+          + f"; {ms:.1f} ms/step (median of steps 2..{n}), "
+          f"{out['tokens_per_s']:.0f} real tokens/s, model FLOPs "
+          f"{flops:.3e}/step (6 N D {6.0 * cfg.param_count() * processed:.3e}"
+          f", scan {scan:.3e}) = {100 * out['mfu_vs_989_tflops']:.3f}% of "
+          f"989 TFLOP/s, peak memory {peak:.2f} GiB, launches {launches} "
+          f"[{smi}]", flush=True)
+
+    # the fp32 probe: kernel path vs plain path, same params and rows,
+    # full width cut to one pair
+    pcfg = dataclasses.replace(cfg, num_layers=XLSTM_PROBE_LAYERS,
+                               compute_dtype="float32",
+                               param_dtype="float32")
+    torch.cuda.reset_peak_memory_stats(dev)
+    kern = build_model(pcfg, dev)
+    plain = build_model(dataclasses.replace(pcfg,
+                                            attention_impl="reference"), dev)
+    params = kern.init_params(1)
+    b0 = batches[0]
+    probe = {k: torch.cat([v[:XLSTM_PROBE_ROWS - 1], v[rows - 1:]])
+             for k, v in b0.items()}
+    ptcfg = dataclasses.replace(tcfg, model=pcfg,
+                                het=cfgbase.HetConfig(accum_steps=1))
+    mk.mlstm_scan_bwd_cuda.launches = 0
+    k_loss, _, k_grads = tsteps.loss_and_grads(kern, ptcfg, params, probe)
+    check(mk.mlstm_scan_bwd_cuda.launches == XLSTM_PROBE_LAYERS // 2,
+          f"the probe's kernel path ran {mk.mlstm_scan_bwd_cuda.launches} "
+          f"mLSTM backward launches")
+    names = _leaf_names(params)
+    tol = TRAIN_RTOL["float32"]
+    rec = {"layers": XLSTM_PROBE_LAYERS, "rows": XLSTM_PROBE_ROWS,
+           "tol": tol}
+    gk = adam.global_norm(k_grads)
+
+    def worst_leaf(got, want):
+        errs = [_rel_l2_by_rows(a, b) for a, b in zip(tree_leaves(got),
+                                                      tree_leaves(want))]
+        i = max(range(len(errs)), key=errs.__getitem__)
+        return errs[i], names[i]
+
+    # the plain path with its mLSTM scan computed in fp64 (its sLSTM loop
+    # costs seconds, so the fp32 plain path, 2.2e-6 off this one at the
+    # worst leaf on an H100, is not run as well)
+    with _reference_in(mlstm_ref, "mlstm_chunked", torch.float64):
+        loss, _, grads = tsteps.loss_and_grads(plain, ptcfg, params, probe,
+                                               ce_impl="reference")
+    gr = adam.global_norm(grads)
+    err, leaf = worst_leaf(k_grads, grads)
+    held = rec["scan_float64"] = {
+        "loss_rel": abs(float(k_loss) - float(loss)) / abs(float(loss)),
+        "grad_norm_rel": abs(float(gk) - float(gr)) / float(gr),
+        "worst_leaf_rel_l2": err, "worst_leaf": leaf}
+    del grads
+    rec["peak_memory_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    print(f"[xlstm-train] fp32 probe, {XLSTM_PROBE_LAYERS} layers (one "
+          f"pair) at full width, fp32 parameters, {XLSTM_PROBE_ROWS} rows "
+          f"(peak {rec['peak_memory_gib']:.2f} GiB), kernel path vs plain "
+          f"path with its mLSTM scan in fp64: loss rel "
+          f"{held['loss_rel']:.3e} (tol {tol['loss']:g}), grad norm rel "
+          f"{held['grad_norm_rel']:.3e} (tol {tol['grad_norm']:g}), worst "
+          f"leaf rel L2 {held['worst_leaf_rel_l2']:.3e} "
+          f"({held['worst_leaf']}; tol {tol['leaf']:g})", flush=True)
+    check(held["loss_rel"] <= tol["loss"] and held["grad_norm_rel"] <=
+          tol["grad_norm"] and held["worst_leaf_rel_l2"] <= tol["leaf"],
+          f"xlstm-125m fp32 probe: {rec}")
+    out["probe"] = rec
+    del kern, plain, params, k_grads, batches, b0, probe
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.monotonic() - t_phase
+    return out
+
+
+def _phase_done(phases, name, t0):
+    """Record and print the seconds of the phase begun at ``t0``."""
+    phases[name] = time.monotonic() - t0
+    print(f"[phase] {name} {phases[name]:.1f} s", flush=True)
 
 
 # --------------------------------------------------------------------------
@@ -5375,26 +5784,26 @@ def main(argv=None) -> int:
     phases = {"build": build_s, "sm90_report": time.monotonic() - t0}
     t0 = time.monotonic()
     recs = kernel_phase(fa, dev)
-    phases["serve_kernels"] = time.monotonic() - t0
+    _phase_done(phases, "serve_kernels", t0)
     t0 = time.monotonic()
     rows_mb, seq = TRAIN_MICROBATCH
     recs += train_kernel_phase(fa, ce, ce_ref, dev, rows_mb, seq)
-    phases["train_kernels"] = time.monotonic() - t0
+    _phase_done(phases, "train_kernels", t0)
     t0 = time.monotonic()
     path = path_phase(fa, md, dev)
-    phases["serve_path"] = time.monotonic() - t0
+    _phase_done(phases, "serve_path", t0)
     t0 = time.monotonic()
     train = train_phase(fa, ce, dev)
-    phases["train_path"] = time.monotonic() - t0
+    _phase_done(phases, "train_path", t0)
     t0 = time.monotonic()
     recs += exchange_kernel_phase(dev)
-    phases["exchange_kernels"] = time.monotonic() - t0
+    _phase_done(phases, "exchange_kernels", t0)
     t0 = time.monotonic()
     multi = multi_rank_phase(dev, smi)
-    phases["multi_rank_path"] = time.monotonic() - t0
+    _phase_done(phases, "multi_rank_path", t0)
     t0 = time.monotonic()
     recs += mla_kernel_phase(fa, md, mla_ref, dev)
-    phases["mla_kernels"] = time.monotonic() - t0
+    _phase_done(phases, "mla_kernels", t0)
     every = {**_counters(fa, ce),
              "quantize_int8_cuda": qz.quantize_int8_cuda,
              "dequant_accum_cuda": qz.dequant_accum_cuda,
@@ -5409,38 +5818,44 @@ def main(argv=None) -> int:
     phases["mla_generate_path"] = gen_s
     t0 = time.monotonic()
     recs += zamba_kernel_phase(fa, sk, dev, smi)
-    phases["zamba_kernels"] = time.monotonic() - t0
+    _phase_done(phases, "zamba_kernels", t0)
     t0 = time.monotonic()
     zamba = zamba_path_phase(fa, md, sk, dev, smi)
-    phases["zamba_generate_path"] = time.monotonic() - t0
+    _phase_done(phases, "zamba_generate_path", t0)
     t0 = time.monotonic()
     recs += xlstm_kernel_phase(mk, dev, smi)
-    phases["xlstm_kernels"] = time.monotonic() - t0
+    _phase_done(phases, "xlstm_kernels", t0)
     t0 = time.monotonic()
     xlstm = xlstm_path_phase(every, dev, smi)
-    phases["xlstm_generate_path"] = time.monotonic() - t0
+    _phase_done(phases, "xlstm_generate_path", t0)
     t0 = time.monotonic()
     ckpt = ckpt_phase(smi, train)
-    phases["ckpt_remesh_path"] = time.monotonic() - t0
+    _phase_done(phases, "ckpt_remesh_path", t0)
     t0 = time.monotonic()
     overlap = overlap_phase(dev, fa, ce, smi, multi)
-    phases["overlap_canonical_path"] = time.monotonic() - t0
+    _phase_done(phases, "overlap_canonical_path", t0)
     t0 = time.monotonic()
     pipeline = pipeline_phase(dev, smi, train)
-    phases["pipeline_path"] = time.monotonic() - t0
+    _phase_done(phases, "pipeline_path", t0)
     t0 = time.monotonic()
     d128_recs, archs = archs_phase(fa, ce, md, dev, smi)
     recs += d128_recs
-    phases["archs_path"] = time.monotonic() - t0
+    _phase_done(phases, "archs_path", t0)
     t0 = time.monotonic()
     deepseek = deepseek_train_phase(fa, ce, dev, smi)
-    phases["deepseek_train_path"] = time.monotonic() - t0
+    _phase_done(phases, "deepseek_train_path", t0)
     t0 = time.monotonic()
     recs += zamba_train_kernel_phase(fa, sk, dev, smi)
-    phases["zamba_train_kernels"] = time.monotonic() - t0
+    _phase_done(phases, "zamba_train_kernels", t0)
     t0 = time.monotonic()
     zamba_train = zamba_train_phase(fa, ce, sk, dev, smi, every)
-    phases["zamba_train_path"] = time.monotonic() - t0
+    _phase_done(phases, "zamba_train_path", t0)
+    t0 = time.monotonic()
+    recs += xlstm_train_kernel_phase(mk, dev, smi)
+    _phase_done(phases, "xlstm_train_kernels", t0)
+    t0 = time.monotonic()
+    xlstm_train = xlstm_train_phase(ce, mk, dev, smi, every)
+    _phase_done(phases, "xlstm_train_path", t0)
     print("[phases] seconds: " + ", ".join(
         f"{k} {v:.1f}" for k, v in phases.items()), flush=True)
 
@@ -5497,9 +5912,15 @@ def main(argv=None) -> int:
            # wrapper and counter, its launches phase 19's
            "flash_attention_bwd_d80": (
                "src/repro_torch/csrc/flash_attention_bwd.cu",
-               root + "flash_attention/ref.py:115")}
+               root + "flash_attention/ref.py:115"),
+           # the mLSTM scan's backward: no TPU kernel (the JAX package
+           # differentiates ref.mlstm_chunked); its launches phase 20's
+           "mlstm_scan_bwd": (
+               "src/repro_torch/csrc/mlstm_scan_bwd.cu",
+               "none: JAX differentiates " + root + "mlstm_scan/ref.py:66")}
     counter_of = {"ssd_scan_bwd": "ssd_scan_bwd_cuda",
-                  "flash_attention_bwd_d80": "flash_attention_bwd_cuda"}
+                  "flash_attention_bwd_d80": "flash_attention_bwd_cuda",
+                  "mlstm_scan_bwd": "mlstm_scan_bwd_cuda"}
     # launches: the path each kernel serves (GQA decode: serve; the MLA
     # paged decode: the MLA serve path; the contiguous MLA decode: the
     # MLA generate path; the exchange kernels: the multi-rank train path,
@@ -5531,6 +5952,8 @@ def main(argv=None) -> int:
                        "flash_attention_bwd_cuda"
                        if n == "flash_attention_bwd_d192" else n, 0),
                    "zamba_train": zamba_train["launches"].get(
+                       counter_of.get(n, n), 0),
+                   "xlstm_train": xlstm_train["launches"].get(
                        counter_of.get(n, n), 0)}
                for n in src}
     path_of = {"flash_decode_paged_cuda": "serve",
@@ -5543,7 +5966,8 @@ def main(argv=None) -> int:
                "paged_decode_d128": "archs_serve",
                "flash_attention_bwd_d192": "deepseek_train",
                "ssd_scan_bwd": "zamba_train",
-               "flash_attention_bwd_d80": "zamba_train"}
+               "flash_attention_bwd_d80": "zamba_train",
+               "mlstm_scan_bwd": "xlstm_train"}
     at_keys = ("dtype", "B", "Sq", "S", "H", "Hkv", "D", "T", "V", "R",
                "kv_lens", "bs", "rows", "MB", "G", "P", "N", "chunk", "dk",
                "dv")
@@ -5641,7 +6065,7 @@ def main(argv=None) -> int:
               f"path")
     check(kernels[0]["at_d80"]["launches"] > 0,
           "the D=80 prefill never launched on the zamba2 path")
-    check(len(kernels) == 15, f"{len(kernels)} kernels listed")
+    check(len(kernels) == 16, f"{len(kernels)} kernels listed")
     for k in kernels:
         if k["name"] in ("quantize_int8_cuda", "dequant_accum_cuda"):
             check(k["at_one_bucket"]["launches"] > 0,
@@ -5656,7 +6080,7 @@ def main(argv=None) -> int:
          "ckpt_path": ckpt, "overlap_path": overlap,
          "pipeline_path": pipeline, "archs_path": archs,
          "deepseek_train_path": deepseek, "zamba_train_path": zamba_train,
-         "kernels": kernels},
+         "xlstm_train_path": xlstm_train, "kernels": kernels},
         indent=1,
         default=str))
     print(json.dumps({"kernels": kernels}))

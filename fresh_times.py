@@ -22,21 +22,26 @@ each TREE, each in a process of its own that runs nothing before it:
 * phase 19's ``ssd_bwd_case`` on the bf16 SSD backward
   (``ssd_scan_bwd_cuda``) at the first of ``SSD_BWD_CASES`` (zamba2's
   training microbatch: B=5, S=1024, H=80, P=64, N=64, one group, chunk
-  256, with D), held to ``parity.RTOL``, with its device time by launch.
+  256, with D), held to ``parity.RTOL``, with its device time by launch;
+* phase 20's ``mlstm_bwd_case`` on the bf16 mLSTM backward
+  (``mlstm_scan_bwd_cuda``) at the first of ``MLSTM_BWD_CASES``
+  (xlstm-125m's training microbatch: B=5, S=1024, H=4, dk=dv=384, chunk
+  256), held to ``parity.RTOL``, with its device time by launch.
 
 So the draws, checks and timers are the script's: a reading differs from
 the phase's only in what ran before it in the process. From the root of
 a checkout:
 
-    python3 fresh_times.py TREE [TREE ...]
+    python3 fresh_times.py [--only KERNEL[,KERNEL...]] TREE [TREE ...]
 
 Each TREE is the root of a checkout: ``.`` for this one, or another one
 unpacked beside it, such as the parent commit's ``git archive`` under
 the gitignored ``tmp/``. Every tree's kernels are built first (one
 process a tree, all started together); then, for each TREE in the order
 given (``tmp/parent . . tmp/parent`` compares two), one fresh process a
-kernel. Prints the card's name and power limit (nvidia-smi) and one JSON
-line a reading (the case's record: ``ms``, ``device_ms``, ``plain_ms``,
+kernel (``--only`` names the kernels of ``KERNELS`` to time, all of
+them without it). Prints the card's name and power limit (nvidia-smi)
+and one JSON line a reading (the case's record: ``ms``, ``device_ms``, ``plain_ms``,
 ``bound_ms``, ...), and writes them to ``chiprun_out/fresh_times.json``.
 Exits non-zero, with no reading, when ``torch.cuda.is_available()`` is
 false, and when a build or a check fails.
@@ -51,7 +56,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out"
 KERNELS = ("mlstm_scan_cuda", "mla_decode_paged_cuda",
-           "flash_decode_paged_cuda", "ssd_scan_bwd_cuda")
+           "flash_decode_paged_cuda", "ssd_scan_bwd_cuda",
+           "mlstm_scan_bwd_cuda")
 
 
 def _use_tree(tree: str) -> None:
@@ -80,6 +86,12 @@ def _one(tree: str, kernel: str) -> int:
         rec = cs.ssd_bwd_case(sk, *cs.SSD_BWD_CASES[0], bf16, gen, dev,
                               timed=True)
         err, tol = rec["rel_l2"], RTOL[("ssd_scan_bwd_cuda", bf16)]
+    elif kernel == "mlstm_scan_bwd_cuda":
+        from repro_torch.kernels.mlstm_scan import mlstm_scan as mk
+        gen = torch.Generator(device=dev).manual_seed(20)
+        rec = cs.mlstm_bwd_case(mk, *cs.MLSTM_BWD_CASES[0], bf16, gen, dev,
+                                timed=True)
+        err, tol = rec["rel_l2"], RTOL[("mlstm_scan_bwd_cuda", bf16)]
     elif kernel == "flash_decode_paged_cuda":
         from repro_torch.kernels.flash_attention import flash_attention as fa
         gen = torch.Generator(device=dev).manual_seed(2)
@@ -129,6 +141,15 @@ def main(argv) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    kernels = KERNELS
+    if argv[:1] == ["--only"]:
+        kernels = tuple(argv[1].split(","))
+        unknown = set(kernels) - set(KERNELS)
+        if unknown:
+            print(f"fresh_times: unknown kernels {sorted(unknown)} (of "
+                  f"{KERNELS})", file=sys.stderr)
+            return 2
+        argv = argv[2:]
     trees = argv or ["."]
     builds = [subprocess.Popen([sys.executable, __file__, "--build", t])
               for t in dict.fromkeys(trees)]
@@ -137,7 +158,7 @@ def main(argv) -> int:
         return 1
     readings = []
     for tree in trees:
-        for kernel in KERNELS:
+        for kernel in kernels:
             rec = _fresh(["--one", tree, kernel], f"{kernel} in {tree}")
             if rec is None:
                 return 1

@@ -220,6 +220,14 @@ def load() -> ctypes.CDLL:
                 ci, ci, ci, ci, ci, ci,         # B, S, H, dk, dv, Q
                 cf, ci, vp]                     # scale, dtype, stream
             lib.mlstm_scan_fwd.restype = ci
+            lib.mlstm_scan_bwd.argtypes = [
+                vp, vp, vp, vp, vp, vp,         # q, k, v, i_pre, f_pre, dh
+                vp, vp, vp, vp, vp, vp,         # dq, dk, dv, di, df, scratch
+                ci, ci, ci, ci, ci, ci,         # B, S, H, dk, dv, Q
+                cf, ci, vp]                     # scale, dtype, stream
+            lib.mlstm_scan_bwd.restype = ci
+            lib.mlstm_scan_bwd_scratch_floats.argtypes = [ci] * 6
+            lib.mlstm_scan_bwd_scratch_floats.restype = ctypes.c_longlong
             lib.mlstm_scan_sm90_tile.argtypes = [ci]        # axis
             lib.mlstm_scan_sm90_tile.restype = ci
             lib.mlstm_scan_sm90_smem.argtypes = [ci, ci]    # kernel, dk

@@ -8,8 +8,12 @@ layouts).
   * "kernel"     — the hand-written CUDA kernel (``mlstm_scan.py``) for
                    CUDA tensors, its plain version for CPU tensors. It
                    stands for the JAX package's "pallas" and, like it,
-                   starts from zero state (prefill); decode uses
-                   :func:`mlstm_decode_step`.
+                   starts from zero state (prefill and training);
+                   decode uses :func:`mlstm_decode_step`. When a
+                   gradient is wanted it runs as ``MLSTMScanFn``, the
+                   forward kernel with the backward kernel
+                   (``csrc/mlstm_scan_bwd.cu``) as its gradient, which
+                   takes the final state's cotangent as 0.
 """
 from __future__ import annotations
 
@@ -18,7 +22,8 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels.mlstm_scan import ref
-from repro_torch.kernels.mlstm_scan.mlstm_scan import mlstm_scan_cuda
+from repro_torch.kernels.mlstm_scan.mlstm_scan import (MLSTMScanFn,
+                                                       mlstm_scan_cuda)
 
 
 def mlstm_scan(q, k, v, i_pre, f_pre, *, chunk_size: int = 256,
@@ -37,9 +42,12 @@ def mlstm_scan(q, k, v, i_pre, f_pre, *, chunk_size: int = 256,
             raise NotImplementedError(
                 "the mlstm kernel starts from zero state (prefill); "
                 "decode uses mlstm_decode_step")
-        return mlstm_scan_cuda(q.contiguous(), k.contiguous(),
-                               v.contiguous(), i_pre.contiguous(),
-                               f_pre.contiguous(), chunk_size=chunk_size)
+        args = (q.contiguous(), k.contiguous(), v.contiguous(),
+                i_pre.contiguous(), f_pre.contiguous())
+        if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+            hout, C, n, m = MLSTMScanFn.apply(*args, chunk_size)
+            return hout, (C, n, m)
+        return mlstm_scan_cuda(*args, chunk_size=chunk_size)
     raise ValueError(f"unknown mlstm impl '{impl}'")
 
 

@@ -75,11 +75,15 @@ def mlstm_sequential(q, k, v, i_pre, f_pre,
 
 
 def mlstm_chunked(q, k, v, i_pre, f_pre, *, chunk_size: int = 256,
-                  initial_state: Optional[State] = None
+                  initial_state: Optional[State] = None,
+                  acc_dtype: torch.dtype = torch.float32
                   ) -> Tuple[torch.Tensor, State]:
     """Chunks of ``min(chunk_size, S)`` rows; a ragged tail is padded
     with q = k = v = 0, i~ = -1e30 (no input) and f~ = 30 (the state
-    kept), as the JAX package pads it."""
+    kept), as the JAX package pads it. It computes in ``acc_dtype``:
+    fp32, as the JAX package does, or fp64 for a reference of more
+    digits (fp32 autograd through it is ~1e-4 off its fp64 self at
+    xlstm-125m's widths); the state comes back in fp32."""
     b, s, h, dk = q.shape
     dv = v.shape[-1]
     scale = dk ** -0.5
@@ -96,12 +100,14 @@ def mlstm_chunked(q, k, v, i_pre, f_pre, *, chunk_size: int = 256,
     nc = s // cq
 
     def rs(x, feat):       # (B, S, H, F) -> (NC, B, H, CQ, F)
-        return x.float().reshape(b, nc, cq, h, feat).permute(1, 0, 3, 2, 4)
+        return x.to(acc_dtype).reshape(b, nc, cq, h, feat).permute(
+            1, 0, 3, 2, 4)
 
     qc, kc, vc = rs(q, dk), rs(k, dk), rs(v, dv)
-    ic = i_pre.float().reshape(b, nc, cq, h).permute(1, 0, 3, 2)
-    fc = f_pre.float().reshape(b, nc, cq, h).permute(1, 0, 3, 2)
-    C, n, m = initial_state or init_state(b, h, dk, dv, q.device)
+    ic = i_pre.to(acc_dtype).reshape(b, nc, cq, h).permute(1, 0, 3, 2)
+    fc = f_pre.to(acc_dtype).reshape(b, nc, cq, h).permute(1, 0, 3, 2)
+    C, n, m = (t.to(acc_dtype) for t in (
+        initial_state or init_state(b, h, dk, dv, q.device)))
     idx = torch.arange(cq, device=q.device)
     tri = idx[:, None] >= idx[None, :]            # causal within a chunk
     ys = []
@@ -138,7 +144,7 @@ def mlstm_chunked(q, k, v, i_pre, f_pre, *, chunk_size: int = 256,
         n = carry_w[..., None] * n + torch.einsum("bhj,bhjk->bhk", kw, kb)
         m = m_new
     y = torch.stack(ys).permute(1, 0, 3, 2, 4).reshape(b, s, h, dv)
-    return y[:, :orig_s].to(q.dtype), (C, n, m)
+    return y[:, :orig_s].to(q.dtype), (C.float(), n.float(), m.float())
 
 
 def mlstm_decode_step(state: State, qt, kt, vt, it, ft

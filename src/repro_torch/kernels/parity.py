@@ -17,7 +17,15 @@ mLSTM scan's the largest over h, C, n and m; the SSD backward's the
 largest over its six gradients (dA, a sum over every row of a head, is
 the largest in fp32; dB and dC, rounded to bf16, in bf16). Kernel 1b at
 head dim 80 (zamba2's shared block) has its own limits beside the
-backward's at 64, 128 and 192, from its own readings.
+backward's at 64, 128 and 192, from its own readings. The mLSTM
+backward's error is the largest over its five gradients (dq, rounded to
+bf16, in bf16); at large gates (i~ up to +-30, f~ down to -10, chunk
+256) b reaches ~1e3 over a chunk, denominators cancel, and every fp32
+evaluation of the function, the reference's own autograd included,
+reads ~1e-3 to ~3e-2 against its fp64 self (the plain version on five
+draws); so the kernel and its plain version, two such evaluations, are
+held to a limit of their own there (``chip_smoke.py`` prints both
+against the fp64 reference).
 """
 from __future__ import annotations
 
@@ -40,6 +48,10 @@ RTOL = {            # largest reading, chip_smoke.py or the cuda tests
     ("ssd_scan_bwd_cuda", torch.bfloat16): 8e-4,           # 7.9e-5
     ("flash_attention_bwd_d80", torch.float32): 6e-6,      # 5.6e-7
     ("flash_attention_bwd_d80", torch.bfloat16): 1.5e-3,   # 1.3e-4
+    ("mlstm_scan_bwd_cuda", torch.float32): 5e-5,          # 4.6e-6
+    ("mlstm_scan_bwd_cuda", torch.bfloat16): 2e-3,         # 2.1e-4
+    ("mlstm_scan_bwd_large_gates", torch.float32): 0.15,   # 3.5e-3
+    ("mlstm_scan_bwd_large_gates", torch.bfloat16): 0.15,  # 1.4e-2
 }
 
 

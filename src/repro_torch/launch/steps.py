@@ -752,7 +752,8 @@ def _stage_groups(tree: Any, cfg) -> List[Tuple[str, List[Tuple[Any,
     only the overlap-free stream paths take: ``overlap="buckets"`` and
     canonical weighting) the shared block, applied after every group,
     is final once the first group's backward has run: the stage of that
-    group's last layer."""
+    group's last layer. On the xlstm plan (the same paths) pair p's
+    mLSTM and sLSTM blocks are layers 2p and 2p + 1."""
     L = cfg.num_layers
     head = set(tr.head_param_keys(cfg))
     groups = []
@@ -765,6 +766,11 @@ def _stage_groups(tree: Any, cfg) -> List[Tuple[str, List[Tuple[Any,
             parts = [(tree[key], 0)]
         elif key == "shared_attn" and tr.stack_plan(cfg) == "zamba":
             parts = [(tree[key], L - cfg.hybrid.attn_every + 1)]
+        elif key in ("mlstm_layers", "slstm_layers") \
+                and tr.stack_plan(cfg) == "xlstm":
+            first = 0 if key == "mlstm_layers" else 1
+            parts = [(lp, L - (2 * p + first))
+                     for p, lp in enumerate(tree[key])]
         else:
             raise ValueError(
                 f"overlap='backward': unexpected param subtree '{key}' "
@@ -779,13 +785,15 @@ def staged_leaf_pieces(params: Any, cfg) -> List[List[Tuple[int, int,
     """Per stream leaf ``(offset_within_leaf, n, backward_stage)``
     pieces, the JAX package's ``_staged_leaf_pieces`` (a stacked layer
     leaf in per-layer slices): what ``bucket_readiness`` reads."""
-    L = cfg.num_layers
     pieces = []
     for key, parts in _stage_groups(params, cfg):
-        if key == "layers":
+        if isinstance(params[key], (list, tuple)):
+            # a layer list: stacked leaves, a slice a layer at its stage
+            stages = [stage for _, stage in parts]
             for shape, _ in bkt.stream_leaves(params[key]):
-                per = int(np.prod(shape)) // L
-                pieces.append([(l * per, per, L - l) for l in range(L)])
+                per = int(np.prod(shape)) // len(stages)
+                pieces.append([(i * per, per, st)
+                               for i, st in enumerate(stages)])
             continue
         for part, stage in parts:
             pieces += [[(0, int(np.prod(shape)), stage)]

@@ -10,9 +10,8 @@ through the paged pool (its latent) at the MoE's eval capacity, and
 trains (``loss_fn``, ``logits_fn``) at its training capacity with the
 aux loss folded in; a Mamba2 hybrid (zamba2) and xLSTM (xlstm-125m)
 serve through the contiguous cache (the paged pool takes the uniform
-plan only, as in the JAX package); zamba2 (and a Mamba2 stack) trains
-through ``loss_fn``, xLSTM does not yet (``loss_fn`` refuses it: the
-mLSTM backward is not ported). An embedding-stub config
+plan only, as in the JAX package), and both train through
+``loss_fn`` (a Mamba2 stack too). An embedding-stub config
 (chameleon-34b, musicgen-large) takes precomputed embeddings wherever a
 token config takes ids: (B, S, d) for ``loss_fn``, ``logits_fn`` and
 ``prefill``, (B, d) for ``decode``; the paged decode refuses it, as the

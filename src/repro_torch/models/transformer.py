@@ -30,15 +30,15 @@ groups and an inner one over a group's layers; for xlstm one scan over
 the pairs); here the stacks are Python loops under
 ``torch.utils.checkpoint`` when ``remat="full"``: each uniform or Mamba2
 layer, each zamba group (its ``attn_every`` Mamba2 layers and the shared
-block after them), as the JAX package's ``jax.checkpoint`` wraps each
-scan body.
+block after them), each xlstm pair (its mLSTM block, then its sLSTM
+block), as the JAX package's ``jax.checkpoint`` wraps each scan body.
 
 Serving runs two cache families: the paged pool (:func:`prefill`, then
 :func:`decode_step_paged`; the uniform plan only, as in the JAX
 package) and the contiguous cache of static-batch serving
 (:func:`prefill`, :func:`init_cache`, :func:`decode_step`; every
-plan). The uniform plan (dense, MoE and MLA layers) and the Mamba2 and
-zamba stacks train; xLSTM stacks are ported for serving only;
+plan). Every plan trains: the uniform plan (dense, MoE and MLA
+layers), the Mamba2, zamba and xLSTM stacks;
 :func:`check_supported` names what a config may not use yet,
 :func:`check_servable` what serving may not. The embedding-stub
 frontend (chameleon, musicgen) takes precomputed embeddings (B, S, d)
@@ -91,15 +91,12 @@ def stack_plan(cfg: ModelConfig) -> str:
 
 
 def check_supported(cfg: ModelConfig, serving: bool = False) -> None:
-    """Raise for any config feature outside this port. xLSTM stacks
-    pass only with ``serving`` (prefill and decode): their training (the
-    mLSTM backward) is not ported yet. Dense, MoE and MLA layers (the
-    uniform plan), Mamba2 stacks and zamba hybrids train."""
+    """Raise for any config feature outside this port. Dense, MoE and
+    MLA layers (the uniform plan), Mamba2 stacks, zamba hybrids and
+    xLSTM stacks train and serve; ``serving`` asks nothing more."""
     unsupported = [
         (cfg.hybrid.enabled and not cfg.ssm.enabled,
          "hybrid without an SSM"),
-        (cfg.xlstm.enabled and not serving,
-         "xLSTM training (the mLSTM backward)"),
         (cfg.frontend not in ("token", "embedding_stub"),
          f"frontend '{cfg.frontend}'"),
         (cfg.norm not in ("rmsnorm", "layernorm", "nonparam_ln"),
@@ -110,17 +107,17 @@ def check_supported(cfg: ModelConfig, serving: bool = False) -> None:
     missing = [name for bad, name in unsupported if bad]
     if missing:
         raise ValueError(f"{cfg.name}: {', '.join(missing)} not ported to "
-                         f"repro_torch yet (dense, MoE, MLA, Mamba2 and "
-                         f"zamba stacks; xLSTM stacks for serving)")
+                         f"repro_torch yet (dense, MoE, MLA, Mamba2, "
+                         f"zamba and xLSTM stacks)")
 
 
 def supports_staged_backward(cfg: ModelConfig) -> bool:
     """``overlap="backward"`` flushes gradient buckets as the backward
     lands them over the uniform stack (dense, MoE, MLA), as in the JAX
     package; the stack is a Python loop here, so ``scan_layers=False``
-    needs nothing more. The Mamba2 and zamba stacks are refused, as the
-    JAX package's ``validate_train_config`` refuses them (and pipeline
-    stages with them)."""
+    needs nothing more. The Mamba2, zamba and xLSTM stacks are refused,
+    as the JAX package's ``validate_train_config`` refuses them (and
+    pipeline stages with them)."""
     return stack_plan(cfg) == "uniform"
 
 
@@ -489,36 +486,38 @@ def _ssm_stack(params, x: torch.Tensor, cfg: ModelConfig,
     return x
 
 
+def _xlstm_pair(mp, sp, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """An xlstm pair: the pre-norm mLSTM block, then the pre-norm sLSTM
+    block, each residual (the JAX package's ``pair_body``)."""
+    x = x + mlstm_block(mp["blk"], apply_norm(mp["ln"], x, cfg), cfg)
+    return x + slstm_block(sp["blk"], apply_norm(sp["ln"], x, cfg), cfg)
+
+
 def hidden_states(params, embeds: torch.Tensor, cfg: ModelConfig
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """embeds (B, S, d) -> (final-normed hidden (B, S, d), aux loss: the
     layers' MoE aux losses summed, an fp32 scalar; 0 without MoE).
 
-    The training forward of the uniform plan (dense, MoE at the training
-    capacity, MLA) and of the mamba and zamba plans. ``cfg.remat``:
-    "full" runs each uniform or Mamba2 layer, and each zamba group (its
-    Mamba2 layers and the shared block), under a non-reentrant
-    checkpoint (only its input is kept; the backward recomputes it,
-    attention and SSD kernels and routing included), "none" keeps every
-    activation; "dots" (save matmul outputs only) is not ported yet. The
-    xlstm plan is forward only (scoring, ``Model.logits_fn``): its
-    training is not ported yet."""
+    The training forward of every plan: the uniform plan (dense, MoE at
+    the training capacity, MLA), the mamba, zamba and xlstm plans.
+    ``cfg.remat``: "full" runs each uniform or Mamba2 layer, each zamba
+    group (its Mamba2 layers and the shared block) and each xlstm pair
+    (its mLSTM and sLSTM blocks) under a non-reentrant checkpoint (only
+    its input is kept; the backward recomputes it, attention, SSD and
+    mLSTM kernels and routing included), "none" keeps every activation;
+    "dots" (save matmul outputs only) is not ported yet."""
     plan = stack_plan(cfg)
-    if plan == "xlstm":
-        check_supported(cfg, serving=True)
-        x = embeds
-        for mp, sp in zip(params["mlstm_layers"], params["slstm_layers"]):
-            x = x + mlstm_block(mp["blk"], apply_norm(mp["ln"], x, cfg), cfg)
-            x = x + slstm_block(sp["blk"], apply_norm(sp["ln"], x, cfg), cfg)
-        aux = torch.zeros((), dtype=torch.float32, device=embeds.device)
-        return apply_norm(params["final_norm"], x, cfg), aux
     check_supported(cfg)
     if cfg.remat not in ("none", "full"):
         raise ValueError(f"remat '{cfg.remat}' is not ported yet "
                          f"(none | full)")
     positions = torch.arange(embeds.shape[1], device=embeds.device)
     aux = torch.zeros((), dtype=torch.float32, device=embeds.device)
-    if plan in ("mamba", "zamba"):
+    if plan == "xlstm":
+        x = embeds
+        for mp, sp in zip(params["mlstm_layers"], params["slstm_layers"]):
+            x = _remat_call(_xlstm_pair, mp, sp, x, cfg, cfg=cfg)
+    elif plan in ("mamba", "zamba"):
         x = _ssm_stack(params, embeds, cfg, positions)
     else:
         x, aux = _uniform_stack(params["layers"], embeds, aux, cfg,

@@ -5,9 +5,10 @@ The xlstm-125m stack alternates mLSTM blocks (parallel over the sequence
 through the chunkwise scan of ``kernels/mlstm_scan``) with sLSTM blocks
 (a recurrence with block-diagonal per-head recurrent weights, serial in
 time: a Python loop over the tokens here, as the JAX package scans over
-time). d_ff=0 in the config means there is no separate FFN sub-block:
-the mLSTM block carries an internal 2x up-projection and the sLSTM block
-a gated (4/3x) post-FFN, as in the paper.
+time; under autograd its backward is autograd's, token by token). d_ff=0
+in the config means there is no separate FFN sub-block: the mLSTM block
+carries an internal 2x up-projection and the sLSTM block a gated (4/3x)
+post-FFN, as in the paper.
 
 Decode state:
   mLSTM: (conv tail (B, K-1, d_inner) in the compute dtype, (C (B, H,
@@ -89,13 +90,17 @@ def mlstm_block(params, x: torch.Tensor, cfg: ModelConfig,
     residual is added by the caller.
 
     The scan runs with ``impl="kernel"`` when ``cfg.attention_impl ==
-    "kernel"`` (the CUDA mLSTM kernel for CUDA tensors,
-    ``ref.mlstm_chunked`` for CPU tensors) and ``impl="reference"``
-    otherwise. This is where the port differs from the JAX package,
-    whose ``mlstm_block`` pins the scan to ``"reference"`` whatever the
-    config says. The kernel starts from zero state, as prefill does;
-    with an ``initial_state`` only the reference scan runs
-    (``attention_impl="reference"``)."""
+    "kernel"`` (the CUDA mLSTM kernels for CUDA tensors, their plain
+    versions for CPU tensors) and ``impl="reference"`` otherwise. This
+    is where the port differs from the JAX package, whose
+    ``mlstm_block`` pins the scan to ``"reference"`` whatever the config
+    says, in serving and in training alike: JAX differentiates
+    ``ref.mlstm_chunked``, and here a gradient through the kernel path
+    runs ``MLSTMScanFn``, whose backward is the mLSTM backward kernel.
+    The block runs under autograd (training drops the final state, so
+    the backward takes its cotangent as 0). The kernel starts from zero
+    state, as prefill and training do; with an ``initial_state`` only
+    the reference scan runs (``attention_impl="reference"``)."""
     b, s, _ = x.shape
     _, h, dk = mlstm_dims(cfg)
     cdt = cfg.compute_dtype
@@ -203,9 +208,12 @@ def init_slstm_block(cfg: ModelConfig, gen: torch.Generator
     }
 
 
-def _slstm_cell(carry, gates_x: torch.Tensor, r_ifzo: torch.Tensor):
+def _slstm_cell(carry, gates_x: torch.Tensor, r_ifzo: torch.Tensor,
+                floor: Optional[torch.Tensor] = None):
     """One sLSTM time step. gates_x (B, 4d) pre-activations from the
-    input; carry (c, n, m, h) each (B, d). Returns (new carry, h)."""
+    input; carry (c, n, m, h) each (B, d); ``floor`` the normalizer's
+    floor 1e-6 as a 0-dim tensor on the device (made here if not given).
+    Returns (new carry, h)."""
     c, n, m, hprev = carry
     b, d = c.shape
     nh, dh = r_ifzo.shape[0], r_ifzo.shape[1]
@@ -219,7 +227,11 @@ def _slstm_cell(carry, gates_x: torch.Tensor, r_ifzo: torch.Tensor):
     f_g = torch.exp(lf + m - m_new)
     c_new = f_g * c + i_g * torch.tanh(zt)
     n_new = f_g * n + i_g
-    h_new = torch.sigmoid(ot) * c_new / torch.clamp(n_new, min=1e-6)
+    # torch.maximum, as JAX's jnp.maximum, splits a tie's gradient
+    # evenly (torch.clamp gives it all to n_new)
+    if floor is None:
+        floor = n_new.new_full((), 1e-6)
+    h_new = torch.sigmoid(ot) * c_new / torch.maximum(n_new, floor)
     return (c_new, n_new, m_new, h_new), h_new
 
 
@@ -244,8 +256,9 @@ def _slstm_scan(params, xconv: torch.Tensor, x_raw: torch.Tensor,
         zeros = torch.zeros((b, d), dtype=torch.float32, device=xconv.device)
         initial = (zeros, zeros, torch.full_like(zeros, NEG_BIG), zeros)
     carry, hs = initial, []
+    floor = gx.new_full((), 1e-6)       # one constant for the whole loop
     for t in range(s):
-        carry, h_t = _slstm_cell(carry, gx[:, t], r)
+        carry, h_t = _slstm_cell(carry, gx[:, t], r, floor)
         hs.append(h_t)
     return torch.stack(hs, dim=1), carry
 

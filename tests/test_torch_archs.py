@@ -533,9 +533,10 @@ def test_drivers_refuse_stub_archs(arch):
 
 def test_moe_training_still_raises():
     """MoE training is ported (tests/test_torch_moe_train.py): arctic's
-    ``loss_fn`` trains, its aux loss in the metrics; xLSTM training is
-    what still raises (the Mamba2 plans train:
-    tests/test_torch_zamba_train.py)."""
+    ``loss_fn`` trains, its aux loss in the metrics, and so does
+    xLSTM's (tests/test_torch_xlstm_train.py; the Mamba2 plans:
+    tests/test_torch_zamba_train.py); a hybrid without an SSM is what
+    still raises."""
     _, tc = _cfgs("arctic-480b")
     model = tbuild(tc, "cpu")
     params = model.init_params(0)
@@ -543,9 +544,13 @@ def test_moe_training_still_raises():
     obj, w, met = model.loss_fn(params, batch)
     assert torch.isfinite(obj) and float(w) == float(batch["weights"].sum())
     assert float(met["aux"]) > 0
-    with pytest.raises(ValueError, match="xLSTM training"):
-        model = tbuild(tcfgs.smoke_config("xlstm-125m"), "cpu")
-        model.loss_fn(model.init_params(0), {
-            "inputs": torch.zeros((1, 4), dtype=torch.int32),
-            "labels": torch.zeros((1, 4), dtype=torch.int32),
-            "weights": torch.ones((1, 4))})
+    model = tbuild(tcfgs.smoke_config("xlstm-125m"), "cpu")
+    obj, w, _ = model.loss_fn(model.init_params(0), {
+        "inputs": torch.zeros((1, 4), dtype=torch.int32),
+        "labels": torch.zeros((1, 4), dtype=torch.int32),
+        "weights": torch.ones((1, 4))})
+    assert torch.isfinite(obj) and float(w) == 4.0
+    zamba = tcfgs.smoke_config("zamba2-2.7b")
+    with pytest.raises(ValueError, match="hybrid without an SSM"):
+        tbuild(dataclasses.replace(zamba, ssm=dataclasses.replace(
+            zamba.ssm, state_dim=0)), "cpu")

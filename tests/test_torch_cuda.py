@@ -41,7 +41,10 @@ backward (fp32 on the CUDA cores; bf16 on the tensor cores, at P = 32,
 64, 96 and 128, a ragged tail, S shorter than the chunk, two groups and
 no D) is held to ``ssd_scan_bwd_plain`` by relative L2 error of each
 of its six gradients, and kernel 1b at head dim 80 to its plain version,
-both to ``parity.RTOL`` and both repeating their bits. The paged
+both to ``parity.RTOL`` and both repeating their bits; so is the
+mLSTM backward (fp32 on the CUDA cores for both dtypes; a ragged tail
+with dk != dv, and S below the chunk with large gates) to
+``mlstm_scan_bwd_plain``, each of its five gradients. The paged
 decode at head dim 128 (glm4-9b's group of 16, phi4-mini's 3, arctic's
 7) is held like the head-dim-64 one (1e-4 fp32, 2e-2 bf16), repeats its
 bits and is batch invariant.
@@ -989,6 +992,47 @@ def test_prefill_kernel_head_dim_80_matches_plain(dev, dtype, b, s, h, hkv):
     assert got.shape == q.shape
     assert _close("prefill D=80", got, want,
                   RTOL[("flash_attention_cuda", dtype)])
+
+
+@pytest.mark.parametrize("dtype", DTYPE_ONLY)
+@pytest.mark.parametrize("b,s,h,dk,dv,chunk,large", [
+    (2, 300, 2, 128, 64, 128, False),  # ragged tail, dk != dv
+    (1, 200, 2, 64, 64, 256, True),    # S below the chunk, large gates
+])
+def test_mlstm_backward_kernel_matches_plain_and_repeats(dev, dtype, b, s,
+                                                         h, dk, dv, chunk,
+                                                         large):
+    """The mLSTM backward (``csrc/mlstm_scan_bwd.cu``) against
+    ``mlstm_scan_bwd_plain``: each of the five gradients by relative L2
+    (``parity.RTOL``), one launch count a call, two calls bitwise equal,
+    and the scratch the C side counts is the wrapper's."""
+    from repro_torch.kernels import _build
+    rng = np.random.default_rng(s + dk + dv)
+    q, k = (_randn(rng, (b, s, h, dk), dev, dtype) for _ in range(2))
+    v, dh = (_randn(rng, (b, s, h, dv), dev, dtype) for _ in range(2))
+    if large:
+        i_pre = torch.from_numpy(rng.uniform(-30, 30, (b, s, h)).astype(
+            np.float32)).to(dev)
+        f_pre = torch.from_numpy(rng.uniform(-10, 6, (b, s, h)).astype(
+            np.float32)).to(dev)
+    else:
+        i_pre = _randn(rng, (b, s, h), dev, torch.float32)
+        f_pre = _randn(rng, (b, s, h), dev, torch.float32) + 4.5
+    args = (q, k, v, i_pre, f_pre, dh)
+    n0 = mk.mlstm_scan_bwd_cuda.launches
+    got = mk.mlstm_scan_bwd_cuda(*args, chunk_size=chunk)
+    assert mk.mlstm_scan_bwd_cuda.launches == n0 + 1
+    want = mk.mlstm_scan_bwd_plain(*args, chunk_size=chunk)
+    tol = RTOL[("mlstm_scan_bwd_large_gates" if large
+                else "mlstm_scan_bwd_cuda", dtype)]
+    for name, g_, w in zip(("dq", "dk", "dv", "di", "df"), got, want):
+        assert g_.dtype == w.dtype and g_.shape == w.shape, name
+        assert _close(f"mlstm backward {name}", g_, w, tol)
+    again = mk.mlstm_scan_bwd_cuda(*args, chunk_size=chunk)
+    assert all(torch.equal(a, g_) for a, g_ in zip(again, got))
+    q_ = min(chunk, s)
+    assert _build.load().mlstm_scan_bwd_scratch_floats(
+        b, s, h, dk, dv, q_) == mk.bwd_scratch_floats(b, s, h, dk, dv, q_)
 
 
 def test_ssd_kernel_refuses_what_it_does_not_take(dev):

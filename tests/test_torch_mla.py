@@ -405,8 +405,9 @@ def test_params_round_trip_through_the_jax_layout():
 def test_training_moe_and_mla_is_refused():
     """MoE and MLA training are ported (tests/test_torch_moe_train.py):
     the config check passes deepseek-v2 and ``loss_fn`` trains it, aux
-    loss in its metrics; xLSTM training is what is still refused (the
-    SSM and hybrid plans train: tests/test_torch_zamba_train.py)."""
+    loss in its metrics; the SSM, hybrid and xLSTM plans train too
+    (tests/test_torch_zamba_train.py, tests/test_torch_xlstm_train.py),
+    and a hybrid without an SSM is what is still refused."""
     cfg = dataclasses.replace(tcfgs.smoke_config(ARCH),
                               compute_dtype="float32")
     model = tbuild(cfg, "cpu")
@@ -422,10 +423,12 @@ def test_training_moe_and_mla_is_refused():
     zamba = tcfgs.smoke_config("zamba2-2.7b")
     mamba = dataclasses.replace(
         zamba, hybrid=dataclasses.replace(zamba.hybrid, enabled=False))
-    for c in (zamba, mamba):
+    for c in (zamba, mamba, tcfgs.smoke_config("xlstm-125m")):
         ttr.check_supported(c)
-    with pytest.raises(ValueError, match="xLSTM training.*not ported"):
-        ttr.check_supported(tcfgs.smoke_config("xlstm-125m"))
+    with pytest.raises(ValueError, match="hybrid without an SSM.*not "
+                                         "ported"):
+        ttr.check_supported(dataclasses.replace(
+            zamba, ssm=dataclasses.replace(zamba.ssm, state_dim=0)))
 
 
 def test_check_servable_on_the_card_names_kernel_widths():

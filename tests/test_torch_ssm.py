@@ -394,7 +394,8 @@ def test_training_zamba_and_ssm_is_refused():
     """No longer refused: the zamba and mamba plans pass
     ``check_supported`` for training and give a finite ``loss_fn`` (their
     gradients against JAX's: tests/test_torch_zamba_train.py); xLSTM
-    training stays refused."""
+    trains too (tests/test_torch_xlstm_train.py), and a hybrid without an
+    SSM is what the check refuses."""
     _, tc = _cfgs()
     mamba = dataclasses.replace(
         tc, hybrid=dataclasses.replace(tc.hybrid, enabled=False))
@@ -409,8 +410,10 @@ def test_training_zamba_and_ssm_is_refused():
         obj, w, met = model.loss_fn(model.init_params(0), batch)
         assert torch.isfinite(obj) and float(w) == 4.0
         assert float(met["aux"]) == 0.0
-    with pytest.raises(ValueError, match="xLSTM training"):
-        ttr.check_supported(tcfgs.smoke_config("xlstm-125m"))
+    ttr.check_supported(tcfgs.smoke_config("xlstm-125m"))
+    with pytest.raises(ValueError, match="hybrid without an SSM"):
+        ttr.check_supported(dataclasses.replace(
+            tc, ssm=dataclasses.replace(tc.ssm, state_dim=0)))
 
 
 def test_check_servable_on_the_card_names_kernel_widths():

@@ -19,8 +19,8 @@ on the CPU, fp32 throughout, inputs made with numpy from a seed:
   JAX's under both scan impls, JAX on a (1, 1) mesh of Auto axes;
 * the config field by field, the parameter tree and count (173,008,944
   at full size), the ``params_from_jax``/``params_to_numpy`` round trip,
-  and what the port refuses (xLSTM training, the paged engine, widths
-  the kernel does not take).
+  that ``loss_fn`` and ``build_train_step`` take the config, and what the
+  port refuses (the paged engine, widths the kernel does not take).
 """
 import dataclasses
 
@@ -408,16 +408,25 @@ def test_params_round_trip_through_the_jax_layout(jax_side):
         params_from_jax(jax.tree.map(np.asarray, jparams), cut, "cpu")
 
 
-def test_training_xlstm_is_refused():
+def test_loss_fn_and_train_step_accept_xlstm():
+    """xLSTM trains (tests/test_torch_xlstm_train.py holds it against
+    JAX): ``loss_fn`` and ``build_train_step`` take the smoke config,
+    which passes the serving check as before."""
+    from repro_torch.launch import steps as tsteps
     _, tc = _cfgs()
     model = tbuild(tc, "cpu")
     params = model.init_params(0)
     batch = {"inputs": torch.zeros((1, 4), dtype=torch.int32),
              "labels": torch.zeros((1, 4), dtype=torch.int32),
              "weights": torch.ones((1, 4))}
-    with pytest.raises(ValueError, match="xLSTM training .the mLSTM "
-                                         "backward. not ported"):
-        model.loss_fn(params, batch)
+    o, w, _ = model.loss_fn(params, batch)
+    assert torch.isfinite(o) and float(w) == 4.0
+    tcfg = tcfgs.TrainConfig(model=tc, shape=tcfgs.ShapeConfig(
+        "t", 4, 1, "train"), optimizer=tcfgs.OptimizerConfig(lr=1e-3))
+    state = tsteps.init_train_state(model, tcfg)
+    state, met = tsteps.build_train_step(model, tcfg)(state, batch)
+    assert np.isfinite(float(met["loss"])) and float(met["grad_norm"]) > 0
+    ttr.check_supported(tc)
     ttr.check_supported(tc, serving=True)
 
 
