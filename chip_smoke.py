@@ -408,8 +408,9 @@ Phases (any failure exits non-zero; no phase swallows an error):
    reading against the plain path in fp32 is printed for the record.
 20. xLSTM training phase. (a) The mLSTM backward
    (``csrc/mlstm_scan_bwd.cu``, no TPU kernel: the JAX package
-   differentiates ``ref.mlstm_chunked``; fp32 on six CUDA-core kernels
-   for both dtypes) against ``mlstm_scan_bwd_plain`` in fp32 (TF32 off)
+   differentiates ``ref.mlstm_chunked``; bf16 on the tensor cores in
+   nine launches, fp32 on six CUDA-core kernels) against
+   ``mlstm_scan_bwd_plain`` in fp32 (TF32 off)
    and bf16, by the relative L2 error of each of its five gradients (dq,
    dk, dv, di~, df~; the largest held to ``parity.RTOL``): xlstm-125m's
    training microbatch (B=5, S=1024, H=4, dk=dv=384, chunk 256), a
@@ -420,19 +421,19 @@ Phases (any failure exits non-zero; no phase swallows an error):
    fp32 evaluation reads up to ~5e-3 there). Every case is printed
    before any is checked, and runs twice with bitwise-equal outputs.
    Timed in bf16 at the training shape: ms, device time by each of its
-   six launches, scratch bytes, the bound, the plain version's time,
+   nine launches, scratch bytes, the bound, the plain version's time,
    library none (no PyTorch call computes it). (b) xlstm-125m at full
    width and depth (6 mLSTM and 6 sLSTM blocks, 173 M parameters, fp32
    moments), bf16 compute, remat full (one checkpoint a pair), through
    ``build_train_step`` with phase 5's settings (8 rows of 1024 tokens of
-   the synthetic corpus, 2 dummy rows, accum 2), a warm-up step and two
-   timed ones: finite losses; counters zeroed just before and read just
-   after, a step launching the mLSTM forward 24 times (each mLSTM
-   block's forward and its pair's recompute, 2 microbatches), its
-   backward 12, kernel 3 twice, 3b 4 times, every other kernel never;
-   ms/step (median of steps 2..3), real tokens/s, the model-FLOPs share
-   of 989 TFLOP/s (6 x parameters x tokens plus the scan's own products,
-   forward and backward), peak memory. No profiled step: the sLSTM loop
+   the synthetic corpus, 2 dummy rows, accum 2), a warm-up step and one
+   timed one (the sLSTM loop holds a step at 34–50 s): finite losses;
+   counters zeroed just before and read just after, a step launching
+   the mLSTM forward 24 times (each mLSTM block's forward and its pair's
+   recompute, 2 microbatches), its backward 12, kernel 3 twice, 3b 4
+   times, every other kernel never; ms/step (step 2), real tokens/s,
+   the model-FLOPs share of 989 TFLOP/s (6 x parameters x tokens plus
+   the scan's own products, forward and backward), peak memory. No profiled step: the sLSTM loop
    is ~hundreds of thousands of launches a step. (c) The fp32 probe
    (TF32 off) at full width cut to one pair (2 layers), fp32 parameters,
    3 rows (2 real, 1 dummy): the kernel path against the plain path,
@@ -586,13 +587,19 @@ def _ms_or_not(x) -> str:
 
 SM90_SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu",
                 "cross_entropy.cu", "mla_decode.cu", "ssd_scan.cu",
-                "mlstm_scan.cu", "ssd_scan_bwd.cu")
+                "mlstm_scan.cu", "ssd_scan_bwd.cu", "mlstm_scan_bwd.cu")
 # the bf16 kernels' entry points that run no product: merges, the SSD
 # and mLSTM state passings, the SSD backward's state passing and group
-# sums
+# sums, the mLSTM backward's two state passings
 SM90_HELPERS = ("ce_merge", "mla_merge", "ssd_state_pass",
                 "mlstm_state_pass", "ssd_bwd_pass_sm90",
-                "ssd_bwd_group_sm90")
+                "ssd_bwd_group_sm90", "mlstm_bwd_fpass_sm90",
+                "mlstm_bwd_rpass_sm90")
+# the mLSTM backward's product kernels in bf16, each with its index in
+# mlstm_scan_bwd_sm90_smem
+MLSTM_BWD_PRODUCTS = {"mlstm_bwd_cstate_sm90": 0, "mlstm_bwd_x_sm90": 3,
+                      "mlstm_bwd_rows_sm90": 1, "mlstm_bwd_lstate_sm90": 0,
+                      "mlstm_bwd_cols_sm90": 2}
 # the SSD backward's bf16 kernels, by their order in one call
 SSD_BWD_LAUNCHES = ("ssd_bwd_states_sm90", "ssd_bwd_pass_sm90",
                     "ssd_bwd_pairs_sm90", "ssd_bwd_group_sm90")
@@ -608,7 +615,8 @@ def _sm90_name(mangled: str):
     import re
     for name in ("ssd_chunk_state_sm90", "ssd_chunk_scan_sm90",
                  "mlstm_chunk_state_sm90", "mlstm_chunk_scan_sm90",
-                 "ssd_bwd_states_sm90") + SM90_HELPERS[1:]:
+                 "ssd_bwd_states_sm90") + tuple(MLSTM_BWD_PRODUCTS) \
+            + SM90_HELPERS[1:]:
         if name in mangled:
             return name
     m = re.search(r"ssd_bwd_pairs_sm90ILi(\d+)E", mangled)
@@ -686,7 +694,8 @@ def sm90_report(build, lib, fa, ce, md, sk, mk):
     ``BWD_TILES``, ``TOKEN_TILE``, ``VOCAB_TILE``, the decode's
     ``DECODE_SPLIT``, the MLA decode's ``SPLIT``, ``TILE`` and ``PART``,
     the SSD scan's ``ROW_TILE``, the mLSTM scan's ``ROW_TILE`` and
-    ``DV_SLICE``), and the instructions
+    ``DV_SLICE``, the mLSTM backward's ``BWD_ROW_TILE`` and
+    ``BWD_PASS``), and the instructions
     their PTX (``nvcc -ptx``) and, where the toolkit has cuobjdump, their
     SASS hold: every product kernel must issue ``wgmma.mma_async``
     (HGMMA) on operands that ``cp.async`` brought to shared memory."""
@@ -736,6 +745,11 @@ def sm90_report(build, lib, fa, ce, md, sk, mk):
     check(mlstm == (mk.ROW_TILE, mk.DV_SLICE), f"the mLSTM scan's row tile "
           f"and dv slice are {mlstm}, the wrapper says "
           f"{(mk.ROW_TILE, mk.DV_SLICE)}")
+    mlstm_bwd = (lib.mlstm_scan_bwd_sm90_tile(0),
+                 lib.mlstm_scan_bwd_sm90_tile(1))
+    check(mlstm_bwd == (mk.BWD_ROW_TILE, mk.BWD_PASS), f"the mLSTM "
+          f"backward's pair tile and column pass are {mlstm_bwd}, the "
+          f"wrapper says {(mk.BWD_ROW_TILE, mk.BWD_PASS)}")
     print(f"[sm90] tiles as the CPU models take them: kv {fa.KV_TILES}, "
           f"backward (dq rows, kv, dk/dv keys, q) {fa.BWD_TILES}, "
           f"CE {ce_tiles[0]} tokens x {ce_tiles[1]} vocab columns, "
@@ -743,7 +757,9 @@ def sm90_report(build, lib, fa, ce, md, sk, mk):
           f"positions in tiles of {mla[1]} (partials of {mla[2]} floats), "
           f"SSD chunk scan tiles of {ssd} rows, SSD backward pair tiles of "
           f"{ssd_bwd} rows, mLSTM chunk scan tiles of "
-          f"{mlstm[0]} rows x {mlstm[1]} dv columns", flush=True)
+          f"{mlstm[0]} rows x {mlstm[1]} dv columns, mLSTM backward pair "
+          f"tiles of {mlstm_bwd[0]} rows, accumulator passes of "
+          f"{mlstm_bwd[1]} columns", flush=True)
     for name in rows:
         if name.startswith("ce_fwd_sm90"):
             rows[name]["dynamic_smem"] = lib.ce_fwd_sm90_smem()
@@ -761,6 +777,8 @@ def sm90_report(build, lib, fa, ce, md, sk, mk):
                                    "mlstm_chunk_scan_sm90")):
         rows[name]["dynamic_smem"] = lib.mlstm_scan_sm90_smem(
             kernel, MLSTM_CASES[0][3])
+    for name, kernel in MLSTM_BWD_PRODUCTS.items():
+        rows[name]["dynamic_smem"] = lib.mlstm_scan_bwd_sm90_smem(kernel)
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     have_sass = Path(cuobjdump).exists()
     objs = {o.stem.rsplit("_", 1)[0]: o for o in build.objects()}
@@ -791,7 +809,7 @@ def sm90_report(build, lib, fa, ce, md, sk, mk):
               + (f"; SASS {r.get('sass_hgmma', 0)} HGMMA" if have_sass
                  else "; no cuobjdump: SASS not read"), flush=True)
     products = [n for n in rows if n not in SM90_HELPERS]
-    check(len(products) == 25, f"bf16 tensor-core kernels found: {products}")
+    check(len(products) == 30, f"bf16 tensor-core kernels found: {products}")
     for n in products:
         r = rows[n]
         check(r["spill_bytes"] == 0, f"{n}: ptxas spilled")
@@ -5413,9 +5431,13 @@ MLSTM_BWD_CASES = [(5, 1024, 4, 384, 384, 256, False),
                    (2, 300, 4, 128, 256, 128, False),
                    (2, 512, 4, 384, 384, 256, True)]
 MLSTM_BWD_NAMES = ("dq", "dk", "dv", "di", "df")
-MLSTM_BWD_LAUNCHES = ("mlstm_bwd_gates", "mlstm_bwd_fstate",
-                      "mlstm_bwd_rows", "mlstm_bwd_rstate", "mlstm_bwd_cols",
+# the bf16 kernels, by their order in one call
+MLSTM_BWD_LAUNCHES = ("mlstm_bwd_gates", "mlstm_bwd_cstate_sm90",
+                      "mlstm_bwd_fpass_sm90", "mlstm_bwd_x_sm90",
+                      "mlstm_bwd_rows_sm90", "mlstm_bwd_lstate_sm90",
+                      "mlstm_bwd_rpass_sm90", "mlstm_bwd_cols_sm90",
                       "mlstm_bwd_gate_grads")
+XLSTM_STEPS = 2              # a warm-up and one timed step
 XLSTM_PROBE_LAYERS = 2       # the fp32 probe: one pair
 XLSTM_PROBE_ROWS = 3         # 2 real rows and 1 dummy
 
@@ -5507,10 +5529,14 @@ def mlstm_bwd_case(mk, b, s, h, dk, dv, chunk, large, dtype, gen, dev,
                                               list(args) + list(got))
         rec["bound_ms"], rec["bound_by"] = _bound(nbytes, flops)
         q_ = min(chunk, s)
-        rec["scratch_bytes"] = (4 * mk.bwd_scratch_floats(b, s, h, dk, dv,
-                                                          q_)
-                                if hasattr(mk, "bwd_scratch_floats")
-                                else None)
+        # (a checkout before the bf16 layout counts one layout for both)
+        import inspect
+        by_dtype = "bf16" in inspect.signature(
+            mk.bwd_scratch_floats).parameters
+        rec["scratch_bytes"] = 4 * (
+            mk.bwd_scratch_floats(b, s, h, dk, dv, q_,
+                                  dtype == torch.bfloat16) if by_dtype
+            else mk.bwd_scratch_floats(b, s, h, dk, dv, q_))
     return rec
 
 
@@ -5582,6 +5608,7 @@ def xlstm_train_phase(ce, mk, dev, smi, every):
                                              "train"),
         het=cfgbase.HetConfig(accum_steps=STUB_ACCUM), optimizer=ocfg)
     batches, rows = deepseek_batches(cfg, dev)
+    batches = batches[:XLSTM_STEPS]
     torch.cuda.reset_peak_memory_stats(dev)
     state = tsteps.init_train_state(model, tcfg)
     step = tsteps.build_train_step(model, tcfg)

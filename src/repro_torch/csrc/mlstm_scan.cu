@@ -491,21 +491,6 @@ __device__ __forceinline__ size_t rec_len(int Q) {
   return (size_t)kRecHead + 3 * (size_t)Q;
 }
 
-// 8 fp32 values as a bf16 pair: hi = bf16(v), lo = bf16(v - hi)
-__device__ __forceinline__ void split8(const float (&v)[8], uint4& hi,
-                                       uint4& lo) {
-  uint32_t h[4], l[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const __nv_bfloat162 hb = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
-    const float2 hf = __bfloat1622float2(hb);
-    h[k] = *reinterpret_cast<const uint32_t*>(&hb);
-    l[k] = sm90::pack_bf16(v[2 * k] - hf.x, v[2 * k + 1] - hf.y);
-  }
-  hi = make_uint4(h[0], h[1], h[2], h[3]);
-  lo = make_uint4(l[0], l[1], l[2], l[3]);
-}
-
 // inclusive scan (sum, or max with kMax) over the rows 2t, 2t + 1 of the
 // block's kWg threads t; tot_s: 4 floats of this scan's own
 template <bool kMax>
@@ -662,7 +647,7 @@ mlstm_chunk_state_sm90(const __nv_bfloat16* __restrict__ k,
         x[2 * e + 1] = f.y * w;
       }
       uint4 hi, lo;
-      split8(x, hi, lo);
+      sm90::split8(x, hi, lo);
       *reinterpret_cast<uint4*>(kraw + o) = hi;
       *reinterpret_cast<uint4*>(gbase + (kl_s - base) + o) = lo;
     }

@@ -1,11 +1,11 @@
 // Hopper (sm_90a) building blocks shared by the bf16 tensor-core
 // kernels (flash_attention.cu, flash_attention_bwd.cu, cross_entropy.cu,
-// mla_decode.cu, ssd_scan.cu, mlstm_scan.cu) and the paged decode
-// (paged_decode.cu):
+// mla_decode.cu, ssd_scan.cu, mlstm_scan.cu, ssd_scan_bwd.cu,
+// mlstm_scan_bwd.cu) and the paged decode (paged_decode.cu):
 // cp.async copies into
 // 128-byte-swizzled shared-memory tiles, the wgmma matrix descriptor for
-// those tiles, the wgmma fences, and the wgmma.mma_async shapes the
-// kernels use, written as inline PTX.
+// those tiles, the wgmma fences, fp32 values split into bf16 hi/lo pairs,
+// and the wgmma.mma_async shapes the kernels use, written as inline PTX.
 //
 // Tile layout. A tile of R rows by C bf16 columns (C a multiple of 64)
 // is stored as C/64 blocks of R rows x 128 bytes; within a block the
@@ -161,6 +161,30 @@ __device__ __forceinline__ float fast_exp2(float x) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// 8 fp32 values as a bf16 pair: hi = bf16(v), lo = bf16(v - hi)
+__device__ __forceinline__ void split8(const float (&v)[8], uint4& hi,
+                                       uint4& lo) {
+  uint32_t h[4], l[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const __nv_bfloat162 hb = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
+    const float2 hf = __bfloat1622float2(hb);
+    h[k] = *reinterpret_cast<const uint32_t*>(&hb);
+    l[k] = pack_bf16(v[2 * k] - hf.x, v[2 * k + 1] - hf.y);
+  }
+  hi = make_uint4(h[0], h[1], h[2], h[3]);
+  lo = make_uint4(l[0], l[1], l[2], l[3]);
+}
+
+// two fp32 values as the halves of a bf16 pair, packed two a register
+__device__ __forceinline__ void split2(float a, float b, uint32_t& hi,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 hb = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(hb);
+  hi = *reinterpret_cast<const uint32_t*>(&hb);
+  lo = pack_bf16(a - hf.x, b - hf.y);
 }
 
 // D (64 x 32 fp32, 16 registers a thread) (+)= A (64 x 16) B (16 x 32), both

@@ -255,21 +255,6 @@ constexpr int kStateSmem = 2 * 3 * kRTBytes + 2 * kMaxQ * 4 + 16 + 1024;
 constexpr int kScanSmem = 2 * 2 * kRTBytes + 3 * kRTBytes + 2 * kMaxQ * 4 +
                           1024;
 
-// 8 fp32 values as a bf16 pair: hi = bf16(v), lo = bf16(v - hi)
-__device__ __forceinline__ void split8(const float (&v)[8], uint4& hi,
-                                       uint4& lo) {
-  uint32_t h[4], l[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const __nv_bfloat162 hb = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
-    const float2 hf = __bfloat1622float2(hb);
-    h[k] = *reinterpret_cast<const uint32_t*>(&hb);
-    l[k] = sm90::pack_bf16(v[2 * k] - hf.x, v[2 * k + 1] - hf.y);
-  }
-  hi = make_uint4(h[0], h[1], h[2], h[3]);
-  lo = make_uint4(l[0], l[1], l[2], l[3]);
-}
-
 __device__ __forceinline__ size_t bh_chunk(int b, int h, int H, int c,
                                            int nc) {
   return ((size_t)b * H + h) * nc + c;
@@ -376,7 +361,7 @@ ssd_chunk_state_sm90(const __nv_bfloat16* __restrict__ x,
         v[2 * e + 1] = f.y * w;
       }
       uint4 hi, lo;
-      split8(v, hi, lo);
+      sm90::split8(v, hi, lo);
       *reinterpret_cast<uint4*>(gbase + (bh_s - base) + o) = hi;
       *reinterpret_cast<uint4*>(gbase + (bl_s - base) + o) = lo;
     }
@@ -543,7 +528,7 @@ ssd_chunk_scan_sm90(const __nv_bfloat16* __restrict__ x,
     const float v[8] = {su[k][0].x, su[k][0].y, su[k][0].z, su[k][0].w,
                         su[k][1].x, su[k][1].y, su[k][1].z, su[k][1].w};
     uint4 hi, lo;
-    split8(v, hi, lo);
+    sm90::split8(v, hi, lo);
     const uint32_t o = sm90::tile_off(kPTile, r, ch);
     *reinterpret_cast<uint4*>(gbase + (sh_s - base) + o) = hi;
     *reinterpret_cast<uint4*>(gbase + (sl_s - base) + o) = lo;

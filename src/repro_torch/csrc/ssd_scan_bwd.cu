@@ -1004,30 +1004,6 @@ __device__ __forceinline__ size_t bh_chunk(int b, int h, int H, int c,
   return ((size_t)b * H + h) * nc + c;
 }
 
-// 8 fp32 values as a bf16 pair: hi = bf16(v), lo = bf16(v - hi)
-__device__ __forceinline__ void split8(const float (&v)[8], uint4& hi,
-                                       uint4& lo) {
-  uint32_t h[4], l[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const __nv_bfloat162 hb = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
-    const float2 hf = __bfloat1622float2(hb);
-    h[k] = *reinterpret_cast<const uint32_t*>(&hb);
-    l[k] = sm90::pack_bf16(v[2 * k] - hf.x, v[2 * k + 1] - hf.y);
-  }
-  hi = make_uint4(h[0], h[1], h[2], h[3]);
-  lo = make_uint4(l[0], l[1], l[2], l[3]);
-}
-
-// two fp32 values as the halves of a bf16 pair, packed two a register
-__device__ __forceinline__ void split2(float a, float b, uint32_t& hi,
-                                       uint32_t& lo) {
-  const __nv_bfloat162 hb = __floats2bfloat162_rn(a, b);
-  const float2 hf = __bfloat1622float2(hb);
-  hi = *reinterpret_cast<const uint32_t*>(&hb);
-  lo = sm90::pack_bf16(a - hf.x, b - hf.y);
-}
-
 // the sum over the 4 lanes of a quad (the lanes of a fragment row), the
 // same bits in each
 template <typename F>
@@ -1169,7 +1145,7 @@ ssd_bwd_states_sm90(const __nv_bfloat16* __restrict__ x,
         v[2 * e + 1] = f.y * sc;
       }
       uint4 hi, lo;
-      split8(v, hi, lo);
+      sm90::split8(v, hi, lo);
       *reinterpret_cast<uint4*>(gbase + (hi_s - base) + o) = hi;
       *reinterpret_cast<uint4*>(gbase + (hi_s + kRTBytes - base) + o) = lo;
     }
@@ -1521,10 +1497,10 @@ ssd_bwd_pairs_sm90(const __nv_bfloat16* __restrict__ x,
                                z * gq[k][1].z, z * gq[k][1].w};
           const uint32_t o = sm90::tile_off(kPW, pr, i % 8);
           uint4 hi, lo;
-          split8(sv, hi, lo);
+          sm90::split8(sv, hi, lo);
           *reinterpret_cast<uint4*>(gen(sth_s + o)) = hi;
           *reinterpret_cast<uint4*>(gen(stl_s + o)) = lo;
-          split8(gv, hi, lo);
+          sm90::split8(gv, hi, lo);
           *reinterpret_cast<uint4*>(gen(gh_s + o)) = hi;
           *reinterpret_cast<uint4*>(gen(gl_s + o)) = lo;
         }
@@ -1804,10 +1780,10 @@ ssd_bwd_pairs_sm90(const __nv_bfloat16* __restrict__ x,
             const uint32_t o =
                 sm90::tile_off(kRowTile, lr + 8 * half, cc >> 3) + lc * 2;
             uint32_t hi, lo;
-            split2(m2[0], m2[1], hi, lo);
+            sm90::split2(m2[0], m2[1], hi, lo);
             *reinterpret_cast<uint32_t*>(gen(mth + o)) = hi;
             *reinterpret_cast<uint32_t*>(gen(mtl + o)) = lo;
-            split2(f2[0], f2[1], hi, lo);
+            sm90::split2(f2[0], f2[1], hi, lo);
             *reinterpret_cast<uint32_t*>(gen(fh_s + o)) = hi;
             *reinterpret_cast<uint32_t*>(gen(fl_s + o)) = lo;
           }

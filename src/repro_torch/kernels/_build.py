@@ -226,8 +226,12 @@ def load() -> ctypes.CDLL:
                 ci, ci, ci, ci, ci, ci,         # B, S, H, dk, dv, Q
                 cf, ci, vp]                     # scale, dtype, stream
             lib.mlstm_scan_bwd.restype = ci
-            lib.mlstm_scan_bwd_scratch_floats.argtypes = [ci] * 6
+            lib.mlstm_scan_bwd_scratch_floats.argtypes = [ci] * 7  # + dtype
             lib.mlstm_scan_bwd_scratch_floats.restype = ctypes.c_longlong
+            lib.mlstm_scan_bwd_sm90_tile.argtypes = [ci]    # axis
+            lib.mlstm_scan_bwd_sm90_tile.restype = ci
+            lib.mlstm_scan_bwd_sm90_smem.argtypes = [ci]    # kernel
+            lib.mlstm_scan_bwd_sm90_smem.restype = ci
             lib.mlstm_scan_sm90_tile.argtypes = [ci]        # axis
             lib.mlstm_scan_sm90_tile.restype = ci
             lib.mlstm_scan_sm90_smem.argtypes = [ci, ci]    # kernel, dk

@@ -23,9 +23,13 @@ that arithmetic for the tests. fp32 keeps the one CUDA-core kernel.
 training differentiates ``ref.mlstm_chunked``); its plain version
 :func:`mlstm_scan_bwd_plain` writes out the backward's arithmetic step
 by step, and runs for CPU tensors. It counts its launches as the
-forward does (one a call: six CUDA-core kernel launches, fp32
-arithmetic for both dtypes). :class:`MLSTMScanFn` joins the forward and
-the backward as one ``torch.autograd.Function``.
+forward does (one a call). bf16 runs on the tensor cores in nine kernel
+launches, each causal tile pair's q k^T and dh v^T computed once, with
+the operands made in fp32 (kw k, C_in, dS, W/lim, the weighted q, G_c)
+fed as bf16 hi/lo pairs; :func:`mlstm_scan_bwd_tiled_plain` models that
+arithmetic for the tests. fp32 keeps six CUDA-core kernel launches.
+:class:`MLSTMScanFn` joins the forward and the backward as one
+``torch.autograd.Function``.
 """
 from __future__ import annotations
 
@@ -45,6 +49,11 @@ MAX_CHUNK = 256        # largest chunk Q (one gate row per thread)
 ROW_TILE = 64
 DV_SLICE = 128
 MADE_OPERANDS = ("kw_k", "c_in", "w")
+# the bf16 backward's tiles (csrc/mlstm_scan_bwd.cu; held equal to
+# mlstm_scan_bwd_sm90_tile): rows of a causal pair's tiles, and the
+# accumulator columns a pass (64 where 128 does not divide the width)
+BWD_ROW_TILE = 64
+BWD_PASS = 128
 
 
 def _terms(v: torch.Tensor, single: bool):
@@ -351,6 +360,182 @@ def mlstm_scan_bwd_plain(q, k, v, i_pre, f_pre, dh, *,
             _unheads(df[..., None], s)[..., 0])
 
 
+def mlstm_scan_bwd_tiled_plain(q, k, v, i_pre, f_pre, dh, *,
+                               chunk_size: int = 256,
+                               rounding: str = "pair"):
+    """The bf16 backward kernels' arithmetic in plain PyTorch, for the
+    tests; the steps of :func:`mlstm_scan_bwd_plain` on exact bf16 inputs,
+    with the operands made in fp32 rounded as the kernels feed them to
+    bf16 products and the sums taken in the kernels' tile order:
+
+    1. the stabilisers and weights as the plain version takes them;
+    2. the chunk states (kw k)^T v with kw k as a pair, the incoming
+       states in chunk order in fp32;
+    3. per tile of ``BWD_ROW_TILE`` rows i: X = dh_i C_in^T with C_in as a
+       pair, q.X and q.n_in; then each causal pair (i, j <= i) once, in
+       order: S = q_i k_j^T and P = dh_i v_j^T of the exact operands, W =
+       E S scale, den and dh.num's pair parts; the row scalars; per pair
+       dW = P / lim + dden, dS = dW E scale and W / lim, dW W's row sums
+       and column sums; dq_i = sum_j dS_ij k_j (dS as a pair) + w scale
+       (X / lim + dden n_in);
+    4. L = (rw inv q)^T dh with the weighted q as a pair, the outgoing
+       states' gradients in reverse in fp32;
+    5. per column tile j: dk_j = kw_j (v_j G^T + G^n) + sum_{i >= j}
+       dS_ij^T q_i and dv_j = kw_j k_j G + sum_i (W / lim)_ij^T dh_i, G,
+       dS and W / lim as pairs; kw_j's log-gradient;
+    6. the gates as the plain version.
+
+    ``rounding`` "bf16" feeds each made operand as one bf16 rounding
+    instead of a pair, for the record. Returns what
+    :func:`mlstm_scan_bwd_plain` returns."""
+    assert rounding in ("pair", "bf16"), rounding
+    single = rounding == "bf16"
+    rp = lambda x: _terms(x, single)
+    b, s, h, dk = q.shape
+    dv = v.shape[-1]
+    scale = dk ** -0.5
+    cq = min(int(chunk_size), s)
+    nc = -(-s // cq)
+    pad = nc * cq - s
+    t = BWD_ROW_TILE
+    tiles = [(i0, min(i0 + t, cq)) for i0 in range(0, cq, t)]
+    qf, kf, vf, dhf = (_heads(x, h, nc, cq, pad) for x in (q, k, v, dh))
+    ig = _heads(i_pre[..., None], h, nc, cq, pad, ref.NEG_BIG)[..., 0]
+    fg = _heads(f_pre[..., None], h, nc, cq, pad, ref.PAD_F)[..., 0]
+    # 1. the stabilisers
+    bcs = torch.cumsum(torch.nn.functional.logsigmoid(fg), dim=-1)
+    u = ig - bcs
+    m_intra = bcs + torch.cummax(u, dim=-1).values
+    g = bcs[..., -1]
+    m_loc = (g[..., None] + u).amax(dim=-1)
+    m = torch.full((b, h), ref.NEG_BIG, dtype=torch.float32,
+                   device=q.device)
+    m_in, m_out = [], []
+    for c in range(nc):
+        m_in.append(m)
+        m = torch.maximum(g[..., c] + m, m_loc[..., c])
+        m_out.append(m)
+    m_in, m_out = torch.stack(m_in, dim=-1), torch.stack(m_out, dim=-1)
+    m_row = torch.maximum(m_intra, bcs + m_in[..., None])
+    w_row = torch.exp(bcs + m_in[..., None] - m_row)
+    kw = torch.exp(g[..., None] - bcs + ig - m_out[..., None])
+    carry = torch.exp(g + m_in - m_out)
+    rw = w_row * scale
+    # 2. the incoming states
+    kwk = kw[..., None] * kf
+    s_c = sum(x.transpose(-1, -2) @ vf for x in rp(kwk))
+    n_c = kwk.sum(dim=-2)
+    C = torch.zeros((b, h, dk, dv), dtype=torch.float32, device=q.device)
+    n = torch.zeros((b, h, dk), dtype=torch.float32, device=q.device)
+    c_in, n_in = [], []
+    for c in range(nc):
+        c_in.append(C)
+        n_in.append(n)
+        C = carry[..., c, None, None] * C + s_c[:, :, c]
+        n = carry[..., c, None] * n + n_c[:, :, c]
+    c_in, n_in = torch.stack(c_in, dim=2), torch.stack(n_in, dim=2)
+    c_pair = rp(c_in)
+
+    def expo(i0, i1, j0, j1):
+        causal = (torch.arange(i0, i1)[:, None]
+                  >= torch.arange(j0, j1)[None, :])
+        e = (bcs[..., i0:i1, None] - bcs[..., None, j0:j1]
+             + ig[..., None, j0:j1] - m_row[..., i0:i1, None])
+        return causal, torch.where(
+            causal, torch.exp(torch.where(causal, e, 0.0)), 0.0)
+
+    # 3. the rows, tile by tile
+    dq, inv, dden, d_row_w, row_s = [], [], [], [], []
+    ds_t, wl_t = {}, {}
+    col_s = torch.zeros_like(bcs)
+    for ti, (i0, i1) in enumerate(tiles):
+        qi, dhi = qf[..., i0:i1, :], dhf[..., i0:i1, :]
+        X = sum(dhi @ x.transpose(-1, -2) for x in c_pair)
+        qx = (qi * X).sum(dim=-1)
+        qn = (qi * n_in[..., None, :]).sum(dim=-1)
+        den = torch.zeros_like(qx)
+        dot = torch.zeros_like(qx)
+        WP = []
+        for j0, j1 in tiles[:ti + 1]:
+            causal, E = expo(i0, i1, j0, j1)
+            W = (qi @ kf[..., j0:j1, :].transpose(-1, -2)) * scale * E
+            P = dhi @ vf[..., j0:j1, :].transpose(-1, -2)
+            den = den + W.sum(dim=-1)
+            dot = dot + (W * P).sum(dim=-1)
+            WP.append((causal, E, W, P))
+        ri = rw[..., i0:i1]
+        den = den + ri * qn
+        dot = dot + ri * qx
+        floor = torch.exp(-m_row[..., i0:i1])
+        iv = 1.0 / torch.maximum(den.abs(), floor)
+        dd = torch.where(den.abs() > floor,
+                         -torch.sign(den) * dot * iv * iv, 0.0)
+        acc = 0.0
+        rsum = torch.zeros_like(qx)
+        for tj, (causal, E, W, P) in enumerate(WP):
+            j0, j1 = tiles[tj]
+            dW = torch.where(causal, P * iv[..., None] + dd[..., None], 0.0)
+            dS = dW * E * scale
+            dD = dW * W
+            rsum = rsum + dD.sum(dim=-1)
+            col_s[..., j0:j1] += dD.sum(dim=-2)
+            ds_t[ti, tj] = rp(dS)
+            wl_t[ti, tj] = rp(W * iv[..., None])
+            acc = acc + sum(x @ kf[..., j0:j1, :] for x in ds_t[ti, tj])
+        dq.append(acc + ri[..., None] * (X * iv[..., None]
+                                         + dd[..., None] * n_in[..., None, :]))
+        inv.append(iv)
+        dden.append(dd)
+        d_row_w.append(ri * (qx * iv + qn * dd))
+        row_s.append(rsum)
+    inv, dden = torch.cat(inv, dim=-1), torch.cat(dden, dim=-1)
+    # 4. the incoming states' gradients, then the reverse pass
+    l_c = sum(x.transpose(-1, -2) @ dhf
+              for x in rp(qf * (rw * inv)[..., None]))
+    ln_c = (qf * (rw * dden)[..., None]).sum(dim=-2)
+    G = torch.zeros_like(C)
+    Gn = torch.zeros_like(n)
+    g_out, gn_out, d_carry = [None] * nc, [None] * nc, [None] * nc
+    for c in range(nc - 1, -1, -1):
+        g_out[c], gn_out[c] = G, Gn
+        d_carry[c] = carry[..., c] * ((c_in[:, :, c] * G).sum(dim=(-1, -2))
+                                      + (n_in[:, :, c] * Gn).sum(dim=-1))
+        G = l_c[:, :, c] + carry[..., c, None, None] * G
+        Gn = ln_c[:, :, c] + carry[..., c, None] * Gn
+    g_out, gn_out = torch.stack(g_out, dim=2), torch.stack(gn_out, dim=2)
+    d_carry = torch.stack(d_carry, dim=-1)
+    g_pair = rp(g_out)
+    # 5. the columns, tile by tile
+    dkk, dvv, d_kw = [], [], []
+    for tj, (j0, j1) in enumerate(tiles):
+        kj, vj, kwj = kf[..., j0:j1, :], vf[..., j0:j1, :], kw[..., j0:j1]
+        gv = sum(vj @ x.transpose(-1, -2) for x in g_pair) + gn_out[
+            ..., None, :]
+        d_kw.append(kwj * (kj * gv).sum(dim=-1))
+        ak = kwj[..., None] * gv
+        av = kwj[..., None] * sum(kj @ x for x in g_pair)
+        for ti in range(tj, len(tiles)):
+            i0, i1 = tiles[ti]
+            ak = ak + sum(x.transpose(-1, -2) @ qf[..., i0:i1, :]
+                          for x in ds_t[ti, tj])
+            av = av + sum(x.transpose(-1, -2) @ dhf[..., i0:i1, :]
+                          for x in wl_t[ti, tj])
+        dkk.append(ak)
+        dvv.append(av)
+    # 6. the gates
+    d_kw = torch.cat(d_kw, dim=-1)
+    di = col_s + d_kw
+    db = torch.cat(row_s, dim=-1) - col_s + torch.cat(d_row_w, dim=-1) - d_kw
+    db[..., -1] += d_carry + d_kw.sum(dim=-1)
+    dlf = torch.flip(torch.cumsum(torch.flip(db, (-1,)), -1), (-1,))
+    df = dlf * torch.sigmoid(-fg)
+    return (_unheads(torch.cat(dq, dim=-2), s).to(q.dtype),
+            _unheads(torch.cat(dkk, dim=-2), s).to(q.dtype),
+            _unheads(torch.cat(dvv, dim=-2), s).to(q.dtype),
+            _unheads(di[..., None], s)[..., 0],
+            _unheads(df[..., None], s)[..., 0])
+
+
 def mlstm_scan_cuda(
     q: torch.Tensor,                     # (B, S, H, dk) fp32 or bf16
     k: torch.Tensor,                     # (B, S, H, dk) q's dtype
@@ -411,16 +596,31 @@ mlstm_scan_cuda.launches = 0
 
 
 def bwd_scratch_floats(b: int, s: int, h: int, dk: int, dv: int,
-                       q: int) -> int:
-    """fp32 words of :func:`mlstm_scan_bwd_cuda`'s scratch: per chunk
-    eleven records of q rows (the forward's gates and stabilisers, the
-    row and column kernels' scalars), the carry and the carry gradient's
-    part a 64 x 64 state tile, the incoming state and the outgoing
-    state's gradient (dk dv each), their n (dk each) and X = C_in dh (q
-    dk)."""
+                       q: int, bf16: bool = False) -> int:
+    """fp32 words of :func:`mlstm_scan_bwd_cuda`'s scratch. fp32: per
+    chunk eleven records of q rows (the forward's gates and stabilisers,
+    the row and column kernels' scalars), the carry and the carry
+    gradient's part a 64 x 64 state tile, the incoming state and the
+    outgoing state's gradient (dk dv each), their n (dk each) and X =
+    C_in dh (q dk). bf16: per chunk two dk (dv + 1) states (the chunk
+    state then the incoming one, L then G^n), the bf16 pairs of C_in and
+    G (dk dv words each), each causal tile pair's image (dS and W/lim as
+    pairs of 64 x 64 tiles: 8192 words), X (dk words a row of the tiles),
+    dW W's column sums by row tile (nt x nt 64), q.X's and q.n_in's
+    parts by 128-column pass of dk (2 a row of the tiles), the eleven
+    records, the carry and the carry gradient's parts (one a 1024 state
+    elements)."""
     chunks = b * h * -(-s // q)
-    tiles = (dk // WIDTH_MULT) * (dv // WIDTH_MULT)
-    return chunks * (11 * q + 1 + tiles + 2 * dk * dv + 2 * dk + q * dk)
+    if not bf16:
+        tiles = (dk // WIDTH_MULT) * (dv // WIDTH_MULT)
+        return chunks * (11 * q + 1 + tiles + 2 * dk * dv + 2 * dk + q * dk)
+    nt = -(-q // BWD_ROW_TILE)
+    rows = nt * BWD_ROW_TILE
+    state = dk * (dv + 1)
+    passes = -(-dk // BWD_PASS)
+    return chunks * (2 * state + 2 * dk * dv + nt * (nt + 1) // 2 * 8192
+                     + rows * dk + nt * rows + 2 * passes * rows + 11 * q
+                     + 1 + -(-state // 1024))
 
 
 def mlstm_scan_bwd_cuda(
@@ -436,8 +636,9 @@ def mlstm_scan_bwd_cuda(
     """The scan's backward with the final state's cotangent 0: returns
     (dq, dk, dv) in q's dtype and (di~, df~) (B, S, H) in fp32. The
     kernels take the forward's shapes (dk and dv multiples of 64, dk <=
-    512, a chunk of at most 256 rows) and B * H * chunks <= 65535; every
-    sum runs in a fixed order (two calls give equal bits)."""
+    512, a chunk of at most 256 rows) and B * H * chunks <= 65535, in
+    bf16 also 16-byte-aligned q, k, v and dh; every sum runs in a fixed
+    order (two calls give equal bits)."""
     if q.device.type == "cpu":
         return mlstm_scan_bwd_plain(q, k, v, i_pre, f_pre, dh,
                                     chunk_size=chunk_size)
@@ -448,6 +649,10 @@ def mlstm_scan_bwd_cuda(
     if s > 0 and b * h * -(-s // chunk) > 65535:
         raise ValueError(f"{name}: takes B * H * chunks <= 65535, got "
                          f"{b * h * -(-s // chunk)}")
+    bf16 = q.dtype == torch.bfloat16
+    if bf16 and any(t.data_ptr() % 16 for t in (q, k, v, dh)):
+        raise ValueError(f"{name}: bf16 q, k, v and dh must be 16-byte "
+                         f"aligned (16-byte copies)")
     dq, dkk, dvv = (torch.empty_like(t) for t in (q, k, v))
     di = torch.empty((b, s, h), dtype=torch.float32, device=dev)
     df = torch.empty((b, s, h), dtype=torch.float32, device=dev)
@@ -455,7 +660,7 @@ def mlstm_scan_bwd_cuda(
         return dq, dkk, dvv, di, df
     from repro_torch.kernels import _build
     lib = _build.load()
-    work = torch.empty((bwd_scratch_floats(b, s, h, dk, dv, chunk),),
+    work = torch.empty((bwd_scratch_floats(b, s, h, dk, dv, chunk, bf16),),
                        dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -500,7 +705,9 @@ class MLSTMScanFn(torch.autograd.Function):
         q, k, v, i_pre, f_pre = ctx.saved_tensors
         if dh is None:
             return None, None, None, None, None, None
+        dh = dh.contiguous().to(q.dtype)
+        if dh.data_ptr() % 16:               # the bf16 kernels' copies
+            dh = dh.clone()
         dq, dk, dv, di, df = mlstm_scan_bwd_cuda(
-            q, k, v, i_pre, f_pre, dh.contiguous().to(q.dtype),
-            chunk_size=ctx.chunk_size)
+            q, k, v, i_pre, f_pre, dh, chunk_size=ctx.chunk_size)
         return dq, dk, dv, di, df, None

@@ -1005,7 +1005,7 @@ def test_mlstm_backward_kernel_matches_plain_and_repeats(dev, dtype, b, s,
     """The mLSTM backward (``csrc/mlstm_scan_bwd.cu``) against
     ``mlstm_scan_bwd_plain``: each of the five gradients by relative L2
     (``parity.RTOL``), one launch count a call, two calls bitwise equal,
-    and the scratch the C side counts is the wrapper's."""
+    and the scratch the C side counts is the wrapper's for this dtype."""
     from repro_torch.kernels import _build
     rng = np.random.default_rng(s + dk + dv)
     q, k = (_randn(rng, (b, s, h, dk), dev, dtype) for _ in range(2))
@@ -1031,8 +1031,10 @@ def test_mlstm_backward_kernel_matches_plain_and_repeats(dev, dtype, b, s,
     again = mk.mlstm_scan_bwd_cuda(*args, chunk_size=chunk)
     assert all(torch.equal(a, g_) for a, g_ in zip(again, got))
     q_ = min(chunk, s)
+    bf16 = dtype == torch.bfloat16
     assert _build.load().mlstm_scan_bwd_scratch_floats(
-        b, s, h, dk, dv, q_) == mk.bwd_scratch_floats(b, s, h, dk, dv, q_)
+        b, s, h, dk, dv, q_, int(bf16)) == mk.bwd_scratch_floats(
+            b, s, h, dk, dv, q_, bf16)
 
 
 def test_ssd_kernel_refuses_what_it_does_not_take(dev):

@@ -41,6 +41,11 @@ interpret mode and JAX's ``ref.mlstm_chunked``.
 and G as pairs, one pass over the causal pairs of 64-row tiles with M^T
 and (dM F)^T as pairs, v summed in fp64) and is held against ``jax.vjp``
 of JAX's ``ref.ssd_chunked`` and against ``ssd_scan_bwd_plain``.
+``mlstm_scan_bwd_tiled_plain`` follows ``csrc/mlstm_scan_bwd.cu``'s bf16
+path (the chunk states with kw k as a pair, the carried state as a pair,
+each causal pair of 64-row tiles once with dS and W/lim as pairs, the
+weighted q and G as pairs) and is held against ``jax.vjp`` of JAX's
+``ref.mlstm_chunked`` and against ``mlstm_scan_bwd_plain``.
 
 Tolerances are the card's limits for the kernels
 (``repro_torch.kernels.parity.RTOL``, relative L2): 5e-4 for the bf16
@@ -63,7 +68,13 @@ n and m; the readings of one bf16 rounding of each of its made operands
 are printed, not asserted. The SSD backward's model is held to the bf16
 backward's limit, ``RTOL[("ssd_scan_bwd_cuda", bf16)]`` = 8e-4, on each
 of its six gradients; the reading of one bf16 rounding of its made
-operands is printed beside it, and the pairs must read closer.
+operands is printed beside it, and the pairs must read closer. The
+mLSTM backward's model is held to the bf16 backward's limit,
+``RTOL[("mlstm_scan_bwd_cuda", bf16)]`` = 2e-3, on each of its five
+gradients, and at large gates to ``RTOL[("mlstm_scan_bwd_large_gates",
+bf16)]`` = 0.15, there also against autograd through the port's
+reference scan in fp64; the reading of one bf16 rounding of its made
+operands is printed, not asserted.
 """
 import re
 
@@ -91,6 +102,7 @@ from repro_torch.kernels.flash_attention import flash_attention as tfa
 from repro_torch.kernels.mla_decode import mla_decode as tmd
 from repro_torch.kernels.mla_decode import ref as tmla_ref
 from repro_torch.kernels.mlstm_scan import mlstm_scan as tmk
+from repro_torch.kernels.mlstm_scan import ref as tmlstm_ref
 from repro_torch.kernels.parity import RTOL, rel_l2
 from repro_torch.kernels.ssd_scan import ssd_scan as tsk
 
@@ -101,6 +113,8 @@ CE_TOL = RTOL[("cross_entropy_cuda", torch.bfloat16)]
 SSD_TOL = RTOL[("ssd_scan_cuda", torch.bfloat16)]
 MLSTM_TOL = RTOL[("mlstm_scan_cuda", torch.bfloat16)]
 SSD_BWD_TOL = RTOL[("ssd_scan_bwd_cuda", torch.bfloat16)]
+MLSTM_BWD_TOL = RTOL[("mlstm_scan_bwd_cuda", torch.bfloat16)]
+MLSTM_BWD_LARGE_TOL = RTOL[("mlstm_scan_bwd_large_gates", torch.bfloat16)]
 
 # (b, sq, skv, h, hkv, causal, q_offset): ragged Sq = Skv over several q
 # and kv tiles (group 2), chunked prefill (q_offset > 0, Skv > Sq, group
@@ -650,6 +664,72 @@ def test_mlstm_tile_model_matches_pallas_and_jax_ref(pallas_interpret, b, s,
             assert r <= MLSTM_TOL, (what, r)
 
 
+# (b, s, h, dk, dv, chunk, large gates): a ragged tail (chunks of 128, the
+# last of 44 rows); S shorter than the chunk and not a multiple of the
+# 64-row tile; dk != dv; large gates (i~ ~ U(-30, 30), f~ ~ U(-10, 6)),
+# also read against fp64 autograd
+MLSTM_BWD_MODEL_CASES = [
+    (1, 300, 2, 64, 64, 128, False),
+    (2, 100, 2, 64, 64, 256, False),
+    (1, 200, 2, 128, 64, 128, False),
+    (1, 200, 2, 64, 64, 128, True),
+]
+MLSTM_BWD_GRADS = ("dq", "dk", "dv", "di", "df")
+
+
+@pytest.mark.parametrize("b,s,h,dk,dv,chunk,large", MLSTM_BWD_MODEL_CASES)
+def test_mlstm_bwd_tile_model_matches_jax_vjp_and_plain(b, s, h, dk, dv,
+                                                        chunk, large):
+    import jax
+    rng = np.random.default_rng(s + h + dk + dv)
+    f = lambda *shape: torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32))
+    bf = lambda t: t.bfloat16().float()      # bf16-representable, fp32
+    q, k = bf(f(b, s, h, dk)), bf(f(b, s, h, dk))
+    v, dh = bf(f(b, s, h, dv)), bf(f(b, s, h, dv))
+    if large:
+        i_pre = torch.from_numpy(rng.uniform(-30, 30, (b, s, h)).astype(
+            np.float32))
+        f_pre = torch.from_numpy(rng.uniform(-10, 6, (b, s, h)).astype(
+            np.float32))
+    else:
+        # as xlstm-125m's init sets the gates up: f~ shifted by its bias
+        i_pre, f_pre = f(b, s, h), f(b, s, h) + 4.5
+    args = (q, k, v, i_pre, f_pre, dh)
+
+    def h_of(*ins):
+        return mlstm_jref.mlstm_chunked(*ins, chunk_size=chunk)[0]
+
+    jins = [jnp.asarray(t.numpy()) for t in args[:5]]
+    jgrads = jax.vjp(h_of, *jins)[1](jnp.asarray(dh.numpy()))
+    oracles = {
+        "jax vjp": [torch.from_numpy(np.array(x)) for x in jgrads],
+        "plain": tmk.mlstm_scan_bwd_plain(*args, chunk_size=chunk),
+    }
+    if large:
+        ins = [t.double().requires_grad_(True) for t in args[:5]]
+        y64, _ = tmlstm_ref.mlstm_chunked(*ins, chunk_size=chunk,
+                                          acc_dtype=torch.float64)
+        oracles["fp64 autograd"] = torch.autograd.grad(y64, ins,
+                                                       dh.double())
+    tol = MLSTM_BWD_LARGE_TOL if large else MLSTM_BWD_TOL
+    readings = {}
+    for rnd in ("pair", "bf16"):
+        got = tmk.mlstm_scan_bwd_tiled_plain(*args, chunk_size=chunk,
+                                             rounding=rnd)
+        assert [tuple(x.shape) for x in got] == [tuple(x.shape)
+                                                 for x in args[:5]]
+        for oname, want in oracles.items():
+            readings.update({f"{rnd} {n} vs {oname}": rel_l2(gv, wv)
+                             for n, gv, wv in zip(MLSTM_BWD_GRADS, got,
+                                                  want)})
+    print(f"[sm90-mlstm-bwd] {(b, s, h, dk, dv, chunk, large)}: "
+          + ", ".join(f"{k_} {v_:.2e}" for k_, v_ in readings.items()))
+    for what, r in readings.items():
+        if what.startswith("pair"):
+            assert r <= tol, (what, r)
+
+
 def _constexpr(src, name):
     return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
 
@@ -659,8 +739,9 @@ def test_tile_constants_match_the_sources_build_hashes():
     sources that ``_build`` compiles and hashes: the decode split and
     stage, the backward's tiles (BwdTiles), the forward's kv tiles
     (Sm90Tiles), the MLA decode's split and tile, the SSD chunk scan's
-    row tile, the SSD backward's pair-pass row tile, and the mLSTM chunk
-    scan's row tile and dv slice."""
+    row tile, the SSD backward's pair-pass row tile, the mLSTM chunk
+    scan's row tile and dv slice, and the mLSTM backward's pair tile and
+    accumulator pass."""
     srcs = {p.name: p for p in _build.sources()}
     decode = srcs["paged_decode.cu"].read_text()
     assert _constexpr(decode, "kSplit") == tfa.DECODE_SPLIT
@@ -686,6 +767,9 @@ def test_tile_constants_match_the_sources_build_hashes():
     mlstm = srcs["mlstm_scan.cu"].read_text()
     assert _constexpr(mlstm, "kRowTile") == tmk.ROW_TILE
     assert _constexpr(mlstm, "kDvSlice") == tmk.DV_SLICE
+    mlstm_bwd = srcs["mlstm_scan_bwd.cu"].read_text()
+    assert _constexpr(mlstm_bwd, "kRowTile") == tmk.BWD_ROW_TILE
+    assert _constexpr(mlstm_bwd, "kPass") == tmk.BWD_PASS
 
 
 # (t, d, v, eps, softcap, tied, splits): T and V not tile multiples; the
