@@ -26,7 +26,13 @@ each TREE, each in a process of its own that runs nothing before it:
 * phase 20's ``mlstm_bwd_case`` on the bf16 mLSTM backward
   (``mlstm_scan_bwd_cuda``) at the first of ``MLSTM_BWD_CASES``
   (xlstm-125m's training microbatch: B=5, S=1024, H=4, dk=dv=384, chunk
-  256), held to ``parity.RTOL``, with its device time by launch.
+  256), held to ``parity.RTOL``, with its device time by launch;
+* phase 6's ``exchange_chunk_case`` on the int8 exchange's legs
+  (``exchange_legs``): rank 0's send and receive sides of one exchange
+  chunk (40 of olmo-1b's 25-MiB buckets over 2 ranks) and of one bucket
+  as the tree's ``core/buckets.py`` runs them, the collectives left out:
+  device time and launches under torch.profiler, by kernel (no check:
+  a parent's legs have no plain twin to hold them to).
 
 So the draws, checks and timers are the script's: a reading differs from
 the phase's only in what ran before it in the process. From the root of
@@ -57,7 +63,7 @@ ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out"
 KERNELS = ("mlstm_scan_cuda", "mla_decode_paged_cuda",
            "flash_decode_paged_cuda", "ssd_scan_bwd_cuda",
-           "mlstm_scan_bwd_cuda")
+           "mlstm_scan_bwd_cuda", "exchange_legs")
 
 
 def _use_tree(tree: str) -> None:
@@ -92,6 +98,14 @@ def _one(tree: str, kernel: str) -> int:
         rec = cs.mlstm_bwd_case(mk, *cs.MLSTM_BWD_CASES[0], bf16, gen, dev,
                                 timed=True)
         err, tol = rec["rel_l2"], RTOL[("mlstm_scan_bwd_cuda", bf16)]
+    elif kernel == "exchange_legs":
+        from repro_torch.configs import base as cfgbase
+        gen = torch.Generator(device=dev).manual_seed(6)
+        shapes = cs.exchange_shapes(cfgbase.resolve("olmo-1b"))
+        rec = {"kernel": kernel, "chunk": cs.exchange_chunk_case(
+            shapes["chunk_buckets"], gen, dev),
+            "bucket": cs.exchange_chunk_case(1, gen, dev)}
+        err, tol = 0.0, 0.0
     elif kernel == "flash_decode_paged_cuda":
         from repro_torch.kernels.flash_attention import flash_attention as fa
         gen = torch.Generator(device=dev).manual_seed(2)

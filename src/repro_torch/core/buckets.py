@@ -15,18 +15,21 @@
 
       fp32: a reduce-scatter (``all_to_all`` plus a sum in rank order)
             -> ``all_gather``
-      int8: quantize (CUDA kernel) -> ``all_to_all`` of the fused int8
-            payload (values + bit-cast scales) -> dequant-accumulate
-            (CUDA kernel) -> re-quantize the shard sum (CUDA kernel) ->
-            a ragged all-gather of the shard payloads
+      int8: the send leg (error correction, quantize, the stage-1
+            residual, the fused int8 payload in message order) ->
+            ``all_to_all`` -> the receive leg (dequant-accumulate over
+            the ranks, re-quantize the shard sum, the stage-2 residual)
+            -> a ragged all-gather of the shard payloads -> the decode
+            (``kernels/quantize/ops.py``: one CUDA kernel a leg on the
+            card, kernels 4 and 5 in their fused forms)
 
     two collectives for each chunk of whole buckets. Unlike the JAX
     function it works in place, to keep a full-width rank's memory
-    bounded: the corrected gradient and then the result are written
-    into ``buckets``, the new error state into ``err``. Chunking does
-    not change a value: quantization is per block of 256 and the
-    exchange elementwise per bucket (the JAX package's per-bucket
-    pipeline agrees bitwise with its monolithic exchange).
+    bounded: the result is written into ``buckets``, the new error
+    state into ``err``. Chunking does not change a value: quantization
+    is per block of 256 and the exchange elementwise per bucket (the JAX
+    package's per-bucket pipeline agrees bitwise with its monolithic
+    exchange).
 
 The int8 exchange never puts the all-padding tail of the stream on the
 wire (``total``): each message holds only data blocks, so messages are
@@ -45,12 +48,11 @@ JAX package's ``segment_ids`` row, run-length coded),
 :func:`bucket_decay_mask` (its ``decay_mask`` row) and
 :func:`bucket_pieces` (views of a tree's tensors at a bucket's
 positions). One double-buffered driver, :class:`BucketFlushPipeline`,
-runs the per-bucket exchange: bucket *k+1*'s send side (error
-correction, kernel 4, payload fusion) and its first collective are
-issued before bucket *k*'s is waited on (``Comm``'s ``async_op``), and
-each landed bucket goes to a hook. ``overlap="backward"`` feeds it in
-the order :func:`bucket_readiness` gives as the backward lands the
-gradients; ``overlap="buckets"`` (:func:`exchange_buckets_overlapped`,
+runs the per-bucket exchange: bucket *k+1*'s send leg and its first
+collective are issued before bucket *k*'s is waited on (``Comm``'s
+``async_op``), and each landed bucket goes to a hook.
+``overlap="backward"`` feeds it in the order :func:`bucket_readiness`
+gives as the backward lands the gradients; ``overlap="buckets"`` (:func:`exchange_buckets_overlapped`,
 after the backward) feeds it every bucket at once. It reuses the
 monolithic exchange's legs on one bucket, so each bucket's result is
 bitwise the same rows of :func:`exchange_buckets`.
@@ -65,7 +67,6 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.core import compression
 from repro_torch.core.capacity import host_shard_extents
 from repro_torch.core.comm import Comm, Pending
 from repro_torch.kernels.quantize import ops as q_ops
@@ -379,24 +380,6 @@ def exchange_chunks(layout: BucketLayout) -> int:
     return -(-layout.num_buckets // chunk_buckets(layout))
 
 
-def _message_rows(nbc: int, p: int, ns: int, d_rows: int) -> List[int]:
-    """Data rows (blocks) of the message to each rank: message j holds
-    the rows (k, j, b) of every bucket k of the chunk, and the data rows
-    (stream row < d_rows) are a prefix of it."""
-    return [sum(min(ns, max(0, d_rows - (k * p + j) * ns))
-                for k in range(nbc)) for j in range(p)]
-
-
-def _write_slot(slot: torch.Tensor, rows: torch.Tensor) -> None:
-    """Write ``rows`` (n, B), the prefix of one rank's slot, into
-    ``slot`` (nbc, ns, B), a strided view of the chunk; rows past n
-    become zero."""
-    nbc, ns, b = slot.shape
-    full = rows.new_zeros((nbc * ns, b))
-    full[:rows.shape[0]] = rows
-    slot.copy_(full.view(nbc, ns, b))
-
-
 def _issue(comm: Comm, wire: torch.Tensor, send: List[int],
            recv: List[int], async_op: bool) -> Pending:
     """A leg's ``all_to_all``, in flight with ``async_op``, else done."""
@@ -429,67 +412,35 @@ def _finish_fp32(x: torch.Tensor, sent: Pending, comm: Comm) -> None:
 def _send_int8(x: torch.Tensor, e: Optional[torch.Tensor], comm: Comm,
                d_rows: int, block_size: int, impl: str, async_op: bool
                ) -> Tuple[Pending, List[int]]:
-    """The send side of an int8 chunk (nbc, p, shard): error-correct in
-    place, quantize the data rows (kernel 4), keep the stage-1 residual
-    in ``e``, fuse the payload and issue its ``all_to_all``."""
-    nbc, p, shard = x.shape
-    bs = block_size
-    ns = shard // bs
-    if e is not None:
-        x.add_(e)                               # corrected, in place
-    rows = x.view(nbc * p * ns, bs)
-    q, s = q_ops.quantize_int8(rows[:d_rows], block_size=bs, impl=impl)
-    if e is not None:                           # stage-1 residual
-        er = e.view(nbc * p * ns, bs)
-        torch.sub(rows[:d_rows], q.to(torch.float32) * s[:, None],
-                  out=er[:d_rows])
-        er[d_rows:].zero_()
-    lens = _message_rows(nbc, p, ns, d_rows)
-    payload = torch.zeros((nbc * p * ns, bs + 4), dtype=torch.int8,
-                          device=x.device)
-    payload[:d_rows] = compression.fuse_payload(q, s)
-    del q, s
-    msgs = payload.view(nbc, p * ns, bs + 4)
-    wire = torch.cat([msgs[:, j * ns:(j + 1) * ns].reshape(-1, bs + 4)
-                      [:lens[j]] for j in range(p)])
-    del payload, msgs
-    return _issue(comm, wire, lens, [lens[comm.index]] * p, async_op), lens
+    """The send side of an int8 chunk (nbc, p, shard): the send leg
+    (error correction, quantize of the data rows, the stage-1 residual
+    in ``e``, the wire in message order: one launch on the card), then
+    its ``all_to_all``."""
+    wire, lens = q_ops.exchange_send(x, e, d_rows, block_size=block_size,
+                                     impl=impl)
+    return _issue(comm, wire, lens, [lens[comm.index]] * x.shape[1],
+                  async_op), lens
 
 
 def _finish_int8(x: torch.Tensor, e: Optional[torch.Tensor], comm: Comm,
                  sent: Tuple[Pending, List[int]], block_size: int,
                  impl: str) -> None:
-    """The receive side of an int8 chunk: dequantize and sum my shard
-    over the ranks (kernel 5), re-quantize it (kernel 4), keep the
-    stage-2 residual in my slot of ``e``, and gather every rank's shard
-    payload, decoded into ``x``."""
-    nbc, p, shard = x.shape
-    bs = block_size
-    ns = shard // bs
+    """The receive side of an int8 chunk: the receive leg (my shard
+    summed over the ranks, re-quantized, the stage-2 residual into my
+    slot of ``e``), the gather leg's ``all_to_all`` of every rank's
+    shard payload, and the decode into ``x``: two launches on the
+    card."""
+    p = x.shape[1]
     me = comm.index
     pending, lens = sent
-    rx = pending.wait()
-    q_x, s_x = compression.split_payload(rx.view(p, lens[me], bs + 4), bs)
-    shard_sum = q_ops.dequant_accum(q_x, s_x, impl=impl)   # (lens[me], bs)
-    del rx, q_x, s_x
-    q2, s2 = q_ops.quantize_int8(shard_sum, block_size=bs, impl=impl)
-    xs = x.view(nbc, p, ns, bs)
-    if e is not None:                           # stage-2 residual: mine
-        es = e.view(nbc, p, ns, bs)[:, me]
-        resid = shard_sum - q2.to(torch.float32) * s2[:, None]
-        full = resid.new_zeros((nbc * ns, bs))
-        full[:resid.shape[0]] = resid
-        es.add_(full.view(nbc, ns, bs))
-        del resid, full
-    del shard_sum
-    mine = compression.fuse_payload(q2, s2)
-    del q2, s2
-    gathered = comm.all_to_all(mine.repeat(p, 1), [lens[me]] * p, lens)
-    off = 0
-    for j in range(p):
-        qg, sg = compression.split_payload(gathered[off:off + lens[j]], bs)
-        _write_slot(xs[:, j], qg.to(torch.float32) * sg[:, None])
-        off += lens[j]
+    rx = pending.wait().view(p, lens[me], block_size + 4)
+    mine = q_ops.exchange_receive(rx, e, me, block_size=block_size,
+                                  impl=impl)
+    del rx
+    gathered = comm.all_to_all(mine, [lens[me]] * p, lens)
+    del mine
+    q_ops.exchange_decode(gathered, lens, x, block_size=block_size,
+                          impl=impl)
 
 
 def _check_stack(buckets: torch.Tensor, err: Optional[torch.Tensor],
@@ -569,10 +520,10 @@ def exchange_buckets(
 def prepare_bucket(x_k: torch.Tensor, err_k: Optional[torch.Tensor], *,
                    comm: Comm, compress: bool, d_rows: int,
                    block_size: int, impl: str):
-    """Send-side leg for ONE bucket, ``x_k`` its (1, p, shard) view:
-    error correction, quantize (kernel 4) and payload fusion in int8,
-    then the first collective, issued asynchronously and returned in
-    flight. ``d_rows``: the bucket's data blocks."""
+    """Send side for ONE bucket, ``x_k`` its (1, p, shard) view: in
+    int8 the send leg (error correction, quantize, payload fusion), then
+    the first collective, issued asynchronously and returned in flight.
+    ``d_rows``: the bucket's data blocks."""
     if not compress:
         return _send_fp32(x_k, comm, True)
     return _send_int8(x_k, err_k, comm, d_rows, block_size, impl, True)
@@ -583,8 +534,8 @@ def exchange_prepared_bucket(x_k: torch.Tensor,
                              comm: Comm, compress: bool, block_size: int,
                              impl: str) -> torch.Tensor:
     """Link and receive legs for ONE prepared bucket: waits on its first
-    collective, then (int8) dequant-accumulate (kernel 5), re-quantize
-    (kernel 4) and the gather leg. ``x_k`` ends holding the global sum
+    collective, then (int8) the receive leg, the gather leg and the
+    decode. ``x_k`` ends holding the global sum
     and ``err_k`` its new error slice: bitwise the same rows of
     :func:`exchange_buckets` (the same legs on one bucket: quantization
     is per block of 256, the sums elementwise). Returns ``x_k``."""

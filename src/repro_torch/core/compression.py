@@ -5,8 +5,8 @@ Applied only to the cross-pod leg of the hierarchical reduction (and
 nowhere else). Per leaf or per bucket, per step:
   1. corrected = grad + error_state           (error feedback)
   2. q, scales = blockwise int8 quantize (``kernels/quantize``)
-  3. exchange q + scales (``core/buckets.py`` fuses the scales into the
-     int8 wire payload with :func:`fuse_payload`, one collective)
+  3. exchange q + scales (fused into one int8 wire payload,
+     :func:`fuse_payload`: one collective a leg)
   4. error_state' = corrected - dequant(q)
 
 Leaves are listed in the JAX package's pytree flatten order
@@ -61,25 +61,10 @@ def decompress_tree(qs: Sequence[torch.Tensor], ss: Sequence[torch.Tensor],
             for q, s, shape in zip(qs, ss, shapes)]
 
 
-def fuse_payload(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
-    """Int8 values + fp32 scales as ONE int8 wire buffer: each block's
-    ``block_size`` codes followed by its scale's 4 bytes (bit-cast,
-    native byte order), (..., blocks, block_size + 4). Byte-equal to the
-    JAX package's payload on current jax (``NATIVE_MANUAL_COLLECTIVES``)."""
-    s_bytes = s.to(torch.float32).contiguous().view(torch.int8).reshape(
-        *s.shape, 4)
-    return torch.cat([q, s_bytes], dim=-1)
-
-
-def split_payload(payload: torch.Tensor, block_size: int
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Inverse of :func:`fuse_payload`: -> (q int8, s fp32)."""
-    if payload.dtype != torch.int8:
-        raise TypeError(f"split_payload: int8 payload expected, got "
-                        f"{payload.dtype}")
-    q = payload[..., :block_size]
-    s = payload[..., block_size:].contiguous().view(torch.float32)
-    return q, s[..., 0]
+# the wire format of the bucketed exchange (kernels/quantize/ref.py, where
+# the exchange's legs and their kernels read and write it)
+fuse_payload = q_ref.fuse_payload
+split_payload = q_ref.split_payload
 
 
 def compression_ratio(leaves: Sequence[torch.Tensor],

@@ -243,5 +243,15 @@ def load() -> ctypes.CDLL:
             lib.dequant_accum_fwd.argtypes = [
                 vp, vp, vp, ci, cll, vp]        # q, s, out, ranks, rows,
             lib.dequant_accum_fwd.restype = ci  # stream
+            lp = ctypes.POINTER(cll)
+            lib.exchange_send_int8.argtypes = [
+                vp, vp, vp, vp, cll, cll, ci, cll, lp, vp]  # x, e, noise,
+            lib.exchange_send_int8.restype = ci  # wire, rows, d_rows, p,
+            lib.exchange_receive_int8.argtypes = [  # ns, lens, stream
+                vp, vp, vp, cll, ci, ci, cll, vp]   # rx, out, e, L, p, me,
+            lib.exchange_receive_int8.restype = ci  # ns, stream
+            lib.exchange_decode_int8.argtypes = [
+                vp, vp, cll, ci, cll, lp, vp]   # g, x, nbc, p, ns, lens,
+            lib.exchange_decode_int8.restype = ci  # stream
             _lib = lib
         return _lib

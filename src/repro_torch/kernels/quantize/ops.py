@@ -1,5 +1,6 @@
-"""Int8 quantize / dequant-accumulate with implementation dispatch
-(port of ``repro/kernels/quantize/ops.py``).
+"""Int8 quantize / dequant-accumulate and the bucketed exchange's legs
+with implementation dispatch (port of ``repro/kernels/quantize/ops.py``,
+plus the legs).
 
 ``impl``:
   * "reference" — the plain versions (``ref.py``);
@@ -13,13 +14,14 @@ Stochastic rounding takes its uniform noise from the caller
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.kernels.quantize import ref
-from repro_torch.kernels.quantize.quantize import (BLOCK, dequant_accum_cuda,
-                                                   quantize_int8_cuda)
+from repro_torch.kernels.quantize.quantize import (
+    BLOCK, dequant_accum_cuda, exchange_decode_cuda, exchange_receive_cuda,
+    exchange_send_cuda, quantize_int8_cuda)
 
 IMPLS = ("reference", "kernel")
 
@@ -66,3 +68,34 @@ def dequant_accum(q: torch.Tensor, scale: torch.Tensor, *,
     if _on_card(q, impl, q.shape[-1]):
         return dequant_accum_cuda(q.contiguous(), scale.contiguous())
     return ref.dequant_accum(q, scale)
+
+
+def exchange_send(x: torch.Tensor, e: Optional[torch.Tensor], d_rows: int,
+                  *, noise: Optional[torch.Tensor] = None,
+                  block_size: int = 256, impl: str = "reference"
+                  ) -> Tuple[torch.Tensor, List[int]]:
+    """The send leg of an exchange chunk (nbc, p, shard) -> (wire, rows
+    of each message); ``ref.exchange_send``."""
+    if _on_card(x, impl, block_size):
+        return exchange_send_cuda(x, e, d_rows, noise)
+    return ref.exchange_send(x, e, d_rows, noise, block_size)
+
+
+def exchange_receive(rx: torch.Tensor, e: Optional[torch.Tensor], me: int,
+                     *, block_size: int = 256, impl: str = "reference"
+                     ) -> torch.Tensor:
+    """The receive leg: (p, L, B + 4) messages -> the gather leg's (p L,
+    B + 4) messages; ``ref.exchange_receive``."""
+    if _on_card(rx, impl, block_size):
+        return exchange_receive_cuda(rx, e, me)
+    return ref.exchange_receive(rx, e, me, block_size)
+
+
+def exchange_decode(g: torch.Tensor, lens: Sequence[int], x: torch.Tensor,
+                    *, block_size: int = 256, impl: str = "reference"
+                    ) -> torch.Tensor:
+    """The decode of the gathered wire into every slot of ``x``;
+    ``ref.exchange_decode``."""
+    if _on_card(x, impl, block_size):
+        return exchange_decode_cuda(g, lens, x)
+    return ref.exchange_decode(g, lens, x, block_size)

@@ -259,7 +259,9 @@ def _launch_counts() -> Dict[str, int]:
     return {f.__name__: f.launches for f in (
         fa.flash_attention_cuda, fa.flash_attention_bwd_cuda,
         ce.cross_entropy_cuda, ce.ce_dlogits_cuda,
-        qz.quantize_int8_cuda, qz.dequant_accum_cuda)}
+        qz.quantize_int8_cuda, qz.dequant_accum_cuda,
+        qz.exchange_send_cuda, qz.exchange_receive_cuda,
+        qz.exchange_decode_cuda)}
 
 
 def _sent(mesh: mesh_mod.ProcessMesh) -> int:

@@ -13,7 +13,10 @@ losses, dlogits) are not O(1): each is held by its relative L2 error to
 ``repro_torch.kernels.parity.RTOL`` for its kernel and dtype, and the
 autograd Functions against the "reference" impls' autograd to
 ``AUTOGRAD_RTOL``. The int8 exchange kernels must equal their plain
-versions bit for bit. The MLA decode kernels and the head-dim-192
+versions bit for bit: kernels 4 and 5 and the exchange's three fused
+legs (every rank of a chunk run on the one card, the collectives done
+by hand: wire bytes, gather payloads, both error stages, the decoded
+chunk). The MLA decode kernels and the head-dim-192
 prefill are held like the serving kernels (1e-4 fp32, 2e-2 bf16;
 outputs O(1)), and the MLA serving path's kernel route against its
 reference route at fp32 by ``MLA_PATH_TOL``. The SSD scan kernel and the
@@ -567,6 +570,119 @@ def test_quantize_kernels_refuse_what_they_do_not_take(dev):
     q = torch.zeros((65, 2, 256), dtype=torch.int8, device=dev)
     with pytest.raises(ValueError, match="ranks"):
         qz.dequant_accum_cuda(q, torch.zeros((65, 2), device=dev))
+
+
+def _exchange_legs(send, receive, decode, xs, es, noises, d_rows):
+    """Every rank's send leg, receive leg and decode of one chunk, the
+    collectives done by hand: (wires, received payloads, the error
+    states after each stage, the decoded chunks)."""
+    p = len(xs)
+    xs = [x.clone() for x in xs]
+    es = [e.clone() if e is not None else None for e in es]
+    wires = []
+    for x, e, n in zip(xs, es, noises):
+        wire, lens = send(x, e, d_rows, n)
+        wires.append(wire)
+    stage1 = [e.clone() if e is not None else None for e in es]
+    pre = np.concatenate([[0], np.cumsum(lens)])
+    outs = [receive(torch.stack([w[pre[me]:pre[me + 1]] for w in wires]),
+                    es[me], me) for me in range(p)]
+    for me in range(p):
+        g = torch.cat([out[me * lens[j]:(me + 1) * lens[j]]
+                       for j, out in enumerate(outs)])
+        decode(g, lens, xs[me])
+    return wires, outs, stage1, es, xs
+
+
+@pytest.mark.parametrize("p,nbc,ns,cut,with_err,noisy", [
+    (1, 1, 3, 1, True, False), (1, 3, 3, 0, False, False),
+    (2, 1, 3, 2, True, False), (2, 3, 3, 0, True, False),
+    (2, 3, 3, 4, False, False), (3, 1, 3, 5, True, False),
+    (3, 3, 3, 0, True, True), (3, 3, 3, 4, False, False),
+    (9, 2, 3, 10, True, False),        # more ranks than a staged batch
+    (2, 1, 2050, 1, True, True),       # 4099 data rows, with noise
+])
+def test_exchange_legs_bitwise_equal_plain(dev, p, nbc, ns, cut, with_err,
+                                           noisy):
+    """The fused send, receive and decode kernels against their plain
+    legs, every rank of a chunk run here with the collectives done by
+    hand: wire bytes (codes and scales), the payloads of the gather leg,
+    both stages' error states and the decoded chunk, bit for bit.
+    ``cut``: padding rows at the end of the stream (a d_rows inside the
+    last bucket); zero blocks; stochastic rounding with noise from a
+    seeded generator."""
+    rng = np.random.default_rng(p * 1000 + nbc * 100 + ns + cut)
+    shape = (nbc, p, ns * 256)
+    d_rows = nbc * p * ns - cut
+    xs = [_randn(rng, shape, dev, torch.float32)
+          * float(rng.uniform(0.1, 3.0)) for _ in range(p)]
+    xs[0].view(-1, 256)[0] = 0.0                   # an all-zero block
+    es = [_randn(rng, shape, dev, torch.float32) * 0.01 if with_err
+          else None for _ in range(p)]
+    gen = torch.Generator(device=dev).manual_seed(p + ns)
+    noises = [torch.rand(shape, generator=gen, device=dev) if noisy
+              else None for _ in range(p)]
+    n0 = [f.launches for f in (qz.exchange_send_cuda,
+                               qz.exchange_receive_cuda,
+                               qz.exchange_decode_cuda)]
+    got = _exchange_legs(
+        qz.exchange_send_cuda, qz.exchange_receive_cuda,
+        lambda g, lens, x: qz.exchange_decode_cuda(g, lens, x),
+        xs, es, noises, d_rows)
+    lens = q_ref.message_rows(nbc, p, ns, d_rows)
+    assert [f.launches - n for f, n in zip(
+        (qz.exchange_send_cuda, qz.exchange_receive_cuda,
+         qz.exchange_decode_cuda), n0)] == [p, sum(1 for n in lens if n), p]
+    want = _exchange_legs(q_ref.exchange_send, q_ref.exchange_receive,
+                          q_ref.exchange_decode, xs, es, noises, d_rows)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("wire", "gather payload", "stage-1 error",
+                           "error", "decoded"), got, want):
+        for r, (ga, wb) in enumerate(zip(a, b)):
+            if wb is None:
+                assert ga is None
+                continue
+            assert ga.dtype == wb.dtype and ga.shape == wb.shape, (name, r)
+            assert torch.equal(ga.view(torch.int8), wb.view(torch.int8)), (
+                name, r)
+    for x, x0 in zip(got[4], xs):                  # the sum landed
+        assert x.abs().max() > 0 and not torch.equal(x, x0)
+
+
+def test_exchange_legs_refuse_what_they_do_not_take(dev):
+    x = torch.zeros((2, 2, 512), device=dev)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        qz.exchange_send_cuda(x.cpu(), None, 4)
+    with pytest.raises(ValueError, match="multiple of 256"):
+        qz.exchange_send_cuda(torch.zeros((2, 2, 300), device=dev), None, 4)
+    with pytest.raises(ValueError, match="ranks"):
+        qz.exchange_send_cuda(torch.zeros((1, 65, 256), device=dev), None, 4)
+    with pytest.raises(ValueError, match="d_rows"):
+        qz.exchange_send_cuda(x, None, 9)
+    with pytest.raises(TypeError):
+        qz.exchange_send_cuda(x, x.half(), 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        qz.exchange_send_cuda(x, torch.zeros((2, 2, 512), device=dev)
+                              .transpose(0, 1), 4)
+    with pytest.raises(ValueError, match="aligned"):
+        qz.exchange_send_cuda(
+            torch.zeros(2 * 2 * 512 + 1, device=dev)[1:].view(2, 2, 512),
+            None, 4)
+    rx = torch.zeros((2, 3, 260), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="rank"):
+        qz.exchange_receive_cuda(rx, None, 2)
+    with pytest.raises(ValueError, match="does not hold"):
+        qz.exchange_receive_cuda(rx, torch.zeros((1, 2, 512), device=dev),
+                                 0)
+    with pytest.raises(ValueError, match=r"\(p, L, 260\)"):
+        qz.exchange_receive_cuda(rx[..., :256], None, 0)
+    with pytest.raises(ValueError, match="lens"):
+        qz.exchange_decode_cuda(rx.view(6, 260), [5, 1], x)
+    with pytest.raises(ValueError, match="expected shape"):
+        qz.exchange_decode_cuda(rx.view(6, 260), [2, 2], x)
+    with pytest.raises(ValueError, match="take block_size 256"):
+        from repro_torch.kernels.quantize import ops as q_ops
+        q_ops.exchange_send(x, None, 4, block_size=128, impl="kernel")
 
 
 # --------------------------------------------------------------------------
