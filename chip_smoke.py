@@ -310,10 +310,20 @@ Phases (any failure exits non-zero; no phase swallows an error):
    finite, and per step kernel 1 twice a layer a microbatch (remat),
    1b once, 3 once a microbatch, 3b once a 4096-token chunk, kernels 4
    and 5 never. Then the same run with ``--pipe-axis``, two stage ranks
-   sharing the card over gloo: losses and the model's checksum bitwise
-   the one-process run's, each stage rank's launches those of its own
-   layers and (the last) its head, and each rank's pipe bytes a step
-   the driver's ``modeled_pipe_bytes`` of that step's batch. Each run
+   sharing the card over gloo, to step 2 with its checkpoint there
+   (~4.5 GB: fp32 parameters, m and v; the free disk under the temporary
+   ``--ckpt-dir`` checked first): losses bitwise the one-process run's,
+   each stage rank's launches those of its own layers and (the last) its
+   head, and each rank's pipe bytes a step the driver's
+   ``modeled_pipe_bytes`` of that step's batch. From the checkpoint, a
+   ``--pipe-axis --resume`` run and a ``--resume`` run without the axis
+   each take step 3 with the loss and model checksum bitwise the
+   one-process run's, their launches those of one step; each stage
+   rank's restore holds no more than its stage's part on the card
+   (parameters and owned moments, 5% and 256 MiB of slack). Prints the
+   checkpoint's bytes, the gather over the pipe group (rank 0's host
+   snapshot) and the writer's seconds, each restore's seconds and each
+   rank's host and device peak by the end of its restore. Each run
    prints the stage plan, ms per step (median of steps 2..N), real
    tokens/s and peak memory by rank, beside phase 5's. Then the fp32
    exactness probe (TF32 off, ``grad_clip=0``, olmo-1b at full width
@@ -490,7 +500,16 @@ run on ``--devices 2,1 --capacities 3,1`` (two data-parallel ranks,
 whose capacities also cut the stages: [12, 4]) and the same with
 ``--pipe-axis`` on four ranks: the cut, each stage's two ranks equal,
 the model's checksum and losses bitwise the two-rank run's, each rank's
-launches and pipe bytes as phase 16 checks them, NCCL throughout.
+launches and pipe bytes as phase 16 checks them, NCCL throughout; then
+the re-mesh on stage ranks with phase 16's settings (4 layers) on
+``--devices 2,1,1 --capacities 2,1 --global-batch 16 --accum 2
+--ckpt-every 2 --kill-pod 1@3 --steps 6``, with ``--pipe-axis`` (four
+ranks, the cut [3, 1]) and without (two ranks): every rank meets
+``RemeshRequired`` at step 5, the run restarts from the step-4
+checkpoint on one pod (two stage ranks on the uniform cut [2, 2],
+the change logged; one rank without the axis), and the losses and
+model checksum are bitwise those of the run without the axis. The ranks
+of every run meet through ``launch/mesh.py::spawn``'s file store.
 Details go to ``chiprun_out/chip_smoke_cards.json``; the last line is
 the same.
 """
@@ -4310,6 +4329,25 @@ PIPE_EXACT_CUTS = {"1f1b": (), "gpipe": (3.0, 1.0)}
 # --cards 4: two data-parallel ranks of capacities 3,1, whose two
 # entries also size the stages: layers [12, 4]
 PIPE_CARDS_ARGV = PIPE_ARGV + ["--devices", "2,1", "--capacities", "3,1"]
+# the pipe-axis run takes PIPE_CKPT_EVERY steps and writes its
+# checkpoint there; from it a pipe-axis --resume and a --resume without
+# the axis each take the one-process run's last step (a pipe-axis run of
+# all PIPE_STEPS would write a second 4.46 GB checkpoint at its end:
+# ~17 s more of phase 16 on an H100)
+PIPE_CKPT_EVERY = 2
+# --cards 4, the re-mesh on stage ranks: phase 16's settings (olmo-1b at
+# full width cut to PIPE_LAYERS layers, 1024 tokens a row) on two pods
+# of capacities 2,1, whose entries cut the stages [3, 1], global batch
+# 16 and accum 2 (pod 0's buffer of 14 rows cannot take pod 1's; at 8
+# rows every unequal pair's buffer could, and no re-mesh would happen),
+# pod 1 lost at step 3: RemeshRequired at step 5, one pod of two stage
+# ranks on the uniform cut [2, 2] from the step-4 checkpoint, accum x2
+PIPE_REMESH_ARGV = [a for a in PIPE_ARGV]
+for _flag, _value in (("--steps", "6"), ("--accum", "2"),
+                      ("--global-batch", "16")):
+    PIPE_REMESH_ARGV[PIPE_REMESH_ARGV.index(_flag) + 1] = _value
+PIPE_REMESH_ARGV += ["--devices", "2,1,1", "--capacities", "2,1",
+                     "--ckpt-every", "2", "--kill-pod", "1@3"]
 
 
 def stage_launches(cfg, layers, head, buffer_rows, accum, seq_len, steps):
@@ -4342,8 +4380,9 @@ def _pipe_run(argv, tag, smi, layers=None):
     backend = [ln.split("backend ")[1].split(",")[0]
                for ln in text.splitlines() if "backend " in ln][0]
     losses = summary["losses"]
-    check(summary["steps"] == args.steps and all(map(_finite, losses)),
-          f"{tag}: losses {losses}")
+    ran = args.steps - summary["start_step"]        # fewer after --resume
+    check(summary["steps"] == args.steps and len(losses) == ran
+          and all(map(_finite, losses)), f"{tag}: losses {losses}")
     check(summary["stage_plan"] == splan.layers_per_stage.tolist(),
           f"{tag}: stage plan {summary['stage_plan']}")
     ranks = summary["worlds"][-1]["ranks"]
@@ -4359,17 +4398,18 @@ def _pipe_run(argv, tag, smi, layers=None):
             expect = stage_launches(cfgbase.resolve(args.arch),
                                     ranges[s][1] - ranges[s][0], s == S - 1,
                                     plan.buffer_rows, args.accum,
-                                    args.seq_len, args.steps)
+                                    args.seq_len, ran)
             check(r["pipe_bytes"] == r["pipe_bytes_modeled"],
                   f"{tag}: rank {r['rank']} pipe bytes {r['pipe_bytes']} "
                   f"!= modeled {r['pipe_bytes_modeled']}")
         else:
             expect = train_launches(cfgbase.resolve(args.arch),
                                     plan.buffer_rows, args.accum,
-                                    args.seq_len, args.steps)
+                                    args.seq_len, ran)
         check(r["launches"] == expect, f"{tag}: rank {r['rank']} launches "
               f"{r['launches']} != {expect}")
-    ms = [statistics.median(r["step_s"][1:]) * 1e3 for r in ranks]
+    ms = [statistics.median(r["step_s"][1:] or r["step_s"]) * 1e3
+          for r in ranks]
     tokens = args.global_batch * args.seq_len
     rec = {"argv": argv, "losses": losses, "stage_plan": summary[
                "stage_plan"], "schedule": summary["schedule"],
@@ -4383,11 +4423,16 @@ def _pipe_run(argv, tag, smi, layers=None):
            "tokens_per_s": tokens / (ms[0] / 1e3),
            "peak_memory_gib_by_rank": [(r["peak_memory_bytes"] or 0) / 2**30
                                        for r in ranks],
-           "process_seconds": wall, "backend": backend}
+           "process_seconds": wall, "backend": backend,
+           "start_step": summary["start_step"],
+           "saves_by_rank": [r["saves"] for r in ranks],
+           "writes": ranks[0]["writes"],
+           "restore_by_rank": [r["restore"] for r in ranks]}
     print(f"[pipeline] {tag}: {cfg.name}, --devices {args.devices}"
           + (" --pipe-axis" if args.pipe_axis else "")
           + f", stages {rec['stage_plan']} ({rec['schedule']}), accum "
-          f"{args.accum}: {ms[0]:.1f} ms/step (median of steps 2..{args.steps}"
+          f"{args.accum}: {ms[0]:.1f} ms/step (median of steps "
+          f"{summary['start_step'] + min(2, ran)}..{args.steps}"
           f"; by rank {', '.join(f'{x:.1f}' for x in ms)}), "
           f"{rec['tokens_per_s']:.0f} real tokens/s, peak memory by rank "
           f"{', '.join(f'{p:.2f}' for p in rec['peak_memory_gib_by_rank'])}"
@@ -4470,28 +4515,132 @@ def pipeline_exactness(dev):
     return out
 
 
+def _stage_part_bytes(cfg, tcfg, stage):
+    """The bytes a stage rank holds of the state: its parameters (a
+    tied table's copy on stage 0 too) and the moments of what it owns."""
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.models.transformer import tree_leaves
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+    splan = tsteps._stage_plan(cfg.num_layers, tcfg)
+    held = tsteps.stage_params(tsteps._param_shapes(cfg), cfg, splan, stage)
+    return nbytes(held) + 2 * nbytes(tsteps.owned_params(held, cfg, splan,
+                                                         stage))
+
+
+def pipe_ckpt_runs(argv, smi, one):
+    """Phase 16's pipe-axis run to step PIPE_CKPT_EVERY, with its
+    checkpoint there, then from it a pipe-axis --resume and a --resume
+    without the axis (each a fresh process, under a temporary
+    --ckpt-dir removed after): the pipe-axis run's steps and both
+    resumed steps bitwise the one-process run's; each stage rank's
+    restore holds no more than its stage's part on the card."""
+    import shutil
+    import tempfile
+    from repro_torch.launch import train as ttrain
+    args = ttrain.parser().parse_args(argv)
+    cfg, tcfg = ttrain.build_config(args)
+    ckpt_bytes = CKPT_ARRAYS * 4 * cfg.param_count()
+    root = Path(tempfile.mkdtemp(prefix="hetseq_pipe_ckpt_"))
+    try:
+        free = shutil.disk_usage(root).free
+        print(f"[pipeline] {root}: {free / 1e9:.1f} GB free, a checkpoint "
+              f"of olmo-1b at {PIPE_LAYERS} layers {ckpt_bytes / 1e9:.2f} "
+              f"GB (fp32 parameters, m, v)", flush=True)
+        check(free >= ckpt_bytes, f"pipe-axis checkpoint: {free} bytes "
+              f"free at {root}, it needs {ckpt_bytes}")
+        ck = ["--ckpt-dir", str(root / "ck")]
+        first = list(argv)
+        first[first.index("--steps") + 1] = str(PIPE_CKPT_EVERY)
+        staged = _pipe_run(first + ["--pipe-axis", "--ckpt-every",
+                                    str(PIPE_CKPT_EVERY)] + ck,
+                           "pipe-axis", smi, PIPE_LAYERS)
+        check(staged["losses"] == one["losses"][:PIPE_CKPT_EVERY],
+              f"pipe axis: losses {staged['losses']} != the one-process "
+              f"run's {one['losses']}")
+        writes = staged["writes"]
+        check([w["step"] for w in writes] == [PIPE_CKPT_EVERY]
+              and ckpt_bytes <= writes[0]["bytes"] <= 1.01 * ckpt_bytes,
+              f"pipe axis: writes {writes}, {ckpt_bytes} bytes predicted")
+        resumed = {}
+        for tag, flags in (("pipe-axis-resume", ["--pipe-axis"]),
+                           ("resume-without-axis", [])):
+            r = resumed[tag] = _pipe_run(argv + flags + ["--resume"] + ck,
+                                         tag, smi, PIPE_LAYERS)
+            check(r["start_step"] == PIPE_CKPT_EVERY
+                  and all(x["step"] == PIPE_CKPT_EVERY
+                          for x in r["restore_by_rank"])
+                  and r["losses"] == one["losses"][PIPE_CKPT_EVERY:]
+                  and r["model_checksum"] == one["model_checksum"],
+                  f"{tag}: from step {r['start_step']} losses "
+                  f"{r['losses']}, checksum {r['model_checksum']}; the "
+                  f"uninterrupted run's {one['losses']}, "
+                  f"{one['model_checksum']}")
+        parts = [_stage_part_bytes(cfg, dataclasses.replace(
+            tcfg, het=dataclasses.replace(tcfg.het, capacities=())), s)
+            for s in range(2)]
+        for s, rest in enumerate(resumed["pipe-axis-resume"][
+                "restore_by_rank"]):
+            peak = rest["device_peak_bytes"]
+            check(peak is not None and peak <= 1.05 * parts[s] + 2**28,
+                  f"pipe-axis resume: stage {s} held {peak} bytes on the "
+                  f"card in its restore, its part is {parts[s]}")
+        saves = staged["saves_by_rank"]
+        for w, *by_rank in zip(writes, *saves):
+            print(f"[pipeline] pipe-axis checkpoint at step {w['step']}: "
+                  f"{w['bytes']} bytes; the gather over the pipe group "
+                  f"and host copy {by_rank[0]['snapshot_s']:.2f} s on rank "
+                  f"0 (stage 1's sends {by_rank[1]['snapshot_s']:.2f} s), "
+                  f"the wait for the previous write "
+                  f"{by_rank[0]['wait_s']:.2f} s; the writer thread "
+                  f"{w['seconds']:.2f} s (write and fsync "
+                  f"{w['write_s']:.2f} s, sha256 {w['sha256_s']:.2f} s) "
+                  f"[{smi}]", flush=True)
+        for tag, r in resumed.items():
+            for rank, rest in enumerate(r["restore_by_rank"]):
+                print(f"[pipeline] {tag} rank {rank}: restore of step "
+                      f"{rest['step']} {rest['seconds']:.2f} s (manifest "
+                      f"check {rest['verify_s']:.2f} s, loading "
+                      f"{rest['load_s']:.2f} s, repack "
+                      f"{rest['adapt_s']:.2f} s, the rest onto the card); "
+                      f"host peak {rest['host_peak_bytes'] / 2**30:.2f} "
+                      f"GiB ({rest['host_peak_before_bytes'] / 2**30:.2f} "
+                      f"before it), device peak "
+                      f"{(rest['device_peak_bytes'] or 0) / 2**30:.2f} GiB"
+                      + (f" (the stage's part {parts[rank] / 2**30:.2f} "
+                         f"GiB)" if r is resumed["pipe-axis-resume"]
+                         else "") + f" [{smi}]", flush=True)
+        print(f"[pipeline] the pipe-axis run's steps 1-{PIPE_CKPT_EVERY} "
+              f"and both resumes' steps {PIPE_CKPT_EVERY + 1}-{PIPE_STEPS} "
+              f"bitwise the one-process run's (losses {one['losses']}, "
+              f"model checksum {one['model_checksum']}) [{smi}]",
+              flush=True)
+        return staged, {"checkpoint_bytes": writes[0]["bytes"],
+                        "predicted_checkpoint_bytes": ckpt_bytes,
+                        "stage_part_bytes": parts, **resumed}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def pipeline_phase(dev, smi, train):
     """Phase 16: pipeline stages through the driver at full width, in one
-    process and on two stage ranks sharing the card, and their
+    process and on two stage ranks sharing the card (with checkpoints,
+    and resumed from one on the pipe axis and without it), and their
     exactness in fp32."""
     import torch
     t0 = time.monotonic()
     argv = _olmo_cut_argv(PIPE_ARGV, PIPE_LAYERS)
     one = _pipe_run(argv, "one-process", smi, PIPE_LAYERS)
-    staged = _pipe_run(argv + ["--pipe-axis"], "pipe-axis", smi, PIPE_LAYERS)
-    check(staged["model_checksum"] == one["model_checksum"]
-          == one["end_checksums"][0],
-          f"pipe axis: checksum {staged['model_checksum']} != the one-"
-          f"process run's {one['model_checksum']}")
-    check(staged["losses"] == one["losses"],
-          f"pipe axis: losses {staged['losses']} != {one['losses']}")
+    staged, ckpt = pipe_ckpt_runs(argv, smi, one)
     runs_s = time.monotonic() - t0
     print(f"[pipeline] against phase 5 (8 rows of 1024, accum 2, no "
           f"stages): {train['ms_per_step_median_2_to_n']:.1f} ms/step, "
           f"{train['tokens_per_s']:.0f} real tokens/s, peak "
-          f"{train['peak_memory_gib']:.2f} GiB; the pipe-axis run's "
-          f"checksum and losses bitwise the one-process run's [{smi}]",
-          flush=True)
+          f"{train['peak_memory_gib']:.2f} GiB; the pipe-axis run's and "
+          f"its resumes' losses and checksum bitwise the one-process "
+          f"run's [{smi}]", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.monotonic()
     exact = pipeline_exactness(dev)
@@ -4503,8 +4652,8 @@ def pipeline_phase(dev, smi, train):
               f"{rec['params_bitwise']}", flush=True)
         check(rec["losses_bitwise"] and rec["params_bitwise"],
               f"pipeline exactness {key}: not bitwise the one-stage step")
-    return {"one_process": one, "pipe_axis": staged, "exactness": exact,
-            "runs_seconds": runs_s,
+    return {"one_process": one, "pipe_axis": staged, "checkpoints": ckpt,
+            "exactness": exact, "runs_seconds": runs_s,
             "exactness_seconds": time.monotonic() - t0,
             "launches": one["launches_by_rank"][0]}
 
@@ -4524,7 +4673,105 @@ def pipeline_cards(smi):
           f"{one['model_checksum']}")
     check(staged["losses"] == one["losses"],
           f"cards pipe axis: losses {staged['losses']} != {one['losses']}")
-    return {"one_process": one, "pipe_axis": staged}
+    return {"one_process": one, "pipe_axis": staged,
+            "remesh": pipe_remesh_cards(smi)}
+
+
+def pipe_remesh_cards(smi):
+    """``--cards 4``: the re-mesh on stage ranks (``PIPE_REMESH_ARGV``),
+    four ranks then two, NCCL, against the same command without
+    ``--pipe-axis`` (two ranks, then one): the cut [3, 1] then [2, 2]
+    with the change logged, every rank's RemeshRequired at step 5, and
+    losses and model checksum bitwise the run's without the axis. Each
+    run under a temporary --ckpt-dir, removed after."""
+    import shutil
+    import tempfile
+    from repro_torch.core import capacity as cap
+    from repro_torch.launch import train as ttrain
+    argv = _olmo_cut_argv(PIPE_REMESH_ARGV, PIPE_LAYERS)
+    args = ttrain.parser().parse_args(argv)
+    cfg = ttrain.build_config(args)[0]
+    ckpt_bytes = CKPT_ARRAYS * 4 * cfg.param_count()
+
+    def launches(world, cut, accum, staged):
+        """Each rank's expected counters in one world: its stage's
+        layers (all of them without the axis) and head, the world's
+        plan, the steps it ran."""
+        r0 = world["ranks"][0]
+        plan = cap.plan_from_record(r0["plan"])
+        return [stage_launches(cfg, cut[r["stage"]] if staged else
+                               cfg.num_layers,
+                               not staged or r["stage"] == len(cut) - 1,
+                               plan.buffer_rows, accum, args.seq_len,
+                               r0["steps"] - r0["start_step"])
+                for r in world["ranks"]]
+
+    out = {}
+    for tag, flags in (("cards-remesh-pipe-axis", ["--pipe-axis"]),
+                       ("cards-remesh", [])):
+        root = Path(tempfile.mkdtemp(prefix="hetseq_pipe_remesh_"))
+        try:
+            free = shutil.disk_usage(root).free
+            check(free >= 3 * ckpt_bytes, f"{tag}: {free} bytes free at "
+                  f"{root}, three checkpoints need {3 * ckpt_bytes}")
+            text, summary, wall = run_driver(
+                argv + flags + ["--ckpt-dir", str(root)], tag,
+                layers=PIPE_LAYERS)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        worlds = summary["worlds"]
+        rec = worlds[0]["ranks"][0]["remesh"]
+        staged = bool(flags)
+        got = [[r["launches"] for r in w["ranks"]] for w in worlds]
+        # the re-mesh scales accum x2 and takes the uniform cut
+        want = [launches(w, cut, accum, staged) for w, cut, accum in zip(
+            worlds, ([3, 1], [2, 2]), (args.accum, 2 * args.accum))]
+        check(got == want, f"{tag}: launches by world and rank {got}, "
+              f"expected {want}")
+        out[tag] = {"losses": summary["losses"], "launches": got,
+                    "model_checksum": summary["model_checksum"],
+                    "stage_plan": summary["stage_plan"], "remesh": rec,
+                    "worlds": [[w["devices"], len(w["ranks"])]
+                               for w in worlds],
+                    "restore": [r["restore"] for r in worlds[-1]["ranks"]],
+                    "writes": [x for w in worlds
+                               for x in w["ranks"][0]["writes"]],
+                    "lines": [ln for ln in text.splitlines() if any(
+                        k in ln for k in ("remesh:", "re-meshed to",
+                                          "stage plan changed"))],
+                    "backend_nccl": "backend nccl" in text,
+                    "process_seconds": wall}
+        check(all(x["remesh"] == rec for x in worlds[0]["ranks"])
+              and rec is not None and (rec["step"], rec["dead"],
+                                       rec["checkpoint"]) == (5, [1], 4),
+              f"{tag}: the ranks' re-mesh records "
+              f"{[x['remesh'] for x in worlds[0]['ranks']]}")
+        check(len(summary["losses"]) == 6 and all(map(_finite,
+                                                      summary["losses"])),
+              f"{tag}: losses {summary['losses']}")
+        check(out[tag]["backend_nccl"], f"{tag}: not over NCCL")
+    pipe, flat = out["cards-remesh-pipe-axis"], out["cards-remesh"]
+    check(pipe["stage_plan"] == [3, 1]
+          and pipe["worlds"] == [["2,1,1", 4], ["1,1", 2]]
+          and flat["worlds"] == [["2,1,1", 2], ["1,1", 1]],
+          f"cards re-mesh: cut {pipe['stage_plan']}, worlds "
+          f"{pipe['worlds']} / {flat['worlds']}")
+    changed = [ln for ln in pipe["lines"] if "stage plan changed" in ln]
+    check(len(changed) == 1 and "[3, 1]" in changed[0]
+          and "[2, 2]" in changed[0],
+          f"cards re-mesh: the cut change logged as {changed}")
+    check(pipe["losses"] == flat["losses"]
+          and pipe["model_checksum"] == flat["model_checksum"],
+          f"cards re-mesh: losses {pipe['losses']} / {flat['losses']}, "
+          f"checksums {pipe['model_checksum']} / {flat['model_checksum']}")
+    print(f"[pipeline] cards re-mesh on stage ranks: cut [3, 1] on four "
+          f"ranks, pod 1 lost at step 3, RemeshRequired at step 5, two "
+          f"stage ranks on [2, 2] from step 4 ({changed[0]}); losses "
+          f"{pipe['losses']} and model checksum {pipe['model_checksum']} "
+          f"bitwise the run's without --pipe-axis; "
+          f"{pipe['process_seconds']:.1f} s and "
+          f"{flat['process_seconds']:.1f} s [{smi}]", flush=True)
+    return out
 
 
 def _finite(x):

@@ -50,8 +50,9 @@ Unlike the JAX package, which serialises each shard file to memory and
 hashes those bytes, this writer has ``np.savez`` write each ``.npz`` to
 its file and hashes the file as written: the same files and manifest,
 with no second in-memory copy of a 14 GB state. The reader takes each
-stored member straight from its offset. Format code is numpy and the
-standard library only.
+stored member straight from its offset, a large one mapped rather than
+read, so a pipeline stage's restore brings into memory only the pages
+of its own part. Format code is numpy and the standard library only.
 """
 from __future__ import annotations
 
@@ -78,6 +79,7 @@ _PLAN_TAG = "__capacity_plan__"
 _MANIFEST = "manifest.json"
 _META = "meta.json"
 _IO_RETRIES = 3                 # write attempts per save
+_MAP_BYTES = 1 << 20            # a stored member this large is mapped
 
 logger = logging.getLogger(__name__)
 
@@ -206,11 +208,14 @@ def _write_bytes_synced(path: str, data: bytes) -> Dict[str, Any]:
 
 def _read_npz(path: str) -> Dict[str, np.ndarray]:
     """Every array of an ``np.savez`` file, as ``np.load`` gives them.
-    A stored (uncompressed) member, as ``np.savez`` writes, is read
-    straight from its offset in the file into its array: ``np.load``
-    would stream it through zipfile's CRC check, at a third of the
-    speed, and the manifest's sha256 has covered these bytes already.
-    Other members go through ``np.lib.format.read_array``."""
+    A stored (uncompressed) member, as ``np.savez`` writes, is taken
+    straight from its offset in the file: ``np.load`` would stream it
+    through zipfile's CRC check, at a third of the speed, and the
+    manifest's sha256 has covered these bytes already. One of
+    ``_MAP_BYTES`` or more is mapped copy-on-write (``np.memmap`` mode
+    "c"), so a caller that uses part of it (a pipeline stage's layers of
+    a stacked leaf) reads only those pages; a smaller one is read into
+    memory. Other members go through ``np.lib.format.read_array``."""
     out: Dict[str, np.ndarray] = {}
     fmt = np.lib.format
     with zipfile.ZipFile(path) as zf, open(path, "rb") as fh:
@@ -232,10 +237,17 @@ def _read_npz(path: str) -> Dict[str, np.ndarray]:
                            else fmt.read_array_header_2_0)
             shape, fortran, dtype = read_header(fh)
             count = int(np.prod(shape))
+            order = "F" if fortran else "C"
+            if count * dtype.itemsize >= _MAP_BYTES:
+                # a file too short to hold it raises ValueError here
+                out[key] = np.memmap(path, dtype=dtype, mode="c",
+                                     offset=fh.tell(), shape=shape,
+                                     order=order)
+                continue
             arr = np.fromfile(fh, dtype=dtype, count=count)
             if arr.size != count:
                 raise zipfile.BadZipFile(f"'{key}' in {path} is truncated")
-            out[key] = arr.reshape(shape, order="F" if fortran else "C")
+            out[key] = arr.reshape(shape, order=order)
     return out
 
 

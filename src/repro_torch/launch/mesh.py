@@ -31,7 +31,12 @@ ranks share one card, as on a one-card machine (NCCL refuses two ranks
 on one device).
 
 :func:`spawn` starts the ranks (the ``spawn`` start method: CUDA does
-not survive ``fork``) and gathers what each returns.
+not survive ``fork``) and gathers what each returns. The ranks meet
+through a ``file://`` store in a directory :func:`spawn` creates and
+removes, so no port is picked before a rank binds it: a port picked by
+binding port 0 and closing the socket can be taken by another process
+before rank 0 binds it again (``EADDRINUSE``). Gloo and NCCL bind their
+own sockets and publish them through the store.
 """
 from __future__ import annotations
 
@@ -39,7 +44,8 @@ import dataclasses
 import math
 import os
 import queue
-import socket
+import shutil
+import tempfile
 import time
 import traceback
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
@@ -286,12 +292,6 @@ def share_cpu(world: int) -> None:
     torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
 
 
-def free_port() -> int:
-    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def _rank_main(fn: Callable, rank: int, world: int, init_method: str,
                results, args: tuple) -> None:
     try:
@@ -307,19 +307,22 @@ def spawn(fn: Callable, world: int, args: tuple = (),
     """Run ``fn(rank, world, init_method, *args)`` in ``world`` new
     processes (start method ``spawn``; ``fn`` must be importable) and
     return their results in rank order. Raises if any rank raises or
-    dies; the others are then terminated."""
+    dies; the others are then terminated. ``init_method`` is a
+    ``file://`` store in a fresh temporary directory, removed when the
+    ranks are done."""
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
-    init_method = f"tcp://127.0.0.1:{free_port()}"
+    rendezvous = tempfile.mkdtemp(prefix="hetseq_rendezvous_")
+    init_method = "file://" + os.path.join(rendezvous, "store")
     procs = [ctx.Process(target=_rank_main, daemon=False,
                          args=(fn, r, world, init_method, results, args))
              for r in range(world)]
-    for p in procs:
-        p.start()
     got: Dict[int, Any] = {}
     errors: List[str] = []
     t0 = time.monotonic()
     try:
+        for p in procs:
+            p.start()
         while len(got) + len(errors) < world:
             try:
                 rank, ok, out = results.get(timeout=1.0)
@@ -344,10 +347,13 @@ def spawn(fn: Callable, world: int, args: tuple = (),
                 if p.is_alive():
                     p.terminate()
         for p in procs:
+            if p.pid is None:                   # never started
+                continue
             p.join(timeout=60)
             if p.is_alive():
                 p.kill()
                 p.join()
+        shutil.rmtree(rendezvous, ignore_errors=True)
     if errors or len(got) < world:
         raise RuntimeError("multi-rank run failed: " + (
             "\n".join(errors) or f"{world - len(got)} rank(s) did not "

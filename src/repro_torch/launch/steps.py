@@ -103,7 +103,9 @@ stacked, every pod's residual in one ``(pods, ...)`` array):
 :func:`state_shapes` and :func:`checkpoint_format` are the JAX package's
 template and format block (with the stage plan's record),
 :func:`state_to_host` and :func:`state_from_host` move a rank's
-``TrainState`` there and back (not on a ``pipe`` axis yet).
+``TrainState`` there and back; on a ``pipe`` axis the save gathers every
+stage's part to rank 0 over the pipe group, and the restore takes the
+stage's part under the current cut.
 """
 from __future__ import annotations
 
@@ -214,13 +216,18 @@ def stage_plan_for(model: Model,
     speeds that size the layer cut; anything else (empty, one entry a
     data-parallel rank, or zeros, which mark dead ranks but cannot mark
     a stage) gets the uniform cut."""
+    return _stage_plan(model.cfg.num_layers, tcfg)
+
+
+def _stage_plan(num_layers: int,
+                tcfg: TrainConfig) -> Optional[pipe.StagePlan]:
     S = tcfg.het.pipeline_stages
     if S <= 1:
         return None
     caps = tcfg.het.capacities
     if len(caps) == S and all(c > 0 for c in caps):
-        return pipe.plan_stages(model.cfg.num_layers, caps)
-    return pipe.uniform_stages(model.cfg.num_layers, S)
+        return pipe.plan_stages(num_layers, caps)
+    return pipe.uniform_stages(num_layers, S)
 
 
 def _staged(tcfg: TrainConfig, mesh: ProcessMesh) -> bool:
@@ -471,6 +478,109 @@ def state_shapes(model: Model, tcfg: TrainConfig,
         err=err)
 
 
+def _stage_paths(cfg, splan: pipe.StagePlan, stage: int,
+                 fake: Any) -> List[Tuple]:
+    """The paths in the whole tree (layers by their global index) of
+    what pipeline stage ``stage`` owns (``fake``: the whole tree's
+    shapes), sorted: the order its part of the state crosses the pipe
+    group."""
+    first = splan.stage_ranges()[stage][0]
+    own = owned_params(stage_params(fake, cfg, splan, stage), cfg, splan,
+                       stage)
+    return sorted(_global_path(p, first) for p, _ in _paths(own))
+
+
+def stage_state_leaves(state: TrainState, cfg, splan: pipe.StagePlan,
+                       stage: int, fake: Any = None) -> List[torch.Tensor]:
+    """A stage rank's part of the state (``state.params`` its
+    :func:`stage_params`, the moments those of its
+    :func:`owned_params`): the parameters it owns, then their m, then
+    their v, each in :func:`_stage_paths` order."""
+    fake = _param_shapes(cfg) if fake is None else fake
+    first = splan.stage_ranges()[stage][0]
+
+    def leaf(tree, path):
+        for i, k in enumerate(path):
+            tree = tree[k - first if i == 1 and path[0] == "layers" else k]
+        return tree
+
+    paths = _stage_paths(cfg, splan, stage, fake)
+    return [leaf(t, p) for t in (state.params, state.opt.m, state.opt.v)
+            for p in paths]
+
+
+def host_state_slots(host: TrainState, cfg, splan: pipe.StagePlan,
+                     stage: int, fake: Any = None) -> List[torch.Tensor]:
+    """Where :func:`stage_state_leaves` of stage ``stage`` go in a whole
+    host state of the JAX layout: views of its numpy arrays (a layer of
+    the stack a row of its stacked leaf), in the same order."""
+    fake = _param_shapes(cfg) if fake is None else fake
+
+    def view(tree, path):
+        row = None
+        if path[0] == "layers":
+            row, path = path[1], ("layers",) + path[2:]
+        for k in path:
+            tree = tree[k]
+        t = torch.from_numpy(tree)
+        return t if row is None else t[row]
+
+    paths = _stage_paths(cfg, splan, stage, fake)
+    return [view(t, p) for t in (host.params, host.opt.m, host.opt.v)
+            for p in paths]
+
+
+def empty_host_state(cfg, ocfg, fake: Any = None) -> TrainState:
+    """A whole host state of the JAX layout (``state_shapes``' without a
+    residual), its arrays allocated and not filled, the step 0."""
+    fake = _param_shapes(cfg) if fake is None else fake
+    for owner, name in ((cfg, "param_dtype"), (ocfg, "m_dtype"),
+                        (ocfg, "v_dtype")):
+        if dtype_of(getattr(owner, name)) == torch.bfloat16:
+            raise ValueError(f"{name} bfloat16 has no numpy dtype, and the "
+                             f"npz format of checkpoints stores none: keep "
+                             f"it float32 to checkpoint")
+
+    def alloc(dtype=None):
+        return _map_leaves(_jax_specs(fake, dtype),
+                           lambda spec: np.empty(spec.shape, spec.dtype))
+
+    return TrainState(params=alloc(), opt=adam.AdamState(
+        step=np.zeros((), np.int32), m=alloc(dtype_of(ocfg.m_dtype)),
+        v=alloc(dtype_of(ocfg.v_dtype))), err=())
+
+
+def _gather_stages(state: TrainState, tcfg: TrainConfig,
+                   mesh: ProcessMesh) -> Optional[TrainState]:
+    """:func:`state_to_host` on a ``pipe`` axis: the stage ranks of
+    data index 0 send what they own to stage 0 (rank 0) over their pipe
+    group, a leaf at a time, and rank 0 copies each into its place in
+    one whole host state; the other data indices take no part."""
+    if mesh.dp_rank != 0:
+        return None
+    cfg, comm = tcfg.model, mesh.pipe
+    splan = _stage_plan(cfg.num_layers, tcfg)
+    fake = _param_shapes(cfg)
+    me = mesh.pipe_index
+    if me > 0:
+        for i, t in enumerate(stage_state_leaves(state, cfg, splan, me,
+                                                 fake)):
+            comm.send(t.detach(), 0, tag=i).wait()
+        return None
+    host = empty_host_state(cfg, tcfg.optimizer, fake)
+    for dst, t in zip(host_state_slots(host, cfg, splan, 0, fake),
+                      stage_state_leaves(state, cfg, splan, 0, fake)):
+        dst.copy_(t.detach())
+    # gloo's hop takes host memory: receive straight onto the host
+    at = torch.device("cpu") if mesh.backend == "gloo" else mesh.device
+    for s in range(1, splan.num_stages):
+        for i, dst in enumerate(host_state_slots(host, cfg, splan, s, fake)):
+            dst.copy_(comm.recv(dst.shape, dst.dtype, at, s, tag=i).wait())
+    return TrainState(params=host.params, opt=adam.AdamState(
+        step=state.opt.step.to("cpu", copy=True).numpy(), m=host.opt.m,
+        v=host.opt.v), err=())
+
+
 def state_to_host(state: TrainState, tcfg: TrainConfig,
                   mesh: ProcessMesh) -> Optional[TrainState]:
     """This rank's state in the JAX layout as fresh numpy copies, each
@@ -478,7 +588,12 @@ def state_to_host(state: TrainState, tcfg: TrainConfig,
     of every pod gathered over the pod group (a collective when the
     config keeps one: every rank calls this at the same step). Rank 0
     gets the state (the parameters and moments are the same on every
-    rank), the other ranks None."""
+    rank), the other ranks None. On a ``pipe`` axis every stage's part
+    is gathered to rank 0 (:func:`_gather_stages`): the whole tree, a
+    tied table and its moments from the last stage, leaf for leaf what
+    the one-process pipelined run returns."""
+    if _staged(tcfg, mesh):
+        return _gather_stages(state, tcfg, mesh)
     err: Any = ()
     if _err_enabled(tcfg, mesh):
         comm = mesh.pod
@@ -515,8 +630,24 @@ def state_from_host(host: TrainState, model: Model, tcfg: TrainConfig,
                     mesh: ProcessMesh) -> TrainState:
     """A restored host state (``state_shapes``' layout) on this rank's
     device: the per-layer lists split back out, this pod's row of the
-    residual."""
+    residual. On a ``pipe`` axis only this rank's stage under the
+    current cut: its :func:`stage_params` and the moments of its
+    :func:`owned_params` (a tied table on stage 0 is the parameter copy,
+    with no moments)."""
     cfg, dev = model.cfg, model.device
+    if _staged(tcfg, mesh):
+        splan, me = stage_plan_for(model, tcfg), mesh.pipe_index
+        held = stage_params(_param_shapes(cfg), cfg, splan, me)
+        own = owned_params(held, cfg, splan, me)
+        first = splan.stage_ranges()[me][0]
+        return TrainState(
+            params=convert.part_from_jax(host.params, held, dev, first),
+            opt=adam.AdamState(
+                step=torch.tensor(int(host.opt.step), dtype=torch.int32,
+                                  device=dev),
+                m=convert.part_from_jax(host.opt.m, own, dev, first),
+                v=convert.part_from_jax(host.opt.v, own, dev, first)),
+            err=())
 
     def tree(t):
         return convert.params_from_jax(t, cfg, dev)

@@ -70,10 +70,15 @@ puts each stage on its own processes instead (a leading ``pipe`` axis
 of size S on ``--devices``: S times the data-parallel ranks; stage rank
 ``s`` of data-parallel rank ``r`` is rank ``s * dp + r`` and loads rank
 ``r``'s rows), the boundary values crossing between them point to
-point; checkpoints, ``--resume``, ``--chaos`` and ``--kill-pod`` with a
-``pipe`` axis raise "not ported yet". The ``[train] summary`` line
-records the stage plan (layers per stage), the schedule and, with a
-``pipe`` axis, each rank's stage and pipe bytes per step.
+point. On a ``pipe`` axis a checkpoint gathers every stage's part to
+rank 0 over the pipe group of data index 0 and writes the whole tree,
+the same files as without the axis; a restore gives each stage rank its
+part under the current cut; chaos, ``--kill-pod`` and the re-mesh run
+as without it, and the new world is ``--pipeline-stages`` times the
+surviving data-parallel ranks, cut by the surviving capacities (a
+changed cut is logged). The ``[train] summary`` line records the stage
+plan (layers per stage), the schedule and, with a ``pipe`` axis, each
+rank's stage and pipe bytes per step.
 
 Example (H100, one rank):
   PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b \
@@ -118,6 +123,14 @@ Example (CPU, pod 1 lost at step 3: re-mesh to one pod, accum x2):
       --compression int8 --bucket-mb 0.05 --steps 8 --ckpt-every 2 \
       --kill-pod 1@3 --ckpt-dir "${TMPDIR:-.}/ck2" --global-batch 8 \
       --seq-len 32
+Example (CPU, four stage ranks, pod 1 lost at step 3: re-mesh to one
+pod of two stage ranks from the step-4 checkpoint; at a global batch of
+8 pod 0's buffer would take pod 1's rows and nothing would re-mesh):
+  PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b \
+      --smoke --device cpu --devices 2,1,1 --capacities 2,1 \
+      --pipeline-stages 2 --pipe-axis --no-scan-layers --accum 2 \
+      --steps 6 --ckpt-every 2 --kill-pod 1@3 \
+      --ckpt-dir "${TMPDIR:-.}/ck3" --global-batch 16 --seq-len 32
 """
 from __future__ import annotations
 
@@ -126,6 +139,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import resource
 import tempfile
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -332,9 +346,17 @@ def restore_state(mgr: CheckpointManager, model, tcfg: TrainConfig,
     saved_pipe = (meta.get("format") or {}).get("pipeline")
     if saved_pipe != fmt.get("pipeline") and mesh.rank == 0:
         # parameters are stored per leaf: the restore is exact under any
-        # stage plan, so the change is logged, never adapted
+        # stage plan (a stage rank takes its part under the current cut),
+        # so the change is logged, never adapted
+        def desc(rec):
+            if not rec:
+                return "none"
+            return (f"stages={len(rec['plan']['rows_per_rank'])} "
+                    f"layers={rec['plan']['rows_per_rank']}")
+
         print(f"[train] restore: pipeline stage plan changed: "
-              f"{saved_pipe} -> {fmt.get('pipeline')}")
+              f"{desc(saved_pipe)} -> {desc(fmt.get('pipeline'))}",
+              flush=True)
     state = steps_mod.state_from_host(host, model, tcfg, mesh)
     stream = meta.get("stream") or {}
     return state, (int(meta["step"]),
@@ -376,10 +398,25 @@ def run_rank(args, tcfg: TrainConfig, mesh: mesh_mod.ProcessMesh,
     step = epoch = batch_in_epoch = 0
     restored = None
     if resume and mgr.latest_step() is not None:
+        if model.device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(model.device)
+
+        def host_peak():
+            """The process's peak resident set (Linux reports KiB)."""
+            return 1024 * resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+
+        before = host_peak()
         t0 = time.perf_counter()
         state, (step, epoch, batch_in_epoch) = restore_state(
             mgr, model, tcfg, mesh, plan, fmt)
-        restored = {**mgr.last_restore, "seconds": time.perf_counter() - t0}
+        # the peaks before and by the end of the restore, and what it
+        # allocated on the card
+        restored = {**mgr.last_restore, "seconds": time.perf_counter() - t0,
+                    "host_peak_before_bytes": before,
+                    "host_peak_bytes": host_peak(),
+                    "device_peak_bytes": (
+                        torch.cuda.max_memory_allocated(model.device)
+                        if model.device.type == "cuda" else None)}
         if lead:
             print(f"[train] resumed from step {step} (epoch {epoch}, batch "
                   f"{batch_in_epoch}) in {restored['seconds']:.1f} s "
@@ -630,6 +667,23 @@ def _remesh(rec: Dict[str, Any], topo: elastic.MeshTopology,
     return decision, alive
 
 
+def _check_microbatches(tcfg: TrainConfig, plan: cap.CapacityPlan) -> None:
+    """The re-meshed world's microbatches: its buffer must split into
+    ``accum_steps`` of them, and with pipeline stages they must fill the
+    pipe (``accum_steps >= pipeline_stages``, as ``HetConfig.validate``
+    requires); the re-mesh fails here, before any rank starts."""
+    het = tcfg.het
+    try:
+        het.validate()
+    except ValueError as e:
+        raise SystemExit(f"[train] re-mesh: accum_steps "
+                         f"{het.accum_steps} does not fit the config: {e}")
+    if plan.buffer_rows % max(het.accum_steps, 1):
+        raise SystemExit(
+            f"[train] re-mesh: the buffer of {plan.buffer_rows} rows does "
+            f"not split into accum_steps={het.accum_steps} microbatches")
+
+
 def train(args) -> Dict[str, Any]:
     topo = mesh_mod.topology_from_devices(args.devices)
     cfg, tcfg = build_config(args)
@@ -643,15 +697,6 @@ def train(args) -> Dict[str, Any]:
           f"bucket_mb {args.bucket_mb} overlap {args.overlap} optimizer "
           f"{args.optimizer} weighting {args.weighting}; attention, cross entropy and the "
           f"int8 exchange through the kernels")
-    if args.pipe_axis:
-        for flag, on in (("--ckpt-every", args.ckpt_every > 0),
-                         ("--resume", args.resume),
-                         ("--chaos", bool(args.chaos)),
-                         ("--kill-pod", bool(args.kill_pod))):
-            if on:
-                raise NotImplementedError(
-                    f"{flag} with --pipe-axis: not ported yet (checkpoints, "
-                    f"chaos and the re-mesh run without a pipe axis)")
     splan = steps_mod.stage_plan_for(build_model(cfg, "cpu"), tcfg)
     if splan is not None:
         print(f"[train] pipeline: {splan.num_stages} stages, layers per "
@@ -728,15 +773,17 @@ def train(args) -> Dict[str, Any]:
             if decision.accum_scale > 1:
                 print(f"[train] accum_steps scaled x{decision.accum_scale}"
                       f" to preserve the microbatch grid")
+            _check_microbatches(tcfg, plan)
             # the writer's fault-hook attempts (rank 0's, which may be
             # another process) go on into the next world's engine
             engine.ckpt_attempts.update(ranks[0]["ckpt_attempts"])
             engine = engine.after_remesh(alive)
             devices = mesh_mod.devices_for_topology(topo)
-            print(f"[train] re-meshed to "
-                  f"{dict(zip(topo.mesh_axes(), topo.mesh_shape()))}: "
-                  f"{topo.dp_size} rank(s) restart from the checkpoint at "
-                  f"step {rec['checkpoint']} (lost at step {rec['step']})")
+            shape, axes = mesh_shape(args, devices)
+            print(f"[train] re-meshed to {dict(zip(axes, shape))}: "
+                  f"{int(np.prod(shape))} rank(s) restart from the "
+                  f"checkpoint at step {rec['checkpoint']} (lost at step "
+                  f"{rec['step']})")
             resume = True
     return _report(args, worlds, dev, splan)
 
@@ -785,7 +832,7 @@ def _report(args, worlds, dev, splan=None) -> Dict[str, Any]:
                                       "saves", "writes", "restore",
                                       "end_checksums", "peak_memory_bytes",
                                       "stage", "pipe_bytes",
-                                      "pipe_bytes_modeled")}
+                                      "pipe_bytes_modeled", "plan")}
                    for r in w["ranks"]]} for w in out["worlds"]]}
     if not out["losses"]:
         print(f"[train] nothing to do: checkpoint already at step "

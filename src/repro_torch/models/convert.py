@@ -98,6 +98,26 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
     return out
 
 
+def part_from_jax(tree: Dict[str, Any], like: Dict[str, Any], device,
+                  first_layer: int = 0) -> Dict[str, Any]:
+    """The port's tree shaped like ``like``, a part of a parameter tree
+    (some of its top-level keys, its ``layers`` list a run of layers
+    from ``first_layer``, as a pipeline stage holds), taken from a whole
+    tree in the JAX layout: one host or host-to-device copy of each leaf
+    the part holds and of nothing else, each layer a row of its stacked
+    leaf."""
+    def take(node, ref, row=None):
+        if isinstance(ref, dict):
+            return {k: take(node[k], v, row) for k, v in ref.items()}
+        return _tensor(node if row is None else np.asarray(node)[row],
+                       device)
+
+    return {key: ([take(tree[key], ref, first_layer + i)
+                   for i, ref in enumerate(sub)]
+                  if isinstance(sub, list) else take(tree[key], sub))
+            for key, sub in like.items()}
+
+
 def to_jax_layout(params: Dict[str, Any], host, stack) -> Dict[str, Any]:
     """The port's tree in the JAX layout: ``host(t)`` of each leaf
     outside the per-layer lists, ``stack(ts)`` of each leaf's L layer

@@ -17,8 +17,8 @@ axis (CPU, gloo).
       batch in the test;
   (c) the driver: ``--pipe-axis`` trains on four ranks with every
       stage's ranks equal and the model's checksum that of the run
-      without it, and refuses checkpoints, ``--resume``, ``--chaos`` and
-      ``--kill-pod`` with "not ported yet".
+      without it (checkpoints, ``--resume``, ``--chaos`` and
+      ``--kill-pod`` on the pipe axis: ``test_torch_pipe_axis_ckpt.py``).
 """
 import dataclasses
 
@@ -276,11 +276,3 @@ def test_driver_pipe_axis_matches_one_process(capsys):
                if ln.startswith("[train] summary ")]
     assert '"stage_plan": [1, 1]' in summary[-1] and \
         '"schedule": "1f1b"' in summary[-1]
-
-
-@pytest.mark.parametrize("flag", [["--ckpt-every", "2"], ["--resume"],
-                                  ["--chaos", "storm"],
-                                  ["--kill-pod", "1@2"]])
-def test_driver_pipe_axis_refuses_unported_features(flag):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        ttrain.main(DRIVER + ["--devices", "2,1,1", "--pipe-axis", *flag])

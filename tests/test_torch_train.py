@@ -505,10 +505,6 @@ def test_train_without_cpu_device_raises_when_cuda_is_absent():
         ttrain.main(["--smoke", "--steps", "1"])
     with pytest.raises(NotImplementedError, match="model axis"):
         ttrain.main(["--smoke", "--device", "cpu", "--devices", "2,2"])
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        ttrain.main(["--smoke", "--device", "cpu", "--pipeline-stages", "2",
-                     "--accum", "2", "--no-scan-layers", "--pipe-axis",
-                     "--ckpt-every", "2"])
     for flag in (["--no-scan-layers"],
                  ["--pipeline-stages", "2", "--accum", "2",
                   "--no-scan-layers"],
